@@ -1,0 +1,143 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each `csrc/*.cu` file is one kernel family with a plain C entry point.
+It is compiled with `nvcc` for Hopper (`sm_90a`) into its own shared
+library under `presto_tpu_torch/_build/`, named by a hash of its
+source so an edited kernel never loads a stale build, and loaded with
+`ctypes`. Nothing here runs at import: the CPU tests import every
+module of the package on machines with no `nvcc`.
+
+Calling convention of every entry point: device pointers and the
+CUDA stream are passed as `void*`, sizes as 64-bit integers, and the
+function returns `cudaGetLastError()` after its launches, which
+`check` turns into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+#: kernel family -> source file under csrc/
+SOURCES = {
+    "slot_reduce": "slot_reduce.cu",
+    "compact": "compact.cu",
+}
+
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+#: C entry points per family: name -> (restype, argtypes). Pointer
+#: arrays (host arrays of device addresses) are passed as void*.
+SIGNATURES = {
+    "slot_reduce": {
+        "presto_direct_slot_reduce": (
+            ctypes.c_int, [_P, _P, _P, _I32, _P, _I64, _P, _P, _P, _P,
+                           _I32, _P, _I32, _P]),
+    },
+    "compact": {
+        "presto_compact_tiles": (ctypes.c_int, [_I64]),
+        "presto_compact": (
+            ctypes.c_int, [_P, _P, _P, _P, _P, _I32, _P, _P, _I64, _I64,
+                           _I32, _P, _P]),
+    },
+}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+class KernelError(RuntimeError):
+    pass
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise KernelError("nvcc not found (CUDA_HOME, /usr/local/cuda, "
+                          "PATH): the CUDA kernels cannot be built")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
+        .hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, float]:
+    """Compile the named kernels that are not built yet, one `nvcc`
+    process per source, all started together. Returns seconds per
+    kernel (0.0 for one already built). Raises with nvcc's output when
+    a compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), tmp, out)
+    secs = {name: 0.0 for name in names}
+    errors = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        secs[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {SOURCES[name]} "
+                          f"(exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+    if errors:
+        raise KernelError("\n".join(errors))
+    return secs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of kernel family `name`, built on
+    first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn, (restype, argtypes) in SIGNATURES[name].items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            lib.presto_error_string.restype = ctypes.c_char_p
+            lib.presto_error_string.argtypes = [ctypes.c_int]
+            _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, status: int, what: str) -> None:
+    """Raise when a C entry point of `lib` returned a CUDA error."""
+    if status != 0:
+        msg = lib.presto_error_string(status).decode()
+        raise KernelError(f"{what}: CUDA error {status}: {msg}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,74 @@
+"""The Driver loop (reference: presto_tpu/operators/driver.py;
+operator/Driver.java:68, hot loop processInternal:371 — for each
+adjacent (current, next) pair, move one batch current.getOutput() ->
+next.addInput()).
+
+The host loop only moves tensor handles between operators; CUDA work
+is queued asynchronously, so the device stays busy while the host
+walks the chain. This is the pair loop only: the reference's batch
+pump (a fused scan -> kernel fast path with prefetch) comes with the
+fusion slice.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+from presto_tpu_torch.operators.base import Operator
+
+
+class Driver:
+    def __init__(self, operators: List[Operator]):
+        if not operators:
+            raise ValueError("driver needs at least one operator")
+        self.operators = operators
+        self._closed = False
+
+    def is_finished(self) -> bool:
+        return self._closed or self.operators[-1].is_finished()
+
+    def process(self) -> bool:
+        """One pass over the operator chain; True if a batch moved."""
+        ops = self.operators
+        moved = False
+        for i in range(len(ops) - 1):
+            current, nxt = ops[i], ops[i + 1]
+            cur_finished = current.is_finished()
+            if nxt.needs_input() and not cur_finished:
+                batch = current.get_output()
+                if batch is not None:
+                    nxt.add_input(batch)
+                    moved = True
+            # unwind finished prefix (Driver.java:438-447)
+            if cur_finished:
+                nxt.finish()
+        tail = ops[-1]
+        if not tail.is_finished() and tail.get_output() is not None:
+            moved = True
+        return moved
+
+    def run_to_completion(self, max_idle_passes: int = 1000) -> None:
+        """Drive until the tail finishes. A run of passes in which no
+        batch moves is normal while finish() propagates down the chain;
+        one longer than `max_idle_passes` is a livelock."""
+        idle = 0
+        while not self.is_finished():
+            if self.process():
+                idle = 0
+                continue
+            idle += 1
+            if idle > max_idle_passes:
+                chain = " -> ".join(
+                    f"{op.ctx.name}[{op.ctx.stats.input_batches} in/"
+                    f"{op.ctx.stats.output_batches} out]"
+                    for op in self.operators)
+                raise RuntimeError(
+                    f"driver made no progress in {max_idle_passes} "
+                    f"passes: {chain}")
+        self.close()
+
+    def close(self) -> None:
+        if not self._closed:
+            for op in self.operators:
+                op.close()
+            self._closed = True

@@ -1,0 +1,123 @@
+"""Ordering operators (reference: presto_tpu/operators/sort_ops.py;
+OrderByOperator.java:44, TopNOperator.java:35)."""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+from presto_tpu_torch.batch import Batch, operator_capacity
+from presto_tpu_torch.operators.base import (
+    DriverContext, Operator, OperatorContext, OperatorFactory,
+)
+from presto_tpu_torch.ops import sort as sort_kernels
+
+
+class OrderByOperator(Operator):
+    """Full sort: accumulate, one device lex-sort on finish."""
+
+    def __init__(self, ctx: OperatorContext, key_names: Tuple[str, ...],
+                 descending: Tuple[bool, ...],
+                 nulls_first: Tuple[bool, ...]):
+        super().__init__(ctx)
+        self.key_names = key_names
+        self.descending = descending
+        self.nulls_first = nulls_first
+        self._batches: List[Batch] = []
+        self._finishing = False
+        self._emitted = False
+
+    def needs_input(self) -> bool:
+        return not self._finishing
+
+    def add_input(self, batch: Batch) -> None:
+        self._count_in(batch)
+        self._batches.append(batch)
+
+    def get_output(self) -> Optional[Batch]:
+        if not self._finishing or self._emitted:
+            return None
+        self._emitted = True
+        if not self._batches:
+            return None
+        # one count for ALL batches (a single host read), so selective
+        # queries sort only live rows, not the full padded capacity
+        total = int(sum(b.row_valid.sum() for b in self._batches))
+        merged = Batch.concat(self._batches, operator_capacity(total),
+                              live_rows=total)
+        self._batches = []
+        out = sort_kernels.sort_batch(merged, self.key_names,
+                                      self.descending, self.nulls_first)
+        return self._count_out(out)
+
+    def finish(self) -> None:
+        self._finishing = True
+
+    def is_finished(self) -> bool:
+        return self._finishing and self._emitted
+
+
+class TopNOperator(Operator):
+    """Bounded running top-N fold (constant memory)."""
+
+    def __init__(self, ctx: OperatorContext, n: int,
+                 key_names: Tuple[str, ...], descending: Tuple[bool, ...],
+                 nulls_first: Tuple[bool, ...],
+                 schema_cols: Sequence[tuple]):
+        super().__init__(ctx)
+        self.n = n
+        self.key_names = key_names
+        self.descending = descending
+        self.nulls_first = nulls_first
+        self._state = sort_kernels.topn_state(
+            schema_cols, operator_capacity(n), ctx.driver_context.device)
+        self._finishing = False
+        self._emitted = False
+
+    def needs_input(self) -> bool:
+        return not self._finishing
+
+    def add_input(self, batch: Batch) -> None:
+        self._count_in(batch)
+        self._state = sort_kernels.topn_step(
+            self._state, batch, self.n, self.key_names, self.descending,
+            self.nulls_first)
+
+    def get_output(self) -> Optional[Batch]:
+        if not self._finishing or self._emitted:
+            return None
+        self._emitted = True
+        # state rows are already sorted by topn_step's internal sort
+        return self._count_out(self._state)
+
+    def finish(self) -> None:
+        self._finishing = True
+
+    def is_finished(self) -> bool:
+        return self._finishing and self._emitted
+
+
+class OrderByOperatorFactory(OperatorFactory):
+    def __init__(self, operator_id: int, key_names: Sequence[str],
+                 descending: Sequence[bool], nulls_first: Sequence[bool]):
+        super().__init__(operator_id, "order_by")
+        self.args = (tuple(key_names), tuple(descending),
+                     tuple(nulls_first))
+
+    def create(self, driver_context: DriverContext) -> Operator:
+        return OrderByOperator(
+            OperatorContext(self.operator_id, self.name, driver_context),
+            *self.args)
+
+
+class TopNOperatorFactory(OperatorFactory):
+    def __init__(self, operator_id: int, n: int, key_names: Sequence[str],
+                 descending: Sequence[bool], nulls_first: Sequence[bool],
+                 schema_cols: Sequence[tuple]):
+        super().__init__(operator_id, "topn")
+        self.args = (n, tuple(key_names), tuple(descending),
+                     tuple(nulls_first), schema_cols)
+
+    def create(self, driver_context: DriverContext) -> Operator:
+        return TopNOperator(
+            OperatorContext(self.operator_id, self.name, driver_context),
+            *self.args)
