@@ -286,6 +286,19 @@ class Batch:
         return big.compact(capacity, known_valid=live_rows)
 
 
+def empty_batch(schema_cols: Sequence[Tuple], device: torch.device,
+                capacity: int = MIN_CAPACITY) -> Batch:
+    """An all-dead batch of a (name, type, dictionary) schema: the
+    stand-in when a source yields no batch (an empty join build)."""
+    cols = {name: Column(torch.zeros(capacity, dtype=t.torch_dtype,
+                                     device=device),
+                         torch.zeros(capacity, dtype=torch.bool,
+                                     device=device), t, dic)
+            for name, t, dic in schema_cols}
+    return Batch(cols, torch.zeros(capacity, dtype=torch.bool,
+                                   device=device))
+
+
 def pad_batch(batch: Batch, pad: int) -> Batch:
     """Append `pad` dead lanes (mask False, row_valid False, data 0)."""
     if pad == 0:

@@ -1,0 +1,319 @@
+// segment_reduce (K6): the grouping arithmetic of the sort-based
+// aggregation, over rows already sorted by their (h1, h2) row hashes.
+//
+// Replaces presto_tpu/ops/hashagg.py `_group_reduce` after its sort
+// (:624-666): `common.boundaries(..., hashes=(h1, h2))`, the packed
+// group ids `gid = cumsum(bnd) - 1`, `_sorted_reduce` of every state
+// component into out_cap slots (:535), `_first_rows` (:516) and the
+// overflow flag (groups > out_cap). The group ids stay internal: the
+// caller reads only the slots, the first rows and the two flags, so no
+// per-row id column is written. A row starts a group when it is live and the row
+// before it is dead, or its h1, h2 or any key differs from that row's
+// (two NULLs compare equal; a float NaN differs from itself, as the
+// reference's `!=`).
+//
+// Four launches on one stream:
+//   1. seg_flags: one thread per row writes its boundary flag; each
+//      1024-row tile counts its boundaries; the last live row is kept.
+//   2. seg_scan: one block scans the tile counts into tile offsets and
+//      writes the group count and the overflow flag.
+//   3. seg_assign: per tile, a block scan of the flags gives every
+//      group start its packed group id, and the group its first row.
+//   4. seg_reduce: one warp per output slot. A live slot's warp walks
+//      its group's rows [first row, next group's first row) with a lane
+//      stride and combines the 32 partial results by a fixed shuffle
+//      tree, so float sums are deterministic (no atomics); slots past
+//      the group count get the reduction's identity and first row n-1.
+//
+// What bounds it: bytes. Each row's flags read h1, h2, the keys and
+// row_valid of itself and its predecessor (the predecessor's are the
+// neighbour lane's, served by L1), and every component's contribution is
+// read once; the outputs are the first row and out_cap slots per
+// component. Integer sums wrap like the reference's int64 segment_sum.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "row_hash.cuh"
+
+#define TILE 1024
+#define THREADS 256
+#define MAX_COMPS 64
+
+enum Dtype { DT_I32 = 0, DT_I64 = 1, DT_F32 = 2, DT_F64 = 3 };
+enum Op { OP_SUM = 0, OP_MIN = 1, OP_MAX = 2 };
+
+struct SegArgs {
+  const int64_t* h1;
+  const int64_t* h2;
+  KeyCols keys;
+  const bool* valid;
+  int64_t n;
+  const void* contrib[MAX_COMPS];
+  void* out[MAX_COMPS];
+  int8_t dtype[MAX_COMPS];
+  int8_t op[MAX_COMPS];
+  int32_t ncomp;
+  int64_t out_cap;
+};
+
+template <typename T>
+__device__ __forceinline__ T identity(int op);
+template <>
+__device__ __forceinline__ int32_t identity<int32_t>(int op) {
+  return op == OP_SUM ? 0 : (op == OP_MIN ? INT32_MAX : INT32_MIN);
+}
+template <>
+__device__ __forceinline__ int64_t identity<int64_t>(int op) {
+  return op == OP_SUM ? 0 : (op == OP_MIN ? INT64_MAX : INT64_MIN);
+}
+template <>
+__device__ __forceinline__ float identity<float>(int op) {
+  return op == OP_SUM ? 0.0f
+                      : (op == OP_MIN ? __int_as_float(0x7f7fffff) : -__int_as_float(0x7f7fffff));
+}
+template <>
+__device__ __forceinline__ double identity<double>(int op) {
+  return op == OP_SUM ? 0.0
+                      : (op == OP_MIN ? __longlong_as_double(0x7fefffffffffffffLL)
+                                      : -__longlong_as_double(0x7fefffffffffffffLL));
+}
+
+__device__ __forceinline__ int32_t add_wrap(int32_t x, int32_t y) {
+  return static_cast<int32_t>(static_cast<uint32_t>(x) + static_cast<uint32_t>(y));
+}
+__device__ __forceinline__ int64_t add_wrap(int64_t x, int64_t y) {
+  return static_cast<int64_t>(static_cast<uint64_t>(x) + static_cast<uint64_t>(y));
+}
+__device__ __forceinline__ float add_wrap(float x, float y) { return x + y; }
+__device__ __forceinline__ double add_wrap(double x, double y) { return x + y; }
+
+template <typename T>
+__device__ __forceinline__ T combine(T x, T y, int op) {
+  if (op == OP_SUM) return add_wrap(x, y);
+  if (op == OP_MIN) return y < x ? y : x;
+  return y > x ? y : x;
+}
+
+// Does key j of row i differ from row i - 1 (NULL == NULL)?
+__device__ __forceinline__ bool key_differs(const KeyCols& k, int j, int64_t i) {
+  const bool m = k.mask[j][i], pm = k.mask[j][i - 1];
+  if (m != pm) return true;
+  if (!m) return false;
+  const void* p = k.data[j];
+  switch (k.dtype[j]) {
+    case KD_I8: return static_cast<const int8_t*>(p)[i] != static_cast<const int8_t*>(p)[i - 1];
+    case KD_I16: return static_cast<const int16_t*>(p)[i] != static_cast<const int16_t*>(p)[i - 1];
+    case KD_I32: return static_cast<const int32_t*>(p)[i] != static_cast<const int32_t*>(p)[i - 1];
+    case KD_F32: return static_cast<const float*>(p)[i] != static_cast<const float*>(p)[i - 1];
+    case KD_F64: return static_cast<const double*>(p)[i] != static_cast<const double*>(p)[i - 1];
+    default: return static_cast<const int64_t*>(p)[i] != static_cast<const int64_t*>(p)[i - 1];
+  }
+}
+
+__device__ __forceinline__ int64_t warp_max(int64_t v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const int64_t w = __shfl_down_sync(0xffffffffu, v, o);
+    v = w > v ? w : v;
+  }
+  return v;
+}
+
+// Exclusive prefix sum of `v` over the block (blockDim.x a multiple of
+// 32, at most 1024); `*total` gets the block's sum. Every thread of the
+// block must call it.
+__device__ __forceinline__ int64_t block_exclusive_scan(int64_t v, int64_t* total) {
+  __shared__ int64_t warp_sums[32];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int64_t x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int64_t y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[wid] = x;
+  __syncthreads();
+  if (wid == 0) {
+    int64_t w = lane < nw ? warp_sums[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int64_t y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < nw) warp_sums[lane] = w;
+  }
+  __syncthreads();
+  const int64_t before = wid > 0 ? warp_sums[wid - 1] : 0;
+  *total = warp_sums[nw - 1];
+  __syncthreads();
+  return before + x - v;
+}
+
+__global__ void __launch_bounds__(TILE)
+seg_flags(const SegArgs a, uint8_t* __restrict__ flags, int64_t* __restrict__ tile_counts,
+          int64_t* stats) {
+  __shared__ int64_t warp_last[TILE / 32];
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * TILE + threadIdx.x;
+  int b = 0;
+  int64_t last = 0;
+  if (i < a.n) {
+    if (a.valid[i]) {
+      last = i + 1;
+      if (i == 0 || !a.valid[i - 1] || a.h1[i] != a.h1[i - 1] || a.h2[i] != a.h2[i - 1]) {
+        b = 1;
+      } else {
+        for (int j = 0; j < a.keys.nkeys; ++j) {
+          if (key_differs(a.keys, j, i)) {
+            b = 1;
+            break;
+          }
+        }
+      }
+    }
+    flags[i] = static_cast<uint8_t>(b);
+  }
+  const int count = __syncthreads_count(b);
+  if (threadIdx.x == 0) tile_counts[blockIdx.x] = count;
+  last = warp_max(last);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  if (lane == 0) warp_last[wid] = last;
+  __syncthreads();
+  if (wid == 0) {
+    last = warp_max(warp_last[lane]);
+    if (lane == 0 && last > 0)
+      atomicMax(reinterpret_cast<unsigned long long*>(stats + 2),
+                static_cast<unsigned long long>(last));
+  }
+}
+
+__global__ void __launch_bounds__(TILE)
+seg_scan(int64_t* __restrict__ tile_counts, int64_t ntiles, int64_t out_cap, int64_t* stats) {
+  const int64_t per = (ntiles + blockDim.x - 1) / blockDim.x;
+  const int64_t lo = static_cast<int64_t>(threadIdx.x) * per;
+  const int64_t hi = lo + per < ntiles ? lo + per : ntiles;
+  int64_t s = 0;
+  for (int64_t t = lo; t < hi; ++t) s += tile_counts[t];
+  int64_t total;
+  int64_t off = block_exclusive_scan(s, &total);
+  for (int64_t t = lo; t < hi; ++t) {
+    const int64_t c = tile_counts[t];
+    tile_counts[t] = off;
+    off += c;
+  }
+  if (threadIdx.x == 0) {
+    stats[0] = total;
+    stats[1] = total > out_cap ? 1 : 0;
+  }
+}
+
+__global__ void __launch_bounds__(TILE)
+seg_assign(const SegArgs a, const uint8_t* __restrict__ flags,
+           const int64_t* __restrict__ tile_offsets, int64_t* __restrict__ starts) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * TILE + threadIdx.x;
+  const int64_t b = i < a.n ? flags[i] : 0;
+  int64_t total;
+  const int64_t excl = block_exclusive_scan(b, &total);
+  if (b) {
+    const int64_t g = tile_offsets[blockIdx.x] + excl;
+    if (g <= a.out_cap) starts[g] = i;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void reduce_segment(const SegArgs& a, int c, int64_t g, int64_t start,
+                                               int64_t end, bool live, int lane) {
+  const int op = a.op[c];
+  T acc = identity<T>(op);
+  if (live) {
+    const T* __restrict__ src = static_cast<const T*>(a.contrib[c]);
+    for (int64_t r = start + lane; r < end; r += 32)
+      if (a.valid[r]) acc = combine(acc, src[r], op);
+    for (int o = 16; o > 0; o >>= 1) acc = combine(acc, __shfl_down_sync(0xffffffffu, acc, o), op);
+  }
+  if (lane == 0) static_cast<T*>(a.out[c])[g] = acc;
+}
+
+__global__ void __launch_bounds__(THREADS)
+seg_reduce(const SegArgs a, const int64_t* __restrict__ starts, const int64_t* stats,
+           int64_t* __restrict__ first_row) {
+  const int64_t groups = stats[0];
+  const int64_t live_end = stats[2];
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x / 32);
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32;
+       g < a.out_cap; g += warps) {
+    const bool live = g < groups;
+    int64_t start = 0, end = 0;
+    if (live) {
+      start = starts[g];
+      end = g + 1 < groups ? starts[g + 1] : live_end;
+    }
+    for (int c = 0; c < a.ncomp; ++c) {
+      switch (a.dtype[c]) {
+        case DT_I32: reduce_segment<int32_t>(a, c, g, start, end, live, lane); break;
+        case DT_I64: reduce_segment<int64_t>(a, c, g, start, end, live, lane); break;
+        case DT_F32: reduce_segment<float>(a, c, g, start, end, live, lane); break;
+        default: reduce_segment<double>(a, c, g, start, end, live, lane); break;
+      }
+    }
+    if (lane == 0) first_row[g] = live ? start : a.n - 1;
+  }
+}
+
+extern "C" {
+
+const char* presto_error_string(int status) {
+  return cudaGetErrorString(static_cast<cudaError_t>(status));
+}
+
+int presto_segment_tile() { return TILE; }
+
+// Sorted h1[n], h2[n], keys (as in row_hash.cu) and valid[n]; ncomp
+// sorted contributions with their out[out_cap] slots, dtype and op
+// codes. Writes first_row[out_cap] and stats[3] = {groups,
+// overflow, last live row + 1}; stats must be zeroed by the caller.
+// Scratch: flags[n] bytes, tiles[ceil(n / TILE)] and starts[out_cap + 1]
+// int64s.
+int presto_segment_reduce(const void* h1, const void* h2, const int64_t* key_data,
+                          const int64_t* key_mask, const int32_t* key_dtypes, int32_t nkeys,
+                          const void* valid, int64_t n, const int64_t* contrib,
+                          const int64_t* out, const int32_t* dtypes, const int32_t* ops,
+                          int32_t ncomp, int64_t out_cap, void* first_row,
+                          void* stats, void* flags, void* tiles, void* starts, void* stream) {
+  SegArgs a;
+  if (!presto_fill_keys(&a.keys, key_data, key_mask, key_dtypes, nkeys) || ncomp < 0 ||
+      ncomp > MAX_COMPS || n < 1 || out_cap < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.h1 = static_cast<const int64_t*>(h1);
+  a.h2 = static_cast<const int64_t*>(h2);
+  a.valid = static_cast<const bool*>(valid);
+  a.n = n;
+  for (int c = 0; c < ncomp; ++c) {
+    a.contrib[c] = reinterpret_cast<const void*>(contrib[c]);
+    a.out[c] = reinterpret_cast<void*>(out[c]);
+    a.dtype[c] = static_cast<int8_t>(dtypes[c]);
+    a.op[c] = static_cast<int8_t>(ops[c]);
+  }
+  a.ncomp = ncomp;
+  a.out_cap = out_cap;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int64_t* st = static_cast<int64_t*>(stats);
+  int64_t* tile = static_cast<int64_t*>(tiles);
+  const int64_t ntiles = (n + TILE - 1) / TILE;
+  if (ntiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  seg_flags<<<static_cast<int>(ntiles), TILE, 0, s>>>(a, static_cast<uint8_t*>(flags), tile, st);
+  seg_scan<<<1, TILE, 0, s>>>(tile, ntiles, out_cap, st);
+  seg_assign<<<static_cast<int>(ntiles), TILE, 0, s>>>(a, static_cast<const uint8_t*>(flags), tile,
+                                                        static_cast<int64_t*>(starts));
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int64_t warps_per_block = THREADS / 32;
+  int64_t want = (out_cap + warps_per_block - 1) / warps_per_block;
+  int64_t cap = static_cast<int64_t>(sms) * 16;
+  int blocks = static_cast<int>(want < cap ? want : cap);
+  seg_reduce<<<blocks, THREADS, 0, s>>>(a, static_cast<const int64_t*>(starts), st,
+                                        static_cast<int64_t*>(first_row));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,14 +1,16 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each `csrc/*.cu` file is one kernel family with a plain C entry point.
+Each `csrc/*.cu` file is one kernel with a plain C entry point.
 It is compiled with `nvcc` for Hopper (`sm_90a`) into its own shared
 library under `presto_tpu_torch/_build/`, named by a hash of its
-source so an edited kernel never loads a stale build, and loaded with
-`ctypes`. Nothing here runs at import: the CPU tests import every
-module of the package on machines with no `nvcc`.
+source and of the shared device headers (`csrc/*.cuh`) so an edited
+kernel never loads a stale build, and loaded with `ctypes`. Nothing
+here runs at import: the CPU tests import every module of the package
+on machines with no `nvcc`.
 
 Calling convention of every entry point: device pointers and the
-CUDA stream are passed as `void*`, sizes as 64-bit integers, and the
+CUDA stream are passed as `void*`, sizes as 64-bit integers, host
+arrays of device addresses as `void*` to int64 arrays, and the
 function returns `cudaGetLastError()` after its launches, which
 `check` turns into an exception.
 """
@@ -33,6 +35,10 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {
     "slot_reduce": "slot_reduce.cu",
     "compact": "compact.cu",
+    "row_hash": "row_hash.cu",
+    "join_build": "join_build.cu",
+    "join_probe": "join_probe.cu",
+    "segment_reduce": "segment_reduce.cu",
 }
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
@@ -49,6 +55,25 @@ SIGNATURES = {
         "presto_compact": (
             ctypes.c_int, [_P, _P, _P, _P, _P, _I32, _P, _P, _I64, _I64,
                            _I32, _P, _P]),
+    },
+    "row_hash": {
+        "presto_row_hash": (
+            ctypes.c_int, [_P, _P, _P, _I32, _P, _I64, _I32, _P, _P, _P]),
+    },
+    "join_build": {
+        "presto_join_build": (
+            ctypes.c_int, [_P, _I64, _I32, _P, _P, _P, _P]),
+    },
+    "join_probe": {
+        "presto_join_probe": (
+            ctypes.c_int, [_P, _P, _P, _I32, _P, _I64, _P, _P, _P, _I32,
+                           _I32, _P, _P, _P]),
+    },
+    "segment_reduce": {
+        "presto_segment_tile": (ctypes.c_int, []),
+        "presto_segment_reduce": (
+            ctypes.c_int, [_P, _P, _P, _P, _P, _I32, _P, _I64, _P, _P, _P,
+                           _P, _I32, _I64, _P, _P, _P, _P, _P, _P]),
     },
 }
 
@@ -75,7 +100,9 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    # the shared headers are part of every source's identity
+    src = (CSRC / SOURCES[name]).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
         .hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"

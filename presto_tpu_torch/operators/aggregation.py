@@ -1,29 +1,55 @@
-"""Aggregation operator, direct slot-table path (reference:
-presto_tpu/operators/aggregation.py; HashAggregationOperator.java:47,
+"""Aggregation operator (reference: presto_tpu/operators/aggregation.py;
+HashAggregationOperator.java:47 with InMemoryHashAggregationBuilder,
 AggregationOperator for global aggregates).
 
-Every batch goes through one step: evaluate the key expressions and
-aggregate inputs, then reduce the whole batch into the slot table
-(kernel K1 on CUDA, `ops/hashagg.direct_step`). The table stays on the
-device until the operator drains; finalize decodes the slots into one
-output batch. Only the SINGLE step runs locally in this slice; the
-PARTIAL/FINAL split belongs to the distributed slice, and key sets that
-are not small dictionary/boolean domains need the sort-based path of
-the Q3/Q18 slice.
+Two paths, chosen from the key expressions:
+
+- direct slot table (every key dictionary-coded or boolean, the table
+  within DIRECT_SLOTS_MAX): every batch is reduced into the table in
+  place (kernel K1, `ops/hashagg.direct_step`); finalize decodes the
+  slots.
+- sort-based (any other key set): every batch is compacted to its
+  distinct groups (`hashagg.batch_aggregate`: K3 + sort + K6) into a
+  partial sized by the batch, and partials are tree-merged
+  (`merge_states`, FANIN at a time). A partial's live-group count is
+  copied to the host when it is made and read one driver round later
+  (`agg_count`), to shrink it to its live bucket (`agg_shrink`) and to
+  size the merges from observed counts. When the groups outgrow
+  `max_groups` the state's overflow flag is set on the device; the one
+  host read at the end raises GroupLimitExceeded and the runner re-runs
+  the query with four times the groups.
+
+Only the SINGLE step runs locally in this slice; the PARTIAL/FINAL
+split belongs to the distributed slice. Memory revocation (spilling
+partials to the host) comes with the memory slice (ROADMAP A10).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
-from presto_tpu_torch.batch import Batch
+import torch
+
+from presto_tpu_torch.batch import (
+    Batch, bucket_capacity, operator_capacity, quantized_capacity,
+)
 from presto_tpu_torch.expr.compile import CompiledExpr
+from presto_tpu_torch.native.pages import PendingScalar
 from presto_tpu_torch.operators.base import (
     DriverContext, Operator, OperatorContext, OperatorFactory,
 )
 from presto_tpu_torch.ops import hashagg
 from presto_tpu_torch.telemetry import kernels as _tk
+
+
+class GroupLimitExceeded(Exception):
+    """Distinct groups exceeded max_groups. Carries the suggested retry
+    size; the runner re-executes the query with max_groups raised."""
+
+    def __init__(self, suggested: int):
+        super().__init__(f"group-by overflow; retry with {suggested}")
+        self.suggested = suggested
 
 
 @dataclasses.dataclass
@@ -33,6 +59,34 @@ class AggSpec:
     function: hashagg.AggFunction
     input: Optional[CompiledExpr]       # None for count(*)
     mask: Optional[CompiledExpr] = None  # FILTER (WHERE ...)
+
+
+#: buffered partials per merge round
+_MERGE_FANIN = 8
+
+
+def merge_states(states, aggs, out_cap: int) -> hashagg.GroupByState:
+    """One merge of packed partials (`hashagg_merge`)."""
+    _tk.count("hashagg_merge")
+    return hashagg.merge_partials(list(states), aggs, out_cap)
+
+
+def _count_live(valid: torch.Tensor) -> PendingScalar:
+    """A partial's live-group count, copied to the host now and read
+    one driver round later (`agg_count`)."""
+    _tk.count("agg_count")
+    return PendingScalar(valid.sum())
+
+
+def _shrink_state(st: hashagg.GroupByState, cap: int
+                  ) -> hashagg.GroupByState:
+    """Slice a PACKED sort-path state down to `cap` slots (live groups
+    sit at the front; callers guarantee cap >= live)."""
+    _tk.count("agg_shrink")
+    return hashagg.GroupByState(
+        [(d[:cap], m[:cap]) for d, m in st.keys],
+        [tuple(a[:cap] for a in t) for t in st.states],
+        st.valid[:cap], st.overflow)
 
 
 def _direct_domains(key_exprs) -> Optional[Tuple[int, ...]]:
@@ -54,19 +108,19 @@ def _direct_domains(key_exprs) -> Optional[Tuple[int, ...]]:
 
 def make_agg_step_kernel(key_exprs: Sequence[CompiledExpr],
                          specs: Sequence[AggSpec],
-                         domains: Tuple[int, ...]):
-    """The (state, batch) -> state fold step of the direct path (the
-    reference's `make_agg_step_kernel` direct branch)."""
+                         domains: Optional[Tuple[int, ...]]):
+    """The fold step. Direct path: (state, batch) -> state. Sort path:
+    (out_cap, batch) -> the batch's packed partial state."""
     aggs = tuple(s.function for s in specs)
 
-    def kernel(state: hashagg.DirectState, batch: Batch):
-        _tk.count("agg_step")
+    def batch_parts(batch: Batch):
         env = {n: (c.data, c.mask) for n, c in batch.columns.items()}
         cap = batch.capacity
         key_cols = []
         for ke in key_exprs:
             d, m = ke.fn(env)
-            key_cols.append((d.expand(cap), m.expand(cap)))
+            key_cols.append((d.to(ke.type.torch_dtype).expand(cap),
+                             m.expand(cap)))
         agg_inputs, agg_weights = [], []
         for s in specs:
             if s.input is None:
@@ -82,38 +136,69 @@ def make_agg_step_kernel(key_exprs: Sequence[CompiledExpr],
                 fd, fm = s.mask.fn(env)
                 w = w & (fd & fm).expand(cap)
             agg_weights.append(w)
-        return hashagg.direct_step(state, batch.row_valid, key_cols,
-                                   domains, agg_inputs, agg_weights, aggs)
-    return kernel
+        return key_cols, agg_inputs, agg_weights
+
+    if domains is not None:
+        def kernel(state: hashagg.DirectState, batch: Batch):
+            _tk.count("agg_step")
+            key_cols, agg_inputs, agg_weights = batch_parts(batch)
+            return hashagg.direct_step(state, batch.row_valid, key_cols,
+                                       domains, agg_inputs, agg_weights,
+                                       aggs)
+        return kernel
+
+    def sort_kernel(out_cap: int, batch: Batch):
+        _tk.count("agg_step")
+        key_cols, agg_inputs, agg_weights = batch_parts(batch)
+        return hashagg.batch_aggregate(batch.row_valid, key_cols,
+                                       agg_inputs, agg_weights, aggs,
+                                       out_cap)
+    return sort_kernel
 
 
 def make_agg_finalize_kernel(key_names, key_types, key_dicts, domains,
                              out_names, aggs):
-    """slot table -> output batch."""
-    def fin(state: hashagg.DirectState) -> Batch:
+    """state -> output batch (slot decode on the direct path)."""
+    def fin(state) -> Batch:
         _tk.count("agg_finalize")
-        return hashagg.direct_finalize(state, key_names, key_types,
-                                       key_dicts, domains, out_names,
-                                       aggs)
+        if domains is not None:
+            return hashagg.direct_finalize(state, key_names, key_types,
+                                           key_dicts, domains, out_names,
+                                           aggs)
+        return hashagg.finalize(state, key_names, key_types, key_dicts,
+                                out_names, aggs)
     return fin
 
 
 class AggregationOperator(Operator):
     def __init__(self, ctx: OperatorContext, key_names: Sequence[str],
                  key_exprs: Sequence[CompiledExpr],
-                 specs: Sequence[AggSpec], domains: Tuple[int, ...]):
+                 specs: Sequence[AggSpec],
+                 domains: Optional[Tuple[int, ...]], max_groups: int):
         super().__init__(ctx)
         self.key_names = list(key_names)
         self.key_exprs = list(key_exprs)
         self.specs = list(specs)
+        self.max_groups = max_groups
         self._domains = domains
         self._kernel = make_agg_step_kernel(key_exprs, specs, domains)
-        slots = 1
-        for d in domains:
-            slots *= d + 1
-        self._state = hashagg.direct_init(
-            [s.function for s in self.specs], slots,
-            ctx.driver_context.device)
+        self._device = ctx.driver_context.device
+        if domains is not None:
+            slots = 1
+            for d in domains:
+                slots *= d + 1
+            self._state = hashagg.direct_init(
+                [s.function for s in self.specs], slots, self._device)
+        else:
+            # per-batch packed partials sized by the batch, shrunk to
+            # their observed live bucket one driver round later and
+            # merged at capacities derived from live counts
+            self._state = None
+            self._cap = bucket_capacity(max_groups)
+            #: cap -> [(state, live)]
+            self._levels: Dict[int, list] = {}
+            #: states awaiting their live count: [(state, PendingScalar)]
+            self._pending: list = []
         self._finishing = False
         self._emitted = False
 
@@ -122,21 +207,119 @@ class AggregationOperator(Operator):
 
     def add_input(self, batch: Batch) -> None:
         self._count_in(batch)
-        self._state = self._kernel(self._state, batch)
+        if self._domains is not None:
+            self._state = self._kernel(self._state, batch)
+            return
+        c0 = min(self._cap, bucket_capacity(batch.capacity))
+        self._enqueue(self._kernel(c0, batch))
+        self._drain_pending(keep=1)
+
+    # -- sort-path partial management ---------------------------------
+
+    def _aggs(self):
+        return tuple(s.function for s in self.specs)
+
+    def _live_cap(self, lives: int) -> int:
+        """Capacity for a merge of states holding `lives` live groups in
+        all: distinct(union) <= the sum, so this overflows only when
+        max_groups truly does."""
+        return min(self._cap, operator_capacity(lives))
+
+    def _enqueue(self, st) -> None:
+        self._pending.append((st, _count_live(st.valid)))
+
+    def _drain_pending(self, keep: int) -> None:
+        while len(self._pending) > keep:
+            if keep and len(self._pending) <= keep + 2:
+                # a fixed backlog of overlap time for the newest counts;
+                # which states merge together must not depend on when a
+                # copy lands (merge grouping changes float rounding)
+                break
+            st, cnt = self._pending.pop(0)
+            live = cnt.get()
+            cap = st.valid.shape[0]
+            tgt = min(cap, self._live_cap(live))
+            if tgt < cap:
+                st = _shrink_state(st, tgt)
+            self._push(st, live)
+
+    def _push(self, st, live: int) -> None:
+        """Buffer a counted partial by capacity; FANIN equal-capacity
+        partials merge, and the merge re-enters the pending queue."""
+        cap = st.valid.shape[0]
+        buf = self._levels.setdefault(cap, [])
+        buf.append((st, live))
+        if len(buf) >= _MERGE_FANIN:
+            lives = sum(l for _, l in buf)
+            merged = merge_states([s for s, _ in buf], self._aggs(),
+                                  self._live_cap(lives))
+            self._levels[cap] = []
+            self._enqueue(merged)
+
+    def _merge_mixed(self, entries):
+        """Merge leftover (state, live) pairs of assorted capacities:
+        equal-capacity groups first, then pairwise up the capacities,
+        every output sized from live counts."""
+        aggs = self._aggs()
+        by_cap: Dict[int, list] = {}
+        for s, l in entries:
+            by_cap.setdefault(s.valid.shape[0], []).append((s, l))
+        level: List = []
+        for cap in sorted(by_cap):
+            group = by_cap[cap]
+            if len(group) == 1:
+                level.append(group[0])
+                continue
+            lives = sum(l for _, l in group)
+            level.append((merge_states([s for s, _ in group], aggs,
+                                       self._live_cap(lives)), lives))
+        level.sort(key=lambda e: e[0].valid.shape[0])
+        while len(level) > 1:
+            (sa, la), (sb, lb) = level.pop(0), level.pop(0)
+            level.append((merge_states([sa, sb], aggs,
+                                       self._live_cap(la + lb)), la + lb))
+            level.sort(key=lambda e: e[0].valid.shape[0])
+        return level[0][0]
+
+    def _final_state(self):
+        self._drain_pending(keep=0)
+        entries = [e for buf in self._levels.values() for e in buf]
+        self._levels = {}
+        if not entries:
+            return hashagg.init_state([k.type for k in self.key_exprs],
+                                      self._aggs(), self._cap,
+                                      self._device)
+        if len(entries) > 1:
+            return self._merge_mixed(entries)
+        return entries[0][0]
 
     def get_output(self) -> Optional[Batch]:
         if not self._finishing or self._emitted:
             return None
+        live = None
+        if self._domains is None:
+            self._state = self._final_state()
+            # ONE host read serves the overflow check and the live count
+            overflow, live = torch.stack([
+                self._state.overflow.to(torch.int64),
+                self._state.valid.sum()]).tolist()
+            if overflow:
+                raise GroupLimitExceeded(self.max_groups * 4)
         self._emitted = True
         fin = make_agg_finalize_kernel(
             tuple(self.key_names),
             tuple(k.type for k in self.key_exprs),
             tuple(k.dictionary for k in self.key_exprs), self._domains,
-            tuple(s.out_name for s in self.specs),
-            tuple(s.function for s in self.specs))
+            tuple(s.out_name for s in self.specs), self._aggs())
         # (a global aggregation over zero rows still yields one live
         #  row: _decode_slots pins it, so count(*) = 0 works)
-        return self._count_out(fin(self._state))
+        out = fin(self._state)
+        if live is not None:
+            cap = quantized_capacity(live)
+            if cap < out.capacity:
+                # groups are packed at the front of the state
+                out = out.compact(cap, known_valid=live)
+        return self._count_out(out)
 
     def finish(self) -> None:
         self._finishing = True
@@ -146,24 +329,23 @@ class AggregationOperator(Operator):
 
     def close(self) -> None:
         self._state = None
+        if self._domains is None:
+            self._levels = {}
+            self._pending = []
 
 
 class AggregationOperatorFactory(OperatorFactory):
     def __init__(self, operator_id: int, key_names: Sequence[str],
                  key_exprs: Sequence[CompiledExpr],
-                 specs: Sequence[AggSpec], mode: str):
+                 specs: Sequence[AggSpec], mode: str,
+                 max_groups: int = 4096):
         super().__init__(operator_id, "aggregation")
         if mode != "single":
-            raise hashagg.HighCardinalityGrouping(
+            raise ValueError(
                 f"{mode} aggregation step: the partial/final split is "
-                "a later slice of the port")
-        domains = _direct_domains(key_exprs)
-        if domains is None:
-            raise hashagg.HighCardinalityGrouping(
-                "high-cardinality grouping: later slice of the port "
-                "(the sort-based aggregation path, ROADMAP B4)")
+                "a later slice of the port (ROADMAP A12)")
         self.args = (list(key_names), list(key_exprs), list(specs),
-                     domains)
+                     _direct_domains(key_exprs), int(max_groups))
 
     def create(self, driver_context: DriverContext) -> Operator:
         return AggregationOperator(

@@ -2,8 +2,8 @@
 operator/Operator.java:20 — needsInput/addInput/getOutput/finish —
 and OperatorContext / DriverContext).
 
-The port keeps the protocol and the per-operator batch counters; row
-counters, memory accounting, spill and the deferred device-flag checks
+The port keeps the protocol, the per-operator batch counters and the
+deferred device-flag checks; row counters, memory accounting and spill
 arrive with the slices that need them.
 """
 
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 import torch
 
@@ -30,6 +30,27 @@ class DriverContext:
     """Execution context shared by the operators of one driver."""
     session: Any = None
     device: torch.device = torch.device("cpu")
+    #: sync-free error protocol: operators append callables returning
+    #: (device flag | None, exception factory); after every pipeline
+    #: finished the runner reads all flags in ONE host sync and raises
+    #: the first tripped one (the join-capacity overflow)
+    deferred_checks: List[Any] = dataclasses.field(default_factory=list)
+
+
+def run_deferred_checks(dctx: DriverContext) -> None:
+    """Read every deferred device flag in one host sync and raise the
+    first tripped error."""
+    flags, excs = [], []
+    for check in dctx.deferred_checks:
+        flag, make_exc = check()
+        if flag is not None:
+            flags.append(flag.reshape(()).to(torch.bool))
+            excs.append(make_exc)
+    if not flags:
+        return
+    for hit, make_exc in zip(torch.stack(flags).tolist(), excs):
+        if hit:
+            raise make_exc()
 
 
 class OperatorContext:

@@ -63,12 +63,17 @@ class ValuesOperatorFactory(OperatorFactory):
 
 class TableScanOperator(SourceOperator):
     """Pulls batches from a connector page source (reference:
-    TableScanOperator.java:43)."""
+    TableScanOperator.java:43).
+
+    `df_specs` [(column, df_id, registry)] wires dynamic filtering:
+    once the join build has published its key filter, every batch
+    narrows row_valid by it (execution/dynamic_filters.py)."""
 
     def __init__(self, ctx: OperatorContext,
-                 batch_iter: Iterator[Batch]):
+                 batch_iter: Iterator[Batch], df_specs=None):
         super().__init__(ctx)
         self._iter = batch_iter
+        self._df_specs = df_specs or []
         self._finished = False
 
     def get_output(self) -> Optional[Batch]:
@@ -78,6 +83,13 @@ class TableScanOperator(SourceOperator):
         if b is None:
             self._finished = True
             return None
+        for col, df_id, reg in self._df_specs:
+            f = reg.get(df_id)
+            if f is not None:
+                from presto_tpu_torch.execution.dynamic_filters import (
+                    apply,
+                )
+                b = apply(b, col, f)
         return self._count_out(b)
 
     def finish(self) -> None:
@@ -89,14 +101,16 @@ class TableScanOperator(SourceOperator):
 
 class TableScanOperatorFactory(OperatorFactory):
     def __init__(self, operator_id: int, name: str,
-                 batch_iter_factory: Callable[[], Iterator[Batch]]):
+                 batch_iter_factory: Callable[[], Iterator[Batch]],
+                 df_specs=None):
         super().__init__(operator_id, name)
         self._factory = batch_iter_factory
+        self._df_specs = df_specs
 
     def create(self, driver_context: DriverContext) -> Operator:
         return TableScanOperator(
             OperatorContext(self.operator_id, self.name, driver_context),
-            self._factory())
+            self._factory(), self._df_specs)
 
 
 def make_filter_project_kernel(

@@ -1,20 +1,28 @@
-"""Grouped aggregation, direct slot-table path (reference:
-presto_tpu/ops/hashagg.py; HashAggregationOperator.java:47 with the
-BigintGroupByHash-style small-domain specialization).
+"""Grouped aggregation (reference: presto_tpu/ops/hashagg.py;
+HashAggregationOperator.java:47), on two paths.
 
-When every group key is dictionary-coded or boolean, the combined code
-domain is known statically and the group id IS the table slot: one
-reduction per state component into a fixed [G] table, no sort. That
-reduction, for all components of a step at once, is kernel K1
-(csrc/slot_reduce.cu) on CUDA; `slot_reduce_plain` is its plain
-version and the CPU path.
+Direct slot table. When every group key is dictionary-coded or
+boolean, the combined code domain is known statically and the group id
+IS the table slot: one reduction per state component into a fixed [G]
+table, no sort. That reduction, for all components of a step at once,
+is kernel K1 (csrc/slot_reduce.cu) on CUDA; `slot_reduce_plain` is its
+plain version and the CPU path. Unlike the JAX reference, whose fold
+is functional, `direct_step` updates the slot table IN PLACE: the
+table is the operator's private accumulator, and in-place atomics are
+what the kernel does.
 
-The sort-based path for high-cardinality keys (`batch_aggregate`,
-`_group_reduce`, `merge_partials`) comes with the Q3/Q18 slice.
-
-Unlike the JAX reference, whose fold is functional, `direct_step`
-updates the slot table IN PLACE: the table is the operator's private
-accumulator, and in-place atomics are what the kernel does.
+Sort-based, for every other key set (`batch_aggregate`,
+`merge_partials`, `_group_reduce`). Grouping needs equal keys adjacent,
+not a total key order, so rows are sorted by their two row hashes
+(h1, h2): K3 (csrc/row_hash.cu) hashes the keys, `torch.sort` orders
+the rows (two stable passes), and K6 (csrc/segment_reduce.cu) finds the
+group boundaries (hash or key change), assigns packed group ids and
+reduces every state component per group into `out_cap` slots, with an
+overflow flag when there are more groups. The reference takes this
+hash-radix form on its CPU branch (:619-637); the port takes it on both
+devices. Groups land in hash order, which differs between devices and
+from the reference's TPU key order: no caller may rely on group order
+(the final ORDER BY or merge regroups by key).
 """
 
 from __future__ import annotations
@@ -28,16 +36,11 @@ import numpy as np
 import torch
 
 from presto_tpu_torch.batch import Batch, Column, bucket_capacity, pad_batch
+from presto_tpu_torch.ops import common
 from presto_tpu_torch.telemetry import kernels as _tk
 from presto_tpu_torch.types import BIGINT, BOOLEAN, DOUBLE, Type
 
 CVal = Tuple[torch.Tensor, torch.Tensor]
-
-
-class HighCardinalityGrouping(Exception):
-    """The group keys are not all dictionary-coded or boolean, or their
-    slot table would exceed DIRECT_SLOTS_MAX: the sort-based path is
-    needed, and it is not ported yet."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -464,3 +467,312 @@ def direct_finalize(state: DirectState, key_names: Sequence[str],
     # pad the slot table up to its power-of-two capacity bucket
     out = Batch(cols, rv)
     return pad_batch(out, bucket_capacity(out.capacity) - out.capacity)
+
+
+# -- the sort-based path -----------------------------------------------
+
+
+@dataclasses.dataclass
+class GroupByState:
+    """Running accumulator of the sort path: key columns + per-agg
+    state arrays, packed: `valid[g]` is True for the first live groups
+    and False after them."""
+    keys: List[CVal]
+    states: List[Tuple[torch.Tensor, ...]]
+    valid: torch.Tensor
+    overflow: torch.Tensor  # bool scalar
+
+
+def _full_state(n: int, np_dtype, reduce: str,
+                device: torch.device) -> torch.Tensor:
+    dt = _torch_dtype(np_dtype)
+    return torch.full((n,), _ident_for(reduce, dt), dtype=dt,
+                      device=device)
+
+
+def _gate(w: torch.Tensor, contrib: torch.Tensor, ident) -> torch.Tensor:
+    return torch.where(w, contrib, torch.full_like(contrib, ident))
+
+
+def init_state(key_types: Sequence[Type], aggs: Sequence[AggFunction],
+               max_groups: int, device: torch.device) -> GroupByState:
+    keys = [(torch.zeros(max_groups, dtype=t.torch_dtype, device=device),
+             torch.zeros(max_groups, dtype=torch.bool, device=device))
+            for t in key_types]
+    states = [tuple(_full_state(max_groups, dt, r, device)
+                    for dt, r in zip(a.state_dtypes, a.reduces))
+              for a in aggs]
+    return GroupByState(keys, states,
+                        torch.zeros(max_groups, dtype=torch.bool,
+                                    device=device),
+                        torch.zeros((), dtype=torch.bool, device=device))
+
+
+def _first_rows(bnd: torch.Tensor, gid: torch.Tensor,
+                out_cap: int) -> torch.Tensor:
+    """Index of the first row of each packed group (segment min of the
+    boundary rows' indices); empty slots take row n - 1."""
+    n = gid.shape[0]
+    idx = torch.where(bnd, torch.arange(n, device=gid.device),
+                      torch.full_like(gid, n))
+    first = torch.full((out_cap + 1,), n, dtype=torch.int64,
+                       device=gid.device)
+    first.scatter_reduce_(0, torch.clamp(gid, 0, out_cap), idx, "amin")
+    return torch.clamp(first[:out_cap], 0, n - 1)
+
+
+def _sorted_reduce(sarr: torch.Tensor, gid: torch.Tensor, out_cap: int,
+                   reduce: str) -> torch.Tensor:
+    """Reduce a contribution array sorted by group id into `out_cap`
+    packed slots (dead rows carry gid == out_cap and are dropped); an
+    empty slot holds the reduction's identity."""
+    red = torch.full((out_cap + 1,), _ident_for(reduce, sarr.dtype),
+                     dtype=sarr.dtype, device=sarr.device)
+    if reduce == "sum":
+        red.index_add_(0, gid, sarr)
+    else:
+        red.scatter_reduce_(0, gid, sarr,
+                            "amin" if reduce == "min" else "amax")
+    return red[:out_cap]
+
+
+def segment_reduce_plain(h1: torch.Tensor, h2: torch.Tensor,
+                         keys: Sequence[CVal], valid: torch.Tensor,
+                         comps: Sequence[Tuple[torch.Tensor, str]],
+                         out_cap: int):
+    """Plain version of K6, over rows sorted by (h1, h2): every
+    (contribution, op) reduced into out_cap packed group slots, each
+    group's first row, the group count and the overflow flag.
+    Returns (reduced, first_row, groups, overflow)."""
+    bnd, gid, groups = segment_ids(h1, h2, keys, valid, out_cap)
+    reduced = [_sorted_reduce(c, gid, out_cap, r) for c, r in comps]
+    return (reduced, _first_rows(bnd, gid, out_cap), groups,
+            groups > out_cap)
+
+
+def segment_ids(h1: torch.Tensor, h2: torch.Tensor, keys: Sequence[CVal],
+                valid: torch.Tensor, out_cap: int):
+    """Over rows sorted by (h1, h2): the group boundaries, the packed
+    group id of every row (dead rows and groups past out_cap go to
+    out_cap) and the group count."""
+    bnd = common.boundaries(keys, valid, hashes=(h1, h2))
+    cum = torch.cumsum(bnd.to(torch.int64), 0)
+    gid = torch.where(valid, torch.clamp(cum - 1, max=out_cap),
+                      torch.full_like(cum, out_cap))
+    return bnd, gid, cum[-1]
+
+
+#: launches of the CUDA segment-reduce kernel (csrc/segment_reduce.cu)
+SEGMENT_REDUCE_KERNEL = _tk.LaunchCounter("segment_reduce")
+
+
+def _segment_reduce_cuda(h1, h2, keys, valid, comps, out_cap):
+    from presto_tpu_torch.native import cuda
+    dev = valid.device
+    n = valid.shape[0]
+    common.check_rows(valid, n, dev, (torch.bool,),
+                      "segment_reduce: valid")
+    common.check_rows(h1, n, dev, (torch.int64,), "segment_reduce: h1")
+    common.check_rows(h2, n, dev, (torch.int64,), "segment_reduce: h2")
+    kd, km, kt, nk = common.key_args(keys, n, dev, "segment_reduce")
+    if len(comps) > 64 or n < 1 or out_cap < 1:
+        raise ValueError("segment_reduce: at most 64 components, at "
+                         "least one row and one output slot")
+    for c, r in comps:
+        common.check_rows(c, n, dev, tuple(_KERNEL_DTYPES),
+                          "segment_reduce: contribution")
+        if r not in _KERNEL_OPS:
+            raise ValueError(f"segment_reduce: reduce {r!r}")
+    lib = cuda.library("segment_reduce")
+    tile = lib.presto_segment_tile()
+    outs = [torch.empty(out_cap, dtype=c.dtype, device=dev)
+            for c, _ in comps]
+    first_row = torch.empty(out_cap, dtype=torch.int64, device=dev)
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    flags = torch.empty(n, dtype=torch.uint8, device=dev)
+    tiles = torch.empty((n + tile - 1) // tile, dtype=torch.int64,
+                        device=dev)
+    starts = torch.empty(out_cap + 1, dtype=torch.int64, device=dev)
+    C = max(len(comps), 1)
+    P = ctypes.c_int64 * C
+    status = lib.presto_segment_reduce(
+        ctypes.c_void_p(h1.data_ptr()), ctypes.c_void_p(h2.data_ptr()),
+        kd, km, kt, nk, ctypes.c_void_p(valid.data_ptr()),
+        ctypes.c_int64(n), P(*[c.data_ptr() for c, _ in comps]),
+        P(*[o.data_ptr() for o in outs]),
+        (ctypes.c_int32 * C)(*[_KERNEL_DTYPES[c.dtype] for c, _ in comps]),
+        (ctypes.c_int32 * C)(*[_KERNEL_OPS[r] for _, r in comps]),
+        ctypes.c_int32(len(comps)), ctypes.c_int64(out_cap),
+        ctypes.c_void_p(first_row.data_ptr()),
+        ctypes.c_void_p(stats.data_ptr()),
+        ctypes.c_void_p(flags.data_ptr()),
+        ctypes.c_void_p(tiles.data_ptr()),
+        ctypes.c_void_p(starts.data_ptr()),
+        ctypes.c_void_p(cuda.stream_ptr(dev)))
+    cuda.check(lib, status, "segment_reduce")
+    SEGMENT_REDUCE_KERNEL.launches += 1
+    return outs, first_row, stats[0], stats[1] > 0
+
+
+def segment_reduce(h1: torch.Tensor, h2: torch.Tensor,
+                   keys: Sequence[CVal], valid: torch.Tensor,
+                   comps: Sequence[Tuple[torch.Tensor, str]],
+                   out_cap: int):
+    """K6 (see `segment_reduce_plain`). The CUDA kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    if valid.device.type == "cpu":
+        return segment_reduce_plain(h1, h2, keys, valid, comps, out_cap)
+    return _segment_reduce_cuda(h1, h2, keys, valid, comps, out_cap)
+
+
+def _group_reduce(keys: Sequence[CVal], valid: torch.Tensor,
+                  contribs: Sequence[Tuple[torch.Tensor, ...]],
+                  aggs: Sequence[AggFunction],
+                  out_cap: int) -> GroupByState:
+    """The sort-based grouping core: K3 hashes, a two-operand (h1, h2)
+    stable sort, K6. Boundaries compare the actual keys as well, so a
+    double hash collision between distinct keys can only split a group
+    (the next merge level rejoins it), never merge two keys. Groups
+    beyond out_cap are dropped and the overflow flag set (the caller's
+    retry protocol). Group order is backend-dependent: callers must
+    not rely on it."""
+    dev = valid.device
+    slots = torch.arange(out_cap, device=dev)
+    if not keys:
+        # global aggregation: one group, a straight reduction per
+        # component (non-contributing rows already hold the identity)
+        states = []
+        for st, agg in zip(contribs, aggs):
+            red = []
+            for arr, r, dt in zip(st, agg.reduces, agg.state_dtypes):
+                v = arr.sum() if r == "sum" else (
+                    arr.min() if r == "min" else arr.max())
+                full = _full_state(out_cap, dt, r, dev)
+                full[0] = v.to(full.dtype)
+                red.append(full)
+            states.append(tuple(red))
+        return GroupByState([], states, slots == 0,
+                            torch.zeros((), dtype=torch.bool, device=dev))
+    keys = [(d.contiguous(), m.contiguous()) for d, m in keys]
+    h1, h2 = common.row_hash_pair(keys, valid.contiguous(), False)
+    perm = common.lex_perm([h1, h2])
+    skeys = [(d[perm], m[perm]) for d, m in keys]
+    comps = [(arr[perm], r) for st, agg in zip(contribs, aggs)
+             for arr, r in zip(st, agg.reduces)]
+    reduced, first_row, groups, overflow = segment_reduce(
+        h1[perm], h2[perm], skeys, valid[perm], comps, out_cap)
+    it = iter(reduced)
+    states = [tuple(next(it) for _ in st) for st in contribs]
+    new_valid = slots < groups
+    new_keys = [(d[first_row], m[first_row] & new_valid)
+                for d, m in skeys]
+    return GroupByState(new_keys, states, new_valid, overflow)
+
+
+def _make_contribs(aggs, agg_inputs, agg_weights, merge):
+    contribs: List[Tuple[torch.Tensor, ...]] = []
+    for agg, inp, w, is_merge in zip(aggs, agg_inputs, agg_weights,
+                                     merge):
+        if is_merge:
+            # inp is a tuple of partial state arrays; w gates validity
+            contribs.append(tuple(
+                _gate(w, p, _ident_for(r, _torch_dtype(dt))).to(
+                    _torch_dtype(dt))
+                for p, dt, r in zip(inp, agg.state_dtypes, agg.reduces)))
+        else:
+            contribs.append(tuple(
+                c.to(_torch_dtype(dt))
+                for c, dt in zip(agg.init(inp, w), agg.state_dtypes)))
+    return contribs
+
+
+def agg_step(state: GroupByState, row_valid: torch.Tensor,
+             key_cols: Sequence[CVal], agg_inputs: Sequence,
+             agg_weights: Sequence[torch.Tensor],
+             aggs: Sequence[AggFunction],
+             merge: Optional[Sequence[bool]] = None) -> GroupByState:
+    """One functional fold step: regroup [state ++ batch rows]. The
+    operator uses batch_aggregate + merge_partials instead (re-sorting
+    a large state every batch is the slow way); agg_step stays the
+    semantic reference and the path for small accumulators."""
+    max_groups = state.valid.shape[0]
+    merge = merge or [False] * len(aggs)
+    contribs = _make_contribs(aggs, agg_inputs, agg_weights, merge)
+    all_keys = [(torch.cat([sk[0], kc[0].to(sk[0].dtype)]),
+                 torch.cat([sk[1], kc[1]]))
+                for sk, kc in zip(state.keys, key_cols)]
+    all_valid = torch.cat([state.valid, row_valid])
+    all_states = [tuple(torch.cat([s, c.to(s.dtype)])
+                        for s, c in zip(st, cb))
+                  for st, cb in zip(state.states, contribs)]
+    out = _group_reduce(all_keys, all_valid, all_states, aggs, max_groups)
+    return GroupByState(out.keys, out.states, out.valid,
+                        state.overflow | out.overflow)
+
+
+def batch_aggregate(row_valid: torch.Tensor, key_cols: Sequence[CVal],
+                    agg_inputs: Sequence,
+                    agg_weights: Sequence[torch.Tensor],
+                    aggs: Sequence[AggFunction], out_cap: int,
+                    merge: Optional[Sequence[bool]] = None
+                    ) -> GroupByState:
+    """Compact ONE batch to its distinct groups (<= out_cap slots); the
+    operator buffers these partials and merges them with
+    merge_partials."""
+    merge = merge or [False] * len(aggs)
+    contribs = _make_contribs(aggs, agg_inputs, agg_weights, merge)
+    return _group_reduce(key_cols, row_valid, contribs, aggs, out_cap)
+
+
+def merge_partials(states: Sequence[GroupByState],
+                   aggs: Sequence[AggFunction],
+                   out_cap: int) -> GroupByState:
+    """Regroup several packed partial states into one of `out_cap`
+    slots; overflow flags OR through."""
+    keys = [(torch.cat([s.keys[i][0] for s in states]),
+             torch.cat([s.keys[i][1] for s in states]))
+            for i in range(len(states[0].keys))]
+    valid = torch.cat([s.valid for s in states])
+    contribs = [tuple(torch.cat([s.states[ai][ci] for s in states])
+                      for ci in range(len(states[0].states[ai])))
+                for ai in range(len(aggs))]
+    out = _group_reduce(keys, valid, contribs, aggs, out_cap)
+    ovf = out.overflow
+    for s in states:
+        ovf = ovf | s.overflow
+    return GroupByState(out.keys, out.states, out.valid, ovf)
+
+
+def finalize(state: GroupByState, key_names: Sequence[str],
+             key_types: Sequence[Type],
+             key_dicts: Sequence[Optional[tuple]],
+             out_names: Sequence[str],
+             aggs: Sequence[AggFunction]) -> Batch:
+    """The output batch: one group per row."""
+    cols: Dict[str, Column] = {}
+    for name, typ, dic, (d, m) in zip(key_names, key_types, key_dicts,
+                                      state.keys):
+        cols[name] = Column(d.to(typ.torch_dtype), m, typ, dic)
+    for name, agg, st in zip(out_names, aggs, state.states):
+        d, m = agg.final(st)
+        cols[name] = Column(d.to(agg.output_type.torch_dtype),
+                            m & state.valid, agg.output_type, None)
+    return Batch(cols, state.valid)
+
+
+def intermediate_batch(state: GroupByState, key_names: Sequence[str],
+                       key_types: Sequence[Type],
+                       key_dicts: Sequence[Optional[tuple]],
+                       out_names: Sequence[str],
+                       aggs: Sequence[AggFunction]) -> Batch:
+    """Partial states as columns (<out>__s0, <out>__s1, ...), the shape
+    of the partial/final shuffle of the distributed slice."""
+    cols: Dict[str, Column] = {}
+    for name, typ, dic, (d, m) in zip(key_names, key_types, key_dicts,
+                                      state.keys):
+        cols[name] = Column(d.to(typ.torch_dtype), m, typ, dic)
+    for name, agg, st in zip(out_names, aggs, state.states):
+        for i, (arr, it) in enumerate(zip(st, agg.intermediate_types)):
+            cols[f"{name}__s{i}"] = Column(arr.to(it.torch_dtype),
+                                           state.valid, it, None)
+    return Batch(cols, state.valid)

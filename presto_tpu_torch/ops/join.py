@@ -1,0 +1,477 @@
+"""Equi-join kernels with a radix-partitioned probe (reference:
+presto_tpu/ops/join.py; HashBuilderOperator.java:51,
+LookupJoinOperator.java:53).
+
+No pointer-chasing hash table: the build side is sorted by its 64-bit
+key hash once, and `build_for_backend` records where each top-k-bit
+hash bucket starts in that order (`part_starts`, ~one bucket per build
+row), the length of every equal-hash run (`run_len`) and a second,
+independent hash (`hash2`). A probe row hashes its keys, reads its
+bucket's bounds, searches only that bucket for the lower bound of its
+hash, and confirms the candidate with `hash2` (verify="hash": the pair
+is a 128-bit fingerprint, see docs/JOIN_KERNEL.md) or by comparing
+every key column (verify="full").
+
+The hand-written CUDA kernels of this module:
+
+- K3 `common.row_hash_pair` (csrc/row_hash.cu) hashes the build keys;
+- K4 `build_meta` (csrc/join_build.cu) derives part_starts, run_len
+  and the build's statistics from the hashes once `torch.sort` has
+  sorted them (the reference hands its sort to `jax.lax.sort` or a host
+  `np.argsort` the same way);
+- K5 `probe_search` (csrc/join_probe.cu) hashes the probe keys with
+  the same device code and searches the build.
+
+Each has a plain PyTorch version beside it, which runs for CPU tensors.
+The expansion around the search stays composed torch, as in the
+reference:
+
+- ALIGNED, when every build hash run has length 1 (`unique_runs`, any
+  FK->PK join) and the output capacity is the probe capacity: output
+  slot i is probe row i, the build side is one gather per column;
+- GENERAL, for duplicate-key builds: a prefix sum of per-probe-row
+  emit counts, expand-by-counts into a caller-chosen capacity, and an
+  on-device overflow flag.
+
+Join types: inner and left (a right join is planned as a flipped
+left join). FULL OUTER (`unmatched_build`) is a later slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from presto_tpu_torch.batch import Batch, Column
+from presto_tpu_torch.ops import common
+from presto_tpu_torch.telemetry import kernels as _tk
+
+CVal = Tuple[torch.Tensor, torch.Tensor]
+
+#: bucket-per-row radix: k ~ log2(build size), capped so part_starts
+#: (8 bytes per bucket) stays the order of the build itself
+MAX_RADIX_BITS = 18
+#: builds at or below this size skip partitioning (k = 0)
+MIN_RADIX_ROWS = 1024
+
+#: "hash" confirms a candidate by the second hash, "full" by comparing
+#: every key column (the collision fallback and the tests' oracle)
+VERIFY_MODES = ("hash", "full")
+
+#: the join types this slice runs
+JOIN_TYPES = ("inner", "left")
+
+_H_INVALID = common.H_INVALID
+_H2_INVALID = common.H2_INVALID
+
+
+class JoinLaterSlice(NotImplementedError):
+    """A join form that a later slice of the port brings."""
+
+
+@dataclasses.dataclass
+class BuildTable:
+    """Sorted-by-hash build side, ready for probing. `batch` rows are in
+    sorted-hash order, so a candidate at sorted slot s is batch row s."""
+    sorted_hash: torch.Tensor       # [n] int64, dead rows at the end
+    hash2: torch.Tensor             # [n] int64 second hash (verify)
+    part_starts: torch.Tensor       # [2^k + 1] int64 bucket offsets
+    run_len: torch.Tensor           # [n] int64: run length at run starts
+    valid_count: torch.Tensor       # scalar: live build rows
+    batch: Batch                    # build rows, sorted by key hash
+    radix_bits: int = 0             # k (0 = whole-table search)
+    search_depth: int = 64          # levels the plain search runs
+    unique_runs: bool = False       # every live run has length 1
+
+
+def choose_radix_bits(capacity: int) -> int:
+    """k from the build size: one bucket per expected row, capped."""
+    if capacity <= MIN_RADIX_ROWS:
+        return 0
+    return max(1, min(int(math.ceil(math.log2(capacity))),
+                      MAX_RADIX_BITS))
+
+
+@functools.lru_cache(maxsize=None)
+def _partition_bounds_np(k: int) -> np.ndarray:
+    """The 2^k signed-int64 bucket boundary values: the signed value
+    (p - half) << (64 - k) has the bits of (p XOR half) << (64 - k)."""
+    half = np.uint64(1 << (k - 1))
+    p = np.arange(1 << k, dtype=np.uint64)
+    return ((p ^ half) << np.uint64(64 - k)).view(np.int64)
+
+
+def _partition_of(h: torch.Tensor, k: int) -> torch.Tensor:
+    """Top-k-bit bucket id in [0, 2^k): an ARITHMETIC shift of the
+    signed hash, so bucket order is signed sort order."""
+    return (h >> (64 - k)) + (1 << (k - 1))
+
+
+def _key_valid(batch: Batch, key_names: Sequence[str]) -> torch.Tensor:
+    valid = batch.row_valid
+    for k in key_names:
+        valid = valid & batch.columns[k].mask
+    return valid
+
+
+def _hash_batch(batch: Batch, key_names: Tuple[str, ...]):
+    """(h, h2, valid) of the build keys, dead rows on their sentinels
+    (K3 on CUDA)."""
+    keys = [batch.columns[k].astuple() for k in key_names]
+    h, h2 = common.row_hash_pair(keys, batch.row_valid, True)
+    return h, h2, _key_valid(batch, key_names)
+
+
+# -- K4: the build's radix metadata -------------------------------------
+
+
+#: launches of the CUDA join-build kernel (csrc/join_build.cu)
+JOIN_BUILD_KERNEL = _tk.LaunchCounter("join_build")
+
+
+def build_meta_plain(sh: torch.Tensor, k: int):
+    """Plain version of K4 over sorted hashes `sh` (the reference's CPU
+    branch, :280-310): (part_starts [2^k + 1], run_len [n], stats [3] =
+    first dead row, largest bucket span, longest live run)."""
+    n = sh.shape[0]
+    dev = sh.device
+    fi = int(torch.searchsorted(
+        sh, torch.tensor([_H_INVALID], dtype=torch.int64, device=dev))[0])
+    if k > 0:
+        counts = torch.bincount(_partition_of(sh, k), minlength=1 << k)
+        part_starts = torch.zeros((1 << k) + 1, dtype=torch.int64,
+                                  device=dev)
+        part_starts[1:] = torch.cumsum(counts, 0)
+    else:
+        part_starts = torch.tensor([0, n], dtype=torch.int64, device=dev)
+    part_starts = torch.clamp(part_starts, max=fi)
+    max_span = int(torch.diff(part_starts).max()) if n else 0
+    run_len = torch.zeros(n, dtype=torch.int64, device=dev)
+    max_run = 0
+    if n:
+        head = torch.ones(n, dtype=torch.bool, device=dev)
+        head[1:] = sh[1:] != sh[:-1]
+        starts = torch.nonzero(head).flatten()
+        ends = torch.cat([starts[1:], starts.new_tensor([n])])
+        run_len[starts] = ends - starts
+        live = starts < fi
+        if bool(live.any()):
+            max_run = int((torch.clamp(ends, max=fi) - starts)[live].max())
+    stats = torch.tensor([fi, max_span, max_run], dtype=torch.int64,
+                         device=dev)
+    return part_starts, run_len, stats
+
+
+def _build_meta_cuda(sh: torch.Tensor, k: int):
+    from presto_tpu_torch.native import cuda
+    dev = sh.device
+    n = sh.shape[0]
+    common.check_rows(sh, n, dev, (torch.int64,), "join_build: hashes")
+    if not 0 <= k <= MAX_RADIX_BITS:
+        raise ValueError(f"join_build: radix bits {k}")
+    part_starts = torch.empty((1 << k) + 1 if k else 2,
+                              dtype=torch.int64, device=dev)
+    run_len = torch.empty(n, dtype=torch.int64, device=dev)
+    stats = torch.empty(3, dtype=torch.int64, device=dev)
+    lib = cuda.library("join_build")
+    status = lib.presto_join_build(
+        ctypes.c_void_p(sh.data_ptr()), ctypes.c_int64(n),
+        ctypes.c_int32(k), ctypes.c_void_p(part_starts.data_ptr()),
+        ctypes.c_void_p(run_len.data_ptr()),
+        ctypes.c_void_p(stats.data_ptr()),
+        ctypes.c_void_p(cuda.stream_ptr(dev)))
+    cuda.check(lib, status, "join_build")
+    JOIN_BUILD_KERNEL.launches += 1
+    return part_starts, run_len, stats
+
+
+def build_meta(sh: torch.Tensor, k: int):
+    """K4: the radix metadata of sorted build hashes (see
+    `build_meta_plain`). The CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    if sh.device.type == "cpu":
+        return build_meta_plain(sh, k)
+    return _build_meta_cuda(sh, k)
+
+
+def build_for_backend(batch: Batch, key_names: Tuple[str, ...],
+                      radix_bits: Optional[int] = None) -> BuildTable:
+    """Index the build side: hash (K3), stable sort by hash
+    (`torch.sort`), radix metadata (K4), then permute the columns. The
+    statistics come back in the build's one host read, which picks the
+    probe layout. `radix_bits` overrides the size-derived k."""
+    _tk.count("join_build")
+    k = choose_radix_bits(batch.capacity) if radix_bits is None \
+        else max(0, min(int(radix_bits), MAX_RADIX_BITS))
+    h, h2, _ = _hash_batch(batch, tuple(key_names))
+    sh, perm = torch.sort(h, stable=True)
+    part_starts, run_len, stats = build_meta(sh, k)
+    cols = {n: Column(c.data[perm], c.mask[perm], c.type, c.dictionary)
+            for n, c in batch.columns.items()}
+    sbatch = Batch(cols, batch.row_valid[perm])
+    fi, max_span, max_run = (int(x) for x in stats.tolist())
+    return BuildTable(sh, h2[perm], part_starts, run_len,
+                      stats[0], sbatch, radix_bits=k,
+                      search_depth=common.search_iters(max_span),
+                      unique_runs=max_run <= 1)
+
+
+# -- K5: the probe's candidate search ------------------------------------
+
+
+#: launches of the CUDA probe-search kernel (csrc/join_probe.cu)
+JOIN_PROBE_KERNEL = _tk.LaunchCounter("join_probe")
+
+
+def _probe_hashes(probe: Batch, probe_keys: Tuple[str, ...]):
+    """(h, h2) of the probe keys, with the dead-row sentinels folded
+    in: a NULL-key or dead probe row matches nothing, because the build
+    clipped its sentinel run out of every bucket."""
+    keys = [probe.columns[k].astuple() for k in probe_keys]
+    return common.row_hash_pair_plain(keys, probe.row_valid, True)
+
+
+def _search_enc(table: BuildTable, h: torch.Tensor, h2: torch.Tensor,
+                verify: str) -> torch.Tensor:
+    """Per probe row: the build slot of its candidate run start, or -1.
+    For unique-run builds under verify="hash" the second-hash check
+    folds in here."""
+    n = table.sorted_hash.shape[0]
+    k = table.radix_bits
+    if k > 0:
+        pid = _partition_of(h, k)
+        lo0 = table.part_starts[pid]
+        hi0 = table.part_starts[pid + 1]
+    else:
+        lo0 = torch.zeros_like(h)
+        hi0 = table.part_starts[-1].expand(h.shape)
+    lo = common.bounded_searchsorted(table.sorted_hash, h, lo0, hi0,
+                                     table.search_depth, side="left")
+    loc = torch.clamp(lo, 0, max(n - 1, 0))
+    found = (lo < hi0) & (table.sorted_hash[loc] == h)
+    if table.unique_runs and verify == "hash":
+        found = found & (table.hash2[loc] == h2)
+    return torch.where(found, lo, torch.full_like(lo, -1))
+
+
+def probe_search_plain(table: BuildTable, probe: Batch,
+                       key_names: Tuple[str, ...], verify: str):
+    """Plain version of K5: (lo_enc, probe hash2 or None)."""
+    h, h2 = _probe_hashes(probe, key_names)
+    lo_enc = _search_enc(table, h, h2, verify)
+    return lo_enc, None if _search_checks_hash2(table, verify) else h2
+
+
+def _search_checks_hash2(table: BuildTable, verify: str) -> bool:
+    """The search folds the hash2 check in (unique-run build under
+    verify="hash"), so no later step needs the probe's hash2."""
+    return table.unique_runs and verify == "hash"
+
+
+def _probe_search_cuda(table: BuildTable, probe: Batch,
+                       key_names: Tuple[str, ...], verify: str):
+    from presto_tpu_torch.native import cuda
+    dev = probe.device
+    n = probe.capacity
+    nb = table.sorted_hash.shape[0]
+    common.check_rows(probe.row_valid, n, dev, (torch.bool,),
+                      "join_probe: row_valid")
+    for t, rows, what in ((table.sorted_hash, nb, "sorted_hash"),
+                          (table.hash2, nb, "hash2"),
+                          (table.part_starts,
+                           table.part_starts.shape[0], "part_starts")):
+        common.check_rows(t, rows, dev, (torch.int64,),
+                          f"join_probe: {what}")
+    kd, km, kt, nk = common.key_args(
+        [probe.columns[k].astuple() for k in key_names], n, dev,
+        "join_probe")
+    lo_enc = torch.empty(n, dtype=torch.int64, device=dev)
+    checks_h2 = _search_checks_hash2(table, verify)
+    h2 = None if checks_h2 else torch.empty(n, dtype=torch.int64,
+                                            device=dev)
+    lib = cuda.library("join_probe")
+    status = lib.presto_join_probe(
+        kd, km, kt, nk, ctypes.c_void_p(probe.row_valid.data_ptr()),
+        ctypes.c_int64(n), ctypes.c_void_p(table.sorted_hash.data_ptr()),
+        ctypes.c_void_p(table.hash2.data_ptr()),
+        ctypes.c_void_p(table.part_starts.data_ptr()),
+        ctypes.c_int32(table.radix_bits),
+        ctypes.c_int32(int(checks_h2)),
+        ctypes.c_void_p(lo_enc.data_ptr()),
+        ctypes.c_void_p(None if h2 is None else h2.data_ptr()),
+        ctypes.c_void_p(cuda.stream_ptr(dev)))
+    cuda.check(lib, status, "join_probe")
+    JOIN_PROBE_KERNEL.launches += 1
+    return lo_enc, h2
+
+
+def probe_search(table: BuildTable, probe: Batch,
+                 key_names: Tuple[str, ...], verify: str = "hash"):
+    """K5: per probe row the build slot of its candidate run (-1 for
+    none) and the row's hash2, or None where the search already checked
+    hash2 (a unique-run build under verify="hash"). The CUDA kernel on
+    CUDA tensors, the plain version on CPU tensors."""
+    if verify not in VERIFY_MODES:
+        raise ValueError(f"unknown verify mode {verify!r}")
+    if probe.device.type == "cpu":
+        return probe_search_plain(table, probe, key_names, verify)
+    return _probe_search_cuda(table, probe, key_names, verify)
+
+
+def probe_counts(table: BuildTable, probe: Batch,
+                 probe_keys: Tuple[str, ...]):
+    """Per probe row its candidate run [lo, hi) in the sorted build, the
+    candidate count (collisions included) and the key validity (the
+    reference's `_counts_jit` over a verify="full" search)."""
+    lo_enc, _ = probe_search(table, probe, probe_keys, "full")
+    found = lo_enc >= 0
+    lo = torch.clamp(lo_enc, min=0)
+    counts = torch.where(found, table.run_len[lo], torch.zeros_like(lo))
+    lo = torch.where(found, lo, torch.zeros_like(lo))
+    return lo, lo + counts, counts, _key_valid(probe, probe_keys)
+
+
+# -- expansion (composed torch) -------------------------------------------
+
+
+def probe_join(table: BuildTable, probe: Batch,
+               key_names: Tuple[str, ...], out_capacity: int,
+               join_type: str, probe_output: Tuple[str, ...],
+               build_output: Tuple[str, ...],
+               build_keys: Tuple[str, ...], verify: str = "hash"
+               ) -> Tuple[Batch, torch.Tensor, torch.Tensor]:
+    """Probe with no host sync; the output capacity is the caller's
+    (probe capacity x an expansion factor). Returns (output batch,
+    overflow flag, live output rows), all on the device: the operator
+    accumulates the flag and the runner reads it once per query (the
+    aligned layout cannot overflow)."""
+    _tk.count("join_probe")
+    if join_type not in JOIN_TYPES:
+        raise JoinLaterSlice(
+            f"{join_type} join probe: later slice of the port (ROADMAP "
+            "B7 join_outer)")
+    lo_enc, h2 = probe_search(table, probe, key_names, verify)
+    return _expand_from_enc(table, probe, key_names, lo_enc,
+                            out_capacity, join_type, probe_output,
+                            build_output, build_keys, verify, h2)
+
+
+def _expand_from_enc(table, probe, key_names, lo_enc, out_capacity,
+                     join_type, probe_output, build_output, build_keys,
+                     verify, h2):
+    """Pick the aligned or general layout and expand."""
+    aligned = table.unique_runs and join_type in JOIN_TYPES \
+        and out_capacity == probe.capacity
+    if aligned:
+        out, overflow = _expand_aligned(
+            table, probe, key_names, lo_enc, join_type, probe_output,
+            build_output, build_keys, verify)
+    else:
+        found = lo_enc >= 0
+        lo = torch.clamp(lo_enc, min=0)
+        counts = torch.where(found, table.run_len[lo],
+                             torch.zeros_like(lo))
+        out, overflow = _expand_general(
+            table, probe, key_names, lo, counts, out_capacity, join_type,
+            probe_output, build_output, build_keys, verify, h2)
+    return out, overflow, out.row_valid.sum()
+
+
+def _expand_aligned(table, probe, key_names, lo_enc, join_type,
+                    probe_output, build_output, build_keys, verify):
+    """Output slot i is probe row i (unique-run build, capacity match).
+    An inner miss is a dead slot; a left miss keeps the probe side with
+    a NULL build side. Never overflows."""
+    verified = lo_enc >= 0
+    brow = torch.clamp(lo_enc, min=0)
+    if verify == "full":
+        # one candidate per row: compare the actual key columns
+        for kn, bn in zip(key_names, build_keys):
+            pd, pm = probe.columns[kn].astuple()
+            bd, bm = table.batch.columns[bn].astuple()
+            verified = verified & (pd == bd[brow]) & pm & bm[brow]
+    live = probe.row_valid if join_type == "left" else verified
+    cols: Dict[str, Column] = {}
+    for name in probe_output:
+        c = probe.columns[name]
+        cols[name] = Column(c.data, c.mask & live, c.type, c.dictionary)
+    for name in build_output:
+        c = table.batch.columns[name]
+        cols[name] = Column(c.data[brow], c.mask[brow] & verified,
+                            c.type, c.dictionary)
+    return Batch(cols, live), torch.zeros((), dtype=torch.bool,
+                                          device=probe.device)
+
+
+def _expand_general(table, probe, key_names, lo, counts, out_capacity,
+                    join_type, probe_output, build_output, build_keys,
+                    verify, h2):
+    """Prefix-sum expansion for duplicate-key builds: output slot j
+    belongs to probe row p(j), candidate build slot lo[p] + (j -
+    cum[p]); p(j) comes from expand-by-counts (a 1 at each probe row's
+    first slot, prefix-summed)."""
+    if verify not in VERIFY_MODES:
+        raise ValueError(f"unknown verify mode {verify!r}")
+    dev = probe.device
+    left_join = join_type == "left"
+    emit = counts
+    if left_join:
+        emit = torch.where(probe.row_valid & (counts == 0),
+                           torch.ones_like(counts), counts)
+        emit = torch.where(probe.row_valid, emit, torch.zeros_like(emit))
+    cum = torch.cumsum(emit, 0) - emit  # exclusive prefix
+    total = cum[-1] + emit[-1]
+    nprobe = emit.shape[0]
+    slots = torch.arange(out_capacity, device=dev)
+    heads = torch.zeros(out_capacity + 1, dtype=torch.int64, device=dev)
+    heads.index_add_(0, torch.clamp(cum, 0, out_capacity),
+                     torch.ones_like(cum))
+    pid = torch.clamp(torch.cumsum(heads[:out_capacity], 0) - 1, 0,
+                      nprobe - 1)
+    k = slots - cum[pid]
+    slot_live = slots < total
+    is_match = slot_live & (k < counts[pid])
+    brow = torch.clamp(lo[pid] + k, 0, table.sorted_hash.shape[0] - 1)
+    if verify == "hash":
+        # h2 is None when the search already held hash2 to the build's
+        verified = is_match if h2 is None \
+            else is_match & (h2[pid] == table.hash2[brow])
+    else:
+        verified = is_match
+        for kn, bn in zip(key_names, build_keys):
+            pd, pm = probe.columns[kn].astuple()
+            bd, bm = table.batch.columns[bn].astuple()
+            verified = verified & (pd[pid] == bd[brow]) & pm[pid] \
+                & bm[brow]
+    if left_join:
+        # a probe row with no verified match (collisions included)
+        # emits one NULL-build row in its first slot
+        nver = torch.zeros(nprobe, dtype=torch.int64, device=dev)
+        nver.index_add_(0, pid, verified.to(torch.int64))
+        unmatched = slot_live & (k == 0) & (nver[pid] == 0) \
+            & probe.row_valid[pid]
+        live = verified | unmatched
+    else:
+        live = verified
+    cols: Dict[str, Column] = {}
+    for name in probe_output:
+        c = probe.columns[name]
+        cols[name] = Column(c.data[pid], c.mask[pid] & live, c.type,
+                            c.dictionary)
+    for name in build_output:
+        c = table.batch.columns[name]
+        cols[name] = Column(c.data[brow], c.mask[brow] & verified, c.type,
+                            c.dictionary)
+    return Batch(cols, live), total > out_capacity
+
+
+def unmatched_build(*args, **kwargs):
+    """The FULL join's tail (build rows no probe row matched)."""
+    raise JoinLaterSlice("full outer join: later slice of the port "
+                         "(ROADMAP B7 join_outer)")

@@ -2,11 +2,15 @@
 (reference: presto_tpu/planner/local_planner.py;
 sql/planner/LocalExecutionPlanner.java:549).
 
-This slice plans single-pipeline queries: TableScan, Values, Filter,
-Project, Aggregation (direct slot-table path), Sort, TopN, Limit and
-Output. Every other node raises `LocalPlanningError` naming the
-ROADMAP item that ports it. `fragment_fusion_enabled` is accepted and
-has no effect yet: whole-fragment fusion is a later slice (A7).
+The port plans TableScan, Values, Filter, Project, Aggregation
+(direct slot-table and sort-based paths), inner/left/right hash Join
+(a right join becomes a flipped left join), Sort, TopN, Limit and
+Output. A join spawns a build pipeline that runs before the pipeline
+holding its probe, as in the reference; inner joins also wire dynamic
+filters from the build keys to probe-side scans. Every other node
+raises `LocalPlanningError` naming the ROADMAP item that ports it.
+`fragment_fusion_enabled` is accepted and has no effect yet:
+whole-fragment fusion is a later slice (A7).
 """
 
 from __future__ import annotations
@@ -27,6 +31,9 @@ from presto_tpu_torch.operators.core import (
     FilterProjectOperatorFactory, LimitOperatorFactory,
     OutputCollectorOperatorFactory, TableScanOperatorFactory,
     ValuesOperatorFactory,
+)
+from presto_tpu_torch.operators.join_ops import (
+    HashBuildOperatorFactory, JoinBridge, LookupJoinOperatorFactory,
 )
 from presto_tpu_torch.operators.sort_ops import (
     OrderByOperatorFactory, TopNOperatorFactory,
@@ -52,7 +59,6 @@ class LocalPlanningError(Exception):
 
 #: plan nodes of later slices -> the ROADMAP item that ports them
 _LATER = {
-    "JoinNode": "A6 (joins)",
     "SemiJoinNode": "A6 (semi join)",
     "DistinctNode": "A6 (distinct)",
     "WindowNode": "A8 (windows)",
@@ -88,6 +94,14 @@ class LocalExecutionPlanner:
         self.device = device
         self._pipelines: List[List] = []
         self._op_id = 0
+        # dynamic filtering: per-plan registry + scan-node id ->
+        # [(scan symbol, df_id, registry)] found while planning joins
+        from presto_tpu_torch.execution.dynamic_filters import (
+            DynamicFilterRegistry,
+        )
+        self._df_registry = DynamicFilterRegistry()
+        self._df_scans: Dict[int, List] = {}
+        self._stats = None
 
     def _next_id(self) -> int:
         self._op_id += 1
@@ -155,7 +169,8 @@ class LocalExecutionPlanner:
                         s, columns, batch_rows, constraint, device):
                     yield b.rename(rename)
         pipe.append(TableScanOperatorFactory(
-            self._next_id(), f"scan:{handle.table}", batch_iter))
+            self._next_id(), f"scan:{handle.table}", batch_iter,
+            df_specs=list(self._df_scans.get(id(node), [])) or None))
 
     def _visit_ValuesNode(self, node: N.ValuesNode, pipe: List):
         cap = bucket_capacity(max(len(node.rows), 1))
@@ -214,8 +229,123 @@ class LocalExecutionPlanner:
             t = a.input_type or (arg_ce.type if arg_ce else None)
             fn = agg_function_for(a.function, t, a.output_type, a.params)
             specs.append(AggSpec(a.out_symbol, fn, arg_ce, mask_ce))
+        if node.step != "single":
+            raise LocalPlanningError(
+                f"{node.step} aggregation step: later slice of the port "
+                "(ROADMAP A12)")
+        # stats-driven sizing: a grouping estimated past the session
+        # value starts big enough instead of paying x4 retries; never
+        # below the session value, which the retry protocol raises
+        max_groups = int(get_property(self.session.properties,
+                                      "max_groups"))
+        est = self._estimated_groups(node)
+        if est is not None:
+            max_groups = max(max_groups, min(int(est * 2), 1 << 22))
         pipe.append(AggregationOperatorFactory(
-            self._next_id(), key_names, key_exprs, specs, node.step))
+            self._next_id(), key_names, key_exprs, specs, node.step,
+            max_groups))
+
+    def _estimator(self):
+        if self._stats is None:
+            from presto_tpu_torch.planner.stats import StatsEstimator
+            self._stats = StatsEstimator(self.catalogs)
+        return self._stats
+
+    def _estimated_groups(self, node: N.AggregationNode):
+        """Estimated distinct groups, or None when unknowable."""
+        from presto_tpu_torch.planner.stats import UNKNOWN_ROWS
+        est = self._estimator().estimate(node).rows
+        return est if est < UNKNOWN_ROWS * 0.99 else None
+
+    def _estimated_expansion(self, node: N.JoinNode, probe) -> int:
+        """Estimated join output rows per probe row, rounded up to a
+        power of two and capped at 16; 1 when stats cannot say (the
+        FK->PK case). A real underestimate trips the overflow retry."""
+        from presto_tpu_torch.planner.stats import UNKNOWN_ROWS
+        est = self._estimator()
+        out_rows = est.estimate(node).rows
+        probe_rows = est.estimate(probe).rows
+        if out_rows >= UNKNOWN_ROWS * 0.99 \
+                or probe_rows >= UNKNOWN_ROWS * 0.99 or probe_rows <= 0:
+            return 1
+        ratio = out_rows / probe_rows
+        factor = 1
+        while factor < ratio and factor < 16:
+            factor *= 2
+        return factor
+
+    def _visit_JoinNode(self, node: N.JoinNode, pipe: List):
+        if node.join_type not in ("inner", "left", "right"):
+            item = "A6 (nested loop)" if node.join_type == "cross" \
+                else "B7 (join_outer)"
+            raise LocalPlanningError(
+                f"{node.join_type} join: later slice of the port "
+                f"(ROADMAP {item})")
+        probe, build = node.left, node.right
+        criteria = node.criteria
+        jt = node.join_type
+        if jt == "right":
+            probe, build = build, probe
+            criteria = [(r, l) for l, r in criteria]
+            jt = "left"
+        bridge = JoinBridge()
+        key_dicts = _unified_key_dicts(probe, build, criteria)
+        df_publish = self._plan_dynamic_filters(probe, build, criteria) \
+            if jt == "inner" else None
+        build_pipe: List = []
+        self._visit(build, build_pipe)
+        build_pipe.append(HashBuildOperatorFactory(
+            self._next_id(), bridge, [r for _, r in criteria], key_dicts,
+            schema_cols=[(f.symbol, f.type, f.dictionary)
+                         for f in build.output],
+            df_publish=df_publish))
+        # the build pipeline runs before the one holding the probe
+        self._pipelines.append(build_pipe)
+        self._visit(probe, pipe)
+        # stats-seeded output capacity; never below the session value,
+        # which the overflow retry raises
+        factor = max(int(get_property(self.session.properties,
+                                      "join_expansion_factor")),
+                     self._estimated_expansion(node, probe))
+        pipe.append(LookupJoinOperatorFactory(
+            self._next_id(), bridge, [l for l, _ in criteria], jt,
+            probe_output=[f.symbol for f in probe.output],
+            build_output=[f.symbol for f in build.output],
+            build_keys=[r for _, r in criteria], key_dicts=key_dicts,
+            expansion_factor=factor))
+        if node.filter is not None:
+            schema = _schema_of(node)
+            pred = self._compile(node.filter, schema)
+            projections = [
+                (f.symbol, self._compile(InputRef(f.symbol, f.type),
+                                         schema))
+                for f in node.output]
+            pipe.append(FilterProjectOperatorFactory(
+                self._next_id(), pred, projections))
+
+    def _plan_dynamic_filters(self, probe, build, criteria):
+        """For an INNER join, wire build-key bounds (and distinct sets)
+        to the probe-side scans that produce the probe keys."""
+        if not bool(get_property(self.session.properties,
+                                 "dynamic_filtering")):
+            return None
+        build_fields = {f.symbol: f for f in build.output}
+        publish = []
+        for l, r in criteria:
+            bf = build_fields.get(r)
+            # numeric and date keys only (not strings, not booleans)
+            if bf is None or bf.dictionary is not None \
+                    or bf.type.name == "boolean":
+                continue
+            traced = _trace_scan_column(probe, l)
+            if traced is None:
+                continue
+            scan_node, scan_sym = traced
+            df_id = self._df_registry.new_id()
+            publish.append((r, df_id, self._df_registry))
+            self._df_scans.setdefault(id(scan_node), []).append(
+                (scan_sym, df_id, self._df_registry))
+        return publish or None
 
     def _visit_SortNode(self, node: N.SortNode, pipe: List):
         self._visit(node.source, pipe)
@@ -282,6 +412,43 @@ def agg_function_for(name: str, input_type: Optional[Type],
         raise LocalPlanningError(
             f"aggregate {name}: later slice of the port (ROADMAP B4)")
     raise LocalPlanningError(f"unknown aggregate {name}")
+
+
+def _trace_scan_column(node: N.PlanNode, symbol: str):
+    """Follow `symbol` down through filters and identity projections to
+    the TableScanNode that produces it: (scan node, scan symbol), or
+    None when anything else (a join, an aggregation) intervenes."""
+    while True:
+        if isinstance(node, N.TableScanNode):
+            return (node, symbol) if symbol in node.assignments else None
+        if isinstance(node, N.FilterNode):
+            node = node.source
+            continue
+        if isinstance(node, N.ProjectNode):
+            expr = dict(node.assignments).get(symbol)
+            if isinstance(expr, InputRef):
+                symbol = expr.name
+                node = node.source
+                continue
+        return None
+
+
+def _unified_key_dicts(probe: N.PlanNode, build: N.PlanNode,
+                       criteria) -> Optional[List[Optional[tuple]]]:
+    """For string join keys, the union dictionary both sides re-encode
+    onto, so code equality is string equality (batch.remap_column)."""
+    from presto_tpu_torch.batch import union_dictionary
+    out: List[Optional[tuple]] = []
+    any_string = False
+    for l, r in criteria:
+        lf = probe.field(l)
+        rf = build.field(r)
+        if lf.type.is_string or rf.type.is_string:
+            any_string = True
+            out.append(union_dictionary(lf.dictionary, rf.dictionary))
+        else:
+            out.append(None)
+    return out if any_string else None
 
 
 def _parent_counts(root: N.PlanNode) -> Dict[int, int]:

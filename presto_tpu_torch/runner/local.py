@@ -8,9 +8,12 @@ CUDA and the runner refuses to start without it: it never falls back
 to the CPU on its own. Pass `device="cpu"` to run the plain versions
 of the kernels on the CPU (the tests do).
 
-This slice runs queries and SET SESSION. Caches, query history,
-resource groups, fault injection, sanitizers, telemetry, EXPLAIN and
-DDL/DML come with later slices.
+The port runs queries and SET SESSION. A query whose grouping outgrew
+`max_groups` (GroupLimitExceeded) or whose join outgrew its output
+capacity (JoinCapacityExceeded, read once after the drive) is re-run
+with four times the setting, as the reference's runner does. Caches,
+query history, resource groups, fault injection, sanitizers,
+telemetry, EXPLAIN and DDL/DML come with later slices.
 """
 
 from __future__ import annotations
@@ -22,8 +25,12 @@ import torch
 
 from presto_tpu_torch.batch import Batch
 from presto_tpu_torch.connectors.spi import Connector, TableHandle
-from presto_tpu_torch.operators.base import DriverContext
+from presto_tpu_torch.operators.aggregation import GroupLimitExceeded
+from presto_tpu_torch.operators.base import (
+    DriverContext, run_deferred_checks,
+)
 from presto_tpu_torch.operators.driver import Driver
+from presto_tpu_torch.operators.join_ops import JoinCapacityExceeded
 from presto_tpu_torch.parser import parse_statement, tree as T
 from presto_tpu_torch.planner import nodes as N
 from presto_tpu_torch.planner.analyzer import AnalysisError, plan_statement
@@ -156,16 +163,42 @@ class LocalRunner:
         return plan
 
     def _run_plan(self, plan: N.OutputNode) -> MaterializedResult:
-        try:
-            lplan = LocalExecutionPlanner(
-                self.catalogs, self.session, self.device).plan(plan)
-        except LocalPlanningError as e:
-            raise QueryError(str(e)) from e
-        dctx = DriverContext(session=self.session, device=self.device)
-        for pipe in lplan.pipelines:
-            Driver([f.create(dctx) for f in pipe]).run_to_completion()
-        return MaterializedResult(lplan.result_names, lplan.result_sink,
-                                  lplan.result_fields)
+        """Plan and drive the query; on a group-table or join-capacity
+        overflow re-run it with the setting raised 4x (a query-level
+        retry keeps the per-batch hot loop free of host reads)."""
+        session = self.session
+        while True:
+            try:
+                lplan = LocalExecutionPlanner(
+                    self.catalogs, session, self.device).plan(plan)
+            except LocalPlanningError as e:
+                raise QueryError(str(e)) from e
+            dctx = DriverContext(session=session, device=self.device)
+            try:
+                # pipelines in list order: every join build before the
+                # pipeline holding its probe
+                for pipe in lplan.pipelines:
+                    Driver([f.create(dctx) for f in pipe]) \
+                        .run_to_completion()
+                run_deferred_checks(dctx)
+            except GroupLimitExceeded as e:
+                if e.suggested > 1 << 26:
+                    raise QueryError(
+                        "group-by exceeds max supported groups") from e
+                session = dataclasses.replace(session, properties={
+                    **session.properties, "max_groups": e.suggested})
+                continue
+            except JoinCapacityExceeded as e:
+                if e.suggested > 1 << 10:
+                    raise QueryError(
+                        "join expansion exceeds supported factor") from e
+                session = dataclasses.replace(session, properties={
+                    **session.properties,
+                    "join_expansion_factor": e.suggested})
+                continue
+            return MaterializedResult(lplan.result_names,
+                                      lplan.result_sink,
+                                      lplan.result_fields)
 
     def _set_session(self, stmt: T.SetSession) -> MaterializedResult:
         from presto_tpu_torch.expr.ir import Literal

@@ -141,3 +141,188 @@ def test_wrappers_reject_strided_input(hopper):
                        b.row_valid[::2])
     with pytest.raises(ValueError):
         tb.compact_full(strided)
+
+
+# -- K3-K6: the join and sort-aggregation kernels ----------------------
+#
+# Tolerances: K3, K4 and K5 exactly (hashes, offsets and slots are
+# integers); K6 exactly for first rows, group counts, overflow and integer
+# components, float64 components to a relative 1e-9 (the kernel sums a
+# group in a lane-strided tree order, the plain version in row order).
+
+from presto_tpu_torch.ops import common as tc  # noqa: E402
+from presto_tpu_torch.ops import join as tj  # noqa: E402
+
+
+def _key_columns(rng, n, dev, nkeys, dup=None):
+    """Key columns of several dtypes with NULLs, negative values,
+    INT64_MIN, -0.0 and NaN; `dup` draws the first key from that many
+    values, for duplicate-key builds."""
+    i64 = rng.integers(-(1 << 62), 1 << 62, n) if dup is None \
+        else rng.integers(-dup, dup, n)
+    i64[:4] = [np.iinfo(np.int64).min, -1, 0, 1]
+    f64 = rng.normal(0, 1e6, n)
+    f64[:4] = [-0.0, 0.0, np.nan, np.inf]
+    cols = [i64.astype(np.int64), f64, rng.integers(-1000, 1000, n)
+            .astype(np.int32), rng.random(n) < 0.5,
+            rng.integers(-300, 300, n).astype(np.int16)]
+    keys = []
+    for d in cols[:nkeys]:
+        keys.append((torch.from_numpy(d).to(dev),
+                     torch.from_numpy(rng.random(n) < 0.9).to(dev)))
+    return keys
+
+
+@pytest.mark.parametrize("nkeys", [1, 2, 3, 5])
+@pytest.mark.parametrize("nulls_invalid", [True, False])
+def test_k3_row_hash_matches_plain(hopper, nkeys, nulls_invalid):
+    rng = np.random.default_rng(11)
+    n = (1 << 20) + 3
+    keys = _key_columns(rng, n, hopper, nkeys)
+    rv = torch.from_numpy(rng.random(n) < 0.7).to(hopper)
+    before = tc.ROW_HASH_KERNEL.launches
+    h, h2 = tc.row_hash_pair(keys, rv, nulls_invalid)
+    assert tc.ROW_HASH_KERNEL.launches == before + 1
+    ph, ph2 = tc.row_hash_pair_plain(keys, rv, nulls_invalid)
+    torch.cuda.synchronize()
+    assert torch.equal(h, ph) and torch.equal(h2, ph2)
+
+
+def _build_batch(rng, n, live, dev, dup=None, nkeys=1):
+    keys = _key_columns(rng, n, dev, nkeys, dup)
+    cols = {f"k{i}": tb.Column(d, m, tt.BIGINT if d.dtype == torch.int64
+                               else tt.DOUBLE if d.dtype == torch.float64
+                               else tt.INTEGER, None)
+            for i, (d, m) in enumerate(keys[:2])}
+    cols["v"] = tb.Column(torch.arange(n, device=dev),
+                          torch.ones(n, dtype=torch.bool, device=dev),
+                          tt.BIGINT, None)
+    rv = torch.zeros(n, dtype=torch.bool, device=dev)
+    rv[:live] = True
+    return tb.Batch(cols, rv)
+
+
+@pytest.mark.parametrize("k", [0, 5, 18])
+@pytest.mark.parametrize("dup,live_frac", [(None, 1.0), (None, 0.5),
+                                           (5000, 0.37), (3, 1.0),
+                                           (None, 0.0)],
+                         ids=["unique", "half_dead", "dup", "few_keys",
+                              "all_dead"])
+def test_k4_join_build_matches_plain(hopper, k, dup, live_frac):
+    rng = np.random.default_rng(12)
+    n = 1 << 20
+    b = _build_batch(rng, n, int(n * live_frac), hopper, dup)
+    h, _, _ = tj._hash_batch(b, ("k0",))
+    sh, _ = torch.sort(h, stable=True)
+    before = tj.JOIN_BUILD_KERNEL.launches
+    got = tj.build_meta(sh, k)
+    assert tj.JOIN_BUILD_KERNEL.launches == before + 1
+    want = tj.build_meta_plain(sh, k)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("verify", ["hash", "full"])
+@pytest.mark.parametrize("dup,nkeys,live", [(None, 1, 0.6), (2000, 1, 0.6),
+                                            (None, 2, 0.6), (50, 2, 0.6),
+                                            (None, 1, 0.0)],
+                         ids=["unique", "dup", "two_keys", "two_keys_dup",
+                              "empty_build"])
+def test_k5_join_probe_matches_plain(hopper, verify, dup, nkeys, live):
+    rng = np.random.default_rng(13)
+    nb, npr = 1 << 18, 1 << 20
+    build = _build_batch(rng, nb, int(nb * live), hopper, dup, nkeys)
+    names = tuple(f"k{i}" for i in range(nkeys))
+    table = tj.build_for_backend(build, names)
+    # probe keys: half drawn from the build's, half fresh
+    probe = _build_batch(rng, npr, int(npr * 0.9), hopper, dup, nkeys)
+    pick = torch.from_numpy(rng.integers(0, nb, npr)).to(hopper)
+    take = torch.from_numpy(rng.random(npr) < 0.5).to(hopper)
+    for nm in names:
+        pc, bc = probe.columns[nm], build.columns[nm]
+        pc.data = torch.where(take, bc.data[pick], pc.data)
+        pc.mask = torch.where(take, bc.mask[pick], pc.mask)
+    before = tj.JOIN_PROBE_KERNEL.launches
+    lo, h2 = tj.probe_search(table, probe, names, verify)
+    assert tj.JOIN_PROBE_KERNEL.launches == before + 1
+    plo, ph2 = tj.probe_search_plain(table, probe, names, verify)
+    torch.cuda.synchronize()
+    assert torch.equal(lo, plo)
+    # hash2 comes back only where the search did not already check it
+    assert (h2 is None) == (ph2 is None) == (table.unique_runs
+                                            and verify == "hash")
+    assert h2 is None or torch.equal(h2, ph2)
+    matches = int((lo >= 0).sum())
+    assert matches > npr // 8 if live else matches == 0
+
+
+@pytest.mark.parametrize("ngroups,out_cap,live", [(150_000, 1 << 18, 0.8),
+                                                  (40, 64, 0.8),
+                                                  (5000, 1024, 0.8),
+                                                  (3, 16, 0.8),
+                                                  (100, 128, 0.0)],
+                         ids=["q13_like", "few_groups", "overflow",
+                              "long_segments", "all_dead"])
+def test_k6_segment_reduce_matches_plain(hopper, ngroups, out_cap, live):
+    rng = np.random.default_rng(14)
+    n = 1 << 21
+    kv = rng.integers(0, ngroups, n)
+    keys = [(torch.from_numpy(kv).to(hopper),
+             torch.from_numpy(rng.random(n) < 0.95).to(hopper)),
+            (torch.from_numpy((kv % 7).astype(np.int32)).to(hopper),
+             torch.ones(n, dtype=torch.bool, device=hopper))]
+    valid = torch.from_numpy(rng.random(n) < live).to(hopper)
+    h1, h2 = tc.row_hash_pair(keys, valid, False)
+    perm = tc.lex_perm([h1, h2])
+    skeys = [(d[perm], m[perm]) for d, m in keys]
+    comps = [(torch.from_numpy(rng.normal(0, 100, n)).to(hopper), "sum"),
+             (torch.from_numpy(rng.integers(-5, 5, n)).to(hopper), "sum"),
+             (torch.from_numpy(rng.integers(-9, 9, n).astype(np.int32))
+              .to(hopper), "min"),
+             (torch.from_numpy(rng.normal(0, 1, n)).to(hopper), "max")]
+    scomps = [(c[perm], r) for c, r in comps]
+    args = (h1[perm], h2[perm], skeys, valid[perm], scomps, out_cap)
+    before = th.SEGMENT_REDUCE_KERNEL.launches
+    got = th.segment_reduce(*args)
+    assert th.SEGMENT_REDUCE_KERNEL.launches == before + 1
+    want = th.segment_reduce_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+    for (g, (c, _)), w in zip(zip(got[0], comps), want[0]):
+        if g.is_floating_point():
+            torch.testing.assert_close(g, w, rtol=1e-9, atol=1e-9)
+        else:
+            assert torch.equal(g, w)
+    assert bool(got[3]) == (int(want[2]) > out_cap)
+
+
+def test_sort_aggregation_matches_cpu(hopper):
+    """batch_aggregate (K3 + sort + K6) on the card against the same
+    inputs on the CPU, as group multisets."""
+    rng = np.random.default_rng(15)
+    n = 1 << 18
+    aggs = [th.make_sum(tt.DOUBLE, tt.DOUBLE), th.make_count(None),
+            th.make_min(tt.BIGINT)]
+    kv = rng.integers(0, 20_000, n)
+    val = rng.normal(0, 10, n)
+    iv = rng.integers(-100, 100, n)
+    rv = rng.random(n) < 0.9
+    out = {}
+    for dev in (torch.device("cpu"), hopper):
+        def t(x):
+            return torch.from_numpy(np.array(x)).to(dev)
+        st = th.batch_aggregate(t(rv), [(t(kv), t(rv))],
+                                [t(val), None, t(iv)], [t(rv)] * 3,
+                                aggs, 1 << 15)
+        v = st.valid.cpu().numpy()
+        rows = sorted(zip(st.keys[0][0].cpu().numpy()[v].tolist(),
+                          st.states[0][0].cpu().numpy()[v].tolist(),
+                          st.states[1][0].cpu().numpy()[v].tolist(),
+                          st.states[2][0].cpu().numpy()[v].tolist()))
+        out[dev.type] = rows
+    assert len(out["cpu"]) == len(out["cuda"])
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert a[0] == b[0] and a[2:] == b[2:]
+        assert abs(a[1] - b[1]) <= 1e-9 * max(1.0, abs(a[1]))

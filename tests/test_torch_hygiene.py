@@ -73,3 +73,51 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     b = tb.Batch.from_pydict({"x": ([1, 2, 3], tb.Type("bigint"))})
     with pytest.raises((cuda.KernelError, ValueError)):
         tb.compact_full(b)
+
+
+def _meta(n, dtype):
+    return torch.zeros(n, dtype=dtype, device="meta")
+
+
+def _k3(common, join, hashagg):
+    keys = [(_meta(64, torch.int64), _meta(64, torch.bool))]
+    common.row_hash_pair(keys, _meta(64, torch.bool), True)
+
+
+def _k4(common, join, hashagg):
+    join.build_meta(_meta(64, torch.int64), 4)
+
+
+def _k5(common, join, hashagg):
+    from presto_tpu_torch.batch import Batch, Column
+    from presto_tpu_torch.types import BIGINT
+    b = Batch({"k": Column(_meta(64, torch.int64), _meta(64, torch.bool),
+                           BIGINT)}, _meta(64, torch.bool))
+    table = join.BuildTable(_meta(64, torch.int64), _meta(64, torch.int64),
+                            _meta(17, torch.int64), _meta(64, torch.int64),
+                            _meta(1, torch.int64), b, radix_bits=4)
+    join.probe_search(table, b, ("k",))
+
+
+def _k6(common, join, hashagg):
+    keys = [(_meta(64, torch.int64), _meta(64, torch.bool))]
+    hashagg.segment_reduce(_meta(64, torch.int64), _meta(64, torch.int64),
+                           keys, _meta(64, torch.bool),
+                           [(_meta(64, torch.float64), "sum")], 16)
+
+
+@pytest.mark.parametrize("call", [_k3, _k4, _k5, _k6],
+                         ids=["row_hash", "join_build", "join_probe",
+                              "segment_reduce"])
+def test_device_tensor_never_takes_the_plain_version(monkeypatch, call):
+    """K3-K6 on tensors that are not on the CPU (meta tensors here) go
+    to the kernel or raise: with the build made to fail, the error
+    surfaces. The plain versions would compute meta results silently."""
+    from presto_tpu_torch.native import cuda
+    from presto_tpu_torch.ops import common, hashagg, join
+
+    def no_build(name):
+        raise cuda.KernelError("no nvcc here")
+    monkeypatch.setattr(cuda, "library", no_build)
+    with pytest.raises(cuda.KernelError):
+        call(common, join, hashagg)

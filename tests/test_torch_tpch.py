@@ -1,8 +1,12 @@
-"""TPC-H Q1 and Q6 through both LocalRunners: the port on the CPU
-(plain versions of its kernels) against the JAX package, compared by
-assert_rows_equal's rule (DOUBLE rel_tol 1e-6, everything else exact,
-Q1 in order)."""
+"""TPC-H through both LocalRunners: the port on the CPU (plain versions
+of its kernels) against the JAX package, compared by assert_rows_equal's
+rule (DOUBLE rel_tol 1e-6, everything else exact, Q1 in order). The
+queries the port does not plan yet must name the ROADMAP item that
+brings them, and every tpch table must reach the port as it reaches
+the reference. The join queries are in tests/test_torch_tpch_joins.py.
+"""
 
+import numpy as np
 import pytest
 import torch
 
@@ -110,3 +114,54 @@ def test_set_session_batch_rows():
     r.execute("SET SESSION batch_rows = 1024")
     assert r.session.properties["batch_rows"] == 1024
     assert r.execute(QUERIES[6]).rows() == port.execute(QUERIES[6]).rows()
+
+
+# -- what the port does not plan yet, and the tables ---------------------
+
+#: the queries the port does not plan yet -> the ROADMAP item their
+#: planning error names
+LATER_QUERIES = {4: "A6", 11: "A6", 15: "A8", 16: "A6", 18: "A6",
+                 19: "A6", 20: "A6", 21: "A8", 22: "A6"}
+
+_TABLES = ["lineitem", "orders", "customer", "supplier", "nation",
+           "region", "part", "partsupp"]
+
+
+@pytest.mark.parametrize("qn", sorted(LATER_QUERIES))
+def test_later_queries_name_their_roadmap_item(qn):
+    from presto_tpu_torch.runner.local import QueryError
+    _, port = _runners("tiny", {})
+    with pytest.raises(QueryError, match=r"later slice of the port "
+                       r"\(ROADMAP " + LATER_QUERIES[qn]):
+        port.execute(QUERIES[qn])
+
+
+@pytest.mark.parametrize("table", _TABLES)
+def test_tpch_table_matches_reference(table):
+    """Every tpch table at tiny through the port's connector: the
+    reference's column names, types and dictionaries, and the same
+    rows of its first split."""
+    from presto_tpu.connectors.spi import TableHandle as JHandle
+    from presto_tpu.connectors.tpch import TpchConnector as JConn
+    from presto_tpu_torch.connectors.spi import TableHandle as THandle
+    from presto_tpu_torch.connectors.tpch import TpchConnector as TConn
+    jc, tcn = JConn(), TConn()
+    jh, th_ = JHandle("tpch", "tiny", table), THandle("tpch", "tiny",
+                                                      table)
+    js = jc.metadata.get_table_schema(jh)
+    ts = tcn.metadata.get_table_schema(th_)
+    assert ts.names == js.names
+    for a, b in zip(ts.columns, js.columns):
+        assert (repr(a.type), a.dictionary) == (repr(b.type), b.dictionary)
+    cols = ts.names
+    jsplit = jc.split_manager.get_splits(jh, 4)[0]
+    tsplit = tcn.split_manager.get_splits(th_, 4)[0]
+    jb = next(iter(jc.page_source.batches(jsplit, cols, 1 << 14)))
+    tb_ = next(iter(tcn.page_source.batches(tsplit, cols, 1 << 14)))
+    np.testing.assert_array_equal(tb_.row_valid.numpy(),
+                                  np.asarray(jb.row_valid))
+    for c in cols:
+        np.testing.assert_array_equal(tb_.columns[c].data.numpy(),
+                                      np.asarray(jb.columns[c].data))
+        np.testing.assert_array_equal(tb_.columns[c].mask.numpy(),
+                                      np.asarray(jb.columns[c].mask))

@@ -1,0 +1,124 @@
+"""The TPC-H queries the join slice of the port brings (inner, left and
+right hash joins, dynamic filters, sort-based grouping), through both
+LocalRunners at `tiny`: the port on the CPU (plain versions of its
+kernels) against the JAX package AND against sqlite, compared by
+assert_rows_equal's rule (DOUBLE rel_tol 1e-6, everything else exact,
+fully ordered queries in order); plus join shapes TPC-H lacks."""
+
+import datetime
+import sqlite3
+
+import pytest
+import torch
+
+from tpch_queries import QUERIES
+from test_tpch_suite import (
+    DATE_COLS, EPOCH, FULLY_ORDERED, assert_rows_equal, normalize,
+    to_sqlite,
+)
+
+from presto_tpu_torch.telemetry import kernels as tk
+
+# one intra-op thread: see tests/test_torch_tpch.py
+torch.set_num_threads(1)
+
+_RUNNERS = {}
+
+
+def _runners(schema):
+    if schema not in _RUNNERS:
+        from presto_tpu.runner import LocalRunner as JaxRunner
+        from presto_tpu_torch.runner import LocalRunner as TorchRunner
+        _RUNNERS[schema] = (JaxRunner("tpch", schema),
+                            TorchRunner("tpch", schema, device="cpu"))
+    return _RUNNERS[schema]
+
+
+def _check(qn, schema):
+    ref, port = _runners(schema)
+    want = ref.execute(QUERIES[qn])
+    got = port.execute(QUERIES[qn])
+    assert got.names == want.names
+    assert [repr(f.type) for f in got.fields] \
+        == [repr(f.type) for f in want.fields]
+    assert_rows_equal(got.rows(), want.rows(), qn, qn in FULLY_ORDERED)
+    return got
+
+
+# -- joins and sort-based grouping ----------------------------------------
+
+#: plannable since the join slice
+JOIN_QUERIES = [2, 3, 5, 7, 8, 9, 10, 12, 13, 14, 17]
+
+_TABLES = ["lineitem", "orders", "customer", "supplier", "nation",
+           "region", "part", "partsupp"]
+
+
+@pytest.fixture(scope="module")
+def sqlite_tiny():
+    ref, _ = _runners("tiny")
+    conn = ref.catalogs.connector("tpch")
+    db = sqlite3.connect(":memory:")
+    for table in _TABLES:
+        df = conn.table_pandas("tiny", table)
+        for c in DATE_COLS.get(table, []):
+            df[c] = [(EPOCH + datetime.timedelta(days=int(d))).isoformat()
+                     for d in df[c]]
+        df.to_sql(table, db, index=False)
+    return db
+
+
+@pytest.mark.parametrize("qn", JOIN_QUERIES)
+def test_join_query_matches_reference_and_sqlite(qn, sqlite_tiny):
+    before = dict(tk.CALLS)
+    got = _check(qn, "tiny")
+    types = [f.type.name for f in got.fields]
+    exp = [tuple(r) for r in
+           sqlite_tiny.execute(to_sqlite(QUERIES[qn])).fetchall()]
+    assert_rows_equal(normalize(got.rows(), types), exp, qn,
+                      qn in FULLY_ORDERED)
+    assert tk.CALLS["join_build"] > before.get("join_build", 0)
+    assert tk.CALLS["join_probe"] > before.get("join_probe", 0)
+
+
+def test_joins_run_their_families():
+    """Q3 takes dynamic filters and the sort-based grouping (with its
+    live counts); Q13 takes the left join into a duplicate-key build
+    and groups twice by the sort path."""
+    for qn, families in ((3, ("dynamic_filter", "agg_step",
+                              "agg_count", "agg_finalize")),
+                         (13, ("agg_step", "agg_count"))):
+        before = dict(tk.CALLS)
+        _check(qn, "sf0_01")
+        for f in families:
+            assert tk.CALLS[f] > before.get(f, 0), (qn, f)
+
+
+#: join shapes beyond TPC-H's: a right join (planned as a flipped left
+#: join), string keys with the same and with different dictionaries
+#: (the unified-dictionary remap), a join filter, a double key, and a
+#: high-cardinality grouping on string keys
+JOIN_SHAPES = [
+    ("right", "select n.name, r.name from region r right join nation n "
+              "on n.regionkey = r.regionkey and r.name = 'ASIA'"),
+    ("string_key", "select r.name, count(n.nationkey) from region r "
+                   "left join nation n on r.name = n.name group by r.name"),
+    ("string_key_dicts", "select count(*) from lineitem l join orders o "
+                         "on l.shipmode = o.orderpriority"),
+    ("join_filter", "select count(*), sum(l.quantity) from lineitem l "
+                    "join orders o on l.orderkey = o.orderkey "
+                    "and l.quantity > o.shippriority + 40"),
+    ("double_key", "select count(*) from part p join part q "
+                   "on p.retailprice = q.retailprice"),
+    ("string_groups", "select c.name, c.phone, sum(o.totalprice) "
+                      "from customer c join orders o "
+                      "on c.custkey = o.custkey group by c.name, c.phone"),
+]
+
+
+@pytest.mark.parametrize("name,sql", JOIN_SHAPES,
+                         ids=[s[0] for s in JOIN_SHAPES])
+def test_join_shapes_match_reference(name, sql):
+    ref, port = _runners("tiny")
+    assert_rows_equal(port.execute(sql).rows(), ref.execute(sql).rows(),
+                      name, False)
