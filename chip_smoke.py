@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (presto_tpu_torch) on one NVIDIA
 GPU: build its hand-written kernels, hold each against its plain PyTorch
-version at the shapes the main path gives it, run TPC-H Q1, Q3, Q5, Q6
-and Q13 at SF1 through LocalRunner, and check the rows against a numpy
-oracle.
+version at the shapes the main path gives it, run TPC-H Q1, Q3, Q4, Q5,
+Q6, Q13, Q16, Q18 and Q20 at SF1 through LocalRunner, and check the rows
+against a numpy oracle.
 
     python3 chip_smoke.py
 
@@ -18,24 +18,31 @@ nothing of JAX.
 Main path: LocalRunner("tpch", "sf1", properties={"batch_rows": 1<<20})
 executes each query cold with every kernel's launch counter set to 0
 just before the query and read just after (those counts are the
-"launches" of the summary line), then three times warm. The kernels:
-K1 direct_slot_reduce, K2 compact, K3 row_hash, K4 join_build, K5
-join_probe, K6 segment_reduce. The kernel measurements run on inputs
+"launches" of the summary line), then three times warm. The kernels
+(KERNELS below): K1 direct_slot_reduce, K2 compact, K3 row_hash, K4
+join_build, K5 join_probe, K6 segment_reduce, K7 semi_join, K8
+stream_reduce, K9 join_expand. The kernel measurements run on inputs
 captured from a separate run of the same queries (the largest call of
-each kernel), so their shapes are the main path's; compact is also
-measured on a 1M-row lineitem batch at ~2% and ~98% live. Launches
-made while comparing or timing are not counted. K4 and K6 also report
-the time of the `torch.sort` that precedes them on the main path.
+each kernel; K9 per layout), so their shapes are the main path's;
+compact is also measured on a 1M-row lineitem batch at ~2% and ~98%
+live. Launches made while comparing or timing are not counted. K4 and
+K6 also report the time of the `torch.sort` that precedes them on the
+main path. The composed torch forms that have no hand-written kernel
+yet (COMPOSED, and filter_project) are timed at their largest call too,
+with their byte bound and their family's calls per query.
 
-Tolerances: K2 (compact), K3, K4 and K5 must match their plain versions
-exactly (row order, hashes, offsets and slots are the result). K1
-(direct_slot_reduce) integers must match exactly; float64 components
-to a relative 1e-9, because atomics add in a run-dependent order. K6
-(segment_reduce) first rows, group counts, the overflow flag and
-integer components exactly, float64 components to a relative 1e-9 (a
-lane-strided tree order against the plain version's row order). Query
-results: DOUBLE columns to a relative 1e-6 (the repository's TPC-H
-comparison rule), everything else exact, in the query's order.
+Tolerances: K2 (compact), K3, K4, K5 and K7 (semi_join) must match their
+plain versions exactly (row order, hashes, offsets, slots and keep masks
+are the result). K1 (direct_slot_reduce) integers must match exactly;
+float64 components to a relative 1e-9, because atomics add in a
+run-dependent order. K6 (segment_reduce) and K8 (stream_reduce) group
+counts, first rows, keys, carry flags, the overflow flag and integer
+components exactly, float64 components to a relative 1e-9 (a
+lane-strided tree order against the plain version's row order). K9
+(join_expand): liveness, masks, every value under a set mask, the
+overflow flag and the live count exactly. Query results: DOUBLE columns
+to a relative 1e-6 (the repository's TPC-H comparison rule), everything
+else exact, in the query's order.
 """
 
 import json
@@ -113,7 +120,65 @@ from (
 group by c_count
 order by custdist desc, c_count desc"""
 
-QUERIES = {"q1": Q1, "q3": Q3, "q5": Q5, "q6": Q6, "q13": Q13}
+Q4 = """select o.orderpriority, count(*) as order_count
+from orders o
+where o.orderdate >= date '1993-07-01'
+  and o.orderdate < date '1993-10-01'
+  and exists (
+        select * from lineitem l
+        where l.orderkey = o.orderkey
+          and l.commitdate < l.receiptdate)
+group by o.orderpriority
+order by o.orderpriority"""
+
+Q16 = """select p.brand, p.type, p.size,
+       count(distinct ps.suppkey) as supplier_cnt
+from partsupp ps, part p
+where p.partkey = ps.partkey
+  and p.brand <> 'Brand#45'
+  and p.type not like 'MEDIUM POLISHED%'
+  and p.size in (49, 14, 23, 45, 19, 3, 36, 9)
+  and ps.suppkey not in (
+        select suppkey from supplier
+        where comment like '%Customer%Complaints%')
+group by p.brand, p.type, p.size
+order by supplier_cnt desc, p.brand, p.type, p.size"""
+
+Q18 = """select c.name, c.custkey, o.orderkey, o.orderdate, o.totalprice,
+       sum(l.quantity) as total_qty
+from customer c, orders o, lineitem l
+where o.orderkey in (
+        select orderkey
+        from lineitem
+        group by orderkey
+        having sum(quantity) > 300)
+  and c.custkey = o.custkey
+  and o.orderkey = l.orderkey
+group by c.name, c.custkey, o.orderkey, o.orderdate, o.totalprice
+order by o.totalprice desc, o.orderdate
+limit 100"""
+
+Q20 = """select s.name, s.address
+from supplier s, nation n
+where s.suppkey in (
+        select ps.suppkey
+        from partsupp ps
+        where ps.partkey in (
+                select partkey from part
+                where name like 'forest%')
+          and ps.availqty > (
+                select 0.5 * sum(l.quantity)
+                from lineitem l
+                where l.partkey = ps.partkey
+                  and l.suppkey = ps.suppkey
+                  and l.shipdate >= date '1994-01-01'
+                  and l.shipdate < date '1995-01-01'))
+  and s.nationkey = n.nationkey
+  and n.name = 'CANADA'
+order by s.name"""
+
+QUERIES = {"q1": Q1, "q3": Q3, "q5": Q5, "q6": Q6, "q13": Q13, "q4": Q4,
+           "q16": Q16, "q18": Q18, "q20": Q20}
 
 
 class SmokeFailure(Exception):
@@ -167,14 +232,15 @@ def q6_predicate(li, gen_module):
             & (li["quantity"] < 24))
 
 
-def oracle(np, gen_module):
+def oracle(np, gen_module, schema=SCHEMA):
     """Q1 and Q6 in numpy over the same generated lineitem (the
     connector's generator, chunk by chunk). Returns (Q1 rows, Q6 rows,
-    the lineitem columns Q1 reads)."""
-    gen = gen_module.TpchGenerator(gen_module.TpchConnector.SCHEMAS[SCHEMA])
+    the lineitem columns the oracles read)."""
+    gen = gen_module.TpchGenerator(gen_module.TpchConnector.SCHEMAS[schema])
     norders = gen.rows("orders")
     cols = ("quantity", "extendedprice", "discount", "tax", "returnflag",
-            "linestatus", "shipdate", "orderkey", "suppkey")
+            "linestatus", "shipdate", "orderkey", "suppkey", "partkey",
+            "commitdate", "receiptdate")
     parts = {c: [] for c in cols}
     step = 1 << 18
     for lo in range(0, norders, step):
@@ -225,11 +291,11 @@ def lookup(np, keys, probe):
     return sk[pos] == probe, order[pos]
 
 
-def join_oracle(np, gen_module, li):
+def join_oracle(np, gen_module, li, schema=SCHEMA):
     """Q3, Q5 and Q13 in numpy over the same generated tables: joins by
     searchsorted on sorted keys, grouping by np.unique / np.bincount."""
     import re
-    gen = gen_module.TpchGenerator(gen_module.TpchConnector.SCHEMAS[SCHEMA])
+    gen = gen_module.TpchGenerator(gen_module.TpchConnector.SCHEMAS[schema])
     days = gen_module.parse_date_literal
     cust = table(np, gen, "customer", ("custkey", "mktsegment",
                                        "nationkey"))
@@ -292,10 +358,108 @@ def join_oracle(np, gen_module, li):
     return {"q3": q3, "q5": q5, "q13": q13}
 
 
-def rows_match(got, want) -> bool:
+def semi_oracle(np, gen_module, li, schema=SCHEMA):
+    """Q4, Q16, Q18 and Q20 in numpy over the same generated tables:
+    membership by np.isin, grouping by np.unique / np.bincount, string
+    predicates evaluated on the dictionaries."""
+    import fnmatch
+    gen = gen_module.TpchGenerator(gen_module.TpchConnector.SCHEMAS[schema])
+    days = gen_module.parse_date_literal
+    orders = table(np, gen, "orders", ("orderkey", "custkey", "orderdate",
+                                       "totalprice", "orderpriority"))
+    cust = table(np, gen, "customer", ("custkey", "name"))
+    part = table(np, gen, "part", ("partkey", "name", "brand", "type",
+                                   "size"))
+    ps = table(np, gen, "partsupp", ("partkey", "suppkey", "availqty"))
+    supp = table(np, gen, "supplier", ("suppkey", "name", "address",
+                                       "nationkey", "comment"))
+    nation = table(np, gen, "nation", ("nationkey", "name"))
+
+    def dic(tbl, col):
+        return gen.schema(tbl).column(col).dictionary
+
+    def like(tbl, col, pattern):
+        """Per dictionary code: does the string match the LIKE pattern."""
+        return np.array([fnmatch.fnmatchcase(w, pattern.replace("%", "*"))
+                         for w in dic(tbl, col)])
+
+    # Q4: orders of 1993Q3 with a line received after its commit date
+    late = np.unique(li["orderkey"][li["commitdate"] < li["receiptdate"]])
+    osel = (orders["orderdate"] >= days("1993-07-01")) \
+        & (orders["orderdate"] < days("1993-10-01")) \
+        & np.isin(orders["orderkey"], late)
+    prio = dic("orders", "orderpriority")
+    counts = np.bincount(orders["orderpriority"][osel], minlength=len(prio))
+    q4 = [(prio[i], int(c)) for i, c in enumerate(counts) if c]
+
+    # Q16: suppliers per (brand, type, size) of the qualifying parts,
+    # without the suppliers with complaints
+    bad = supp["suppkey"][like("supplier", "comment",
+                               "%Customer%Complaints%")[supp["comment"]]]
+    pok = (part["brand"] != dic("part", "brand").index("Brand#45")) \
+        & ~like("part", "type", "MEDIUM POLISHED%")[part["type"]] \
+        & np.isin(part["size"], [49, 14, 23, 45, 19, 3, 36, 9])
+    hit, prow = lookup(np, part["partkey"], ps["partkey"])
+    keep = hit & pok[prow] & ~np.isin(ps["suppkey"], bad)
+    rows = np.unique(np.stack([part["brand"][prow[keep]],
+                               part["type"][prow[keep]],
+                               part["size"][prow[keep]],
+                               ps["suppkey"][keep]]), axis=1)
+    groups, cnt = np.unique(rows[:3], axis=1, return_counts=True)
+    brand, ptype = dic("part", "brand"), dic("part", "type")
+    q16 = sorted(((brand[b], ptype[t], int(z), int(c))
+                  for (b, t, z), c in zip(groups.T, cnt)),
+                 key=lambda r: (-r[3], r[0], r[1], r[2]))
+
+    # Q18: orders of more than 300 units, with their customer
+    okeys, inv = np.unique(li["orderkey"], return_inverse=True)
+    qty = np.bincount(inv, weights=li["quantity"])
+    big = qty > 300
+    _, orow = lookup(np, orders["orderkey"], okeys[big])
+    _, crow = lookup(np, cust["custkey"], orders["custkey"][orow])
+    cname = dic("customer", "name")
+    q18 = sorted(((cname[cust["name"][c]], int(cust["custkey"][c]),
+                   int(orders["orderkey"][o]), int(orders["orderdate"][o]),
+                   float(orders["totalprice"][o]), float(q))
+                  for o, c, q in zip(orow, crow, qty[big])),
+                 key=lambda r: (-r[4], r[3]))[:100]
+
+    # Q20: CANADA suppliers with excess stock of forest parts in 1994
+    forest = part["partkey"][like("part", "name", "forest%")[part["name"]]]
+    s94 = (li["shipdate"] >= days("1994-01-01")) \
+        & (li["shipdate"] < days("1995-01-01"))
+    width = int(supp["suppkey"].max()) + 1
+    lkey = li["partkey"][s94] * width + li["suppkey"][s94]
+    pskey = ps["partkey"] * width + ps["suppkey"]
+    lk, linv = np.unique(lkey, return_inverse=True)
+    lsum = np.bincount(linv, weights=li["quantity"][s94])
+    has, lrow = lookup(np, lk, pskey)
+    excess = np.isin(ps["partkey"], forest) & has \
+        & (ps["availqty"] > 0.5 * lsum[lrow])
+    canada = nation["nationkey"][nation["name"]
+                                 == dic("nation", "name").index("CANADA")]
+    ssel = np.isin(supp["suppkey"], ps["suppkey"][excess]) \
+        & np.isin(supp["nationkey"], canada)
+    sname, saddr = dic("supplier", "name"), dic("supplier", "address")
+    q20 = sorted((sname[supp["name"][i]], saddr[supp["address"][i]])
+                 for i in np.flatnonzero(ssel))
+    return {"q4": q4, "q16": q16, "q18": q18, "q20": q20}
+
+
+#: queries whose ORDER BY leaves ties: the number of leading columns
+#: it orders by (rows tied on those may come in any order)
+PARTIAL_ORDER = {"q20": 1}
+
+
+def rows_match(got, want, order_cols=None) -> bool:
     """The repository's TPC-H rule: floats to rel 1e-6, the rest
-    exactly, in order."""
+    exactly, in order; with `order_cols`, in order on those leading
+    columns only, and as a multiset otherwise."""
     import math
+    if order_cols is not None:
+        return [g[:order_cols] for g in got] \
+            == [w[:order_cols] for w in want] \
+            and rows_match(sorted(got), sorted(want))
     if len(got) != len(want):
         return False
     for g, w in zip(got, want):
@@ -312,97 +476,179 @@ def rows_match(got, want) -> bool:
 
 # -- capture of the main path's kernel inputs --------------------------
 
-class Capture:
-    """Wraps the kernel wrappers during one run of the queries and keeps
-    the inputs of each kernel's largest call: a copy for K1 and K2
-    (K1 updates its state in place), references for K3-K6 (their
-    inputs are not written after the call)."""
+def tensors_of(obj):
+    """Every tensor inside `obj` (tensors, batches, columns, states,
+    sequences and dicts of them)."""
+    import dataclasses
+    import torch
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (list, tuple)):
+        for x in obj:
+            yield from tensors_of(x)
+    elif isinstance(obj, dict):
+        for x in obj.values():
+            yield from tensors_of(x)
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            yield from tensors_of(getattr(obj, f.name))
 
-    def __init__(self, tb, th, tc, tj):
-        self.tb, self.th, self.tc, self.tj = tb, th, tc, tj
+
+def rows_of(*objs) -> int:
+    """The largest first dimension among the tensors of `objs`."""
+    return max((t.shape[0] for o in objs for t in tensors_of(o)
+                if t.dim()), default=0)
+
+
+#: the composed torch forms on the main path that have no hand-written
+#: kernel yet, each timed at its largest call: label -> (family, module
+#: key, function name)
+COMPOSED = {
+    "dynamic_filter bounds_step": ("dynamic_filter", "df", "bounds_step"),
+    "dynamic_filter distinct_set": ("dynamic_filter", "df",
+                                    "distinct_set"),
+    "dynamic_filter apply_filter": ("dynamic_filter", "df",
+                                    "apply_filter"),
+    "hashagg_merge merge_states": ("hashagg_merge", "agg", "merge_states"),
+    "agg_shrink _shrink_state": ("agg_shrink", "agg", "_shrink_state"),
+    "agg_count _count_live": ("agg_count", "agg", "_count_live"),
+    "agg_finalize finalize": ("agg_finalize", "th", "finalize"),
+    "agg_finalize direct_finalize": ("agg_finalize", "th",
+                                     "direct_finalize"),
+    "sort sort_batch": ("sort", "sort", "sort_batch"),
+    "topn topn_step": ("topn", "sort", "topn_step"),
+    "limit limit_batch": ("limit", "sort", "limit_batch"),
+}
+
+
+class Capture:
+    """Wraps the kernel wrappers (and the composed torch forms of
+    COMPOSED and filter_project) during one run of the queries and keeps
+    the inputs of each one's largest call: a copy for K1 and K2 (K1
+    updates its state in place), references for the rest (their inputs
+    are not written after the call)."""
+
+    def __init__(self, mods):
+        self.m = mods
         self.k1 = {}   # query -> (rows, args)
         self.k2 = {}   # query -> (rows, batch, out_cap)
         self.big = {}  # kernel -> (rows, query, args)
-        #: the composed probe expand: layout -> (output slots, query,
-        #: args) of its largest call, and calls per (query, layout)
+        #: K9 per layout: (output slots, query, args) of its largest
+        #: call, and calls per (query, layout)
         self.expand = {}
         self.expand_calls = {}
+        #: composed form -> (rows, query, function, args)
+        self.composed = {}
         self.query = None
+        self._patches = []
 
     def _keep(self, kernel, rows, args):
         if rows > self.big.get(kernel, (0,))[0]:
             self.big[kernel] = (rows, self.query, args)
 
+    def _patch(self, mod, attr, make):
+        orig = getattr(mod, attr)
+        self._patches.append((mod, attr, orig))
+        setattr(mod, attr, make(orig))
+
+    def _record(self, label):
+        def make(orig):
+            def wrapper(*args):
+                rows = rows_of(*args)
+                if rows > self.composed.get(label, (0,))[0]:
+                    self.composed[label] = (rows, self.query, orig, args)
+                return orig(*args)
+            return wrapper
+        return make
+
     def __enter__(self):
-        tb, th, tc, tj = self.tb, self.th, self.tc, self.tj
-        self._orig = (th.direct_slot_reduce, tb.compact_shrink,
-                      tc.row_hash_pair, tj.build_meta, tj.probe_search,
-                      th.segment_reduce, tj._expand_from_enc)
-        (slot_reduce, shrink, row_hash, build_meta, probe, seg,
-         expand) = self._orig
+        m = self.m
+        tb, th, tc, tj = m["tb"], m["th"], m["tc"], m["tj"]
 
-        def rec_slot_reduce(row_valid, keys, domains, comps, present):
-            n = row_valid.shape[0]
-            if n > self.k1.get(self.query, (0,))[0]:
-                self.k1[self.query] = (n, (
-                    row_valid.clone(),
-                    [(c.clone(), m.clone()) for c, m in keys], domains,
-                    [(c.clone(), s.clone(), r) for c, s, r in comps],
-                    present.clone()))
-            return slot_reduce(row_valid, keys, domains, comps, present)
+        def slot_reduce(orig):
+            def rec(row_valid, keys, domains, comps, present):
+                n = row_valid.shape[0]
+                if n > self.k1.get(self.query, (0,))[0]:
+                    self.k1[self.query] = (n, (
+                        row_valid.clone(),
+                        [(c.clone(), mm.clone()) for c, mm in keys],
+                        domains,
+                        [(c.clone(), st.clone(), r) for c, st, r in comps],
+                        present.clone()))
+                return orig(row_valid, keys, domains, comps, present)
+            return rec
 
-        def rec_shrink(batch, capacity):
-            if batch.capacity > self.k2.get(self.query, (0,))[0]:
-                copy = tb.Batch({n: tb.Column(c.data.clone(),
-                                              c.mask.clone(), c.type,
-                                              c.dictionary)
-                                 for n, c in batch.columns.items()},
-                                batch.row_valid.clone())
-                self.k2[self.query] = (batch.capacity, copy, capacity)
-            return shrink(batch, capacity)
+        def shrink(orig):
+            def rec(batch, capacity):
+                if batch.capacity > self.k2.get(self.query, (0,))[0]:
+                    copy = tb.Batch({n: tb.Column(c.data.clone(),
+                                                  c.mask.clone(), c.type,
+                                                  c.dictionary)
+                                     for n, c in batch.columns.items()},
+                                    batch.row_valid.clone())
+                    self.k2[self.query] = (batch.capacity, copy, capacity)
+                return orig(batch, capacity)
+            return rec
 
-        def rec_row_hash(keys, row_valid, nulls_invalid):
-            self._keep("row_hash", row_valid.shape[0],
-                       (keys, row_valid, nulls_invalid))
-            return row_hash(keys, row_valid, nulls_invalid)
+        def keep(kernel, rows_fn):
+            def make(orig):
+                def rec(*args):
+                    self._keep(kernel, rows_fn(*args), args)
+                    return orig(*args)
+                return rec
+            return make
 
-        def rec_build_meta(sh, k):
-            self._keep("join_build", sh.shape[0], (sh, k))
-            return build_meta(sh, k)
+        def expand(orig):
+            def rec(table, probe, *args):
+                out_capacity = args[2]
+                layout = "aligned" if tj._aligned_layout(
+                    table, probe, out_capacity, args[3]) else "general"
+                key = (self.query, layout)
+                self.expand_calls[key] = self.expand_calls.get(key, 0) + 1
+                if out_capacity > self.expand.get(layout, (0,))[0]:
+                    self.expand[layout] = (out_capacity, self.query,
+                                           (table, probe, *args))
+                return orig(table, probe, *args)
+            return rec
 
-        def rec_probe(table, batch, key_names, verify="hash"):
-            self._keep("join_probe", batch.capacity,
-                       (table, batch, key_names, verify))
-            return probe(table, batch, key_names, verify)
+        def filter_project(orig):
+            def make_kernel(*a):
+                kern = orig(*a)
 
-        def rec_seg(h1, h2, keys, valid, comps, out_cap):
-            self._keep("segment_reduce", valid.shape[0],
-                       (h1, h2, keys, valid, comps, out_cap))
-            return seg(h1, h2, keys, valid, comps, out_cap)
+                def rec(batch):
+                    label = "filter_project"
+                    if batch.capacity > self.composed.get(label, (0,))[0]:
+                        self.composed[label] = (batch.capacity, self.query,
+                                                kern, (batch,))
+                    return kern(batch)
+                return rec
+            return make_kernel
 
-        def rec_expand(table, probe, *args):
-            out_capacity = args[2]
-            layout = "aligned" if table.unique_runs \
-                and out_capacity == probe.capacity else "general"
-            key = (self.query, layout)
-            self.expand_calls[key] = self.expand_calls.get(key, 0) + 1
-            if out_capacity > self.expand.get(layout, (0,))[0]:
-                self.expand[layout] = (out_capacity, self.query,
-                                       (table, probe, *args))
-            return expand(table, probe, *args)
-        th.direct_slot_reduce = rec_slot_reduce
-        tb.compact_shrink = rec_shrink
-        tc.row_hash_pair = rec_row_hash
-        tj.build_meta = rec_build_meta
-        tj.probe_search = rec_probe
-        th.segment_reduce = rec_seg
-        tj._expand_from_enc = rec_expand
+        self._patch(th, "direct_slot_reduce", slot_reduce)
+        self._patch(tb, "compact_shrink", shrink)
+        self._patch(tc, "row_hash_pair", keep(
+            "row_hash", lambda keys, rv, ni: rv.shape[0]))
+        self._patch(tj, "build_meta", keep(
+            "join_build", lambda sh, k: sh.shape[0]))
+        self._patch(tj, "probe_search", keep(
+            "join_probe", lambda table, probe, *a: probe.capacity))
+        self._patch(th, "segment_reduce", keep(
+            "segment_reduce", lambda h1, *a: h1.shape[0]))
+        # K7 at its largest probe + build; K8 at its largest batch
+        self._patch(tj, "semi_mark", keep(
+            "semi_join", lambda table, probe, *a:
+            probe.capacity + table.sorted_hash.shape[0]))
+        self._patch(th, "stream_step", keep(
+            "stream_reduce", lambda carry, rv, *a: rv.shape[0]))
+        self._patch(tj, "_expand_from_enc", expand)
+        self._patch(m["core"], "make_filter_project_kernel", filter_project)
+        for label, (_, mod, fn) in COMPOSED.items():
+            self._patch(m[mod], fn, self._record(label))
         return self
 
     def __exit__(self, *exc):
-        (self.th.direct_slot_reduce, self.tb.compact_shrink,
-         self.tc.row_hash_pair, self.tj.build_meta, self.tj.probe_search,
-         self.th.segment_reduce, self.tj._expand_from_enc) = self._orig
+        for mod, attr, orig in reversed(self._patches):
+            setattr(mod, attr, orig)
         return False
 
 
@@ -688,16 +934,365 @@ def measure_k6(torch, tc, th, args):
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
-def measure_expand(torch, tj, args, calls):
-    """The composed torch expand after K5 (ROADMAP B7 queues its hand
-    kernel): time of its largest call in one layout, and its calls per
-    query in the capture run."""
-    table, probe = args[0], args[1]
-    out_capacity = args[4]
-    fn = lambda: tj._expand_from_enc(*args)  # noqa: E731
-    return {"probe_rows": probe.capacity, "out_capacity": out_capacity,
+def measure_k7(torch, tj, args):
+    table, probe, names, build_keys, verify, negate = args
+    got = tj.semi_mark(*args)
+    want = tj.semi_mark_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want),
+          "K7 semi_join keep mask differs from its plain version")
+    n = probe.capacity
+    ms = time_ms(lambda: tj.semi_mark(*args), torch)
+    plain_ms = time_ms(lambda: tj.semi_mark_plain(*args), torch)
+    keys = [probe.columns[k].astuple() for k in names]
+    bkeys = [table.batch.columns[k].astuple() for k in build_keys]
+    library_ms = None
+    if len(keys) == 1:
+        # one call computing the same membership (NULLs aside)
+        live = table.batch.row_valid & bkeys[0][1]
+        bvals = bkeys[0][0][live]
+        library_ms = time_ms(lambda: torch.isin(keys[0][0], bvals), torch)
+    mode = tj._semi_mode(table, verify)
+    walked = mode != tj._SEMI_UNIQUE_HASH
+    build = [table.sorted_hash, table.hash2] \
+        + ([table.run_len] if walked else [])
+    # probe keys, masks and row_valid read once; of the build, every
+    # array once or, when the probe is smaller, per probe row its
+    # bucket bounds and one entry of each array (and the key columns of
+    # one row under verify="full"), whichever is less; the keep mask
+    # written once
+    nb = table.sorted_hash.shape[0]
+    per_row = 16 + 8 * len(build) + (key_bytes(bkeys, 1)
+                                     if mode == tj._SEMI_WALK_FULL else 0)
+    whole = nbytes(table.part_starts, *build) \
+        + (key_bytes(bkeys, nb) if mode == tj._SEMI_WALK_FULL else 0)
+    moved = key_bytes(keys, n) + nbytes(probe.row_valid) \
+        + min(whole, n * per_row) + n
+    return {"probe_rows": n, "build_rows": int(table.sorted_hash.shape[0]),
+            "radix_bits": table.radix_bits,
+            "unique_runs": table.unique_runs, "verify": verify,
+            "negate": negate, "kept": int(want.sum()),
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+def measure_k8(torch, th, args):
+    carry, rv, keys, contribs, aggs, out_cap = args
+    got = th.stream_step(*args)
+    want = th.stream_fold_plain(
+        carry, th.presorted_reduce_plain(rv, keys, contribs, aggs, out_cap),
+        aggs)
+    torch.cuda.synchronize()
+    (g_ce, g_em, g_co, g_last), (w_ce, w_em, w_co, w_last) = got, want
+    live = w_em.valid
+    check(torch.equal(g_ce.valid, w_ce.valid)
+          and torch.equal(g_em.valid, live)
+          and int(g_last) == int(w_last)
+          and torch.equal(g_co.valid, w_co.valid)
+          and all(torch.equal(gd[live], wd[live])
+                  and torch.equal(gm[live], wm[live])
+                  for (gd, gm), (wd, wm) in zip(g_em.keys, w_em.keys))
+          and all(torch.equal(gd, wd) and torch.equal(gm, wm)
+                  for (gd, gm), (wd, wm) in zip(g_co.keys, w_co.keys)),
+          "K8 stream_reduce: groups, keys or carry differ from its plain "
+          "version")
+    max_abs = 0.0
+    for gs, ws, gc, wc in zip(g_em.states, w_em.states, g_co.states,
+                              w_co.states):
+        for g, w, cg, cw in zip(gs, ws, gc, wc):
+            if g.is_floating_point():
+                diff = (g[live] - w[live]).abs()
+                if diff.numel():
+                    max_abs = max(max_abs, float(diff.max()))
+                check(bool(torch.allclose(g[live], w[live], rtol=1e-9,
+                                          atol=0))
+                      and bool(torch.allclose(cg, cw, rtol=1e-9, atol=0)),
+                      "K8 float component differs beyond rel 1e-9")
+            else:
+                check(torch.equal(g[live], w[live]) and torch.equal(cg, cw),
+                      "K8 integer component differs")
+    ms = time_ms(lambda: th.stream_step(*args), torch)
+    plain_ms = time_ms(lambda: th.stream_fold_plain(
+        carry, th.presorted_reduce_plain(rv, keys, contribs, aggs, out_cap),
+        aggs), torch)
+    comps = [(a, r) for st, agg in zip(contribs, aggs)
+             for a, r in zip(st, agg.reduces)]
+    # the library yardstick: scatter_reduce per component over the
+    # group ids (computed outside the timing)
+    _, gid, _ = th.presorted_ids(rv, keys, out_cap)
+
+    def library():
+        for c, r in comps:
+            red = torch.zeros(out_cap + 1, dtype=c.dtype, device=c.device)
+            red.scatter_reduce_(0, gid, c, {"sum": "sum", "min": "amin",
+                                            "max": "amax"}[r])
+    library_ms = time_ms(library, torch)
+    n = rv.shape[0]
+    # keys, row_valid and contributions read once; out_cap slots per
+    # component, the first rows and the slot validity written once
+    moved = key_bytes(keys, n) + nbytes(rv) + nbytes(*[c for c, _ in comps]) \
+        + out_cap * (sum(c.element_size() for c, _ in comps) + 8 + 1)
+    return {"rows": n, "live": int(rv.sum()),
+            "groups": int(w_last) + 1, "out_cap": out_cap,
+            "keys": len(keys), "components": len(comps),
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+def measure_k9(torch, tj, args, calls):
+    """K9 at its largest call of one layout against the plain version
+    (the composed torch expand), and its calls per query."""
+    (table, probe, names, lo_enc, cap, join_type, probe_out, build_out,
+     build_keys, verify, h2) = args
+    got = tj._expand_from_enc(*args)
+    want = tj.expand_plain(*args)
+    torch.cuda.synchronize()
+    (gb, govf, glive), (wb, wovf, wlive) = got, want
+    check(bool(govf) == bool(wovf) and int(glive) == int(wlive)
+          and torch.equal(gb.row_valid, wb.row_valid),
+          "K9 join_expand: liveness, overflow or live count differ from "
+          "its plain version")
+    for nm in (*probe_out, *build_out):
+        g, w = gb.columns[nm], wb.columns[nm]
+        check(torch.equal(g.mask, w.mask)
+              and torch.equal(g.data[w.mask], w.data[w.mask]),
+              f"K9 join_expand: column {nm} differs from its plain version")
+    ms = time_ms(lambda: tj._expand_from_enc(*args), torch)
+    plain_ms = time_ms(lambda: tj.expand_plain(*args), torch)
+    n = probe.capacity
+    out_rows = gb.row_valid.shape[0]
+    aligned = tj._aligned_layout(table, probe, cap, join_type)
+    pcols = [probe.columns[c] for c in probe_out]
+    bcols = [table.batch.columns[c] for c in build_out]
+    if aligned:
+        # lo_enc, row_valid, the probe masks and each build column's
+        # gathered rows read once; liveness, the probe masks and the
+        # build columns written once (probe data passes through)
+        moved = 9 * n + 2 * n * len(pcols) \
+            + 2 * n * sum(c.data.element_size() + 1 for c in bcols) + n
+    else:
+        found = lo_enc >= 0
+        slots = min(out_rows, int(torch.where(
+            found, table.run_len[lo_enc.clamp(min=0)],
+            torch.zeros_like(lo_enc)).sum()))
+        # per probe row lo_enc, row_valid, its run length and hash2;
+        # per filled slot the build row's columns (and hash2) read; the
+        # probe columns read once; every output slot written once
+        moved = 25 * n + (8 * slots if h2 is not None else 0) \
+            + sum(c.data.element_size() + 1 for c in pcols) * (n + out_rows) \
+            + sum(c.data.element_size() + 1 for c in bcols) \
+            * (slots + out_rows) + out_rows
+    return {"layout": "aligned" if aligned else "general",
+            "probe_rows": n, "out_capacity": out_rows,
             "build_rows": int(table.sorted_hash.shape[0]),
-            "ms": time_ms(fn, torch), "calls": calls}
+            "join_type": join_type, "verify": verify,
+            "live": int(wlive), "overflow": bool(wovf),
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "calls": calls,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+def measure_composed(torch, fn, args):
+    """A composed torch form (no hand-written kernel yet) at its largest
+    call: its time and the bytes its arguments and new outputs hold
+    (every argument tensor read once, every output tensor that is not
+    an argument written once)."""
+    out = fn(*args)
+    ms = time_ms(lambda: fn(*args), torch)
+    seen = {}
+    for t in tensors_of(args):
+        seen[t.data_ptr()] = t.numel() * t.element_size()
+    moved = sum(seen.values())
+    for t in tensors_of(out):
+        if t.data_ptr() not in seen:
+            seen[t.data_ptr()] = 0
+            moved += t.numel() * t.element_size()
+    return {"rows": rows_of(*args), "ms": ms,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+#: the hand-written kernels, by launch counter: (source under
+#: presto_tpu_torch/csrc/, the reference function it replaces). Every
+#: entry of presto_tpu_torch/native/cuda.py SOURCES is here.
+KERNELS = {
+    "direct_slot_reduce": ("slot_reduce.cu",
+                           "presto_tpu/ops/hashagg.py:884"),
+    "compact": ("compact.cu", "presto_tpu/batch.py:450"),
+    "row_hash": ("row_hash.cu", "presto_tpu/ops/common.py:167"),
+    "join_build": ("join_build.cu", "presto_tpu/ops/join.py:248"),
+    "join_probe": ("join_probe.cu", "presto_tpu/ops/join.py:353"),
+    "segment_reduce": ("segment_reduce.cu",
+                       "presto_tpu/ops/hashagg.py:569"),
+    "semi_join": ("semi_join.cu", "presto_tpu/ops/join.py:708"),
+    "stream_reduce": ("stream_reduce.cu",
+                      "presto_tpu/operators/aggregation.py:651"),
+    "join_expand": ("join_expand.cu", "presto_tpu/ops/join.py:609"),
+}
+
+#: the kernels each query's plan must launch
+MUST = {"q1": ("direct_slot_reduce",),
+        "q6": ("direct_slot_reduce", "compact"),
+        "q3": ("row_hash", "join_build", "join_probe", "join_expand",
+               "segment_reduce"),
+        "q5": ("row_hash", "join_build", "join_probe", "join_expand",
+               "direct_slot_reduce"),
+        "q13": ("row_hash", "join_build", "join_probe", "join_expand",
+                "segment_reduce"),
+        "q4": ("row_hash", "join_build", "semi_join",
+               "direct_slot_reduce"),
+        "q16": ("join_probe", "join_expand", "semi_join",
+                "segment_reduce"),
+        "q18": ("stream_reduce", "semi_join", "join_probe", "join_expand",
+                "segment_reduce"),
+        "q20": ("semi_join", "join_probe", "join_expand",
+                "segment_reduce")}
+
+
+def run_phases(torch, np, mods, dev, schema, profile=True):
+    """The tpch, profile and kernels phases on `dev`; returns the
+    per-kernel summary. `mods` holds the port's modules by short name."""
+    tb, tt, gen_module = mods["tb"], mods["tt"], mods["gen"]
+    th, tc, tj, tk = mods["th"], mods["tc"], mods["tj"], mods["tk"]
+    # 3. tpch: the main path ------------------------------------------
+    want_q1, want_q6, lineitem = oracle(np, gen_module, schema)
+    want = {"q1": want_q1, "q6": want_q6,
+            **join_oracle(np, gen_module, lineitem, schema),
+            **semi_oracle(np, gen_module, lineitem, schema)}
+    n_lineitem = len(lineitem["quantity"])
+    runner = mods["LocalRunner"]("tpch", schema, properties=PROPS,
+                                 device=dev)
+    counters = list(tk.COUNTERS.values())
+    launches, calls, walls, results = {}, {}, {}, {}
+    for label, sql in QUERIES.items():
+        for c in counters:
+            c.launches = 0
+        before = dict(tk.CALLS)
+        t = time.perf_counter()
+        results[label] = runner.execute(sql).rows()
+        cold = time.perf_counter() - t
+        launches[label] = {c.name: c.launches for c in counters}
+        calls[label] = {f: n - before.get(f, 0)
+                        for f, n in tk.CALLS.items()
+                        if n - before.get(f, 0)}
+        warm = []
+        for _ in range(3):
+            t = time.perf_counter()
+            runner.execute(sql).rows()
+            warm.append(time.perf_counter() - t)
+        walls[label] = (cold, statistics.median(warm))
+    for label in QUERIES:
+        check(rows_match(results[label], want[label],
+                         PARTIAL_ORDER.get(label)),
+              f"{label} differs from the oracle: {results[label]} vs "
+              f"{want[label]}")
+    for label, names in MUST.items():
+        for k in names:
+            check(launches[label][k] > 0,
+                  f"{k} was not launched in {label}")
+    for label in QUERIES:
+        cold, warm = walls[label]
+        emit({"phase": "tpch", "query": label, "schema": schema,
+              "batch_rows": PROPS["batch_rows"], "rows": results[label],
+              "matches_oracle": True, "launches": launches[label],
+              "family_calls": calls[label],
+              "cold_s": cold, "warm_s": warm,
+              "lineitem_rows": n_lineitem,
+              "warm_lineitem_rows_per_s": n_lineitem / warm})
+
+    # 4. where a warm query's time goes --------------------------------
+    if profile:
+        for label, sql in QUERIES.items():
+            emit({"phase": "profile", "query": label,
+                  **profile_query(torch, gen_module, runner, sql)})
+
+    # 5. kernels at the main path's shapes ----------------------------
+    with Capture(mods) as cap:
+        for label, sql in QUERIES.items():
+            cap.query = label
+            runner.execute(sql).rows()
+    check({"q1", "q6"} <= set(cap.k1) and "q6" in cap.k2
+          and set(cap.big) == {"row_hash", "join_build", "join_probe",
+                               "segment_reduce", "semi_join",
+                               "stream_reduce"}
+          and set(cap.expand) == {"aligned", "general"},
+          "kernel inputs were not captured from the main path")
+    k1 = {q: measure_k1(torch, th, cap.k1[q][1], q) for q in ("q1", "q6")}
+    _, q6_batch, q6_cap = cap.k2["q6"]
+    k2 = {"q6_shrink": measure_k2(torch, tb, q6_batch, q6_cap,
+                                  "q6 shrink")}
+    big = {k: v[2] for k, v in cap.big.items()}
+    shape_from = {k: v[1] for k, v in cap.big.items()}
+    measured = {
+        "row_hash": measure_k3(torch, tc, big["row_hash"]),
+        "join_build": measure_k4(torch, tj, big["join_build"]),
+        "join_probe": measure_k5(torch, tc, tj, big["join_probe"]),
+        "segment_reduce": measure_k6(torch, tc, th, big["segment_reduce"]),
+        "semi_join": measure_k7(torch, tj, big["semi_join"]),
+        "stream_reduce": measure_k8(torch, th, big["stream_reduce"])}
+    expand = {layout: (q, measure_k9(
+        torch, tj, args, {qq: n for (qq, lay), n in cap.expand_calls.items()
+                          if lay == layout}))
+        for layout, (_, q, args) in cap.expand.items()}
+    composed = {label: (q, measure_composed(torch, fn, args))
+                for label, (_, q, fn, args) in cap.composed.items()}
+    del big, cap
+    # a 1M-row lineitem-shaped batch (the seven columns Q1 reads) with
+    # Q6's predicate as row_valid (~2% live, shrunk) and its complement
+    # (~98% live, the full variant; Q1's own predicate keeps every row
+    # of this generator)
+    n = min(1 << 20, n_lineitem)
+    types = {"quantity": tt.DOUBLE, "extendedprice": tt.DOUBLE,
+             "discount": tt.DOUBLE, "tax": tt.DOUBLE,
+             "returnflag": tt.VARCHAR, "linestatus": tt.VARCHAR,
+             "shipdate": tt.DATE}
+    wide = tb.Batch.from_numpy({c: lineitem[c][:n] for c in types},
+                               types, capacity=n, device=dev)
+    q6_keep = q6_predicate(lineitem, gen_module)[:n]
+    sel = {"q6_pred_1M": q6_keep, "not_q6_pred_1M": ~q6_keep}
+    for label, keep in sel.items():
+        b = tb.Batch(wide.columns, torch.from_numpy(keep).to(dev))
+        live = int(keep.sum())
+        cap_out = tb.operator_capacity(live)
+        k2[label] = measure_k2(torch, tb, b,
+                               cap_out if cap_out < n else n, label)
+    for q, m in k1.items():
+        emit({"phase": "kernels", "kernel": "direct_slot_reduce",
+              "shape_from": q, **m})
+    for q, m in k2.items():
+        emit({"phase": "kernels", "kernel": "compact", "shape_from": q,
+              **m})
+    for k, m in measured.items():
+        emit({"phase": "kernels", "kernel": k, "shape_from": shape_from[k],
+              **m})
+    for layout, (q, m) in expand.items():
+        emit({"phase": "kernels", "kernel": "join_expand",
+              "shape_from": q, **m})
+    # the composed forms with no hand-written kernel yet: time at the
+    # largest call, byte bound, calls of the family per query
+    for label, (q, m) in sorted(composed.items()):
+        family = COMPOSED.get(label, ("filter_project",))[0]
+        emit({"phase": "kernels", "kernel": label + " (torch)",
+              "family": family, "shape_from": q, **m,
+              "calls": {qq: c.get(family, 0) for qq, c in calls.items()}})
+
+    measured["direct_slot_reduce"] = k1["q1"]
+    measured["compact"] = k2["q6_shrink"]
+    # the summary's K9 figures are those of its largest general call
+    measured["join_expand"] = expand["general"][1]
+    kernels = []
+    for k, (src, replaces) in KERNELS.items():
+        m = measured[k]
+        kernels.append({
+            "name": k, "route": "cuda",
+            "source": "presto_tpu_torch/csrc/" + src, "replaces": replaces,
+            "family": tk.COUNTERS[k].family,
+            "launches": sum(v[k] for v in launches.values()),
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": "bytes", "library_ms": m["library_ms"]})
+    return kernels
 
 
 def main() -> int:
@@ -711,16 +1306,29 @@ def main() -> int:
         from presto_tpu_torch import batch as tb
         from presto_tpu_torch import types as tt
         from presto_tpu_torch.connectors import tpch as gen_module
+        from presto_tpu_torch.execution import dynamic_filters as tdf
         from presto_tpu_torch.native import cuda
+        from presto_tpu_torch.operators import aggregation as tagg
+        from presto_tpu_torch.operators import core as tcore
         from presto_tpu_torch.ops import common as tc
         from presto_tpu_torch.ops import hashagg as th
         from presto_tpu_torch.ops import join as tj
+        from presto_tpu_torch.ops import sort as tsort
         from presto_tpu_torch.runner import LocalRunner
+        from presto_tpu_torch.telemetry import kernels as tk
     except ImportError as e:
         print(f"chip_smoke: the presto_tpu_torch package is not beside "
               f"this script: {e}", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    mods = {"tb": tb, "tt": tt, "gen": gen_module, "th": th, "tc": tc,
+            "tj": tj, "df": tdf, "agg": tagg, "core": tcore, "sort": tsort,
+            "tk": tk, "LocalRunner": LocalRunner}
+    check(set(KERNELS) == set(tk.COUNTERS)
+          and {src for src, _ in KERNELS.values()}
+          == set(cuda.SOURCES.values()),
+          "KERNELS, the launch counters and native/cuda.py SOURCES "
+          "disagree")
 
     # 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -744,139 +1352,7 @@ def main() -> int:
     check(torch.cuda.get_device_capability(0) >= (9, 0),
           "the kernels are built for sm_90a")
 
-    # 3. tpch: the main path ------------------------------------------
-    want_q1, want_q6, lineitem = oracle(np, gen_module)
-    want = {"q1": want_q1, "q6": want_q6,
-            **join_oracle(np, gen_module, lineitem)}
-    n_lineitem = len(lineitem["quantity"])
-    runner = LocalRunner("tpch", SCHEMA, properties=PROPS, device=dev)
-    counters = (th.SLOT_REDUCE_KERNEL, tb.COMPACT_KERNEL,
-                tc.ROW_HASH_KERNEL, tj.JOIN_BUILD_KERNEL,
-                tj.JOIN_PROBE_KERNEL, th.SEGMENT_REDUCE_KERNEL)
-    launches, walls, results = {}, {}, {}
-    for label, sql in QUERIES.items():
-        for c in counters:
-            c.launches = 0
-        t = time.perf_counter()
-        results[label] = runner.execute(sql).rows()
-        cold = time.perf_counter() - t
-        launches[label] = {c.name: c.launches for c in counters}
-        warm = []
-        for _ in range(3):
-            t = time.perf_counter()
-            runner.execute(sql).rows()
-            warm.append(time.perf_counter() - t)
-        walls[label] = (cold, statistics.median(warm))
-    for label in QUERIES:
-        check(rows_match(results[label], want[label]),
-              f"{label} differs from the oracle: {results[label]} vs "
-              f"{want[label]}")
-    #: the kernels each query's plan must launch
-    must = {"q1": ("direct_slot_reduce",),
-            "q6": ("direct_slot_reduce", "compact"),
-            "q3": ("row_hash", "join_build", "join_probe",
-                   "segment_reduce"),
-            "q5": ("row_hash", "join_build", "join_probe",
-                   "direct_slot_reduce"),
-            "q13": ("row_hash", "join_build", "join_probe",
-                    "segment_reduce")}
-    for label, names in must.items():
-        for k in names:
-            check(launches[label][k] > 0,
-                  f"{k} was not launched in {label}")
-    for label in QUERIES:
-        cold, warm = walls[label]
-        emit({"phase": "tpch", "query": label, "schema": SCHEMA,
-              "batch_rows": PROPS["batch_rows"], "rows": results[label],
-              "matches_oracle": True, "launches": launches[label],
-              "cold_s": cold, "warm_s": warm,
-              "lineitem_rows": n_lineitem,
-              "warm_lineitem_rows_per_s": n_lineitem / warm})
-
-    # 4. where a warm query's time goes --------------------------------
-    for label, sql in QUERIES.items():
-        emit({"phase": "profile", "query": label,
-              **profile_query(torch, gen_module, runner, sql)})
-
-    # 5. kernels at the main path's shapes ----------------------------
-    with Capture(tb, th, tc, tj) as cap:
-        for label, sql in QUERIES.items():
-            cap.query = label
-            runner.execute(sql).rows()
-    check({"q1", "q6"} <= set(cap.k1) and "q6" in cap.k2
-          and set(cap.big) == {"row_hash", "join_build", "join_probe",
-                               "segment_reduce"},
-          "kernel inputs were not captured from the main path")
-    k1 = {q: measure_k1(torch, th, cap.k1[q][1], q) for q in ("q1", "q6")}
-    _, q6_batch, q6_cap = cap.k2["q6"]
-    k2 = {"q6_shrink": measure_k2(torch, tb, q6_batch, q6_cap,
-                                  "q6 shrink")}
-    big = {k: v[2] for k, v in cap.big.items()}
-    shape_from = {k: v[1] for k, v in cap.big.items()}
-    k36 = {"row_hash": measure_k3(torch, tc, big["row_hash"]),
-           "join_build": measure_k4(torch, tj, big["join_build"]),
-           "join_probe": measure_k5(torch, tc, tj, big["join_probe"]),
-           "segment_reduce": measure_k6(torch, tc, th,
-                                        big["segment_reduce"])}
-    expand = {layout: (q, measure_expand(
-        torch, tj, args, {qq: n for (qq, lay), n in cap.expand_calls.items()
-                          if lay == layout}))
-        for layout, (_, q, args) in cap.expand.items()}
-    del big, cap
-    # a 1M-row lineitem-shaped batch (the seven columns Q1 reads) with
-    # Q6's predicate as row_valid (~2% live, shrunk) and its complement
-    # (~98% live, the full variant; Q1's own predicate keeps every row
-    # of this generator)
-    n = 1 << 20
-    types = {"quantity": tt.DOUBLE, "extendedprice": tt.DOUBLE,
-             "discount": tt.DOUBLE, "tax": tt.DOUBLE,
-             "returnflag": tt.VARCHAR, "linestatus": tt.VARCHAR,
-             "shipdate": tt.DATE}
-    wide = tb.Batch.from_numpy({c: lineitem[c][:n] for c in types},
-                               types, device=dev)
-    q6_keep = q6_predicate(lineitem, gen_module)[:n]
-    sel = {"q6_pred_1M": q6_keep, "not_q6_pred_1M": ~q6_keep}
-    for label, keep in sel.items():
-        b = tb.Batch(wide.columns, torch.from_numpy(keep).to(dev))
-        live = int(keep.sum())
-        cap_out = tb.operator_capacity(live)
-        k2[label] = measure_k2(torch, tb, b,
-                               cap_out if cap_out < n else n, label)
-    for q, m in k1.items():
-        emit({"phase": "kernels", "kernel": "direct_slot_reduce",
-              "shape_from": q, **m})
-    for q, m in k2.items():
-        emit({"phase": "kernels", "kernel": "compact", "shape_from": q,
-              **m})
-    for k, m in k36.items():
-        emit({"phase": "kernels", "kernel": k, "shape_from": shape_from[k],
-              **m})
-    for layout, (q, m) in expand.items():
-        emit({"phase": "kernels", "kernel": "join_probe expand (torch)",
-              "layout": layout, "shape_from": q, **m})
-
-    def summary(name, source, replaces, m):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces,
-                "launches": sum(v[name] for v in launches.values()),
-                "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                "bound_by": "bytes", "library_ms": m["library_ms"]}
-    src = "presto_tpu_torch/csrc/"
-    kernels = [
-        summary("direct_slot_reduce", src + "slot_reduce.cu",
-                "presto_tpu/ops/hashagg.py:884", k1["q1"]),
-        summary("compact", src + "compact.cu", "presto_tpu/batch.py:450",
-                k2["q6_shrink"]),
-        summary("row_hash", src + "row_hash.cu",
-                "presto_tpu/ops/common.py:167", k36["row_hash"]),
-        summary("join_build", src + "join_build.cu",
-                "presto_tpu/ops/join.py:248", k36["join_build"]),
-        summary("join_probe", src + "join_probe.cu",
-                "presto_tpu/ops/join.py:353", k36["join_probe"]),
-        summary("segment_reduce", src + "segment_reduce.cu",
-                "presto_tpu/ops/hashagg.py:569", k36["segment_reduce"]),
-    ]
+    kernels = run_phases(torch, np, mods, dev, SCHEMA)
     print(smi_line, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -8,16 +8,15 @@
 //      the build side in K3); a dead row or a NULL key gives the
 //      INT64_MAX / INT64_MIN sentinels, which match nothing because the
 //      build clipped its dead tail out of every bucket;
-//   2. its bucket p = (h >> (64 - k)) + 2^(k-1) (arithmetic shift) and
-//      the bucket's bounds part_starts[p], part_starts[p + 1]; with
-//      k = 0 the whole live build [0, part_starts[1]);
-//   3. the lower bound of h inside the bucket. The reference bounds its
-//      loop by the build's measured `search_depth`; here the loop runs
-//      while lo < hi, which gives the same exact lower bound;
-//   4. found = the slot holds h, and for a build whose hash runs all
+//   2. the lower bound of h inside its radix bucket
+//      (`presto_search_candidate` in probe_search.cuh, the search K7's
+//      semi join runs too). The reference bounds its loop by the
+//      build's measured `search_depth`; here the loop runs while
+//      lo < hi, which gives the same exact lower bound;
+//   3. found = the slot holds h, and for a build whose hash runs all
 //      have length 1 (`unique_runs`) under verify="hash" also hash2
 //      matches; lo_enc = found ? slot : -1.
-// Unless step 4 already checked hash2, it also writes the probe row's
+// Unless step 3 already checked hash2, it also writes the probe row's
 // hash2, which the general expand uses to verify every candidate of a
 // duplicate-key run (h2_out is null, and nothing is stored, otherwise).
 //
@@ -26,12 +25,12 @@
 // the build arrays (a bucket holds ~1 row at k ~ log2(build)); with one
 // thread per row and tens of thousands of rows in flight, the gathers
 // overlap. The byte floor counts the key reads, the build's arrays the
-// search reads (hash2 only when step 4 checks it) and the outputs.
+// search reads (hash2 only when step 3 checks it) and the outputs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "row_hash.cuh"
+#include "probe_search.cuh"
 
 #define THREADS 256
 
@@ -45,22 +44,8 @@ probe_search(const KeyCols keys, const bool* __restrict__ row_valid, int64_t n,
        i += stride) {
     int64_t h, h2;
     presto_row_hash_pair(keys, i, row_valid[i], true, &h, &h2);
-    int64_t lo, hi;
-    if (k > 0) {
-      const int64_t p = (h >> (64 - k)) + (1LL << (k - 1));
-      lo = part_starts[p];
-      hi = part_starts[p + 1];
-    } else {
-      lo = 0;
-      hi = part_starts[1];
-    }
-    const int64_t end = hi;
-    while (lo < hi) {
-      const int64_t mid = (lo + hi) >> 1;
-      if (sorted_hash[mid] < h) lo = mid + 1;
-      else hi = mid;
-    }
-    bool found = lo < end && sorted_hash[lo] == h;
+    bool found;
+    const int64_t lo = presto_search_candidate(h, sorted_hash, part_starts, k, &found);
     if (found && verify_hash2) found = hash2[lo] == h2;
     lo_enc[i] = found ? lo : -1;
     if (h2_out != nullptr) h2_out[i] = h2;

@@ -34,14 +34,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "row_hash.cuh"
+#include "segment.cuh"
 
-#define TILE 1024
+#define TILE PRESTO_SEG_TILE
 #define THREADS 256
-#define MAX_COMPS 64
-
-enum Dtype { DT_I32 = 0, DT_I64 = 1, DT_F32 = 2, DT_F64 = 3 };
-enum Op { OP_SUM = 0, OP_MIN = 1, OP_MAX = 2 };
 
 struct SegArgs {
   const int64_t* h1;
@@ -49,67 +45,9 @@ struct SegArgs {
   KeyCols keys;
   const bool* valid;
   int64_t n;
-  const void* contrib[MAX_COMPS];
-  void* out[MAX_COMPS];
-  int8_t dtype[MAX_COMPS];
-  int8_t op[MAX_COMPS];
-  int32_t ncomp;
+  Comps comps;
   int64_t out_cap;
 };
-
-template <typename T>
-__device__ __forceinline__ T identity(int op);
-template <>
-__device__ __forceinline__ int32_t identity<int32_t>(int op) {
-  return op == OP_SUM ? 0 : (op == OP_MIN ? INT32_MAX : INT32_MIN);
-}
-template <>
-__device__ __forceinline__ int64_t identity<int64_t>(int op) {
-  return op == OP_SUM ? 0 : (op == OP_MIN ? INT64_MAX : INT64_MIN);
-}
-template <>
-__device__ __forceinline__ float identity<float>(int op) {
-  return op == OP_SUM ? 0.0f
-                      : (op == OP_MIN ? __int_as_float(0x7f7fffff) : -__int_as_float(0x7f7fffff));
-}
-template <>
-__device__ __forceinline__ double identity<double>(int op) {
-  return op == OP_SUM ? 0.0
-                      : (op == OP_MIN ? __longlong_as_double(0x7fefffffffffffffLL)
-                                      : -__longlong_as_double(0x7fefffffffffffffLL));
-}
-
-__device__ __forceinline__ int32_t add_wrap(int32_t x, int32_t y) {
-  return static_cast<int32_t>(static_cast<uint32_t>(x) + static_cast<uint32_t>(y));
-}
-__device__ __forceinline__ int64_t add_wrap(int64_t x, int64_t y) {
-  return static_cast<int64_t>(static_cast<uint64_t>(x) + static_cast<uint64_t>(y));
-}
-__device__ __forceinline__ float add_wrap(float x, float y) { return x + y; }
-__device__ __forceinline__ double add_wrap(double x, double y) { return x + y; }
-
-template <typename T>
-__device__ __forceinline__ T combine(T x, T y, int op) {
-  if (op == OP_SUM) return add_wrap(x, y);
-  if (op == OP_MIN) return y < x ? y : x;
-  return y > x ? y : x;
-}
-
-// Does key j of row i differ from row i - 1 (NULL == NULL)?
-__device__ __forceinline__ bool key_differs(const KeyCols& k, int j, int64_t i) {
-  const bool m = k.mask[j][i], pm = k.mask[j][i - 1];
-  if (m != pm) return true;
-  if (!m) return false;
-  const void* p = k.data[j];
-  switch (k.dtype[j]) {
-    case KD_I8: return static_cast<const int8_t*>(p)[i] != static_cast<const int8_t*>(p)[i - 1];
-    case KD_I16: return static_cast<const int16_t*>(p)[i] != static_cast<const int16_t*>(p)[i - 1];
-    case KD_I32: return static_cast<const int32_t*>(p)[i] != static_cast<const int32_t*>(p)[i - 1];
-    case KD_F32: return static_cast<const float*>(p)[i] != static_cast<const float*>(p)[i - 1];
-    case KD_F64: return static_cast<const double*>(p)[i] != static_cast<const double*>(p)[i - 1];
-    default: return static_cast<const int64_t*>(p)[i] != static_cast<const int64_t*>(p)[i - 1];
-  }
-}
 
 __device__ __forceinline__ int64_t warp_max(int64_t v) {
   for (int o = 16; o > 0; o >>= 1) {
@@ -117,35 +55,6 @@ __device__ __forceinline__ int64_t warp_max(int64_t v) {
     v = w > v ? w : v;
   }
   return v;
-}
-
-// Exclusive prefix sum of `v` over the block (blockDim.x a multiple of
-// 32, at most 1024); `*total` gets the block's sum. Every thread of the
-// block must call it.
-__device__ __forceinline__ int64_t block_exclusive_scan(int64_t v, int64_t* total) {
-  __shared__ int64_t warp_sums[32];
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  int64_t x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int64_t y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[wid] = x;
-  __syncthreads();
-  if (wid == 0) {
-    int64_t w = lane < nw ? warp_sums[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int64_t y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < nw) warp_sums[lane] = w;
-  }
-  __syncthreads();
-  const int64_t before = wid > 0 ? warp_sums[wid - 1] : 0;
-  *total = warp_sums[nw - 1];
-  __syncthreads();
-  return before + x - v;
 }
 
 __global__ void __launch_bounds__(TILE)
@@ -161,12 +70,7 @@ seg_flags(const SegArgs a, uint8_t* __restrict__ flags, int64_t* __restrict__ ti
       if (i == 0 || !a.valid[i - 1] || a.h1[i] != a.h1[i - 1] || a.h2[i] != a.h2[i - 1]) {
         b = 1;
       } else {
-        for (int j = 0; j < a.keys.nkeys; ++j) {
-          if (key_differs(a.keys, j, i)) {
-            b = 1;
-            break;
-          }
-        }
+        b = presto_keys_differ(a.keys, i, i - 1) ? 1 : 0;
       }
     }
     flags[i] = static_cast<uint8_t>(b);
@@ -187,18 +91,7 @@ seg_flags(const SegArgs a, uint8_t* __restrict__ flags, int64_t* __restrict__ ti
 
 __global__ void __launch_bounds__(TILE)
 seg_scan(int64_t* __restrict__ tile_counts, int64_t ntiles, int64_t out_cap, int64_t* stats) {
-  const int64_t per = (ntiles + blockDim.x - 1) / blockDim.x;
-  const int64_t lo = static_cast<int64_t>(threadIdx.x) * per;
-  const int64_t hi = lo + per < ntiles ? lo + per : ntiles;
-  int64_t s = 0;
-  for (int64_t t = lo; t < hi; ++t) s += tile_counts[t];
-  int64_t total;
-  int64_t off = block_exclusive_scan(s, &total);
-  for (int64_t t = lo; t < hi; ++t) {
-    const int64_t c = tile_counts[t];
-    tile_counts[t] = off;
-    off += c;
-  }
+  const int64_t total = presto_scan_tiles(tile_counts, ntiles);
   if (threadIdx.x == 0) {
     stats[0] = total;
     stats[1] = total > out_cap ? 1 : 0;
@@ -208,28 +101,7 @@ seg_scan(int64_t* __restrict__ tile_counts, int64_t ntiles, int64_t out_cap, int
 __global__ void __launch_bounds__(TILE)
 seg_assign(const SegArgs a, const uint8_t* __restrict__ flags,
            const int64_t* __restrict__ tile_offsets, int64_t* __restrict__ starts) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * TILE + threadIdx.x;
-  const int64_t b = i < a.n ? flags[i] : 0;
-  int64_t total;
-  const int64_t excl = block_exclusive_scan(b, &total);
-  if (b) {
-    const int64_t g = tile_offsets[blockIdx.x] + excl;
-    if (g <= a.out_cap) starts[g] = i;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void reduce_segment(const SegArgs& a, int c, int64_t g, int64_t start,
-                                               int64_t end, bool live, int lane) {
-  const int op = a.op[c];
-  T acc = identity<T>(op);
-  if (live) {
-    const T* __restrict__ src = static_cast<const T*>(a.contrib[c]);
-    for (int64_t r = start + lane; r < end; r += 32)
-      if (a.valid[r]) acc = combine(acc, src[r], op);
-    for (int o = 16; o > 0; o >>= 1) acc = combine(acc, __shfl_down_sync(0xffffffffu, acc, o), op);
-  }
-  if (lane == 0) static_cast<T*>(a.out[c])[g] = acc;
+  presto_assign_starts(flags, a.n, a.out_cap, tile_offsets, starts);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -247,14 +119,7 @@ seg_reduce(const SegArgs a, const int64_t* __restrict__ starts, const int64_t* s
       start = starts[g];
       end = g + 1 < groups ? starts[g + 1] : live_end;
     }
-    for (int c = 0; c < a.ncomp; ++c) {
-      switch (a.dtype[c]) {
-        case DT_I32: reduce_segment<int32_t>(a, c, g, start, end, live, lane); break;
-        case DT_I64: reduce_segment<int64_t>(a, c, g, start, end, live, lane); break;
-        case DT_F32: reduce_segment<float>(a, c, g, start, end, live, lane); break;
-        default: reduce_segment<double>(a, c, g, start, end, live, lane); break;
-      }
-    }
+    presto_reduce_slot(a.comps, a.valid, g, start, end, live, lane, nullptr);
     if (lane == 0) first_row[g] = live ? start : a.n - 1;
   }
 }
@@ -280,20 +145,13 @@ int presto_segment_reduce(const void* h1, const void* h2, const int64_t* key_dat
                           int32_t ncomp, int64_t out_cap, void* first_row,
                           void* stats, void* flags, void* tiles, void* starts, void* stream) {
   SegArgs a;
-  if (!presto_fill_keys(&a.keys, key_data, key_mask, key_dtypes, nkeys) || ncomp < 0 ||
-      ncomp > MAX_COMPS || n < 1 || out_cap < 1)
+  if (!presto_fill_keys(&a.keys, key_data, key_mask, key_dtypes, nkeys) ||
+      !presto_fill_comps(&a.comps, contrib, out, dtypes, ops, ncomp) || n < 1 || out_cap < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   a.h1 = static_cast<const int64_t*>(h1);
   a.h2 = static_cast<const int64_t*>(h2);
   a.valid = static_cast<const bool*>(valid);
   a.n = n;
-  for (int c = 0; c < ncomp; ++c) {
-    a.contrib[c] = reinterpret_cast<const void*>(contrib[c]);
-    a.out[c] = reinterpret_cast<void*>(out[c]);
-    a.dtype[c] = static_cast<int8_t>(dtypes[c]);
-    a.op[c] = static_cast<int8_t>(ops[c]);
-  }
-  a.ncomp = ncomp;
   a.out_cap = out_cap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int64_t* st = static_cast<int64_t*>(stats);

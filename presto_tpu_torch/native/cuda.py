@@ -39,6 +39,9 @@ SOURCES = {
     "join_build": "join_build.cu",
     "join_probe": "join_probe.cu",
     "segment_reduce": "segment_reduce.cu",
+    "semi_join": "semi_join.cu",
+    "stream_reduce": "stream_reduce.cu",
+    "join_expand": "join_expand.cu",
 }
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
@@ -74,6 +77,25 @@ SIGNATURES = {
         "presto_segment_reduce": (
             ctypes.c_int, [_P, _P, _P, _P, _P, _I32, _P, _I64, _P, _P, _P,
                            _P, _I32, _I64, _P, _P, _P, _P, _P, _P]),
+    },
+    "semi_join": {
+        "presto_semi_join": (
+            ctypes.c_int, [_P, _P, _P, _I32, _P, _I64, _P, _P, _P, _P, _I32,
+                           _I32, _P, _P, _P, _I32, _P, _P]),
+    },
+    "stream_reduce": {
+        "presto_stream_tile": (ctypes.c_int, []),
+        "presto_stream_reduce": (
+            ctypes.c_int, [_P, _P, _P, _I32, _P, _I64, _P, _P, _P, _P, _I32,
+                           _I64, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P, _P, _P, _P]),
+    },
+    "join_expand": {
+        "presto_expand_tile": (ctypes.c_int, []),
+        "presto_join_expand": (
+            ctypes.c_int, [_I32, _P, _P, _I64, _P, _P, _P, _I64, _I32, _I32,
+                           _P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _P,
+                           _P, _I32, _P, _I64, _P, _P, _P]),
     },
 }
 

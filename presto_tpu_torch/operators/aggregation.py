@@ -8,6 +8,11 @@ Two paths, chosen from the key expressions:
   within DIRECT_SLOTS_MAX): every batch is reduced into the table in
   place (kernel K1, `ops/hashagg.direct_step`); finalize decodes the
   slots.
+- streaming, when the planner knows the input arrives sorted by the
+  group keys (`StreamingAggregationOperator`): every batch is grouped
+  without a sort and folded with the group carried from the batch
+  before (K8, `hashagg.stream_aggregate`); completed groups are emitted
+  as the stream passes them, in key order, in O(batch) memory.
 - sort-based (any other key set): every batch is compacted to its
   distinct groups (`hashagg.batch_aggregate`: K3 + sort + K6) into a
   partial sized by the batch, and partials are tree-merged
@@ -32,7 +37,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from presto_tpu_torch.batch import (
-    Batch, bucket_capacity, operator_capacity, quantized_capacity,
+    Batch, bucket_capacity, end_deferred_compact, operator_capacity,
+    quantized_capacity,
 )
 from presto_tpu_torch.expr.compile import CompiledExpr
 from presto_tpu_torch.native.pages import PendingScalar
@@ -108,9 +114,13 @@ def _direct_domains(key_exprs) -> Optional[Tuple[int, ...]]:
 
 def make_agg_step_kernel(key_exprs: Sequence[CompiledExpr],
                          specs: Sequence[AggSpec],
-                         domains: Optional[Tuple[int, ...]]):
+                         domains: Optional[Tuple[int, ...]],
+                         presorted: bool = False):
     """The fold step. Direct path: (state, batch) -> state. Sort path:
-    (out_cap, batch) -> the batch's packed partial state."""
+    (out_cap, batch) -> the batch's packed partial state. `presorted`
+    (the streaming operator, rows arriving in key order) swaps the sort
+    for K8: (out_cap, batch, carry) -> one streaming round
+    (`hashagg.stream_aggregate`)."""
     aggs = tuple(s.function for s in specs)
 
     def batch_parts(batch: Batch):
@@ -146,6 +156,15 @@ def make_agg_step_kernel(key_exprs: Sequence[CompiledExpr],
                                        domains, agg_inputs, agg_weights,
                                        aggs)
         return kernel
+
+    if presorted:
+        def presorted_kernel(out_cap: int, batch: Batch, carry):
+            _tk.count("agg_step")
+            key_cols, agg_inputs, agg_weights = batch_parts(batch)
+            return hashagg.stream_aggregate(
+                carry, batch.row_valid, key_cols, agg_inputs, agg_weights,
+                aggs, out_cap)
+        return presorted_kernel
 
     def sort_kernel(out_cap: int, batch: Batch):
         _tk.count("agg_step")
@@ -332,6 +351,98 @@ class AggregationOperator(Operator):
         if self._domains is None:
             self._levels = {}
             self._pending = []
+
+
+class StreamingAggregationOperator(Operator):
+    """Aggregation over an input already sorted by the group keys
+    (ascending, nulls last), emitting each group as soon as the stream
+    has passed it (reference: operator/StreamingAggregationOperator.java;
+    presto_tpu/operators/aggregation.py:722). Memory is O(batch): no
+    max_groups table and no overflow retry. Output batches hold groups
+    in key order.
+
+    Per batch one K8 round: the batch's groups, the carried group folded
+    into the first of them when the keys match (else emitted on its
+    own, ahead of the batch's), and the last group carried on. Emitted
+    states go out one driver round later, shrunk to their live count
+    (the one-round-delayed compaction protocol); the carry goes out at
+    the end."""
+
+    def __init__(self, ctx: OperatorContext, key_names: Sequence[str],
+                 key_exprs: Sequence[CompiledExpr],
+                 specs: Sequence[AggSpec]):
+        super().__init__(ctx)
+        self.key_names = list(key_names)
+        self.key_exprs = list(key_exprs)
+        self.specs = list(specs)
+        self._kernel = make_agg_step_kernel(key_exprs, specs, None,
+                                            presorted=True)
+        self._device = ctx.driver_context.device
+        self._carry = None
+        #: [(state to emit, PendingScalar of its live groups or None)]
+        self._pending: list = []
+        self._finishing = False
+        self._emitted_tail = False
+
+    def _aggs(self):
+        return tuple(s.function for s in self.specs)
+
+    def _finalize(self, state) -> Batch:
+        return make_agg_finalize_kernel(
+            tuple(self.key_names), tuple(k.type for k in self.key_exprs),
+            tuple(k.dictionary for k in self.key_exprs), None,
+            tuple(s.out_name for s in self.specs), self._aggs())(state)
+
+    def needs_input(self) -> bool:
+        return not self._finishing and len(self._pending) < 4
+
+    def add_input(self, batch: Batch) -> None:
+        self._count_in(batch)
+        if self._carry is None:
+            self._carry = hashagg.init_state(
+                [k.type for k in self.key_exprs], self._aggs(), 1,
+                self._device)
+        carry_emit, emit, self._carry, live = self._kernel(
+            bucket_capacity(batch.capacity), batch, self._carry)
+        # a completed carry (key change at the batch border) precedes
+        # this batch's groups in key order: its own 1-row batch first
+        self._pending.append((carry_emit, None))
+        self._pending.append((emit, PendingScalar(live)))
+
+    def get_output(self) -> Optional[Batch]:
+        if self._pending and (len(self._pending) > 1 or self._finishing):
+            state, live = self._pending.pop(0)
+            return self._count_out(end_deferred_compact(
+                self._finalize(state), live))
+        if self._pending or not self._finishing or self._emitted_tail:
+            return None
+        self._emitted_tail = True
+        if self._carry is None:
+            return None  # no input batch: a grouped aggregation of nothing
+        return self._count_out(self._finalize(self._carry))
+
+    def finish(self) -> None:
+        self._finishing = True
+
+    def is_finished(self) -> bool:
+        return self._finishing and not self._pending and self._emitted_tail
+
+    def close(self) -> None:
+        self._carry = None
+        self._pending = []
+
+
+class StreamingAggregationOperatorFactory(OperatorFactory):
+    def __init__(self, operator_id: int, key_names: Sequence[str],
+                 key_exprs: Sequence[CompiledExpr],
+                 specs: Sequence[AggSpec]):
+        super().__init__(operator_id, "aggregation(streaming)")
+        self.args = (list(key_names), list(key_exprs), list(specs))
+
+    def create(self, driver_context: DriverContext) -> Operator:
+        return StreamingAggregationOperator(
+            OperatorContext(self.operator_id, self.name, driver_context),
+            *self.args)
 
 
 class AggregationOperatorFactory(OperatorFactory):

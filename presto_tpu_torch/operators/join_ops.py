@@ -4,7 +4,8 @@ the reference's LookupSourceFactory).
 
 The build pipeline fills a JoinBridge; the probe pipeline streams its
 batches through the probe kernel (`make_probe_kernel`: K5's search,
-then the composed expand). The port's runner drives a plan's pipelines
+then K9's expand), or, for a semi join, through K7's mark
+(`SemiJoinOperator`). The port's runner drives a plan's pipelines
 in order, build before probe, so the bridge is ready before the first
 probe batch arrives.
 
@@ -231,6 +232,62 @@ class LookupJoinOperator(Operator):
         self.bridge.table = None
 
 
+class SemiJoinOperator(Operator):
+    """WHERE x IN (subquery) / EXISTS: keeps the probe rows whose key
+    the build side holds (reference: HashSemiJoinOperator;
+    presto_tpu/operators/join_ops.py:684). `negate` gives NOT IN / NOT
+    EXISTS anti-join semantics for non-NULL keys: keep =
+    ~found & valid, so a NULL probe key is dropped either way.
+
+    Semi joins are usually selective, so outputs go through the
+    one-round-delayed count/compact protocol, as lookup-join outputs
+    do. The probe's driver releases the build table when it closes."""
+
+    def __init__(self, ctx: OperatorContext, bridge: JoinBridge,
+                 key_names: Tuple[str, ...], negate: bool,
+                 build_keys: Optional[Tuple[str, ...]] = None,
+                 key_dicts: Optional[List[Optional[tuple]]] = None):
+        super().__init__(ctx)
+        self.bridge = bridge
+        self.key_names = key_names
+        self.build_keys = build_keys
+        self.key_dicts = key_dicts
+        self.negate = negate
+        # two-slot queue: a batch is emitted one driver pass after its
+        # mark, so its live count's copy overlaps the next mark
+        self._pending: List = []
+        self._finishing = False
+
+    def needs_input(self) -> bool:
+        return len(self._pending) < 2 and not self._finishing
+
+    def add_input(self, batch: Batch) -> None:
+        self._count_in(batch)
+        if not self.bridge.ready:
+            raise RuntimeError(f"{self.ctx.name}: probe before its build "
+                               "finished (build pipelines run first)")
+        probe = _remap_keys(batch, self.key_names, self.key_dicts)
+        keep = join_ops.semi_mark(self.bridge.table, probe, self.key_names,
+                                  self.build_keys, "hash", self.negate)
+        self._pending.append(begin_deferred_compact(batch.filter(keep)))
+
+    def get_output(self) -> Optional[Batch]:
+        if self._pending and (len(self._pending) > 1 or self._finishing):
+            out, total = self._pending.pop(0)
+            return self._count_out(end_deferred_compact(out, total))
+        return None
+
+    def finish(self) -> None:
+        self._finishing = True
+
+    def is_finished(self) -> bool:
+        return self._finishing and not self._pending
+
+    def close(self) -> None:
+        self._pending = []
+        self.bridge.table = None
+
+
 def _remap_keys(batch: Batch, key_names, key_dicts) -> Batch:
     """Align string key columns to the planner's unified dictionaries."""
     if not key_dicts:
@@ -282,5 +339,21 @@ class LookupJoinOperatorFactory(OperatorFactory):
 
     def create(self, driver_context: DriverContext) -> Operator:
         return LookupJoinOperator(
+            OperatorContext(self.operator_id, self.name, driver_context),
+            self.bridge, *self.args)
+
+
+class SemiJoinOperatorFactory(OperatorFactory):
+    def __init__(self, operator_id: int, bridge: JoinBridge,
+                 key_names: Sequence[str], negate: bool = False,
+                 build_keys: Optional[Sequence[str]] = None,
+                 key_dicts: Optional[List[Optional[tuple]]] = None):
+        super().__init__(operator_id, "semi_join")
+        self.bridge = bridge
+        self.args = (tuple(key_names), negate,
+                     tuple(build_keys) if build_keys else None, key_dicts)
+
+    def create(self, driver_context: DriverContext) -> Operator:
+        return SemiJoinOperator(
             OperatorContext(self.operator_id, self.name, driver_context),
             self.bridge, *self.args)

@@ -333,7 +333,7 @@ def slot_reduce_plain(row_valid: torch.Tensor, key_codes: Sequence[CVal],
 
 
 #: launches of the CUDA slot-reduce kernel (csrc/slot_reduce.cu)
-SLOT_REDUCE_KERNEL = _tk.LaunchCounter("direct_slot_reduce")
+SLOT_REDUCE_KERNEL = _tk.LaunchCounter("direct_slot_reduce", "agg_step")
 
 _KERNEL_DTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
                   torch.float64: 3}
@@ -563,7 +563,7 @@ def segment_ids(h1: torch.Tensor, h2: torch.Tensor, keys: Sequence[CVal],
 
 
 #: launches of the CUDA segment-reduce kernel (csrc/segment_reduce.cu)
-SEGMENT_REDUCE_KERNEL = _tk.LaunchCounter("segment_reduce")
+SEGMENT_REDUCE_KERNEL = _tk.LaunchCounter("segment_reduce", "agg_step")
 
 
 def _segment_reduce_cuda(h1, h2, keys, valid, comps, out_cap):
@@ -741,6 +741,270 @@ def merge_partials(states: Sequence[GroupByState],
     for s in states:
         ovf = ovf | s.overflow
     return GroupByState(out.keys, out.states, out.valid, ovf)
+
+
+# -- the presorted path: grouping without a sort (K8) ---------------------
+
+
+def presorted_aggregate(row_valid: torch.Tensor, key_cols: Sequence[CVal],
+                        agg_inputs: Sequence,
+                        agg_weights: Sequence[torch.Tensor],
+                        aggs: Sequence[AggFunction], out_cap: int,
+                        merge: Optional[Sequence[bool]] = None
+                        ) -> GroupByState:
+    """Group ONE batch whose rows already arrive sorted by the group
+    keys (ascending, nulls last): the streaming aggregation's input
+    contract. No sort: group boundaries against the previous LIVE row,
+    group ids from a scan, states from per-group reductions (K8). Groups
+    land packed in key order."""
+    merge = merge or [False] * len(aggs)
+    contribs = _make_contribs(aggs, agg_inputs, agg_weights, merge)
+    return presorted_reduce(row_valid, key_cols, contribs, aggs, out_cap)
+
+
+def stream_aggregate(carry: GroupByState, row_valid: torch.Tensor,
+                     key_cols: Sequence[CVal], agg_inputs: Sequence,
+                     agg_weights: Sequence[torch.Tensor],
+                     aggs: Sequence[AggFunction], out_cap: int):
+    """`presorted_aggregate` and the streaming fold of `carry` in one
+    round (`stream_step`)."""
+    contribs = _make_contribs(aggs, agg_inputs, agg_weights,
+                              [False] * len(aggs))
+    return stream_step(carry, row_valid, key_cols, contribs, aggs, out_cap)
+
+
+def presorted_reduce_plain(row_valid: torch.Tensor,
+                           key_cols: Sequence[CVal],
+                           contribs: Sequence[Tuple[torch.Tensor, ...]],
+                           aggs: Sequence[AggFunction],
+                           out_cap: int) -> GroupByState:
+    """Plain version of K8 without a carry (the reference's
+    `presorted_reduce`): the previous live row of every row from a
+    cummax of live indices, both-NULL keys equal, group ids from a
+    cumsum. Dead rows take the enclosing group's id; their
+    contributions are the reduction's identity."""
+    if not key_cols:
+        return _group_reduce([], row_valid, contribs, aggs, out_cap)
+    bnd, gid, num_groups = presorted_ids(row_valid, key_cols, out_cap)
+    states = [tuple(_sorted_reduce(arr, gid, out_cap, r)
+                    for arr, r in zip(st, agg.reduces))
+              for st, agg in zip(contribs, aggs)]
+    slots = torch.arange(out_cap, device=row_valid.device)
+    first_row = _first_rows(bnd, gid, out_cap)
+    new_valid = slots < num_groups
+    keys = [(d[first_row], m[first_row] & new_valid) for d, m in key_cols]
+    return GroupByState(keys, states, new_valid, num_groups > out_cap)
+
+
+def presorted_ids(row_valid: torch.Tensor, key_cols: Sequence[CVal],
+                  out_cap: int):
+    """Over rows in key order: the group starts (a live row whose keys
+    differ from the previous LIVE row's; two NULLs are equal), the group
+    id of every row in [0, out_cap] (dead rows take the enclosing
+    group's) and the group count."""
+    n = row_valid.shape[0]
+    idx = torch.arange(n, device=row_valid.device)
+    lastv = torch.cummax(torch.where(row_valid, idx,
+                                     torch.full_like(idx, -1)), 0).values
+    prev = torch.roll(lastv, 1)
+    prev[0] = -1
+    pidx = torch.clamp(prev, min=0)
+    differs = prev < 0  # the first live row always starts a group
+    for data, mask in key_cols:
+        pd, pm = data[pidx], mask[pidx]
+        d = (data != pd) | (mask != pm)
+        # both-NULL rows group together (SQL GROUP BY semantics)
+        differs = differs | (d & (mask | pm))
+    bnd = row_valid & differs
+    gid = torch.clamp(torch.cumsum(bnd.to(torch.int64), 0) - 1, 0, out_cap)
+    return bnd, gid, bnd.sum()
+
+
+def stream_fold_plain(carry: GroupByState, partial: GroupByState,
+                      aggs: Sequence[AggFunction]):
+    """Plain version of K8's carry fold (the reference's
+    `_stream_step_jit`). The stream is key-sorted, so the carried group
+    can only meet the batch's FIRST group: same keys fold the carry into
+    slot 0; different keys complete the carry, which is emitted on its
+    own ahead of the batch. Every group but the last is emitted; the
+    last becomes the new carry (a batch with no group passes the carry
+    through). Returns (carry_emit [1], emit [cap], carry_out [1], emitted
+    groups)."""
+    ng = partial.valid.sum()
+    has_groups = ng > 0
+    has_carry = carry.valid[0]
+    same = has_carry & has_groups
+    for (cd, cm), (pd, pm) in zip(carry.keys, partial.keys):
+        eq = torch.where(cm[0] & pm[0], cd[0] == pd[0], ~cm[0] & ~pm[0])
+        same = same & eq
+    new_states = []
+    for cst, pst, agg in zip(carry.states, partial.states, aggs):
+        comps = []
+        for ca, pa, r in zip(cst, pst, agg.reduces):
+            c0 = torch.where(same, ca[0], torch.full_like(
+                ca[0], _ident_for(r, ca.dtype))).to(pa.dtype)
+            pa = pa.clone()
+            if r == "sum":
+                pa[0] = pa[0] + c0
+            else:
+                pa[0] = torch.minimum(pa[0], c0) if r == "min" \
+                    else torch.maximum(pa[0], c0)
+            comps.append(pa)
+        new_states.append(tuple(comps))
+    carry_emit = GroupByState(
+        carry.keys, carry.states, carry.valid & (has_groups & ~same),
+        torch.zeros((), dtype=torch.bool, device=ng.device))
+    last = torch.clamp(ng - 1, min=0)
+    cap = partial.valid.shape[0]
+    emit_valid = partial.valid \
+        & (torch.arange(cap, device=ng.device) < last)
+    emit = GroupByState(partial.keys, new_states, emit_valid,
+                        partial.overflow | carry.overflow)
+    at = torch.clamp(last, max=cap - 1).reshape(1)
+
+    def keep1(new, old):
+        return torch.where(has_groups, new.index_select(0, at), old)
+    carry_out = GroupByState(
+        [(keep1(d, od), keep1(m, om))
+         for (d, m), (od, om) in zip(partial.keys, carry.keys)],
+        [tuple(keep1(a, oa) for a, oa in zip(st, ost))
+         for st, ost in zip(new_states, carry.states)],
+        keep1(partial.valid, carry.valid),
+        torch.zeros((), dtype=torch.bool, device=ng.device))
+    return carry_emit, emit, carry_out, last
+
+
+#: launches of the CUDA stream-reduce kernel (csrc/stream_reduce.cu)
+STREAM_REDUCE_KERNEL = _tk.LaunchCounter("stream_reduce", "agg_stream")
+
+
+def _stream_reduce_cuda(row_valid, key_cols, contribs, aggs, out_cap,
+                        carry: Optional[GroupByState]):
+    from presto_tpu_torch.native import cuda
+    dev = row_valid.device
+    n = row_valid.shape[0]
+    common.check_rows(row_valid, n, dev, (torch.bool,),
+                      "stream_reduce: row_valid")
+    key_cols = [(d.contiguous(), m.contiguous()) for d, m in key_cols]
+    kd, km, kt, nk = common.key_args(key_cols, n, dev, "stream_reduce")
+    comps = [(arr.contiguous(), r) for st, agg in zip(contribs, aggs)
+             for arr, r in zip(st, agg.reduces)]
+    if len(comps) > 64 or out_cap < 1:
+        raise ValueError("stream_reduce: at most 64 components and at "
+                         "least one output slot")
+    for c, r in comps:
+        common.check_rows(c, n, dev, tuple(_KERNEL_DTYPES),
+                          "stream_reduce: contribution")
+        if r not in _KERNEL_OPS:
+            raise ValueError(f"stream_reduce: reduce {r!r}")
+    lib = cuda.library("stream_reduce")
+    tile = lib.presto_stream_tile()
+    outs = [torch.empty(out_cap, dtype=c.dtype, device=dev)
+            for c, _ in comps]
+    first_row = torch.empty(out_cap, dtype=torch.int64, device=dev)
+    slot_valid = torch.empty(out_cap, dtype=torch.bool, device=dev)
+    stats = torch.empty(4, dtype=torch.int64, device=dev)
+    flags = torch.empty(n, dtype=torch.uint8, device=dev)
+    tiles = torch.empty(3 * ((n + tile - 1) // tile), dtype=torch.int64,
+                        device=dev)
+    starts = torch.empty(out_cap + 1, dtype=torch.int64, device=dev)
+    C = max(len(comps), 1)
+    P = ctypes.c_int64 * C
+    K = ctypes.c_int64 * common.MAX_KEYS
+    if carry is not None:
+        ckeys = [(d.contiguous(), m.contiguous()) for d, m in carry.keys]
+        ccomps = [a.contiguous() for st in carry.states for a in st]
+        for (d, m), (kcol, _) in zip(ckeys, key_cols):
+            common.check_rows(d, 1, dev, (kcol.dtype,),
+                              "stream_reduce: carry key")
+            common.check_rows(m, 1, dev, (torch.bool,),
+                              "stream_reduce: carry key mask")
+        for a, (c, _) in zip(ccomps, comps):
+            common.check_rows(a, 1, dev, (c.dtype,),
+                              "stream_reduce: carry state")
+        common.check_rows(carry.valid, 1, dev, (torch.bool,),
+                          "stream_reduce: carry valid")
+        okeys = [(torch.empty(1, dtype=d.dtype, device=dev),
+                  torch.empty(1, dtype=torch.bool, device=dev))
+                 for d, _ in ckeys]
+        ocomps = [torch.empty(1, dtype=a.dtype, device=dev)
+                  for a in ccomps]
+        ovalid = torch.empty(1, dtype=torch.bool, device=dev)
+        emit_carry = torch.empty(1, dtype=torch.bool, device=dev)
+        carry_args = (
+            ctypes.c_int32(1), K(*[d.data_ptr() for d, _ in ckeys]),
+            K(*[m.data_ptr() for _, m in ckeys]),
+            ctypes.c_void_p(carry.valid.data_ptr()),
+            P(*[a.data_ptr() for a in ccomps]),
+            K(*[d.data_ptr() for d, _ in okeys]),
+            K(*[m.data_ptr() for _, m in okeys]),
+            P(*[a.data_ptr() for a in ocomps]),
+            ctypes.c_void_p(ovalid.data_ptr()),
+            ctypes.c_void_p(emit_carry.data_ptr()))
+    else:
+        carry_args = (ctypes.c_int32(0), None, None, None, None, None,
+                      None, None, None, None)
+    status = lib.presto_stream_reduce(
+        kd, km, kt, nk, ctypes.c_void_p(row_valid.data_ptr()),
+        ctypes.c_int64(n), P(*[c.data_ptr() for c, _ in comps]),
+        P(*[o.data_ptr() for o in outs]),
+        (ctypes.c_int32 * C)(*[_KERNEL_DTYPES[c.dtype] for c, _ in comps]),
+        (ctypes.c_int32 * C)(*[_KERNEL_OPS[r] for _, r in comps]),
+        ctypes.c_int32(len(comps)), ctypes.c_int64(out_cap), *carry_args,
+        ctypes.c_void_p(first_row.data_ptr()),
+        ctypes.c_void_p(slot_valid.data_ptr()),
+        ctypes.c_void_p(stats.data_ptr()),
+        ctypes.c_void_p(flags.data_ptr()),
+        ctypes.c_void_p(tiles.data_ptr()),
+        ctypes.c_void_p(starts.data_ptr()),
+        ctypes.c_void_p(cuda.stream_ptr(dev)))
+    cuda.check(lib, status, "stream_reduce")
+    STREAM_REDUCE_KERNEL.launches += 1
+    it = iter(outs)
+    states = [tuple(next(it) for _ in st) for st in contribs]
+    keys = [(d[first_row], m[first_row] & slot_valid) for d, m in key_cols]
+    overflow = stats[1] > 0
+    if carry is None:
+        return GroupByState(keys, states, slot_valid, overflow)
+    it = iter(ocomps)
+    carry_out = GroupByState(
+        okeys, [tuple(next(it) for _ in st) for st in carry.states],
+        ovalid, torch.zeros((), dtype=torch.bool, device=dev))
+    carry_emit = GroupByState(carry.keys, carry.states, emit_carry,
+                              torch.zeros((), dtype=torch.bool,
+                                          device=dev))
+    emit = GroupByState(keys, states, slot_valid, overflow | carry.overflow)
+    return carry_emit, emit, carry_out, torch.clamp(stats[0] - 1, min=0)
+
+
+def presorted_reduce(row_valid: torch.Tensor, key_cols: Sequence[CVal],
+                     contribs: Sequence[Tuple[torch.Tensor, ...]],
+                     aggs: Sequence[AggFunction],
+                     out_cap: int) -> GroupByState:
+    """K8 without a carry (see `presorted_reduce_plain`). The CUDA kernel
+    on CUDA tensors, the plain version on CPU tensors."""
+    if row_valid.device.type == "cpu" or not key_cols:
+        return presorted_reduce_plain(row_valid, key_cols, contribs, aggs,
+                                      out_cap)
+    return _stream_reduce_cuda(row_valid, key_cols, contribs, aggs,
+                               out_cap, None)
+
+
+def stream_step(carry: GroupByState, row_valid: torch.Tensor,
+                key_cols: Sequence[CVal],
+                contribs: Sequence[Tuple[torch.Tensor, ...]],
+                aggs: Sequence[AggFunction], out_cap: int):
+    """K8 with the carry: one streaming-aggregation round (the
+    reference's `presorted_reduce` then `_stream_step_jit`), in one
+    kernel call on CUDA. Returns (carry_emit, emit, carry_out, emitted
+    groups), see `stream_fold_plain`."""
+    _tk.count("agg_stream")
+    if row_valid.device.type == "cpu":
+        return stream_fold_plain(
+            carry, presorted_reduce_plain(row_valid, key_cols, contribs,
+                                          aggs, out_cap), aggs)
+    return _stream_reduce_cuda(row_valid, key_cols, contribs, aggs,
+                               out_cap, carry)
 
 
 def finalize(state: GroupByState, key_names: Sequence[str],

@@ -337,7 +337,132 @@ def probe_counts(table: BuildTable, probe: Batch,
     return lo, lo + counts, counts, _key_valid(probe, probe_keys)
 
 
-# -- expansion (composed torch) -------------------------------------------
+# -- K7: the semi join's mark ----------------------------------------------
+
+
+#: launches of the CUDA semi-join kernel (csrc/semi_join.cu)
+SEMI_JOIN_KERNEL = _tk.LaunchCounter("semi_join", "semi_join")
+
+#: K7's epilogue per build layout and verify mode (csrc/semi_join.cu
+#: `SemiMode`)
+_SEMI_UNIQUE_HASH, _SEMI_WALK_HASH, _SEMI_WALK_FULL = 0, 1, 2
+
+
+def _semi_mode(table: BuildTable, verify: str) -> int:
+    if verify == "full":
+        return _SEMI_WALK_FULL
+    return _SEMI_UNIQUE_HASH if table.unique_runs else _SEMI_WALK_HASH
+
+
+def semi_mark_plain(table: BuildTable, probe: Batch,
+                    key_names: Tuple[str, ...],
+                    build_keys: Optional[Tuple[str, ...]] = None,
+                    verify: str = "hash", negate: bool = False
+                    ) -> torch.Tensor:
+    """Plain version of K7 (the reference's `semi_mark`: `_semi_resolve`
+    for a unique-run build under verify="hash", else `_semi_scan`): the
+    keep mask of a semi join, found & valid, or with `negate` (NOT IN /
+    NOT EXISTS) ~found & valid, where valid = row_valid and no NULL
+    key. A duplicate-run build scans each candidate run to its end."""
+    build_keys = tuple(build_keys or key_names)
+    keys = [probe.columns[k].astuple() for k in key_names]
+    valid = _key_valid(probe, key_names)
+    mode = _semi_mode(table, verify)
+    lo_enc, _ = probe_search_plain(
+        table, probe, key_names,
+        "hash" if mode == _SEMI_UNIQUE_HASH else "full")
+    if mode == _SEMI_UNIQUE_HASH:
+        found = lo_enc >= 0
+    else:
+        nbuild = table.sorted_hash.shape[0]
+        lo = torch.clamp(lo_enc, min=0)
+        hi = lo + torch.where(lo_enc >= 0, table.run_len[lo],
+                              torch.zeros_like(lo))
+        if mode == _SEMI_WALK_HASH:
+            h2p = common.row_hash2(keys)
+        else:
+            bcols = [table.batch.columns[b].astuple() for b in build_keys]
+        found = torch.zeros_like(valid)
+        i = 0
+        # the run scan: a row needs another step while its run extends
+        # past offset i and no match has been confirmed (the
+        # reference's while_loop)
+        while bool((((lo + i) < hi) & valid & ~found).any()):
+            brow = torch.clamp(lo + i, 0, max(nbuild - 1, 0))
+            same = ((lo + i) < hi) & valid
+            if mode == _SEMI_WALK_HASH:
+                same = same & (table.hash2[brow] == h2p)
+            else:
+                for (pd, pm), (bd, bm) in zip(keys, bcols):
+                    same = same & (pd == bd[brow]) & pm & bm[brow]
+            found = found | same
+            i += 1
+    found = found & valid
+    return (~found & valid) if negate else found
+
+
+def _semi_mark_cuda(table: BuildTable, probe: Batch,
+                    key_names: Tuple[str, ...], build_keys: Tuple[str, ...],
+                    verify: str, negate: bool) -> torch.Tensor:
+    from presto_tpu_torch.native import cuda
+    dev = probe.device
+    n = probe.capacity
+    nb = table.sorted_hash.shape[0]
+    common.check_rows(probe.row_valid, n, dev, (torch.bool,),
+                      "semi_join: row_valid")
+    for t, rows, what in ((table.sorted_hash, nb, "sorted_hash"),
+                          (table.hash2, nb, "hash2"),
+                          (table.run_len, nb, "run_len"),
+                          (table.part_starts,
+                           table.part_starts.shape[0], "part_starts")):
+        common.check_rows(t, rows, dev, (torch.int64,),
+                          f"semi_join: {what}")
+    mode = _semi_mode(table, verify)
+    kd, km, kt, nk = common.key_args(
+        [probe.columns[k].astuple() for k in key_names], n, dev,
+        "semi_join")
+    if mode == _SEMI_WALK_FULL:
+        bd, bm, bt, _ = common.key_args(
+            [table.batch.columns[k].astuple() for k in build_keys], nb,
+            dev, "semi_join: build keys")
+    else:
+        bd = bm = bt = None
+    keep = torch.empty(n, dtype=torch.bool, device=dev)
+    lib = cuda.library("semi_join")
+    status = lib.presto_semi_join(
+        kd, km, kt, nk, ctypes.c_void_p(probe.row_valid.data_ptr()),
+        ctypes.c_int64(n), ctypes.c_void_p(table.sorted_hash.data_ptr()),
+        ctypes.c_void_p(table.hash2.data_ptr()),
+        ctypes.c_void_p(table.part_starts.data_ptr()),
+        ctypes.c_void_p(table.run_len.data_ptr()),
+        ctypes.c_int32(table.radix_bits), ctypes.c_int32(mode), bd, bm, bt,
+        ctypes.c_int32(int(negate)), ctypes.c_void_p(keep.data_ptr()),
+        ctypes.c_void_p(cuda.stream_ptr(dev)))
+    cuda.check(lib, status, "semi_join")
+    SEMI_JOIN_KERNEL.launches += 1
+    return keep
+
+
+def semi_mark(table: BuildTable, probe: Batch, key_names: Tuple[str, ...],
+              build_keys: Optional[Tuple[str, ...]] = None,
+              verify: str = "hash", negate: bool = False) -> torch.Tensor:
+    """K7: the keep mask of a semi join (see `semi_mark_plain`). The
+    CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
+    _tk.count("semi_join")
+    if verify not in VERIFY_MODES:
+        raise ValueError(f"unknown verify mode {verify!r}")
+    build_keys = tuple(build_keys or key_names)
+    if len(build_keys) != len(key_names):
+        raise ValueError("semi join: probe and build key lists differ "
+                         "in length")
+    if probe.device.type == "cpu":
+        return semi_mark_plain(table, probe, key_names, build_keys, verify,
+                               negate)
+    return _semi_mark_cuda(table, probe, key_names, build_keys, verify,
+                           negate)
+
+
+# -- K9: the expansion ---------------------------------------------------
 
 
 def probe_join(table: BuildTable, probe: Batch,
@@ -365,10 +490,127 @@ def probe_join(table: BuildTable, probe: Batch,
 def _expand_from_enc(table, probe, key_names, lo_enc, out_capacity,
                      join_type, probe_output, build_output, build_keys,
                      verify, h2):
-    """Pick the aligned or general layout and expand."""
-    aligned = table.unique_runs and join_type in JOIN_TYPES \
+    """K9: pick the aligned or general layout and expand; returns
+    (output batch, overflow flag, live output rows), all on the device.
+    The CUDA kernel on CUDA tensors, the plain version on CPU
+    tensors."""
+    if lo_enc.device.type != "cpu":
+        return _expand_cuda(table, probe, key_names, lo_enc, out_capacity,
+                            join_type, probe_output, build_output,
+                            build_keys, verify, h2)
+    return expand_plain(table, probe, key_names, lo_enc, out_capacity,
+                        join_type, probe_output, build_output, build_keys,
+                        verify, h2)
+
+
+def _aligned_layout(table: BuildTable, probe: Batch, out_capacity: int,
+                    join_type: str) -> bool:
+    return table.unique_runs and join_type in JOIN_TYPES \
         and out_capacity == probe.capacity
+
+
+#: launches of the CUDA join-expand kernel (csrc/join_expand.cu)
+JOIN_EXPAND_KERNEL = _tk.LaunchCounter("join_expand", "join_probe")
+#: most output columns (probe and build sides together) K9 takes
+EXPAND_MAX_COLS = 64
+#: element sizes K9 copies
+_ELEM_SIZES = (1, 2, 4, 8)
+
+
+def _expand_cuda(table, probe, key_names, lo_enc, out_capacity, join_type,
+                 probe_output, build_output, build_keys, verify, h2):
+    from presto_tpu_torch.native import cuda
+    if verify not in VERIFY_MODES:
+        raise ValueError(f"unknown verify mode {verify!r}")
+    dev = probe.device
+    n = probe.capacity
+    nb = table.sorted_hash.shape[0]
+    aligned = _aligned_layout(table, probe, out_capacity, join_type)
+    cap = n if aligned else int(out_capacity)
+    common.check_rows(lo_enc, n, dev, (torch.int64,), "join_expand: lo_enc")
+    common.check_rows(probe.row_valid, n, dev, (torch.bool,),
+                      "join_expand: row_valid")
+    for t, what in ((table.run_len, "run_len"), (table.hash2, "hash2")):
+        common.check_rows(t, nb, dev, (torch.int64,),
+                          f"join_expand: {what}")
+    if h2 is not None:
+        common.check_rows(h2, n, dev, (torch.int64,), "join_expand: h2")
+    ncols = len(probe_output) + len(build_output)
+    if ncols > EXPAND_MAX_COLS:
+        raise ValueError(f"join_expand: at most {EXPAND_MAX_COLS} output "
+                         f"columns, got {ncols}")
+    full = verify == "full"
+    if full:
+        pk = common.key_args([probe.columns[k].astuple() for k in key_names],
+                             n, dev, "join_expand: probe keys")
+        bk = common.key_args([table.batch.columns[k].astuple()
+                              for k in build_keys], nb, dev,
+                             "join_expand: build keys")
+    else:
+        pk = bk = (None, None, None, ctypes.c_int32(0))
+    cols: Dict[str, Column] = {}
+    src, src_mask, dst, dst_mask, sizes, sides = [], [], [], [], [], []
+    keep_alive = []
+    for side, names, batch, rows in ((0, probe_output, probe, n),
+                                     (1, build_output, table.batch, nb)):
+        for name in names:
+            c = batch.columns[name]
+            cd, cm = c.data.contiguous(), c.mask.contiguous()
+            keep_alive.append((cd, cm))
+            common.check_rows(cd, rows, dev, (cd.dtype,),
+                              f"join_expand: column {name}")
+            common.check_rows(cm, rows, dev, (torch.bool,),
+                              f"join_expand: mask of {name}")
+            if cd.element_size() not in _ELEM_SIZES:
+                raise ValueError(f"join_expand: column {name} of "
+                                 f"{cd.dtype}")
+            # an aligned probe column's data passes through
+            data = cd if aligned and side == 0 else \
+                torch.empty(cap, dtype=cd.dtype, device=dev)
+            mask = torch.empty(cap, dtype=torch.bool, device=dev)
+            cols[name] = Column(data, mask, c.type, c.dictionary)
+            src.append(cd.data_ptr())
+            src_mask.append(cm.data_ptr())
+            dst.append(0 if aligned and side == 0 else data.data_ptr())
+            dst_mask.append(mask.data_ptr())
+            sizes.append(cd.element_size())
+            sides.append(side)
+    live = torch.empty(cap, dtype=torch.bool, device=dev)
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    lib = cuda.library("join_expand")
+    tiles = None if aligned else torch.empty(
+        (n + lib.presto_expand_tile() - 1) // lib.presto_expand_tile(),
+        dtype=torch.int64, device=dev)
+    C = max(ncols, 1)
+    P = ctypes.c_int64 * C
+    status = lib.presto_join_expand(
+        ctypes.c_int32(int(aligned)), ctypes.c_void_p(lo_enc.data_ptr()),
+        ctypes.c_void_p(probe.row_valid.data_ptr()), ctypes.c_int64(n),
+        ctypes.c_void_p(table.run_len.data_ptr()),
+        ctypes.c_void_p(table.hash2.data_ptr()),
+        ctypes.c_void_p(None if h2 is None else h2.data_ptr()),
+        ctypes.c_int64(nb), ctypes.c_int32(int(join_type == "left")),
+        ctypes.c_int32(int(full)), pk[0], pk[1], pk[2], bk[0], bk[1],
+        bk[2], pk[3], P(*src), P(*src_mask), P(*dst), P(*dst_mask),
+        (ctypes.c_int32 * C)(*sizes), (ctypes.c_int32 * C)(*sides),
+        ctypes.c_int32(ncols), ctypes.c_void_p(live.data_ptr()),
+        ctypes.c_int64(cap), ctypes.c_void_p(stats.data_ptr()),
+        ctypes.c_void_p(None if tiles is None else tiles.data_ptr()),
+        ctypes.c_void_p(cuda.stream_ptr(dev)))
+    cuda.check(lib, status, "join_expand")
+    JOIN_EXPAND_KERNEL.launches += 1
     if aligned:
+        return Batch(cols, live), torch.zeros((), dtype=torch.bool,
+                                              device=dev), stats[0]
+    return Batch(cols, live), stats[1] > 0, stats[2]
+
+
+def expand_plain(table, probe, key_names, lo_enc, out_capacity,
+                 join_type, probe_output, build_output, build_keys,
+                 verify, h2):
+    """Plain version of K9 (the reference's `_expand_aligned` /
+    `_expand_general` after the search)."""
+    if _aligned_layout(table, probe, out_capacity, join_type):
         out, overflow = _expand_aligned(
             table, probe, key_names, lo_enc, join_type, probe_output,
             build_output, build_keys, verify)

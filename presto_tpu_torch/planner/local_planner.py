@@ -3,10 +3,11 @@
 sql/planner/LocalExecutionPlanner.java:549).
 
 The port plans TableScan, Values, Filter, Project, Aggregation
-(direct slot-table and sort-based paths), inner/left/right hash Join
-(a right join becomes a flipped left join), Sort, TopN, Limit and
-Output. A join spawns a build pipeline that runs before the pipeline
-holding its probe, as in the reference; inner joins also wire dynamic
+(direct slot-table, streaming and sort-based paths), inner/left/right
+hash Join (a right join becomes a flipped left join), SemiJoin (IN,
+EXISTS, NOT IN), Sort, TopN, Limit and Output. A join spawns a build
+pipeline that runs before the pipeline holding its probe, as in the
+reference; inner joins and IN/EXISTS semi joins also wire dynamic
 filters from the build keys to probe-side scans. Every other node
 raises `LocalPlanningError` naming the ROADMAP item that ports it.
 `fragment_fusion_enabled` is accepted and has no effect yet:
@@ -25,7 +26,8 @@ from presto_tpu_torch.batch import Batch, Column, bucket_capacity
 from presto_tpu_torch.expr.compile import CompiledExpr, compile_expression
 from presto_tpu_torch.expr.ir import InputRef, RowExpression, SpecialForm, walk
 from presto_tpu_torch.operators.aggregation import (
-    AggregationOperatorFactory, AggSpec,
+    AggregationOperatorFactory, AggSpec, StreamingAggregationOperatorFactory,
+    _direct_domains,
 )
 from presto_tpu_torch.operators.core import (
     FilterProjectOperatorFactory, LimitOperatorFactory,
@@ -34,6 +36,7 @@ from presto_tpu_torch.operators.core import (
 )
 from presto_tpu_torch.operators.join_ops import (
     HashBuildOperatorFactory, JoinBridge, LookupJoinOperatorFactory,
+    SemiJoinOperatorFactory,
 )
 from presto_tpu_torch.operators.sort_ops import (
     OrderByOperatorFactory, TopNOperatorFactory,
@@ -59,7 +62,6 @@ class LocalPlanningError(Exception):
 
 #: plan nodes of later slices -> the ROADMAP item that ports them
 _LATER = {
-    "SemiJoinNode": "A6 (semi join)",
     "DistinctNode": "A6 (distinct)",
     "WindowNode": "A8 (windows)",
     "TopNRowNumberNode": "A8 (windows)",
@@ -233,6 +235,10 @@ class LocalExecutionPlanner:
             raise LocalPlanningError(
                 f"{node.step} aggregation step: later slice of the port "
                 "(ROADMAP A12)")
+        if self._streaming_agg_eligible(node, key_exprs):
+            pipe.append(StreamingAggregationOperatorFactory(
+                self._next_id(), key_names, key_exprs, specs))
+            return
         # stats-driven sizing: a grouping estimated past the session
         # value starts big enough instead of paying x4 retries; never
         # below the session value, which the retry protocol raises
@@ -244,6 +250,58 @@ class LocalExecutionPlanner:
         pipe.append(AggregationOperatorFactory(
             self._next_id(), key_names, key_exprs, specs, node.step,
             max_groups))
+
+    def _streaming_agg_eligible(self, node: N.AggregationNode,
+                                key_exprs) -> bool:
+        """True when the aggregation's input arrives sorted by its group
+        keys (ascending, nulls last): a sort below it, or a scan whose
+        connector declares a physical sort order (reference:
+        presto_tpu/planner/local_planner.py:761). The streaming
+        operator then runs in O(batch) memory with no overflow retry.
+        Gated by the `streaming_aggregation` session property."""
+        if not node.keys or not bool(get_property(
+                self.session.properties, "streaming_aggregation")):
+            return False
+        if _direct_domains(key_exprs) is not None:
+            return False  # the slot-table path is already bounded
+        # group-key symbols in kernel key order (bare columns only)
+        syms = []
+        for _, e in node.keys:
+            if not isinstance(e, InputRef):
+                return False
+            syms.append(e.name)
+        cur = node.source
+        while True:
+            if isinstance(cur, N.ProjectNode):
+                asg = dict(cur.assignments)
+                mapped = []
+                for s in syms:
+                    e = asg.get(s)
+                    if not isinstance(e, InputRef):
+                        return False
+                    mapped.append(e.name)
+                syms = mapped
+                cur = cur.source
+            elif isinstance(cur, N.FilterNode):
+                cur = cur.source
+            elif isinstance(cur, (N.SortNode, N.MergeNode)):
+                k = len(syms)
+                if list(cur.keys[:k]) != syms:
+                    return False
+                return not any(cur.descending[:k]) \
+                    and not any(cur.nulls_first[:k])
+            elif isinstance(cur, N.TableScanNode):
+                try:
+                    conn = self.catalogs.connector(cur.handle.catalog)
+                    order = conn.metadata.sorted_by(cur.handle)
+                except Exception:
+                    return False
+                if not order:
+                    return False
+                cols = [cur.assignments.get(s) for s in syms]
+                return order[:len(cols)] == cols
+            else:
+                return False
 
     def _estimator(self):
         if self._stats is None:
@@ -346,6 +404,32 @@ class LocalExecutionPlanner:
             self._df_scans.setdefault(id(scan_node), []).append(
                 (scan_sym, df_id, self._df_registry))
         return publish or None
+
+    def _visit_SemiJoinNode(self, node: N.SemiJoinNode, pipe: List):
+        """The filtering side builds, the source side probes with K7's
+        mark. IN/EXISTS keep only source rows whose key the build holds,
+        the pruning contract of an inner join, so the build publishes
+        dynamic filters too; NOT IN must not (pruning would drop exactly
+        the rows it keeps). The reference's cross-fragment filters
+        (`_cross_df_publish`) belong to the distributed path (A12)."""
+        bridge = JoinBridge()
+        criteria = [(node.source_key, node.filtering_key)]
+        key_dicts = _unified_key_dicts(node.source, node.filtering_source,
+                                       criteria)
+        df_publish = None if node.negate else self._plan_dynamic_filters(
+            node.source, node.filtering_source, criteria)
+        build_pipe: List = []
+        self._visit(node.filtering_source, build_pipe)
+        build_pipe.append(HashBuildOperatorFactory(
+            self._next_id(), bridge, [node.filtering_key], key_dicts,
+            schema_cols=[(f.symbol, f.type, f.dictionary)
+                         for f in node.filtering_source.output],
+            df_publish=df_publish))
+        self._pipelines.append(build_pipe)
+        self._visit(node.source, pipe)
+        pipe.append(SemiJoinOperatorFactory(
+            self._next_id(), bridge, [node.source_key], node.negate,
+            build_keys=[node.filtering_key], key_dicts=key_dicts))
 
     def _visit_SortNode(self, node: N.SortNode, pipe: List):
         self._visit(node.source, pipe)

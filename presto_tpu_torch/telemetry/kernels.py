@@ -7,7 +7,9 @@ under the family names of the JAX package's kernel contracts
 (`agg_step`, `compact`, `filter_project`, ...): the same numbers as the
 reference's `presto_tpu_kernel_calls_total`. A `LaunchCounter` belongs
 to one hand-written CUDA kernel's wrapper and counts only the launches
-of that kernel, so a run can show that the main path went through it.
+of that kernel, so a run can show that the main path went through it;
+it names the reference family the kernel computes, and `COUNTERS` holds
+every counter by kernel name.
 """
 
 from __future__ import annotations
@@ -24,11 +26,19 @@ def count(family: str) -> None:
 
 class LaunchCounter:
     """Launches of one CUDA kernel, incremented by its wrapper where it
-    launches the kernel and nowhere else."""
+    launches the kernel and nowhere else. `family` is the reference
+    kernel family it computes (the kernel's own name by default)."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, family: str = ""):
         self.name = name
+        self.family = family or name
         self.launches = 0
+        COUNTERS[name] = self
 
     def __repr__(self) -> str:
-        return f"LaunchCounter({self.name!r}, launches={self.launches})"
+        return (f"LaunchCounter({self.name!r}, family={self.family!r}, "
+                f"launches={self.launches})")
+
+
+#: kernel name -> its LaunchCounter
+COUNTERS: "dict[str, LaunchCounter]" = {}

@@ -326,3 +326,234 @@ def test_sort_aggregation_matches_cpu(hopper):
     for a, b in zip(out["cpu"], out["cuda"]):
         assert a[0] == b[0] and a[2:] == b[2:]
         assert abs(a[1] - b[1]) <= 1e-9 * max(1.0, abs(a[1]))
+
+
+# -- K7 semi_join, K8 stream_reduce, K9 join_expand --------------------------
+#
+# Tolerances: K7's keep mask exactly; K8's group counts, first rows, slot
+# validity, keys, carry flags and integer components exactly, float64
+# components to a relative 1e-9 (lane-strided tree order against row
+# order); K9's liveness, masks, every value under a set mask, the
+# overflow flag and the live count exactly.
+
+
+def _probe_like(rng, build, names, npr, dev, dup, nkeys, take_frac=0.5):
+    """A probe batch whose keys are half drawn from the build's."""
+    probe = _build_batch(rng, npr, int(npr * 0.9), dev, dup, nkeys)
+    nb = build.capacity
+    pick = torch.from_numpy(rng.integers(0, nb, npr)).to(dev)
+    take = torch.from_numpy(rng.random(npr) < take_frac).to(dev)
+    for nm in names:
+        pc, bc = probe.columns[nm], build.columns[nm]
+        pc.data = torch.where(take, bc.data[pick], pc.data)
+        pc.mask = torch.where(take, bc.mask[pick], pc.mask)
+    return probe
+
+
+@pytest.mark.parametrize("negate", [False, True], ids=["in", "not_in"])
+@pytest.mark.parametrize("verify", ["hash", "full"])
+@pytest.mark.parametrize("dup,nkeys,live", [(None, 1, 0.6), (2000, 1, 0.6),
+                                            (3300, 1, 1.0), (50, 2, 0.6),
+                                            (None, 1, 0.0), (2000, 1, 0.7)],
+                         ids=["unique", "dup", "runs80", "two_keys_dup",
+                              "empty_build", "collide"])
+def test_k7_semi_join_matches_plain(hopper, verify, negate, dup, nkeys,
+                                    live):
+    rng = np.random.default_rng(16)
+    nb, npr = 1 << 18, 1 << 20
+    build = _build_batch(rng, nb, int(nb * live), hopper, dup, nkeys)
+    names = tuple(f"k{i}" for i in range(nkeys))
+    table = tj.build_for_backend(build, names)
+    probe = _probe_like(rng, build, names, npr, hopper, dup, nkeys)
+    if live == 0.7:
+        # every duplicate run's first row a false candidate: the match
+        # lies deeper in the run (as after a 64-bit collision)
+        starts = table.run_len > 1
+        table.hash2 = torch.where(starts, table.hash2 ^ 0x5DEECE66D,
+                                  table.hash2)
+        c = table.batch.columns["k0"]
+        c.data = torch.where(starts, c.data + 7919, c.data)
+    before = tj.SEMI_JOIN_KERNEL.launches
+    got = tj.semi_mark(table, probe, names, names, verify, negate)
+    assert tj.SEMI_JOIN_KERNEL.launches == before + 1
+    want = tj.semi_mark_plain(table, probe, names, names, verify, negate)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    kept = int(want.sum())
+    if not negate:
+        assert 0 < kept < npr if live else kept == 0
+
+
+def _stream_batch(rng, n, dev, dead, nkeys=2):
+    """n rows in key order (nulls last), groups of 1-7 rows like
+    lineitem by orderkey; dead rows at random, or in runs across the
+    1024-row tile borders, or everywhere."""
+    base = np.repeat(np.arange(n), rng.integers(1, 8, n))[:n]
+    k0 = (base // 5).astype(np.int64)
+    m0 = base < base.max()
+    k1 = (base % 5).astype(np.int32)
+    m1 = k1 != 4
+    rv = rng.random(n) < 0.85
+    if dead == "borders":
+        for t in range(1024, n, 1024):
+            rv[t - 40:t + 40] = False
+    elif dead == "all":
+        rv[:] = False
+
+    def t(x):
+        return torch.from_numpy(x).to(dev)
+    keys = [(t(k0), t(m0)), (t(k1), t(m1))][:nkeys]
+    aggs = [th.make_sum(tt.DOUBLE, tt.DOUBLE), th.make_min(tt.INTEGER),
+            th.make_max(tt.DOUBLE)]
+    inputs = [t(rng.normal(10, 5, n)),
+              t(rng.integers(-50, 50, n).astype(np.int32)),
+              t(rng.normal(0, 1, n))]
+    weights = [t(rv & (rng.random(n) < 0.9)) for _ in aggs]
+    contribs = th._make_contribs(aggs, inputs, weights, [False] * 3)
+    return t(rv), keys, contribs, aggs
+
+
+def _assert_states_close(got, want, live):
+    for gs, ws in zip(got, want):
+        for g, w in zip(gs, ws):
+            if g.is_floating_point():
+                torch.testing.assert_close(g[live], w[live], rtol=1e-9,
+                                           atol=1e-9)
+            else:
+                assert torch.equal(g[live], w[live])
+
+
+@pytest.mark.parametrize("dead,nkeys,out_cap", [
+    ("random", 2, 1 << 20), ("borders", 2, 1 << 20), ("all", 2, 1 << 20),
+    ("random", 1, 1 << 20), ("random", 2, 4096)],
+    ids=["q18_like", "tile_borders", "all_dead", "one_key", "overflow"])
+def test_k8_presorted_reduce_matches_plain(hopper, dead, nkeys, out_cap):
+    rng = np.random.default_rng(17)
+    n = 1 << 20
+    rv, keys, contribs, aggs = _stream_batch(rng, n, hopper, dead, nkeys)
+    before = th.STREAM_REDUCE_KERNEL.launches
+    got = th.presorted_reduce(rv, keys, contribs, aggs, out_cap)
+    assert th.STREAM_REDUCE_KERNEL.launches == before + 1
+    want = th.presorted_reduce_plain(rv, keys, contribs, aggs, out_cap)
+    torch.cuda.synchronize()
+    assert torch.equal(got.valid, want.valid)
+    assert bool(got.overflow) == bool(want.overflow) \
+        == (out_cap < 1 << 20 and dead != "all")
+    for (gd, gm), (wd, wm) in zip(got.keys, want.keys):
+        assert torch.equal(gm, wm) and torch.equal(gd, wd)
+    _assert_states_close(got.states, want.states,
+                         torch.ones_like(want.valid))
+
+
+@pytest.mark.parametrize("carry_kind", ["same", "differs", "none", "null"])
+@pytest.mark.parametrize("dead", ["random", "all"])
+def test_k8_stream_step_matches_plain(hopper, carry_kind, dead):
+    """One streaming round on the card: the carry folds into slot 0
+    (same keys), is emitted on its own (different keys), is absent, or
+    has NULL keys; an all-dead batch passes the carry through."""
+    rng = np.random.default_rng(18)
+    n = 1 << 20
+    rv, keys, contribs, aggs = _stream_batch(rng, n, hopper, dead)
+    carry = th.init_state([tt.BIGINT, tt.INTEGER], aggs, 1, hopper)
+    if carry_kind != "none":
+        first = int(torch.nonzero(rv)[0]) if dead != "all" else 0
+        for (cd, cm), (d, m) in zip(carry.keys, keys):
+            cd[0] = d[first] - (1 if carry_kind == "differs" else 0)
+            cm[0] = carry_kind != "null"
+        for st in carry.states:
+            for a in st:
+                a[0] = 3 if not a.is_floating_point() else 2.5
+        carry.valid[0] = True
+    before = th.STREAM_REDUCE_KERNEL.launches
+    got = th.stream_step(carry, rv, keys, contribs, aggs, 1 << 20)
+    assert th.STREAM_REDUCE_KERNEL.launches == before + 1
+    want = th.stream_fold_plain(
+        carry, th.presorted_reduce_plain(rv, keys, contribs, aggs, 1 << 20),
+        aggs)
+    torch.cuda.synchronize()
+    (g_ce, g_em, g_co, g_last), (w_ce, w_em, w_co, w_last) = got, want
+    assert torch.equal(g_ce.valid, w_ce.valid)
+    assert int(g_last) == int(w_last)
+    assert torch.equal(g_em.valid, w_em.valid)
+    live = w_em.valid
+    for (gd, gm), (wd, wm) in zip(g_em.keys, w_em.keys):
+        assert torch.equal(gm[live], wm[live]) and torch.equal(gd[live],
+                                                               wd[live])
+    _assert_states_close(g_em.states, w_em.states, live)
+    assert torch.equal(g_co.valid, w_co.valid)
+    for (gd, gm), (wd, wm) in zip(g_co.keys, w_co.keys):
+        assert torch.equal(gm, wm) and torch.equal(gd, wd)
+    _assert_states_close(g_co.states, w_co.states,
+                         torch.ones(1, dtype=torch.bool, device=hopper))
+    if dead != "all" and carry_kind != "none":
+        assert bool(w_ce.valid[0]) == (carry_kind != "same")
+
+
+def _assert_expand_equal(got, want, names):
+    (gb, govf, glive), (wb, wovf, wlive) = got, want
+    assert bool(govf) == bool(wovf)
+    assert int(glive) == int(wlive) == int(wb.row_valid.sum())
+    assert torch.equal(gb.row_valid, wb.row_valid)
+    for nm in names:
+        g, w = gb.columns[nm], wb.columns[nm]
+        assert torch.equal(g.mask, w.mask), nm
+        assert torch.equal(g.data[w.mask], w.data[w.mask]), nm
+
+
+@pytest.mark.parametrize("join_type", ["inner", "left"])
+@pytest.mark.parametrize("verify", ["hash", "full"])
+@pytest.mark.parametrize("layout", ["aligned", "general_dup",
+                                    "general_skewed", "general_unique",
+                                    "overflow", "q13_shape"])
+def test_k9_join_expand_matches_plain(hopper, layout, verify, join_type):
+    """Both layouts against the plain expand: the rows, the overflow
+    flag (at the exact capacity the probe needs and one slot below) and
+    the live count. q13_shape: 65,536 probe rows into 2,097,152 slots
+    over a skewed duplicate-key build."""
+    rng = np.random.default_rng(19)
+    nb, npr = 1 << 18, 1 << 20
+    dup = {"aligned": None, "general_unique": None,
+           "general_dup": 20_000, "general_skewed": 3000,
+           "overflow": 20_000, "q13_shape": 30_000}[layout]
+    if layout == "q13_shape":
+        nb, npr = 1 << 21, 1 << 16
+    build = _build_batch(rng, nb, int(nb * 0.7), hopper, dup)
+    if layout == "general_skewed":
+        # one key holds a 500-row run
+        c = build.columns["k0"]
+        c.data[:500] = 7
+    names = ("k0",)
+    table = tj.build_for_backend(build, names)
+    probe = _probe_like(rng, build, names, npr, hopper, dup, 1,
+                        take_frac=0.9 if layout == "q13_shape" else 0.5)
+    lo_enc, h2 = tj.probe_search(table, probe, names, verify)
+    probe_out, build_out = ("k0", "v"), ("k0", "v")
+    build_out_names = tuple(f"b_{x}" for x in build_out)
+    table.batch = tb.Batch({**table.batch.columns,
+                            **{f"b_{x}": table.batch.columns[x]
+                               for x in build_out}}, table.batch.row_valid)
+    found = lo_enc >= 0
+    counts = torch.where(found, table.run_len[torch.clamp(lo_enc, min=0)],
+                         torch.zeros_like(lo_enc))
+    emit = counts if join_type == "inner" else torch.where(
+        probe.row_valid, torch.clamp(counts, min=1), torch.zeros_like(counts))
+    need = max(int(emit.sum()), 1)
+    if layout == "aligned":
+        caps = [npr]
+    elif layout == "general_unique":
+        caps = [2 * npr]
+    elif layout == "q13_shape":
+        caps = [1 << 21]
+    else:
+        caps = [need, need - 1] if layout == "overflow" else [need]
+    for cap in caps:
+        args = (table, probe, names, lo_enc, cap, join_type, probe_out,
+                build_out_names, names, verify, h2)
+        before = tj.JOIN_EXPAND_KERNEL.launches
+        got = tj._expand_from_enc(*args)
+        assert tj.JOIN_EXPAND_KERNEL.launches == before + 1
+        want = tj.expand_plain(*args)
+        torch.cuda.synchronize()
+        _assert_expand_equal(got, want, probe_out + build_out_names)
+        if layout == "overflow":
+            assert bool(got[1]) == (cap < need)

@@ -106,11 +106,43 @@ def _k6(common, join, hashagg):
                            [(_meta(64, torch.float64), "sum")], 16)
 
 
-@pytest.mark.parametrize("call", [_k3, _k4, _k5, _k6],
+def _meta_table(join):
+    from presto_tpu_torch.batch import Batch, Column
+    from presto_tpu_torch.types import BIGINT
+    b = Batch({"k": Column(_meta(64, torch.int64), _meta(64, torch.bool),
+                           BIGINT)}, _meta(64, torch.bool))
+    return join.BuildTable(_meta(64, torch.int64), _meta(64, torch.int64),
+                           _meta(17, torch.int64), _meta(64, torch.int64),
+                           _meta(1, torch.int64), b, radix_bits=4), b
+
+
+def _k7(common, join, hashagg):
+    table, b = _meta_table(join)
+    join.semi_mark(table, b, ("k",))
+
+
+def _k8(common, join, hashagg):
+    from presto_tpu_torch.types import DOUBLE
+    keys = [(_meta(64, torch.int64), _meta(64, torch.bool))]
+    hashagg.presorted_reduce(_meta(64, torch.bool), keys,
+                             [(_meta(64, torch.float64),
+                               _meta(64, torch.int64))],
+                             [hashagg.make_sum(DOUBLE, DOUBLE)], 16)
+
+
+def _k9(common, join, hashagg):
+    table, b = _meta_table(join)
+    join._expand_from_enc(table, b, ("k",), _meta(64, torch.int64), 128,
+                          "inner", ("k",), ("k",), ("k",), "hash",
+                          _meta(64, torch.int64))
+
+
+@pytest.mark.parametrize("call", [_k3, _k4, _k5, _k6, _k7, _k8, _k9],
                          ids=["row_hash", "join_build", "join_probe",
-                              "segment_reduce"])
+                              "segment_reduce", "semi_join",
+                              "stream_reduce", "join_expand"])
 def test_device_tensor_never_takes_the_plain_version(monkeypatch, call):
-    """K3-K6 on tensors that are not on the CPU (meta tensors here) go
+    """K3-K9 on tensors that are not on the CPU (meta tensors here) go
     to the kernel or raise: with the build made to fail, the error
     surfaces. The plain versions would compute meta results silently."""
     from presto_tpu_torch.native import cuda
@@ -121,3 +153,27 @@ def test_device_tensor_never_takes_the_plain_version(monkeypatch, call):
     monkeypatch.setattr(cuda, "library", no_build)
     with pytest.raises(cuda.KernelError):
         call(common, join, hashagg)
+
+
+def test_chip_smoke_checks_every_built_kernel():
+    """chip_smoke.py's kernels line names every source native/cuda.py
+    builds and every launch counter of the package, so no built kernel
+    goes unchecked on the card."""
+    import importlib.util
+    from presto_tpu_torch import batch  # noqa: F401  (registers K2)
+    from presto_tpu_torch.native import cuda
+    from presto_tpu_torch.ops import common, hashagg, join  # noqa: F401
+    from presto_tpu_torch.telemetry import kernels as tk
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert {src for src, _ in smoke.KERNELS.values()} \
+        == set(cuda.SOURCES.values())
+    assert set(smoke.KERNELS) == set(tk.COUNTERS)
+    for k, (src, replaces) in smoke.KERNELS.items():
+        assert (ROOT / "presto_tpu_torch" / "csrc" / src).exists(), k
+        path, line = replaces.split(":")
+        assert (ROOT / path).exists() and int(line) > 0, k
+    assert set(smoke.MUST) == set(smoke.QUERIES)
+

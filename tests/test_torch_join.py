@@ -326,3 +326,48 @@ def test_dynamic_filter_matches_reference(dtype, distinct):
     np.testing.assert_array_equal(
         tdf.apply(tbatch, "k", tf).row_valid.numpy(),
         _np(jdf.apply(jbatch, "k", jf).row_valid))
+
+
+def _skewed_build(rng, n):
+    """A duplicate-key build with Q13's skew: one key holds a fifth of
+    the rows, a few dozen keys hold 20-60 rows each, the rest 1-3."""
+    k0 = np.concatenate([np.zeros(n // 5, np.int64),
+                         np.repeat(np.arange(1, 41), rng.integers(20, 60, 40)),
+                         rng.integers(100, 100 + n, n)])[:n]
+    cols = {"bk": (rng.permutation(k0), rng.random(n) < 0.97, "bigint"),
+            "bv": (rng.normal(0, 1, n), rng.random(n) < 0.9, "double")}
+    return cols, np.ones(n, bool)
+
+
+@pytest.mark.parametrize("verify", ["hash", "full"])
+@pytest.mark.parametrize("join_type", ["inner", "left"])
+@pytest.mark.parametrize("kind", ["dup", "skewed"])
+def test_expand_at_the_capacity_limit_matches_reference(kind, join_type,
+                                                        verify):
+    """The plain general expand on duplicate and skewed builds, at the
+    exact capacity the probe needs (no overflow) and one slot below it
+    (overflow): the same rows, flag and live count as the reference."""
+    rng = np.random.default_rng(43 + len(kind) + len(join_type))
+    if kind == "skewed":
+        bcols, brv = _skewed_build(rng, 2048)
+    else:
+        bcols, brv = _build_cols(rng, 2048, "dup")
+    pcols, prv = _probe_cols(rng, 1024, bcols)
+    jbuild, tbuild = _both(bcols, brv)
+    jprobe, tprobe = _both(pcols, prv)
+    jt = jj.build_for_backend(jbuild, ("bk",))
+    tt = tj.build_for_backend(tbuild, ("bk",))
+    _, _, counts, _ = tj.probe_counts(tt, tprobe, ("pk",))
+    emit = counts if join_type == "inner" else torch.where(
+        tprobe.row_valid, torch.clamp(counts, min=1), torch.zeros_like(counts))
+    need = int(emit.sum())
+    assert need > 2 * 1024
+    names = ("pk", "pv", "bk", "bv")
+    for cap, overflows in ((need, False), (need - 1, True)):
+        args = (("pk",), cap, join_type, ("pk", "pv"), ("bk", "bv"),
+                ("bk",), verify)
+        jout, jovf, jtot = jj.probe_join(jt, jprobe, *args)
+        tout, tovf, ttot = tj.probe_join(tt, tprobe, *args)
+        assert bool(tovf) == bool(jovf) == overflows
+        assert int(ttot) == int(jtot)
+        assert _live_rows(tout, names) == _live_rows(jout, names)

@@ -120,8 +120,7 @@ def test_set_session_batch_rows():
 
 #: the queries the port does not plan yet -> the ROADMAP item their
 #: planning error names
-LATER_QUERIES = {4: "A6", 11: "A6", 15: "A8", 16: "A6", 18: "A6",
-                 19: "A6", 20: "A6", 21: "A8", 22: "A6"}
+LATER_QUERIES = {11: "A6", 15: "A8", 19: "A6", 21: "A8", 22: "A6"}
 
 _TABLES = ["lineitem", "orders", "customer", "supplier", "nation",
            "region", "part", "partsupp"]

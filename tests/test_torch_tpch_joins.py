@@ -1,5 +1,6 @@
-"""The TPC-H queries the join slice of the port brings (inner, left and
-right hash joins, dynamic filters, sort-based grouping), through both
+"""The TPC-H queries the join slices of the port bring (inner, left and
+right hash joins, dynamic filters, sort-based grouping; semi joins and
+streaming aggregation), through both
 LocalRunners at `tiny`: the port on the CPU (plain versions of its
 kernels) against the JAX package AND against sqlite, compared by
 assert_rows_equal's rule (DOUBLE rel_tol 1e-6, everything else exact,
@@ -122,3 +123,64 @@ def test_join_shapes_match_reference(name, sql):
     ref, port = _runners("tiny")
     assert_rows_equal(port.execute(sql).rows(), ref.execute(sql).rows(),
                       name, False)
+
+
+# -- semi joins and streaming aggregation ---------------------------------
+
+#: plannable since the semi-join slice
+SEMI_QUERIES = [4, 16, 18, 20]
+
+
+@pytest.mark.parametrize("qn", SEMI_QUERIES)
+def test_semi_query_matches_reference_and_sqlite(qn, sqlite_tiny):
+    before = dict(tk.CALLS)
+    got = _check(qn, "tiny")
+    types = [f.type.name for f in got.fields]
+    exp = [tuple(r) for r in
+           sqlite_tiny.execute(to_sqlite(QUERIES[qn])).fetchall()]
+    assert_rows_equal(normalize(got.rows(), types), exp, qn,
+                      qn in FULLY_ORDERED)
+    assert tk.CALLS["semi_join"] > before.get("semi_join", 0)
+
+
+@pytest.mark.parametrize("qn", SEMI_QUERIES)
+def test_semi_query_matches_reference_at_sf0_01(qn):
+    """At sf0_01 the builds hold duplicate runs (Q4's lineitem by
+    orderkey, Q20's partsupp by suppkey) and Q18's grouping streams
+    over several scan batches."""
+    _check(qn, "sf0_01")
+
+
+def _streaming_factories(pipelines):
+    return [f for pipe in pipelines for f in pipe
+            if type(f).__name__ == "StreamingAggregationOperatorFactory"]
+
+
+def test_q18_inner_aggregation_streams_in_both_packages():
+    """Q18's subquery groups lineitem by orderkey, the order the tpch
+    connector declares lineitem sorted by: both planners choose the
+    streaming aggregation for it, and only for it."""
+    from presto_tpu.planner.local_planner import (
+        LocalExecutionPlanner as JPlanner,
+    )
+    from presto_tpu_torch.parser import parse_statement as tparse
+    from presto_tpu_torch.planner.local_planner import (
+        LocalExecutionPlanner as TPlanner,
+    )
+    from presto_tpu.runner import LocalRunner as JaxRunner
+    _, port = _runners("tiny")
+    # no fragment result cache: a replayed build fragment hides its plan
+    ref = JaxRunner("tpch", "tiny", properties={
+        "fragment_result_cache_enabled": False})
+    jplan = JPlanner(ref.catalogs, ref.session).plan(
+        ref._plan_query(None, QUERIES[18]))
+    tplan = TPlanner(port.catalogs, port.session, port.device).plan(
+        port._plan_query(tparse(QUERIES[18])))
+    jstream = _streaming_factories(jplan.pipelines)
+    tstream = _streaming_factories(tplan.pipelines)
+    assert len(jstream) == len(tstream) == 1
+    assert [k for k in tstream[0].args[0]] == list(jstream[0].key_names)
+    before = dict(tk.CALLS)
+    _check(18, "tiny")
+    assert tk.CALLS["agg_stream"] > before.get("agg_stream", 0)
+
