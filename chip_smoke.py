@@ -2,8 +2,13 @@
 """Smoke run of the PyTorch/CUDA port (presto_tpu_torch) on one NVIDIA
 GPU: build its hand-written kernels, hold each against its plain PyTorch
 version at the shapes the main path gives it, run TPC-H Q1, Q3, Q4, Q5,
-Q6, Q13, Q16, Q18 and Q20 at SF1 through LocalRunner, and check the rows
-against a numpy oracle.
+Q6, Q11, Q13, Q15, Q16, Q18, Q20, Q21 and Q22, a FULL OUTER join, a
+SELECT DISTINCT and a UNION at SF1, and Q19 at `tiny` (at SF1 its cross
+product passes the reference's 2^24-slot guard, which the script checks
+is raised), through LocalRunner, and check the rows against a numpy
+oracle. Q22 keeps no row at SF1 and Q19 none at `tiny`, so Q22_EXISTS
+and Q19_LIVE, their plans with predicates that keep rows, are checked
+too.
 
     python3 chip_smoke.py
 
@@ -21,9 +26,12 @@ just before the query and read just after (those counts are the
 "launches" of the summary line), then three times warm. The kernels
 (KERNELS below): K1 direct_slot_reduce, K2 compact, K3 row_hash, K4
 join_build, K5 join_probe, K6 segment_reduce, K7 semi_join, K8
-stream_reduce, K9 join_expand. The kernel measurements run on inputs
-captured from a separate run of the same queries (the largest call of
-each kernel; K9 per layout), so their shapes are the main path's;
+stream_reduce, K9 join_expand (with its full mode), K10 cross_product,
+K11 join_outer. The kernel measurements run on inputs captured from a
+separate run of the same queries (the largest call of each kernel; K9
+per layout and in full mode at the FULL join's largest call; K10 at
+the calls of K10_AT; the DISTINCT fold, K3 + sort + K6, at
+the DISTINCT query's largest call), so their shapes are the main path's;
 compact is also measured on a 1M-row lineitem batch at ~2% and ~98%
 live. Launches made while comparing or timing are not counted. K4 and
 K6 also report the time of the `torch.sort` that precedes them on the
@@ -40,9 +48,14 @@ counts, first rows, keys, carry flags, the overflow flag and integer
 components exactly, float64 components to a relative 1e-9 (a
 lane-strided tree order against the plain version's row order). K9
 (join_expand): liveness, masks, every value under a set mask, the
-overflow flag and the live count exactly. Query results: DOUBLE columns
-to a relative 1e-6 (the repository's TPC-H comparison rule), everything
-else exact, in the query's order.
+overflow flag and the live count exactly; in full mode the matched
+flags exactly too. K10 (cross_product) and K11 (join_outer): liveness,
+masks and every value under a set mask exactly (they copy). The DISTINCT
+fold: the kept rows, their order and their masks exactly (both sort by
+the same hashes). Query results: DOUBLE columns to a relative 1e-6 (the
+repository's TPC-H comparison rule), everything else exact, in the
+query's order (as a multiset where the query has no ORDER BY; Q11 as a
+multiset whose rows come in descending value).
 """
 
 import json
@@ -177,8 +190,152 @@ where s.suppkey in (
   and n.name = 'CANADA'
 order by s.name"""
 
+Q11 = """select ps.partkey, sum(ps.supplycost * ps.availqty) as value
+from partsupp ps, supplier s, nation n
+where ps.suppkey = s.suppkey
+  and s.nationkey = n.nationkey
+  and n.name = 'GERMANY'
+group by ps.partkey
+having sum(ps.supplycost * ps.availqty) > (
+    select sum(ps2.supplycost * ps2.availqty) * 0.0001
+    from partsupp ps2, supplier s2, nation n2
+    where ps2.suppkey = s2.suppkey
+      and s2.nationkey = n2.nationkey
+      and n2.name = 'GERMANY')
+order by value desc"""
+
+Q15 = """with revenue0 as (
+    select suppkey as supplier_no,
+           sum(extendedprice * (1 - discount)) as total_revenue
+    from lineitem
+    where shipdate >= date '1996-01-01'
+      and shipdate < date '1996-04-01'
+    group by suppkey
+)
+select s.suppkey, s.name, s.address, s.phone, r.total_revenue
+from supplier s, revenue0 r
+where s.suppkey = r.supplier_no
+  and r.total_revenue = (select max(total_revenue) from revenue0)
+order by s.suppkey"""
+
+Q19 = """select sum(l.extendedprice * (1 - l.discount)) as revenue
+from lineitem l, part p
+where (
+        p.partkey = l.partkey
+    and p.brand = 'Brand#12'
+    and p.container in ('SM CASE', 'SM BOX', 'SM PACK', 'SM PKG')
+    and l.quantity >= 1 and l.quantity <= 11
+    and p.size between 1 and 5
+    and l.shipmode in ('AIR', 'AIR REG')
+    and l.shipinstruct = 'DELIVER IN PERSON'
+) or (
+        p.partkey = l.partkey
+    and p.brand = 'Brand#23'
+    and p.container in ('MED BAG', 'MED BOX', 'MED PKG', 'MED PACK')
+    and l.quantity >= 10 and l.quantity <= 20
+    and p.size between 1 and 10
+    and l.shipmode in ('AIR', 'AIR REG')
+    and l.shipinstruct = 'DELIVER IN PERSON'
+) or (
+        p.partkey = l.partkey
+    and p.brand = 'Brand#34'
+    and p.container in ('LG CASE', 'LG BOX', 'LG PACK', 'LG PKG')
+    and l.quantity >= 20 and l.quantity <= 30
+    and p.size between 1 and 15
+    and l.shipmode in ('AIR', 'AIR REG')
+    and l.shipinstruct = 'DELIVER IN PERSON'
+)"""
+
+Q21 = """select s.name, count(*) as numwait
+from supplier s, lineitem l1, orders o, nation n
+where s.suppkey = l1.suppkey
+  and o.orderkey = l1.orderkey
+  and o.orderstatus = 'F'
+  and l1.receiptdate > l1.commitdate
+  and exists (
+        select * from lineitem l2
+        where l2.orderkey = l1.orderkey
+          and l2.suppkey <> l1.suppkey)
+  and not exists (
+        select * from lineitem l3
+        where l3.orderkey = l1.orderkey
+          and l3.suppkey <> l1.suppkey
+          and l3.receiptdate > l3.commitdate)
+  and s.nationkey = n.nationkey
+  and n.name = 'SAUDI ARABIA'
+group by s.name
+order by numwait desc, s.name
+limit 100"""
+
+Q22 = """select cntrycode, count(*) as numcust, sum(acctbal) as totacctbal
+from (
+    select substring(c.phone, 1, 2) as cntrycode, c.acctbal
+    from customer c
+    where substring(c.phone, 1, 2) in
+            ('13', '31', '23', '29', '30', '18', '17')
+      and c.acctbal > (
+            select avg(c2.acctbal)
+            from customer c2
+            where c2.acctbal > 0.00
+              and substring(c2.phone, 1, 2) in
+                    ('13', '31', '23', '29', '30', '18', '17'))
+      and not exists (
+            select * from orders o
+            where o.custkey = c.custkey)
+) custsale
+group by cntrycode
+order by cntrycode"""
+
+#: Q22 keeps no row at SF1 (the generator gives nearly every customer an
+#: order, so NOT EXISTS leaves a handful, none above the average): this
+#: variant keeps the customers WITH orders, so its cross product with
+#: the one-row average is live
+Q22_EXISTS = Q22.replace("and not exists", "and exists")
+
+#: Q19 keeps no line at `tiny` (its result is one NULL): this variant
+#: keeps Q19's plan, a cross join with an OR-predicate above it, with
+#: branches wide enough to keep some 1,600 lines
+Q19_LIVE = """select sum(l.extendedprice * (1 - l.discount)) as revenue,
+       count(*) as lines
+from lineitem l, part p
+where (
+        p.partkey = l.partkey
+    and p.size between 1 and 25
+    and l.quantity <= 25
+) or (
+        p.partkey = l.partkey
+    and p.brand in ('Brand#12', 'Brand#23', 'Brand#34')
+    and l.shipinstruct = 'DELIVER IN PERSON'
+)"""
+
+#: a FULL OUTER join whose sides both keep unmatched rows
+FULL = """select count(*), count(c.custkey), count(o.orderkey),
+       sum(o.totalprice)
+from (select custkey from customer where nationkey < 5) c
+full join (select orderkey, custkey, totalprice from orders
+           where orderpriority = '1-URGENT') o
+on c.custkey = o.custkey"""
+
+#: a DISTINCT of some 10^5 pairs, whose state doubles many times
+DISTINCT = """select distinct partkey, suppkey from lineitem
+where shipdate >= date '1998-01-01'"""
+
+UNION = """select custkey from orders where orderpriority = '1-URGENT'
+union
+select custkey from customer where acctbal > 9000"""
+
 QUERIES = {"q1": Q1, "q3": Q3, "q5": Q5, "q6": Q6, "q13": Q13, "q4": Q4,
-           "q16": Q16, "q18": Q18, "q20": Q20}
+           "q16": Q16, "q18": Q18, "q20": Q20, "q11": Q11, "q15": Q15,
+           "q21": Q21, "q22": Q22, "q22_exists": Q22_EXISTS, "full": FULL,
+           "distinct": DISTINCT, "union": UNION, "q19": Q19,
+           "q19_live": Q19_LIVE}
+#: Q19 runs at this scale: at SF1 (and already at sf0_01) its cross
+#: product passes 2^24 slots and raises the reference's guard
+Q19_SCHEMA = "tiny"
+#: queries that run at another scale than SCHEMA
+QUERY_SCHEMA = {"q19": Q19_SCHEMA, "q19_live": Q19_SCHEMA}
+#: the reference's cross-join guard (presto_tpu/operators/misc_ops.py:97)
+GUARD = r"cross join would materialize \d+ rows; add a join condition"
 
 
 class SmokeFailure(Exception):
@@ -446,9 +603,176 @@ def semi_oracle(np, gen_module, li, schema=SCHEMA):
     return {"q4": q4, "q16": q16, "q18": q18, "q20": q20}
 
 
+def slice4_oracle(np, gen_module, li, schema=SCHEMA):
+    """Q11, Q15, Q21, Q22, the FULL join, the DISTINCT and the UNION in
+    numpy over the same generated tables: keys are dense (row i holds
+    key i + 1), so a lookup is an index; grouping by np.unique /
+    np.bincount; string predicates evaluated on the dictionaries."""
+    gen = gen_module.TpchGenerator(gen_module.TpchConnector.SCHEMAS[schema])
+    days = gen_module.parse_date_literal
+    ps = table(np, gen, "partsupp", ("partkey", "suppkey", "availqty",
+                                     "supplycost"))
+    supp = table(np, gen, "supplier", ("suppkey", "name", "address",
+                                       "nationkey", "phone"))
+    nation = table(np, gen, "nation", ("nationkey", "name"))
+    orders = table(np, gen, "orders", ("orderkey", "custkey", "orderstatus",
+                                       "totalprice", "orderpriority"))
+    cust = table(np, gen, "customer", ("custkey", "nationkey", "phone",
+                                       "acctbal"))
+    for t, k in ((supp, "suppkey"), (orders, "orderkey"), (cust, "custkey")):
+        assert (t[k] == np.arange(1, len(t[k]) + 1)).all()
+
+    def dic(tbl, col):
+        return gen.schema(tbl).column(col).dictionary
+
+    def nation_key(name):
+        code = dic("nation", "name").index(name)
+        return int(nation["nationkey"][nation["name"] == code][0])
+
+    # Q11: GERMANY's stock value per part above 0.0001 of the total
+    german = supp["nationkey"][ps["suppkey"] - 1] == nation_key("GERMANY")
+    value = ps["supplycost"][german] * ps["availqty"][german]
+    parts, inv = np.unique(ps["partkey"][german], return_inverse=True)
+    by_part = np.bincount(inv, weights=value)
+    keep = by_part > value.sum() * 0.0001
+    q11 = sorted(((int(k), float(v)) for k, v in
+                  zip(parts[keep], by_part[keep])), key=lambda r: -r[1])
+
+    # Q15: the suppliers of the largest 1996Q1 revenue
+    q1_96 = (li["shipdate"] >= days("1996-01-01")) \
+        & (li["shipdate"] < days("1996-04-01"))
+    rev = np.bincount(li["suppkey"][q1_96],
+                      weights=(li["extendedprice"] * (1 - li["discount"]))
+                      [q1_96], minlength=len(supp["suppkey"]) + 1)
+    sname, saddr, sphone = (dic("supplier", c)
+                            for c in ("name", "address", "phone"))
+    q15 = [(int(k), sname[supp["name"][k - 1]],
+            saddr[supp["address"][k - 1]], sphone[supp["phone"][k - 1]],
+            float(rev[k])) for k in np.flatnonzero(rev == rev.max())]
+
+    # Q21: SAUDI ARABIA suppliers whose late line held up a finished
+    # multi-supplier order where no other supplier was late
+    ok, sk = li["orderkey"], li["suppkey"]
+    late = li["receiptdate"] > li["commitdate"]
+    oid = np.cumsum(np.r_[True, ok[1:] != ok[:-1]]) - 1  # sorted by order
+    lines = np.bincount(oid)[oid]
+    late_lines = np.bincount(oid, weights=late)[oid]
+    _, pinv = np.unique(oid * (len(supp["suppkey"]) + 1) + sk,
+                        return_inverse=True)
+    own = np.bincount(pinv)[pinv]
+    own_late = np.bincount(pinv, weights=late)[pinv]
+    finished = orders["orderstatus"][ok - 1] \
+        == dic("orders", "orderstatus").index("F")
+    saudi = supp["nationkey"][sk - 1] == nation_key("SAUDI ARABIA")
+    sel = late & finished & saudi & (lines > own) & (late_lines == own_late)
+    # grouped by name: suppliers may share one
+    wait = np.bincount(supp["name"][sk[sel] - 1], minlength=len(sname))
+    q21 = sorted(((sname[c], int(wait[c])) for c in np.flatnonzero(wait)),
+                 key=lambda r: (-r[1], r[0]))[:100]
+
+    # Q22: customers of seven country codes, richer than their average,
+    # with no order
+    phones = dic("customer", "phone")
+    codes = ("13", "31", "23", "29", "30", "18", "17")
+    prefix = np.array([p[:2] for p in phones])[cust["phone"]]
+    in_codes = np.isin(prefix, codes)
+    avg = cust["acctbal"][in_codes & (cust["acctbal"] > 0)].mean()
+    no_order = ~np.isin(cust["custkey"], orders["custkey"])
+
+    def q22_rows(csel):
+        return [(c, int((prefix[csel] == c).sum()),
+                 float(cust["acctbal"][csel][prefix[csel] == c].sum()))
+                for c in sorted(set(prefix[csel]))]
+    q22 = q22_rows(in_codes & (cust["acctbal"] > avg) & no_order)
+    q22_exists = q22_rows(in_codes & (cust["acctbal"] > avg) & ~no_order)
+
+    # the FULL join: nation < 5 customers against 1-URGENT orders
+    urgent = orders["orderpriority"] \
+        == dic("orders", "orderpriority").index("1-URGENT")
+    ccust = cust["custkey"][cust["nationkey"] < 5]
+    ocust = orders["custkey"][urgent]
+    matched_orders = int(np.isin(ocust, ccust).sum())
+    lonely = int((~np.isin(ccust, ocust)).sum())
+    full = [(len(ocust) + lonely, matched_orders + lonely, len(ocust),
+             float(orders["totalprice"][urgent].sum()))]
+
+    # DISTINCT (partkey, suppkey) of the 1998 lines; the UNION's custkeys
+    pairs = np.unique(np.stack([li["partkey"], li["suppkey"]], axis=1)
+                      [li["shipdate"] >= days("1998-01-01")], axis=0)
+    distinct = [(int(a), int(b)) for a, b in pairs]
+    union = [(int(k),) for k in np.union1d(
+        ocust, cust["custkey"][cust["acctbal"] > 9000])]
+    return {"q11": q11, "q15": q15, "q21": q21, "q22": q22,
+            "q22_exists": q22_exists, "full": full, "distinct": distinct,
+            "union": union}
+
+
+def q19_oracle(np, gen_module, schema=Q19_SCHEMA):
+    """Q19 and Q19_LIVE in numpy at `schema`: the lines of Q19's three
+    brand / container / quantity / size branches, and of Q19_LIVE's two
+    size / quantity and brand / shipinstruct branches, joined to their
+    part by index; and the number of lineitem rows."""
+    gen = gen_module.TpchGenerator(gen_module.TpchConnector.SCHEMAS[schema])
+    li = table(np, gen, "lineitem", ("partkey", "quantity", "shipmode",
+                                     "shipinstruct", "extendedprice",
+                                     "discount"))
+    part = table(np, gen, "part", ("partkey", "brand", "container",
+                                   "size"))
+    assert (part["partkey"] == np.arange(1, len(part["partkey"]) + 1)).all()
+
+    def codes(tbl, col, values):
+        d = gen.schema(tbl).column(col).dictionary
+        return [d.index(v) for v in values if v in d]
+    row = li["partkey"] - 1
+    brand, cont, size = (part[c][row] for c in ("brand", "container",
+                                                "size"))
+    q = li["quantity"]
+    common = np.isin(li["shipmode"], codes("lineitem", "shipmode",
+                                           ("AIR", "AIR REG"))) \
+        & np.isin(li["shipinstruct"], codes("lineitem", "shipinstruct",
+                                            ("DELIVER IN PERSON",)))
+    hit = np.zeros(len(q), bool)
+    for b, cs, lo, hi, smax in (
+            ("Brand#12", ("SM CASE", "SM BOX", "SM PACK", "SM PKG"), 1,
+             11, 5),
+            ("Brand#23", ("MED BAG", "MED BOX", "MED PKG", "MED PACK"), 10,
+             20, 10),
+            ("Brand#34", ("LG CASE", "LG BOX", "LG PACK", "LG PKG"), 20,
+             30, 15)):
+        hit |= np.isin(brand, codes("part", "brand", (b,))) \
+            & np.isin(cont, codes("part", "container", cs)) \
+            & (q >= lo) & (q <= hi) & (size >= 1) & (size <= smax)
+    hit &= common
+    price = li["extendedprice"] * (1 - li["discount"])
+    live = ((size >= 1) & (size <= 25) & (q <= 25)) \
+        | (np.isin(brand, codes("part", "brand", ("Brand#12", "Brand#23",
+                                                  "Brand#34")))
+           & np.isin(li["shipinstruct"], codes("lineitem", "shipinstruct",
+                                               ("DELIVER IN PERSON",))))
+    return {"q19": [(float(price[hit].sum()) if hit.any() else None,)],
+            "q19_live": [(float(price[live].sum()), int(live.sum()))]}, \
+        len(q)
+
+
 #: queries whose ORDER BY leaves ties: the number of leading columns
 #: it orders by (rows tied on those may come in any order)
 PARTIAL_ORDER = {"q20": 1}
+#: queries with no ORDER BY: compared as multisets
+UNORDERED = {"distinct", "union"}
+#: queries ordered by one DOUBLE column, descending: compared as
+#: multisets, and the rows must come in descending order of that column
+DESC_BY = {"q11": 1}
+
+
+def result_matches(label, got, want) -> bool:
+    """rows_match under the query's ordering rule."""
+    if label in UNORDERED:
+        return rows_match(sorted(got), sorted(want))
+    if label in DESC_BY:
+        c = DESC_BY[label]
+        return all(a[c] >= b[c] for a, b in zip(got, got[1:])) \
+            and rows_match(sorted(got), sorted(want))
+    return rows_match(got, want, PARTIAL_ORDER.get(label))
 
 
 def rows_match(got, want, order_cols=None) -> bool:
@@ -537,6 +861,15 @@ class Capture:
         #: call, and calls per (query, layout)
         self.expand = {}
         self.expand_calls = {}
+        #: K9 in full mode at its largest call: (output slots, query,
+        #: args, the matched flags as they were before the call)
+        self.expand_full = None
+        #: K10 per query: (output slots, (probe, build, out_cap))
+        self.k10 = {}
+        #: K11 at its largest call: (rows, query, args)
+        self.k11 = None
+        #: the DISTINCT fold at its largest call: (rows, query, args)
+        self.distinct = None
         #: composed form -> (rows, query, function, args)
         self.composed = {}
         self.query = None
@@ -601,6 +934,13 @@ class Capture:
         def expand(orig):
             def rec(table, probe, *args):
                 out_capacity = args[2]
+                if args[3] == "full":
+                    # the full mode, apart from the inner/left layouts
+                    if out_capacity > (self.expand_full or (0,))[0]:
+                        self.expand_full = (out_capacity, self.query,
+                                            (table, probe, *args[:-1]),
+                                            args[-1].clone())
+                    return orig(table, probe, *args)
                 layout = "aligned" if tj._aligned_layout(
                     table, probe, out_capacity, args[3]) else "general"
                 key = (self.query, layout)
@@ -641,6 +981,33 @@ class Capture:
         self._patch(th, "stream_step", keep(
             "stream_reduce", lambda carry, rv, *a: rv.shape[0]))
         self._patch(tj, "_expand_from_enc", expand)
+
+        def cross(orig):
+            def rec(probe, build, np_rows, nb, out_cap):
+                args = (probe, build, np_rows, nb, out_cap)
+                if out_cap > self.k10.get(self.query, (0,))[0]:
+                    self.k10[self.query] = (out_cap, args)
+                return orig(*args)
+            return rec
+
+        def outer(orig):
+            def rec(table, matched, *args):
+                if table.batch.capacity > (self.k11 or (0,))[0]:
+                    self.k11 = (table.batch.capacity, self.query,
+                                (table, matched.clone(), *args))
+                return orig(table, matched, *args)
+            return rec
+
+        def distinct(orig):
+            def rec(state, batch):
+                rows = state.capacity + batch.capacity
+                if rows > (self.distinct or (0,))[0]:
+                    self.distinct = (rows, self.query, (state, batch))
+                return orig(state, batch)
+            return rec
+        self._patch(m["misc"], "cross_product", cross)
+        self._patch(tj, "unmatched_build", outer)
+        self._patch(m["sort"], "distinct_step", distinct)
         self._patch(m["core"], "make_filter_project_kernel", filter_project)
         for label, (_, mod, fn) in COMPOSED.items():
             self._patch(m[mod], fn, self._record(label))
@@ -656,21 +1023,30 @@ class Capture:
 
 def profile_query(torch, gen_module, runner, sql):
     """One warm execution under torch.profiler: wall time, the host
-    seconds spent generating tpch data, device busy time (the sum of
-    the kernels' self device time) and the kernels that took most of
-    it. `device_busy_ms` is None when the profiler recorded no device
+    seconds spent generating tpch data (in all, and per table: calls,
+    seconds, the slowest call, rows), device busy time (the sum of the
+    kernels' self device time) and the kernels that took most of it.
+    `device_busy_ms` is None when the profiler recorded no device
     time."""
     from torch.profiler import ProfilerActivity, profile
     gen_cls = gen_module.TpchGenerator
     orig = gen_cls.generate
     datagen = [0.0]
+    by_table = {}
 
-    def timed_generate(self, *args, **kwargs):
+    def timed_generate(self, table, *args, **kwargs):
         t = time.perf_counter()
+        out = None
         try:
-            return orig(self, *args, **kwargs)
+            out = orig(self, table, *args, **kwargs)
+            return out
         finally:
-            datagen[0] += time.perf_counter() - t
+            dt = time.perf_counter() - t
+            datagen[0] += dt
+            calls, secs, slowest, rows = by_table.get(table, (0, 0.0, 0.0, 0))
+            n = len(next(iter(out.values()))) if out else 0
+            by_table[table] = (calls + 1, secs + dt, max(slowest, dt),
+                               rows + n)
     gen_cls.generate = timed_generate
     try:
         with profile(activities=[ProfilerActivity.CPU,
@@ -692,6 +1068,9 @@ def profile_query(torch, gen_module, runner, sql):
     busy_us = sum(dev_us(e) for e in events)
     top = sorted(events, key=dev_us, reverse=True)[:6]
     return {"wall_s": wall, "datagen_s": datagen[0],
+            "datagen_by_table": {
+                t: {"calls": c, "s": sec, "slowest_s": mx, "rows": r}
+                for t, (c, sec, mx, r) in sorted(by_table.items())},
             "device_busy_ms": busy_us / 1e3 if busy_us else None,
             "device_idle_share": 1 - busy_us / 1e6 / wall
             if busy_us else None,
@@ -1041,26 +1420,30 @@ def measure_k8(torch, th, args):
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
-def measure_k9(torch, tj, args, calls):
-    """K9 at its largest call of one layout against the plain version
-    (the composed torch expand), and its calls per query."""
+def measure_k9(torch, tj, args, calls, matched=None):
+    """K9 at its largest call of one layout (in full mode with the
+    call's `matched` flags) against the plain version (the composed
+    torch expand), and its calls per query."""
     (table, probe, names, lo_enc, cap, join_type, probe_out, build_out,
      build_keys, verify, h2) = args
-    got = tj._expand_from_enc(*args)
-    want = tj.expand_plain(*args)
+    flags = [None if matched is None else matched.clone()
+             for _ in range(3)]
+    got = tj._expand_from_enc(*args, flags[0])
+    want = tj.expand_plain(*args, flags[1])
     torch.cuda.synchronize()
     (gb, govf, glive), (wb, wovf, wlive) = got, want
     check(bool(govf) == bool(wovf) and int(glive) == int(wlive)
-          and torch.equal(gb.row_valid, wb.row_valid),
-          "K9 join_expand: liveness, overflow or live count differ from "
-          "its plain version")
+          and torch.equal(gb.row_valid, wb.row_valid)
+          and (matched is None or torch.equal(flags[0], flags[1])),
+          "K9 join_expand: liveness, overflow, live count or matched flags "
+          "differ from its plain version")
     for nm in (*probe_out, *build_out):
         g, w = gb.columns[nm], wb.columns[nm]
         check(torch.equal(g.mask, w.mask)
               and torch.equal(g.data[w.mask], w.data[w.mask]),
               f"K9 join_expand: column {nm} differs from its plain version")
-    ms = time_ms(lambda: tj._expand_from_enc(*args), torch)
-    plain_ms = time_ms(lambda: tj.expand_plain(*args), torch)
+    ms = time_ms(lambda: tj._expand_from_enc(*args, flags[2]), torch)
+    plain_ms = time_ms(lambda: tj.expand_plain(*args, flags[2]), torch)
     n = probe.capacity
     out_rows = gb.row_valid.shape[0]
     aligned = tj._aligned_layout(table, probe, cap, join_type)
@@ -1084,7 +1467,11 @@ def measure_k9(torch, tj, args, calls):
             + sum(c.data.element_size() + 1 for c in pcols) * (n + out_rows) \
             + sum(c.data.element_size() + 1 for c in bcols) \
             * (slots + out_rows) + out_rows
-    return {"layout": "aligned" if aligned else "general",
+    if matched is not None:
+        # the flags of the matched build rows written once
+        moved += int(flags[1].sum())
+    return {"layout": ("full " if matched is not None else "")
+            + ("aligned" if aligned else "general"),
             "probe_rows": n, "out_capacity": out_rows,
             "build_rows": int(table.sorted_hash.shape[0]),
             "join_type": join_type, "verify": verify,
@@ -1113,6 +1500,99 @@ def measure_composed(torch, fn, args):
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
+def batch_bytes(batch, rows=None) -> int:
+    """Bytes of `rows` rows (all by default) of every column's data and
+    mask and of row_valid."""
+    rows = batch.capacity if rows is None else rows
+    return rows * (1 + sum(c.data.element_size() + 1
+                           for c in batch.columns.values()))
+
+
+def check_same_batch(torch, got, want, what):
+    check(torch.equal(got.row_valid, want.row_valid)
+          and got.names == want.names
+          and all(torch.equal(got.columns[n].mask, want.columns[n].mask)
+                  and torch.equal(got.columns[n].data[want.columns[n].mask],
+                                  want.columns[n].data[want.columns[n].mask])
+                  for n in want.names),
+          f"{what} differs from its plain version")
+
+
+def measure_k10(torch, mm, args):
+    """K10 at one call of the main path against its plain version."""
+    probe, build, _, _, out_cap = args
+    got = mm.cross_product(*args)
+    want = mm.cross_product_plain(*args)
+    torch.cuda.synchronize()
+    check_same_batch(torch, got, want, "K10 cross_product")
+    ms = time_ms(lambda: mm.cross_product(*args), torch)
+    plain_ms = time_ms(lambda: mm.cross_product_plain(*args), torch)
+    # every column of both sides read once (the live counts come from
+    # the caller, so row_valid is not read); every output slot written
+    # once
+    col_bytes = [sum(c.data.element_size() + 1 for c in b.columns.values())
+                 for b in (probe, build)]
+    moved = probe.capacity * col_bytes[0] + build.capacity * col_bytes[1] \
+        + out_cap * (1 + sum(col_bytes))
+    return {"probe_rows": probe.capacity, "build_rows": build.capacity,
+            "out_capacity": out_cap, "live": int(want.row_valid.sum()),
+            "columns": len(want.names), "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+def measure_k11(torch, tj, args):
+    """K11 at the FULL join's outer tail against its plain version."""
+    table, matched, probe_schema, build_output = args
+    got, gcount = tj.unmatched_build(*args)
+    want, wcount = tj.unmatched_build_plain(*args)
+    torch.cuda.synchronize()
+    check(int(gcount) == int(wcount), "K11 join_outer: live count differs")
+    check_same_batch(torch, got, want, "K11 join_outer")
+    ms = time_ms(lambda: tj.unmatched_build(*args), torch)
+    plain_ms = time_ms(lambda: tj.unmatched_build_plain(*args), torch)
+    n = matched.shape[0]
+    probe_bytes = sum(got.columns[nm].data.element_size() + 1
+                      for nm, _, _ in probe_schema)
+    # row_valid, matched and the build masks read once; the liveness,
+    # the build masks and the probe columns written once; the count
+    moved = n * (2 + 2 * len(build_output) + 1 + probe_bytes) + 8
+    return {"rows": n, "live": int(wcount), "matched": int(matched.sum()),
+            "columns": len(probe_schema) + len(build_output),
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+def measure_distinct(torch, tsort, args):
+    """The DISTINCT fold (K3 + sort + K6) at its largest call against
+    the same fold through the plain versions of K3 and K6."""
+    state, batch = args
+    got = tsort.distinct_step(*args)
+    want = tsort.distinct_step_plain(*args)
+    torch.cuda.synchronize()
+    check_same_batch(torch, got, want, "the DISTINCT fold")
+    ms = time_ms(lambda: tsort.distinct_step(*args), torch)
+    plain_ms = time_ms(lambda: tsort.distinct_step_plain(*args), torch)
+    # one PyTorch call computing the same set: unique rows of the live
+    # (data, mask) columns
+    live = torch.cat([state.row_valid, batch.row_valid])
+    stacked = torch.stack([torch.cat([state.columns[n].data.to(torch.int64),
+                                      batch.columns[n].data.to(torch.int64)])
+                           for n in state.names]
+                          + [torch.cat([state.columns[n].mask,
+                                        batch.columns[n].mask])
+                             .to(torch.int64) for n in state.names],
+                          dim=1)[live]
+    library_ms = time_ms(lambda: torch.unique(stacked, dim=0), torch)
+    # state and batch read once; the new state written once
+    moved = batch_bytes(state) + batch_bytes(batch) + batch_bytes(got)
+    return {"rows": state.capacity + batch.capacity,
+            "live": int(live.sum()), "kept": int(want.row_valid.sum()),
+            "out_capacity": got.capacity, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
 #: the hand-written kernels, by launch counter: (source under
 #: presto_tpu_torch/csrc/, the reference function it replaces). Every
 #: entry of presto_tpu_torch/native/cuda.py SOURCES is here.
@@ -1129,7 +1609,15 @@ KERNELS = {
     "stream_reduce": ("stream_reduce.cu",
                       "presto_tpu/operators/aggregation.py:651"),
     "join_expand": ("join_expand.cu", "presto_tpu/ops/join.py:609"),
+    "cross_product": ("cross_product.cu",
+                      "presto_tpu/operators/misc_ops.py:120"),
+    "join_outer": ("join_outer.cu", "presto_tpu/ops/join.py:689"),
 }
+
+#: the queries whose largest K10 call is held against the plain version:
+#: Q19 at tiny (K10's largest call), Q11, Q22 (no live slot at SF1) and
+#: Q22_EXISTS (tens of thousands of live probe rows x 1)
+K10_AT = ("q19", "q11", "q22", "q22_exists")
 
 #: the kernels each query's plan must launch
 MUST = {"q1": ("direct_slot_reduce",),
@@ -1147,7 +1635,17 @@ MUST = {"q1": ("direct_slot_reduce",),
         "q18": ("stream_reduce", "semi_join", "join_probe", "join_expand",
                 "segment_reduce"),
         "q20": ("semi_join", "join_probe", "join_expand",
-                "segment_reduce")}
+                "segment_reduce"),
+        "q11": ("cross_product", "join_probe", "join_expand"),
+        "q15": ("join_probe", "join_expand"),
+        "q21": ("semi_join", "join_probe", "join_expand"),
+        "q22": ("cross_product", "semi_join"),
+        "q22_exists": ("cross_product", "semi_join"),
+        "full": ("join_expand", "join_outer"),
+        "distinct": ("row_hash", "segment_reduce"),
+        "union": ("row_hash", "segment_reduce"),
+        "q19": ("cross_product",),
+        "q19_live": ("cross_product",)}
 
 
 def run_phases(torch, np, mods, dev, schema, profile=True):
@@ -1157,15 +1655,23 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
     th, tc, tj, tk = mods["th"], mods["tc"], mods["tj"], mods["tk"]
     # 3. tpch: the main path ------------------------------------------
     want_q1, want_q6, lineitem = oracle(np, gen_module, schema)
-    want = {"q1": want_q1, "q6": want_q6,
+    want_q19, n_lineitem_q19 = q19_oracle(np, gen_module)
+    want = {"q1": want_q1, "q6": want_q6, **want_q19,
             **join_oracle(np, gen_module, lineitem, schema),
-            **semi_oracle(np, gen_module, lineitem, schema)}
-    n_lineitem = len(lineitem["quantity"])
-    runner = mods["LocalRunner"]("tpch", schema, properties=PROPS,
-                                 device=dev)
+            **semi_oracle(np, gen_module, lineitem, schema),
+            **slice4_oracle(np, gen_module, lineitem, schema)}
+    n_lineitem = {schema: len(lineitem["quantity"]),
+                  Q19_SCHEMA: n_lineitem_q19}
+    runners = {sc: mods["LocalRunner"]("tpch", sc, properties=PROPS,
+                                       device=dev)
+               for sc in {schema, Q19_SCHEMA}}
+
+    def runner_of(label):
+        return runners[QUERY_SCHEMA.get(label, schema)]
     counters = list(tk.COUNTERS.values())
     launches, calls, walls, results = {}, {}, {}, {}
     for label, sql in QUERIES.items():
+        runner = runner_of(label)
         for c in counters:
             c.launches = 0
         before = dict(tk.CALLS)
@@ -1183,40 +1689,58 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
             warm.append(time.perf_counter() - t)
         walls[label] = (cold, statistics.median(warm))
     for label in QUERIES:
-        check(rows_match(results[label], want[label],
-                         PARTIAL_ORDER.get(label)),
-              f"{label} differs from the oracle: {results[label]} vs "
-              f"{want[label]}")
+        check(result_matches(label, results[label], want[label]),
+              f"{label} differs from the oracle: {results[label][:20]} vs "
+              f"{want[label][:20]}")
     for label, names in MUST.items():
         for k in names:
             check(launches[label][k] > 0,
                   f"{k} was not launched in {label}")
     for label in QUERIES:
         cold, warm = walls[label]
-        emit({"phase": "tpch", "query": label, "schema": schema,
-              "batch_rows": PROPS["batch_rows"], "rows": results[label],
+        sc = QUERY_SCHEMA.get(label, schema)
+        rows = results[label]
+        emit({"phase": "tpch", "query": label, "schema": sc,
+              "batch_rows": PROPS["batch_rows"],
+              "rows": rows if len(rows) <= 200 else len(rows),
               "matches_oracle": True, "launches": launches[label],
               "family_calls": calls[label],
               "cold_s": cold, "warm_s": warm,
-              "lineitem_rows": n_lineitem,
-              "warm_lineitem_rows_per_s": n_lineitem / warm})
+              "lineitem_rows": n_lineitem[sc],
+              "warm_lineitem_rows_per_s": n_lineitem[sc] / warm})
+    # Q19 at SF1: the reference's guard, before anything is materialized
+    import re
+    try:
+        runners[schema].execute(Q19).rows()
+        guard = None
+    except RuntimeError as e:
+        guard = str(e)
+    check(guard is not None and re.fullmatch(GUARD, guard) is not None,
+          f"q19 at {schema} did not raise the cross-join guard: {guard}")
+    emit({"phase": "guard", "query": "q19", "schema": schema,
+          "raised": guard})
 
     # 4. where a warm query's time goes --------------------------------
     if profile:
         for label, sql in QUERIES.items():
             emit({"phase": "profile", "query": label,
-                  **profile_query(torch, gen_module, runner, sql)})
+                  **profile_query(torch, gen_module, runner_of(label),
+                                  sql)})
 
     # 5. kernels at the main path's shapes ----------------------------
     with Capture(mods) as cap:
         for label, sql in QUERIES.items():
             cap.query = label
-            runner.execute(sql).rows()
+            runner_of(label).execute(sql).rows()
     check({"q1", "q6"} <= set(cap.k1) and "q6" in cap.k2
           and set(cap.big) == {"row_hash", "join_build", "join_probe",
                                "segment_reduce", "semi_join",
                                "stream_reduce"}
-          and set(cap.expand) == {"aligned", "general"},
+          and set(cap.expand) == {"aligned", "general"}
+          and set(K10_AT) <= set(cap.k10)
+          and cap.expand_full is not None and cap.expand_full[1] == "full"
+          and cap.k11 is not None and cap.k11[1] == "full"
+          and cap.distinct is not None and cap.distinct[1] == "distinct",
           "kernel inputs were not captured from the main path")
     k1 = {q: measure_k1(torch, th, cap.k1[q][1], q) for q in ("q1", "q6")}
     _, q6_batch, q6_cap = cap.k2["q6"]
@@ -1235,6 +1759,12 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
         torch, tj, args, {qq: n for (qq, lay), n in cap.expand_calls.items()
                           if lay == layout}))
         for layout, (_, q, args) in cap.expand.items()}
+    _, fq, fargs, fmatched = cap.expand_full
+    expand["full"] = (fq, measure_k9(torch, tj, fargs, {}, fmatched))
+    k10 = {q: measure_k10(torch, mods["misc"], cap.k10[q][1])
+           for q in K10_AT}
+    k11 = measure_k11(torch, tj, cap.k11[2])
+    distinct = measure_distinct(torch, mods["sort"], cap.distinct[2])
     composed = {label: (q, measure_composed(torch, fn, args))
                 for label, (_, q, fn, args) in cap.composed.items()}
     del big, cap
@@ -1242,7 +1772,7 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
     # Q6's predicate as row_valid (~2% live, shrunk) and its complement
     # (~98% live, the full variant; Q1's own predicate keeps every row
     # of this generator)
-    n = min(1 << 20, n_lineitem)
+    n = min(1 << 20, n_lineitem[schema])
     types = {"quantity": tt.DOUBLE, "extendedprice": tt.DOUBLE,
              "discount": tt.DOUBLE, "tax": tt.DOUBLE,
              "returnflag": tt.VARCHAR, "linestatus": tt.VARCHAR,
@@ -1269,6 +1799,16 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
     for layout, (q, m) in expand.items():
         emit({"phase": "kernels", "kernel": "join_expand",
               "shape_from": q, **m})
+    for q, m in k10.items():
+        emit({"phase": "kernels", "kernel": "cross_product",
+              "shape_from": q, **m,
+              "calls": {qq: c.get("nested_loop", 0)
+                        for qq, c in calls.items()}})
+    emit({"phase": "kernels", "kernel": "join_outer", "shape_from": "full",
+          **k11})
+    emit({"phase": "kernels", "kernel": "distinct (K3 + sort + K6)",
+          "family": "distinct", "shape_from": "distinct", **distinct,
+          "calls": {qq: c.get("distinct", 0) for qq, c in calls.items()}})
     # the composed forms with no hand-written kernel yet: time at the
     # largest call, byte bound, calls of the family per query
     for label, (q, m) in sorted(composed.items()):
@@ -1279,8 +1819,11 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
 
     measured["direct_slot_reduce"] = k1["q1"]
     measured["compact"] = k2["q6_shrink"]
-    # the summary's K9 figures are those of its largest general call
+    # the summary's K9 figures are those of its largest general call,
+    # K10's those of its largest call (Q19 at tiny)
     measured["join_expand"] = expand["general"][1]
+    measured["cross_product"] = k10["q19"]
+    measured["join_outer"] = k11
     kernels = []
     for k, (src, replaces) in KERNELS.items():
         m = measured[k]
@@ -1310,6 +1853,7 @@ def main() -> int:
         from presto_tpu_torch.native import cuda
         from presto_tpu_torch.operators import aggregation as tagg
         from presto_tpu_torch.operators import core as tcore
+        from presto_tpu_torch.operators import misc_ops as tmisc
         from presto_tpu_torch.ops import common as tc
         from presto_tpu_torch.ops import hashagg as th
         from presto_tpu_torch.ops import join as tj
@@ -1323,6 +1867,7 @@ def main() -> int:
     dev = torch.device("cuda")
     mods = {"tb": tb, "tt": tt, "gen": gen_module, "th": th, "tc": tc,
             "tj": tj, "df": tdf, "agg": tagg, "core": tcore, "sort": tsort,
+            "misc": tmisc,
             "tk": tk, "LocalRunner": LocalRunner}
     check(set(KERNELS) == set(tk.COUNTERS)
           and {src for src, _ in KERNELS.values()}

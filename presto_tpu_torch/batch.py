@@ -420,16 +420,19 @@ def compact_shrink(batch: Batch, capacity: int) -> Batch:
 # -- the one-round-delayed compaction protocol -------------------------
 
 
-def begin_deferred_compact(batch: Batch):
+def begin_deferred_compact(batch: Batch,
+                           total: Optional[torch.Tensor] = None):
     """Start the one-round-delayed compaction protocol on a selective
     operator's output: start the copy of the live count to the host
     NOW, so that when the batch is emitted one driver round later
     `end_deferred_compact` shrinks it without a blocking round trip.
-    Returns (batch, pending count) — None when the batch is already
-    small."""
+    `total` is the live count when a kernel already computed it on the
+    device. Returns (batch, pending count) — None when the batch is
+    already small."""
     if batch.capacity <= COMPACT_FLOOR:
         return batch, None
-    return batch, pages.PendingScalar(batch.row_valid.sum())
+    return batch, pages.PendingScalar(
+        batch.row_valid.sum() if total is None else total)
 
 
 def end_deferred_compact(batch: Batch, total) -> Batch:

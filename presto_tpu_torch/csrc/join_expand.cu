@@ -1,25 +1,26 @@
 // join_expand (K9): the expansion of a hash-join probe after K5's
-// search, in both layouts, for inner and left joins.
+// search, in both layouts, for inner, left and full joins.
 //
 // Replaces presto_tpu/ops/join.py `_expand_dispatch` (:540) with
 // `_expand_aligned` (:578) and `_expand_general` (:609), the rest of
 // family join_probe after the search (operators/join_ops.py
-// `make_probe_kernel`):
+// `make_probe_kernel`), and the matched-flag fold of `_expand_from_enc`
+// (:548-577) behind `probe_join_full` (:506):
 //   * ALIGNED (every build hash run has length 1 and the output capacity
 //     is the probe capacity): output slot i is probe row i. One thread
 //     per row verifies its candidate (lo_enc >= 0; under verify="full"
 //     also the key columns, `presto_keys_match`), gathers every build
 //     column's data and mask at the candidate row under the verified
 //     mask, and ANDs the probe columns' masks with the slot's liveness
-//     (a left join keeps every live probe row, an inner join the
+//     (a left or full join keeps every live probe row, an inner join the
 //     verified ones). Where the composed form issues two torch gathers
 //     per column, this is one pass.
 //   * GENERAL (duplicate-key builds, or an output capacity that is a
 //     multiple of the probe's): per probe row emit = its candidate run
-//     length (a left join emits at least one slot per live row). Then an
-//     exclusive scan of the emit counts (per-tile sums, one block over
-//     the tiles, a block scan per tile: K2's shape) gives each row its
-//     first output slot, and the row's thread writes its own slots
+//     length (a left or full join emits at least one slot per live row).
+//     Then an exclusive scan of the emit counts (per-tile sums, one block
+//     over the tiles, a block scan per tile: K2's shape) gives each row
+//     its first output slot, and the row's thread writes its own slots
 //     [cum, cum + emit) clipped at the capacity: probe columns from the
 //     row, build columns from candidate lo + k, verified by hash2 (when
 //     the search did not check it) or by the key columns. A left join's
@@ -28,6 +29,11 @@
 //     its verified candidates itself, where the composed form
 //     index_add_-ed a per-slot flag back onto the probe rows. Slots from
 //     the total up to the capacity are written dead.
+//   * FULL mode (either layout): what a left join emits, and besides a
+//     store of 1 into matched[brow] for every verified slot, the running
+//     per-build-row flags the outer tail (K11, join_outer.cu) reads.
+//     Every writer stores the same value, so a plain byte store is
+//     race-free and needs no atomic.
 // The overflow flag (total > capacity) and the live-slot count stay on
 // the device, as the operator's deferred check reads them.
 //
@@ -36,30 +42,22 @@
 // gathered once (random rows of the build) and written once. General:
 // the same per output slot, plus lo_enc, row_valid and the run lengths
 // per probe row. Under Q13's skew a thread writes dozens of slots: its
-// writes are contiguous, but the warp's are not coalesced.
+// writes are contiguous, but the warp's are not coalesced. Full mode
+// adds one byte per verified slot.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gather.cuh"
 #include "probe_search.cuh"
 #include "segment.cuh"
 
 #define TILE PRESTO_SEG_TILE
 #define THREADS 256
-#define MAX_COLS 64
-
-// Output columns of both sides. side[c]: 0 = probe column (its value
-// comes from the probe row), 1 = build column (from the candidate row).
-// dst is null for an aligned probe column, whose data passes through.
-struct Cols {
-  const void* src[MAX_COLS];
-  const bool* src_mask[MAX_COLS];
-  void* dst[MAX_COLS];
-  bool* dst_mask[MAX_COLS];
-  int8_t size[MAX_COLS];
-  int8_t side[MAX_COLS];
-  int32_t ncols;
-};
+// Output columns of both sides (gather.cuh `Cols`): a probe column's
+// value comes from the probe row, a build column's from the candidate
+// row. dst is null for an aligned probe column, whose data passes
+// through.
 
 struct ExpandArgs {
   const int64_t* lo_enc;
@@ -76,26 +74,8 @@ struct ExpandArgs {
   Cols cols;
   bool* live;
   int64_t out_cap;
+  bool* matched;  // full mode: per build row, set where a slot verified
 };
-
-__device__ __forceinline__ void copy_elem(const void* src, int64_t i, void* dst, int64_t j,
-                                          int size) {
-  switch (size) {
-    case 1: static_cast<uint8_t*>(dst)[j] = static_cast<const uint8_t*>(src)[i]; break;
-    case 2: static_cast<uint16_t*>(dst)[j] = static_cast<const uint16_t*>(src)[i]; break;
-    case 4: static_cast<uint32_t*>(dst)[j] = static_cast<const uint32_t*>(src)[i]; break;
-    default: static_cast<uint64_t*>(dst)[j] = static_cast<const uint64_t*>(src)[i]; break;
-  }
-}
-
-__device__ __forceinline__ void zero_elem(void* dst, int64_t j, int size) {
-  switch (size) {
-    case 1: static_cast<uint8_t*>(dst)[j] = 0; break;
-    case 2: static_cast<uint16_t*>(dst)[j] = 0; break;
-    case 4: static_cast<uint32_t*>(dst)[j] = 0; break;
-    default: static_cast<uint64_t*>(dst)[j] = 0; break;
-  }
-}
 
 // Slot s gets probe row p and build row brow.
 __device__ __forceinline__ void write_slot(const ExpandArgs& a, int64_t s, int64_t p,
@@ -129,6 +109,7 @@ expand_aligned(const ExpandArgs a, unsigned long long* __restrict__ live_count) 
       verified = presto_keys_match(a.probe_keys, i, a.build_keys, brow);
     const bool live = a.left ? a.row_valid[i] : verified;
     write_slot(a, i, i, brow, verified, live);
+    if (a.matched != nullptr && verified) a.matched[brow] = true;
     live_n = live ? 1 : 0;
   }
   const int64_t total = block_sum(live_n);
@@ -201,6 +182,7 @@ expand_write(const ExpandArgs a, const int64_t* __restrict__ tile_offsets,
       const bool verified = k < counts && verify_candidate(a, i, brow);
       const bool live = verified || (unmatched && k == 0);
       write_slot(a, cum + k, i, brow, verified, live);
+      if (a.matched != nullptr && verified) a.matched[brow] = true;
       live_n += live ? 1 : 0;
     }
   }
@@ -238,8 +220,10 @@ int presto_expand_tile() { return TILE; }
 // and hash2[nbuild >= 1]; probe_h2[n] or null; probe and build key columns
 // (nkeys each, read under verify_full only); ncols output columns
 // (src data/mask, dst data/mask — dst data null for an aligned probe
-// column — element size and side). Writes live[out_cap] and, through
-// `stats` (zeroed by the caller): aligned, stats[0] = live slots;
+// column — element size and side); matched[nbuild] (full mode, which
+// needs left) or null. Writes live[out_cap], sets matched[brow] for every
+// verified slot and, through `stats` (zeroed by the caller): aligned,
+// stats[0] = live slots;
 // general, stats = {total slots, overflow, live slots}.
 // Scratch (general only): tiles[ceil(n / TILE)] int64s.
 int presto_join_expand(int32_t aligned, const void* lo_enc, const void* row_valid, int64_t n,
@@ -251,10 +235,10 @@ int presto_join_expand(int32_t aligned, const void* lo_enc, const void* row_vali
                        const int64_t* src, const int64_t* src_mask, const int64_t* dst,
                        const int64_t* dst_mask, const int32_t* sizes, const int32_t* sides,
                        int32_t ncols, void* live, int64_t out_cap, void* stats, void* tiles,
-                       void* stream) {
+                       void* matched, void* stream) {
   ExpandArgs a;
-  if (ncols < 0 || ncols > MAX_COLS || n < 1 || out_cap < 1 || nbuild < 1 ||
-      (aligned && out_cap != n))
+  if (!presto_fill_cols(&a.cols, src, src_mask, dst, dst_mask, sizes, sides, ncols) || n < 1 ||
+      out_cap < 1 || nbuild < 1 || (aligned && out_cap != n) || (matched != nullptr && !left))
     return static_cast<int>(cudaErrorInvalidValue);
   if (verify_full) {
     if (!presto_fill_keys(&a.probe_keys, pkey_data, pkey_mask, pkey_dtypes, nkeys) ||
@@ -273,19 +257,12 @@ int presto_join_expand(int32_t aligned, const void* lo_enc, const void* row_vali
   a.nbuild = nbuild;
   a.left = left != 0;
   a.verify_full = verify_full != 0;
-  for (int c = 0; c < ncols; ++c) {
-    a.cols.src[c] = reinterpret_cast<const void*>(src[c]);
-    a.cols.src_mask[c] = reinterpret_cast<const bool*>(src_mask[c]);
-    a.cols.dst[c] = reinterpret_cast<void*>(dst[c]);
-    a.cols.dst_mask[c] = reinterpret_cast<bool*>(dst_mask[c]);
-    a.cols.size[c] = static_cast<int8_t>(sizes[c]);
-    a.cols.side[c] = static_cast<int8_t>(sides[c]);
+  for (int c = 0; c < ncols; ++c)
     if (a.cols.dst[c] == nullptr && (!aligned || sides[c] != 0))
       return static_cast<int>(cudaErrorInvalidValue);
-  }
-  a.cols.ncols = ncols;
   a.live = static_cast<bool*>(live);
   a.out_cap = out_cap;
+  a.matched = static_cast<bool*>(matched);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int64_t* st = static_cast<int64_t*>(stats);
   const int64_t ntiles = (n + TILE - 1) / TILE;

@@ -42,6 +42,8 @@ SOURCES = {
     "semi_join": "semi_join.cu",
     "stream_reduce": "stream_reduce.cu",
     "join_expand": "join_expand.cu",
+    "cross_product": "cross_product.cu",
+    "join_outer": "join_outer.cu",
 }
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
@@ -95,7 +97,17 @@ SIGNATURES = {
         "presto_join_expand": (
             ctypes.c_int, [_I32, _P, _P, _I64, _P, _P, _P, _I64, _I32, _I32,
                            _P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _P,
-                           _P, _I32, _P, _I64, _P, _P, _P]),
+                           _P, _I32, _P, _I64, _P, _P, _P, _P]),
+    },
+    "cross_product": {
+        "presto_cross_product": (
+            ctypes.c_int, [_I64, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P,
+                           _I32, _P, _I64, _P]),
+    },
+    "join_outer": {
+        "presto_join_outer": (
+            ctypes.c_int, [_P, _P, _I64, _P, _P, _P, _P, _P, _P, _I32, _P,
+                           _P, _P]),
     },
 }
 

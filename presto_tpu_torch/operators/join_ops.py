@@ -5,9 +5,11 @@ the reference's LookupSourceFactory).
 The build pipeline fills a JoinBridge; the probe pipeline streams its
 batches through the probe kernel (`make_probe_kernel`: K5's search,
 then K9's expand), or, for a semi join, through K7's mark
-(`SemiJoinOperator`). The port's runner drives a plan's pipelines
-in order, build before probe, so the bridge is ready before the first
-probe batch arrives.
+(`SemiJoinOperator`). A FULL join also keeps per-build-row matched
+flags across the probe batches (K9's full mode) and emits the build rows
+no probe row matched after the last one (K11). The port's runner drives
+a plan's pipelines in order, build before probe, so the bridge is ready
+before the first probe batch arrives.
 
 The build side stays resident on the device: spilling it to the host
 in hash partitions (the reference's `SpilledBuild` and `_revoke`)
@@ -17,6 +19,8 @@ comes with the memory slice (ROADMAP A10).
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
+
+import torch
 
 from presto_tpu_torch.batch import (
     Batch, begin_deferred_compact, bucket_capacity, empty_batch,
@@ -153,10 +157,16 @@ def make_probe_kernel(key_names: Tuple[str, ...], join_type: str,
                       probe_output: Tuple[str, ...],
                       build_output: Tuple[str, ...],
                       build_keys: Tuple[str, ...]):
-    """The probe step, unfused: kernel(table, batch, out_capacity) ->
-    (batch, overflow flag, live rows). The fused probe ->
-    filter/project form comes with the fusion slice (ROADMAP A7)."""
-    def kernel(table, batch: Batch, out_capacity: int):
+    """The probe step, unfused: kernel(table, batch, matched,
+    out_capacity) -> (batch, overflow flag, live rows); `matched` is the
+    full join's running flags (updated in place), None otherwise. The
+    fused probe -> filter/project form comes with the fusion slice
+    (ROADMAP A7)."""
+    def kernel(table, batch: Batch, matched, out_capacity: int):
+        if join_type == "full":
+            return join_ops.probe_join_full(
+                table, batch, key_names, matched, out_capacity,
+                probe_output, build_output, build_keys)
         return join_ops.probe_join(table, batch, key_names, out_capacity,
                                    join_type, probe_output, build_output,
                                    build_keys)
@@ -170,19 +180,41 @@ class LookupJoinOperator(Operator):
     output capacity is probe capacity x `expansion_factor` (1 is exact
     for every FK->PK join); the on-device overflow flag accumulates
     across batches and is read once per query, and a tripped flag
-    retries the query with a 4x factor (JoinCapacityExceeded)."""
+    retries the query with a 4x factor (JoinCapacityExceeded).
+
+    A FULL join (reference: presto_tpu/operators/join_ops.py:567-681)
+    folds every probe batch's verified matches into one `_matched` flag
+    per build row, and after the last probe batch emits the build rows
+    never matched with a NULL probe side (`probe_schema`): the operator
+    is finished only once that outer tail is out."""
 
     def __init__(self, ctx: OperatorContext, bridge: JoinBridge,
                  key_names: Tuple[str, ...], join_type: str,
                  probe_output: Sequence[str], build_output: Sequence[str],
                  build_keys: Optional[Tuple[str, ...]] = None,
                  key_dicts: Optional[List[Optional[tuple]]] = None,
+                 probe_schema: Optional[Sequence[tuple]] = None,
                  expansion_factor: int = 1):
         super().__init__(ctx)
         self.bridge = bridge
         self.key_names = key_names
         self.key_dicts = key_dicts
         self.join_type = join_type
+        self.build_output = tuple(build_output)
+        if join_type == "full" and probe_schema is None:
+            raise ValueError("a full join needs the probe schema for its "
+                             "NULL side")
+        if probe_schema is not None and key_dicts:
+            # key columns take the planner's unified dictionary: probe
+            # batches are remapped onto it (_remap_keys), and the outer
+            # tail must concat with them
+            fix = {k: d for k, d in zip(key_names, key_dicts)
+                   if d is not None}
+            probe_schema = [(n, t, fix.get(n, dic))
+                            for n, t, dic in probe_schema]
+        self.probe_schema = tuple(probe_schema) if probe_schema else None
+        self._matched = None
+        self._outer_emitted = False
         self.expansion_factor = max(1, int(expansion_factor))
         self._kernel = make_probe_kernel(
             tuple(key_names), join_type, tuple(probe_output),
@@ -209,26 +241,49 @@ class LookupJoinOperator(Operator):
             raise RuntimeError(f"{self.ctx.name}: probe before its build "
                                "finished (build pipelines run first)")
         batch = _remap_keys(batch, self.key_names, self.key_dicts)
+        table = self.bridge.table
         cap = bucket_capacity(batch.capacity * self.expansion_factor)
-        out, ovf, _ = self._kernel(self.bridge.table, batch, cap)
+        if self.join_type == "full" and self._matched is None:
+            self._matched = torch.zeros(table.sorted_hash.shape[0],
+                                        dtype=torch.bool,
+                                        device=batch.device)
+        out, ovf, _ = self._kernel(table, batch, self._matched, cap)
         self._overflow = ovf if self._overflow is None \
             else self._overflow | ovf
         self._pending.append(begin_deferred_compact(out))
+
+    def _emit_outer(self) -> Batch:
+        """FULL OUTER tail: the never-matched build rows with a NULL
+        probe side (K11), compacted once per query after the last probe
+        batch, when there is nothing left to overlap the count with."""
+        table = self.bridge.table
+        matched = self._matched if self._matched is not None else \
+            torch.zeros(table.sorted_hash.shape[0], dtype=torch.bool,
+                        device=table.sorted_hash.device)
+        out, total = join_ops.unmatched_build(
+            table, matched, self.probe_schema, self.build_output)
+        self._outer_emitted = True
+        return end_deferred_compact(*begin_deferred_compact(out, total))
 
     def get_output(self) -> Optional[Batch]:
         if self._pending and (len(self._pending) > 1 or self._finishing):
             out, total = self._pending.pop(0)
             return self._count_out(end_deferred_compact(out, total))
+        if self._finishing and not self._pending \
+                and self.join_type == "full" and not self._outer_emitted:
+            return self._count_out(self._emit_outer())
         return None
 
     def finish(self) -> None:
         self._finishing = True
 
     def is_finished(self) -> bool:
-        return self._finishing and not self._pending
+        return self._finishing and not self._pending \
+            and (self.join_type != "full" or self._outer_emitted)
 
     def close(self) -> None:
         self._pending = []
+        self._matched = None
         self.bridge.table = None
 
 
@@ -325,16 +380,15 @@ class LookupJoinOperatorFactory(OperatorFactory):
                  probe_output: Sequence[str], build_output: Sequence[str],
                  build_keys: Optional[Sequence[str]] = None,
                  key_dicts: Optional[List[Optional[tuple]]] = None,
-                 expansion_factor: int = 1):
+                 expansion_factor: int = 1,
+                 probe_schema: Optional[Sequence[tuple]] = None):
         super().__init__(operator_id, f"lookup_join({join_type})")
         if join_type not in join_ops.JOIN_TYPES:
-            raise join_ops.JoinLaterSlice(
-                f"{join_type} join: later slice of the port (ROADMAP B7 "
-                "join_outer)")
+            raise ValueError(f"lookup join: join type {join_type!r}")
         self.args = (tuple(key_names), join_type, list(probe_output),
                      list(build_output),
                      tuple(build_keys) if build_keys else None, key_dicts,
-                     expansion_factor)
+                     probe_schema, expansion_factor)
         self.bridge = bridge
 
     def create(self, driver_context: DriverContext) -> Operator:

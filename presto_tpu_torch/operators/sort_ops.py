@@ -1,5 +1,6 @@
-"""Ordering operators (reference: presto_tpu/operators/sort_ops.py;
-OrderByOperator.java:44, TopNOperator.java:35)."""
+"""Ordering and dedup operators (reference:
+presto_tpu/operators/sort_ops.py; OrderByOperator.java:44,
+TopNOperator.java:35, the DISTINCT fold)."""
 
 from __future__ import annotations
 
@@ -96,6 +97,51 @@ class TopNOperator(Operator):
         return self._finishing and self._emitted
 
 
+class DistinctOperator(Operator):
+    """SELECT DISTINCT / UNION dedup fold (reference:
+    presto_tpu/operators/sort_ops.py:165). The state starts at
+    `capacity` rows and doubles whenever a merged state fills it: a full
+    state cannot tell kept rows from dropped ones, so the old state is
+    re-merged into one of twice the size before the batch is taken
+    again. One host read of the live count per batch."""
+
+    def __init__(self, ctx: OperatorContext, schema_cols: Sequence[tuple],
+                 capacity: int = 4096):
+        super().__init__(ctx)
+        self._schema_cols = list(schema_cols)
+        self._device = ctx.driver_context.device
+        self._state = sort_kernels.distinct_state(schema_cols, capacity,
+                                                  self._device)
+        self._finishing = False
+        self._emitted = False
+
+    def needs_input(self) -> bool:
+        return not self._finishing
+
+    def add_input(self, batch: Batch) -> None:
+        self._count_in(batch)
+        while True:
+            new_state = sort_kernels.distinct_step(self._state, batch)
+            if new_state.num_valid() < new_state.capacity:
+                self._state = new_state
+                return
+            bigger = sort_kernels.distinct_state(
+                self._schema_cols, self._state.capacity * 2, self._device)
+            self._state = sort_kernels.distinct_step(bigger, self._state)
+
+    def get_output(self) -> Optional[Batch]:
+        if not self._finishing or self._emitted:
+            return None
+        self._emitted = True
+        return self._count_out(self._state)
+
+    def finish(self) -> None:
+        self._finishing = True
+
+    def is_finished(self) -> bool:
+        return self._finishing and self._emitted
+
+
 class OrderByOperatorFactory(OperatorFactory):
     def __init__(self, operator_id: int, key_names: Sequence[str],
                  descending: Sequence[bool], nulls_first: Sequence[bool]):
@@ -121,3 +167,16 @@ class TopNOperatorFactory(OperatorFactory):
         return TopNOperator(
             OperatorContext(self.operator_id, self.name, driver_context),
             *self.args)
+
+
+class DistinctOperatorFactory(OperatorFactory):
+    def __init__(self, operator_id: int, schema_cols: Sequence[tuple],
+                 capacity: int = 4096):
+        super().__init__(operator_id, "distinct")
+        self.schema_cols = schema_cols
+        self.capacity = capacity
+
+    def create(self, driver_context: DriverContext) -> Operator:
+        return DistinctOperator(
+            OperatorContext(self.operator_id, self.name, driver_context),
+            self.schema_cols, self.capacity)

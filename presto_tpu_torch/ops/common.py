@@ -129,6 +129,30 @@ KEY_DTYPES = {torch.bool: 0, torch.int8: 0, torch.int16: 1,
               torch.float64: 5}
 #: most key columns one hashing kernel takes (PRESTO_MAX_KEYS)
 MAX_KEYS = 8
+#: most output columns one gathering kernel takes (csrc/gather.cuh
+#: PRESTO_MAX_COLS), and the element sizes it copies
+GATHER_MAX_COLS = 64
+GATHER_ELEM_SIZES = (1, 2, 4, 8)
+
+
+def gather_table(spec: Sequence[Tuple[int, int, int, int, int, int]],
+                 what: str):
+    """The ctypes host arrays of csrc/gather.cuh's `Cols`, from one
+    (src data, src mask, dst data, dst mask address, element size,
+    side) tuple per output column: four int64 address arrays, the sizes
+    and sides as int32 arrays, and the column count."""
+    if len(spec) > GATHER_MAX_COLS:
+        raise ValueError(f"{what}: at most {GATHER_MAX_COLS} output "
+                         f"columns, got {len(spec)}")
+    for i, col in enumerate(spec):
+        if col[4] not in GATHER_ELEM_SIZES:
+            raise ValueError(f"{what}: output column {i} has "
+                             f"{col[4]}-byte elements")
+    n = max(len(spec), 1)
+    fields = list(zip(*spec)) if spec else [()] * 6
+    P, I = ctypes.c_int64 * n, ctypes.c_int32 * n
+    return (*(P(*f) for f in fields[:4]), *(I(*f) for f in fields[4:]),
+            ctypes.c_int32(len(spec)))
 
 
 def key_args(keys: Sequence[CVal], n: int, dev: torch.device,

@@ -628,11 +628,13 @@ def segment_reduce(h1: torch.Tensor, h2: torch.Tensor,
 def _group_reduce(keys: Sequence[CVal], valid: torch.Tensor,
                   contribs: Sequence[Tuple[torch.Tensor, ...]],
                   aggs: Sequence[AggFunction],
-                  out_cap: int) -> GroupByState:
+                  out_cap: int, plain: bool = False) -> GroupByState:
     """The sort-based grouping core: K3 hashes, a two-operand (h1, h2)
-    stable sort, K6. Boundaries compare the actual keys as well, so a
-    double hash collision between distinct keys can only split a group
-    (the next merge level rejoins it), never merge two keys. Groups
+    stable sort, K6 (with `plain`, the plain versions of K3 and K6 on
+    any device: the card's yardstick for the composition). Boundaries
+    compare the actual keys as well, so a double hash collision between
+    distinct keys can only split a group (the next merge level rejoins
+    it), never merge two keys. Groups
     beyond out_cap are dropped and the overflow flag set (the caller's
     retry protocol). Group order is backend-dependent: callers must
     not rely on it."""
@@ -654,13 +656,16 @@ def _group_reduce(keys: Sequence[CVal], valid: torch.Tensor,
         return GroupByState([], states, slots == 0,
                             torch.zeros((), dtype=torch.bool, device=dev))
     keys = [(d.contiguous(), m.contiguous()) for d, m in keys]
-    h1, h2 = common.row_hash_pair(keys, valid.contiguous(), False)
+    hash_pair = common.row_hash_pair_plain if plain \
+        else common.row_hash_pair
+    h1, h2 = hash_pair(keys, valid.contiguous(), False)
     perm = common.lex_perm([h1, h2])
     skeys = [(d[perm], m[perm]) for d, m in keys]
     comps = [(arr[perm], r) for st, agg in zip(contribs, aggs)
              for arr, r in zip(st, agg.reduces)]
-    reduced, first_row, groups, overflow = segment_reduce(
-        h1[perm], h2[perm], skeys, valid[perm], comps, out_cap)
+    reduced, first_row, groups, overflow = \
+        (segment_reduce_plain if plain else segment_reduce)(
+            h1[perm], h2[perm], skeys, valid[perm], comps, out_cap)
     it = iter(reduced)
     states = [tuple(next(it) for _ in st) for st in contribs]
     new_valid = slots < groups

@@ -33,8 +33,12 @@ reference:
   emit counts, expand-by-counts into a caller-chosen capacity, and an
   on-device overflow flag.
 
-Join types: inner and left (a right join is planned as a flipped
-left join). FULL OUTER (`unmatched_build`) is a later slice.
+Join types: inner, left and full (a right join is planned as a flipped
+left join). A FULL join probes as a left join does and besides folds
+every verified match into running per-build-row `matched` flags (K9's
+full mode, `probe_join_full`); after the last probe batch, K11
+`unmatched_build` (csrc/join_outer.cu) emits the build rows no probe
+row matched, with a NULL probe side.
 """
 
 from __future__ import annotations
@@ -64,15 +68,11 @@ MIN_RADIX_ROWS = 1024
 #: every key column (the collision fallback and the tests' oracle)
 VERIFY_MODES = ("hash", "full")
 
-#: the join types this slice runs
-JOIN_TYPES = ("inner", "left")
+#: the join types of the probe (a right join is a flipped left join)
+JOIN_TYPES = ("inner", "left", "full")
 
 _H_INVALID = common.H_INVALID
 _H2_INVALID = common.H2_INVALID
-
-
-class JoinLaterSlice(NotImplementedError):
-    """A join form that a later slice of the port brings."""
 
 
 @dataclasses.dataclass
@@ -477,30 +477,56 @@ def probe_join(table: BuildTable, probe: Batch,
     accumulates the flag and the runner reads it once per query (the
     aligned layout cannot overflow)."""
     _tk.count("join_probe")
-    if join_type not in JOIN_TYPES:
-        raise JoinLaterSlice(
-            f"{join_type} join probe: later slice of the port (ROADMAP "
-            "B7 join_outer)")
+    if join_type not in ("inner", "left"):
+        raise ValueError(f"probe_join: join type {join_type!r} (a full "
+                         "join probes through probe_join_full)")
     lo_enc, h2 = probe_search(table, probe, key_names, verify)
     return _expand_from_enc(table, probe, key_names, lo_enc,
                             out_capacity, join_type, probe_output,
                             build_output, build_keys, verify, h2)
 
 
+def probe_join_full(table: BuildTable, probe: Batch,
+                    key_names: Tuple[str, ...], matched: torch.Tensor,
+                    out_capacity: int, probe_output: Tuple[str, ...],
+                    build_output: Tuple[str, ...],
+                    build_keys: Tuple[str, ...], verify: str = "hash"
+                    ) -> Tuple[Batch, torch.Tensor, torch.Tensor]:
+    """FULL OUTER probe step: what a left-join probe emits (an unmatched
+    probe row keeps one NULL-build row), plus this batch's verified
+    matches folded into the running per-build-row `matched` flags, with
+    no host sync (reference: presto_tpu/ops/join.py:506). The port
+    updates `matched` (bool, one flag per build row) in place, where the
+    reference returns a new array: every writer stores True, and the
+    operator keeps one tensor for the whole probe. Returns (output
+    batch, overflow flag, live output rows)."""
+    _tk.count("join_probe")
+    common.check_rows(matched, table.sorted_hash.shape[0], probe.device,
+                      (torch.bool,), "probe_join_full: matched")
+    lo_enc, h2 = probe_search(table, probe, key_names, verify)
+    return _expand_from_enc(table, probe, key_names, lo_enc,
+                            out_capacity, "full", probe_output,
+                            build_output, build_keys, verify, h2, matched)
+
+
 def _expand_from_enc(table, probe, key_names, lo_enc, out_capacity,
                      join_type, probe_output, build_output, build_keys,
-                     verify, h2):
+                     verify, h2, matched=None):
     """K9: pick the aligned or general layout and expand; returns
     (output batch, overflow flag, live output rows), all on the device.
-    The CUDA kernel on CUDA tensors, the plain version on CPU
-    tensors."""
+    A full join (`matched` given) also sets matched[brow] for every
+    verified slot. The CUDA kernel on CUDA tensors, the plain version
+    on CPU tensors."""
+    if (join_type == "full") != (matched is not None):
+        raise ValueError("join_expand: the matched flags go with, and "
+                         "only with, a full join")
     if lo_enc.device.type != "cpu":
         return _expand_cuda(table, probe, key_names, lo_enc, out_capacity,
                             join_type, probe_output, build_output,
-                            build_keys, verify, h2)
+                            build_keys, verify, h2, matched)
     return expand_plain(table, probe, key_names, lo_enc, out_capacity,
                         join_type, probe_output, build_output, build_keys,
-                        verify, h2)
+                        verify, h2, matched)
 
 
 def _aligned_layout(table: BuildTable, probe: Batch, out_capacity: int,
@@ -511,14 +537,11 @@ def _aligned_layout(table: BuildTable, probe: Batch, out_capacity: int,
 
 #: launches of the CUDA join-expand kernel (csrc/join_expand.cu)
 JOIN_EXPAND_KERNEL = _tk.LaunchCounter("join_expand", "join_probe")
-#: most output columns (probe and build sides together) K9 takes
-EXPAND_MAX_COLS = 64
-#: element sizes K9 copies
-_ELEM_SIZES = (1, 2, 4, 8)
 
 
 def _expand_cuda(table, probe, key_names, lo_enc, out_capacity, join_type,
-                 probe_output, build_output, build_keys, verify, h2):
+                 probe_output, build_output, build_keys, verify, h2,
+                 matched=None):
     from presto_tpu_torch.native import cuda
     if verify not in VERIFY_MODES:
         raise ValueError(f"unknown verify mode {verify!r}")
@@ -535,10 +558,9 @@ def _expand_cuda(table, probe, key_names, lo_enc, out_capacity, join_type,
                           f"join_expand: {what}")
     if h2 is not None:
         common.check_rows(h2, n, dev, (torch.int64,), "join_expand: h2")
-    ncols = len(probe_output) + len(build_output)
-    if ncols > EXPAND_MAX_COLS:
-        raise ValueError(f"join_expand: at most {EXPAND_MAX_COLS} output "
-                         f"columns, got {ncols}")
+    if matched is not None:
+        common.check_rows(matched, nb, dev, (torch.bool,),
+                          "join_expand: matched")
     full = verify == "full"
     if full:
         pk = common.key_args([probe.columns[k].astuple() for k in key_names],
@@ -549,7 +571,7 @@ def _expand_cuda(table, probe, key_names, lo_enc, out_capacity, join_type,
     else:
         pk = bk = (None, None, None, ctypes.c_int32(0))
     cols: Dict[str, Column] = {}
-    src, src_mask, dst, dst_mask, sizes, sides = [], [], [], [], [], []
+    spec = []
     keep_alive = []
     for side, names, batch, rows in ((0, probe_output, probe, n),
                                      (1, build_output, table.batch, nb)):
@@ -561,41 +583,34 @@ def _expand_cuda(table, probe, key_names, lo_enc, out_capacity, join_type,
                               f"join_expand: column {name}")
             common.check_rows(cm, rows, dev, (torch.bool,),
                               f"join_expand: mask of {name}")
-            if cd.element_size() not in _ELEM_SIZES:
-                raise ValueError(f"join_expand: column {name} of "
-                                 f"{cd.dtype}")
             # an aligned probe column's data passes through
             data = cd if aligned and side == 0 else \
                 torch.empty(cap, dtype=cd.dtype, device=dev)
             mask = torch.empty(cap, dtype=torch.bool, device=dev)
             cols[name] = Column(data, mask, c.type, c.dictionary)
-            src.append(cd.data_ptr())
-            src_mask.append(cm.data_ptr())
-            dst.append(0 if aligned and side == 0 else data.data_ptr())
-            dst_mask.append(mask.data_ptr())
-            sizes.append(cd.element_size())
-            sides.append(side)
+            spec.append((cd.data_ptr(), cm.data_ptr(),
+                         0 if aligned and side == 0 else data.data_ptr(),
+                         mask.data_ptr(), cd.element_size(), side))
+    table_args = common.gather_table(spec, "join_expand")
     live = torch.empty(cap, dtype=torch.bool, device=dev)
     stats = torch.zeros(3, dtype=torch.int64, device=dev)
     lib = cuda.library("join_expand")
     tiles = None if aligned else torch.empty(
         (n + lib.presto_expand_tile() - 1) // lib.presto_expand_tile(),
         dtype=torch.int64, device=dev)
-    C = max(ncols, 1)
-    P = ctypes.c_int64 * C
     status = lib.presto_join_expand(
         ctypes.c_int32(int(aligned)), ctypes.c_void_p(lo_enc.data_ptr()),
         ctypes.c_void_p(probe.row_valid.data_ptr()), ctypes.c_int64(n),
         ctypes.c_void_p(table.run_len.data_ptr()),
         ctypes.c_void_p(table.hash2.data_ptr()),
         ctypes.c_void_p(None if h2 is None else h2.data_ptr()),
-        ctypes.c_int64(nb), ctypes.c_int32(int(join_type == "left")),
+        ctypes.c_int64(nb),
+        ctypes.c_int32(int(join_type in ("left", "full"))),
         ctypes.c_int32(int(full)), pk[0], pk[1], pk[2], bk[0], bk[1],
-        bk[2], pk[3], P(*src), P(*src_mask), P(*dst), P(*dst_mask),
-        (ctypes.c_int32 * C)(*sizes), (ctypes.c_int32 * C)(*sides),
-        ctypes.c_int32(ncols), ctypes.c_void_p(live.data_ptr()),
+        bk[2], pk[3], *table_args, ctypes.c_void_p(live.data_ptr()),
         ctypes.c_int64(cap), ctypes.c_void_p(stats.data_ptr()),
         ctypes.c_void_p(None if tiles is None else tiles.data_ptr()),
+        ctypes.c_void_p(None if matched is None else matched.data_ptr()),
         ctypes.c_void_p(cuda.stream_ptr(dev)))
     cuda.check(lib, status, "join_expand")
     JOIN_EXPAND_KERNEL.launches += 1
@@ -607,11 +622,12 @@ def _expand_cuda(table, probe, key_names, lo_enc, out_capacity, join_type,
 
 def expand_plain(table, probe, key_names, lo_enc, out_capacity,
                  join_type, probe_output, build_output, build_keys,
-                 verify, h2):
+                 verify, h2, matched=None):
     """Plain version of K9 (the reference's `_expand_aligned` /
-    `_expand_general` after the search)."""
+    `_expand_general` after the search, and `_expand_from_enc`'s
+    matched-flag fold for a full join, here in place)."""
     if _aligned_layout(table, probe, out_capacity, join_type):
-        out, overflow = _expand_aligned(
+        out, overflow, brow, verified = _expand_aligned(
             table, probe, key_names, lo_enc, join_type, probe_output,
             build_output, build_keys, verify)
     else:
@@ -619,17 +635,20 @@ def expand_plain(table, probe, key_names, lo_enc, out_capacity,
         lo = torch.clamp(lo_enc, min=0)
         counts = torch.where(found, table.run_len[lo],
                              torch.zeros_like(lo))
-        out, overflow = _expand_general(
+        out, overflow, brow, verified = _expand_general(
             table, probe, key_names, lo, counts, out_capacity, join_type,
             probe_output, build_output, build_keys, verify, h2)
+    if matched is not None:
+        matched[brow[verified]] = True
     return out, overflow, out.row_valid.sum()
 
 
 def _expand_aligned(table, probe, key_names, lo_enc, join_type,
                     probe_output, build_output, build_keys, verify):
     """Output slot i is probe row i (unique-run build, capacity match).
-    An inner miss is a dead slot; a left miss keeps the probe side with
-    a NULL build side. Never overflows."""
+    An inner miss is a dead slot; a left or full miss keeps the probe
+    side with a NULL build side. Never overflows. Returns (batch,
+    overflow, candidate build row, verified) per slot."""
     verified = lo_enc >= 0
     brow = torch.clamp(lo_enc, min=0)
     if verify == "full":
@@ -638,7 +657,7 @@ def _expand_aligned(table, probe, key_names, lo_enc, join_type,
             pd, pm = probe.columns[kn].astuple()
             bd, bm = table.batch.columns[bn].astuple()
             verified = verified & (pd == bd[brow]) & pm & bm[brow]
-    live = probe.row_valid if join_type == "left" else verified
+    live = probe.row_valid if join_type in ("left", "full") else verified
     cols: Dict[str, Column] = {}
     for name in probe_output:
         c = probe.columns[name]
@@ -648,7 +667,8 @@ def _expand_aligned(table, probe, key_names, lo_enc, join_type,
         cols[name] = Column(c.data[brow], c.mask[brow] & verified,
                             c.type, c.dictionary)
     return Batch(cols, live), torch.zeros((), dtype=torch.bool,
-                                          device=probe.device)
+                                          device=probe.device), \
+        brow, verified
 
 
 def _expand_general(table, probe, key_names, lo, counts, out_capacity,
@@ -657,11 +677,12 @@ def _expand_general(table, probe, key_names, lo, counts, out_capacity,
     """Prefix-sum expansion for duplicate-key builds: output slot j
     belongs to probe row p(j), candidate build slot lo[p] + (j -
     cum[p]); p(j) comes from expand-by-counts (a 1 at each probe row's
-    first slot, prefix-summed)."""
+    first slot, prefix-summed). Returns (batch, overflow, candidate
+    build row, verified) per slot."""
     if verify not in VERIFY_MODES:
         raise ValueError(f"unknown verify mode {verify!r}")
     dev = probe.device
-    left_join = join_type == "left"
+    left_join = join_type in ("left", "full")
     emit = counts
     if left_join:
         emit = torch.where(probe.row_valid & (counts == 0),
@@ -710,10 +731,91 @@ def _expand_general(table, probe, key_names, lo, counts, out_capacity,
         c = table.batch.columns[name]
         cols[name] = Column(c.data[brow], c.mask[brow] & verified, c.type,
                             c.dictionary)
-    return Batch(cols, live), total > out_capacity
+    return Batch(cols, live), total > out_capacity, brow, verified
 
 
-def unmatched_build(*args, **kwargs):
-    """The FULL join's tail (build rows no probe row matched)."""
-    raise JoinLaterSlice("full outer join: later slice of the port "
-                         "(ROADMAP B7 join_outer)")
+# -- K11: the FULL join's outer tail ----------------------------------------
+
+
+#: launches of the CUDA outer-tail kernel (csrc/join_outer.cu)
+JOIN_OUTER_KERNEL = _tk.LaunchCounter("join_outer", "join_outer")
+
+
+def unmatched_build_plain(table: BuildTable, matched: torch.Tensor,
+                          probe_schema: Tuple[Tuple, ...],
+                          build_output: Tuple[str, ...]):
+    """Plain version of K11 (the reference's `unmatched_build`): the
+    build rows no probe row matched (live = row_valid & ~matched), the
+    probe side all-NULL. Returns (batch, live count)."""
+    live = table.batch.row_valid & ~matched
+    n = matched.shape[0]
+    dev = matched.device
+    cols: Dict[str, Column] = {}
+    for name, typ, dic in probe_schema:
+        cols[name] = Column(torch.zeros(n, dtype=typ.torch_dtype,
+                                        device=dev),
+                            torch.zeros(n, dtype=torch.bool, device=dev),
+                            typ, dic)
+    for name in build_output:
+        c = table.batch.columns[name]
+        cols[name] = Column(c.data, c.mask & live, c.type, c.dictionary)
+    return Batch(cols, live), live.sum()
+
+
+def _unmatched_build_cuda(table: BuildTable, matched: torch.Tensor,
+                          probe_schema: Tuple[Tuple, ...],
+                          build_output: Tuple[str, ...]):
+    from presto_tpu_torch.native import cuda
+    build = table.batch
+    dev = build.device
+    n = build.capacity
+    common.check_rows(build.row_valid, n, dev, (torch.bool,),
+                      "join_outer: row_valid")
+    common.check_rows(matched, n, dev, (torch.bool,), "join_outer: matched")
+    cols: Dict[str, Column] = {}
+    # per column: (src data, src mask, dst data, dst mask, size, side);
+    # a probe column is written (zero, NULL), a build column's mask is
+    # ANDed with the liveness and its data passes through
+    spec = []
+    for name, typ, dic in probe_schema:
+        data = torch.empty(n, dtype=typ.torch_dtype, device=dev)
+        mask = torch.empty(n, dtype=torch.bool, device=dev)
+        cols[name] = Column(data, mask, typ, dic)
+        spec.append((0, 0, data.data_ptr(), mask.data_ptr(),
+                       data.element_size(), 0))
+    for name in build_output:
+        c = build.columns[name]
+        common.check_rows(c.mask, n, dev, (torch.bool,),
+                          f"join_outer: mask of {name}")
+        mask = torch.empty(n, dtype=torch.bool, device=dev)
+        cols[name] = Column(c.data, mask, c.type, c.dictionary)
+        spec.append((0, c.mask.data_ptr(), 0, mask.data_ptr(), 8, 1))
+    table_args = common.gather_table(spec, "join_outer")
+    live = torch.empty(n, dtype=torch.bool, device=dev)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    lib = cuda.library("join_outer")
+    status = lib.presto_join_outer(
+        ctypes.c_void_p(build.row_valid.data_ptr()),
+        ctypes.c_void_p(matched.data_ptr()), ctypes.c_int64(n),
+        *table_args, ctypes.c_void_p(live.data_ptr()),
+        ctypes.c_void_p(count.data_ptr()),
+        ctypes.c_void_p(cuda.stream_ptr(dev)))
+    cuda.check(lib, status, "join_outer")
+    JOIN_OUTER_KERNEL.launches += 1
+    return Batch(cols, live), count[0]
+
+
+def unmatched_build(table: BuildTable, matched: torch.Tensor,
+                    probe_schema: Tuple[Tuple, ...],
+                    build_output: Tuple[str, ...]):
+    """K11: the FULL join's final batch, the build rows no probe row
+    ever matched with the probe side all-NULL (reference:
+    presto_tpu/ops/join.py:689; LookupOuterOperator's appendTo loop).
+    `probe_schema` is ((name, type, dictionary), ...) for the NULL probe
+    columns. Returns (batch, live count), both on the device. The CUDA
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    _tk.count("join_outer")
+    if matched.device.type == "cpu":
+        return unmatched_build_plain(table, matched, probe_schema,
+                                     build_output)
+    return _unmatched_build_cuda(table, matched, probe_schema, build_output)

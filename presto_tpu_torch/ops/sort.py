@@ -5,7 +5,11 @@ Full sort runs one lexicographic sort over an accumulated batch; TopN
 keeps a bounded running state (state ++ batch -> sort -> first N);
 LIMIT keeps the first rows of each batch against a running count that
 stays on the device. All three are composed torch ops (stable sort
-passes, gathers, a cumsum), as the ROADMAP plans for them.
+passes, gathers, a cumsum), as the ROADMAP plans for them. DISTINCT
+folds state ++ batch through the sort-based grouping with no
+aggregates: K3's row hashes, the (h1, h2) `torch.sort` and K6's group
+boundaries and first rows, the arrangement the sort-based aggregation
+runs.
 """
 
 from __future__ import annotations
@@ -92,3 +96,43 @@ def limit_batch(batch: Batch, n: int, already_emitted: torch.Tensor
     rank = torch.cumsum(batch.row_valid.to(torch.int64), 0) - 1
     keep = batch.row_valid & (rank < (n - already_emitted))
     return Batch(batch.columns, keep)
+
+
+def distinct_state(schema_cols: Sequence[tuple], capacity: int,
+                   device: torch.device) -> Batch:
+    """An empty DISTINCT state of `capacity` rows."""
+    return topn_state(schema_cols, capacity, device)
+
+
+def distinct_step(state: Batch, batch: Batch) -> Batch:
+    """Fold step for SELECT DISTINCT and the dedup of UNION: regroup
+    state ++ batch by all columns and keep one representative per group
+    (the reference's `_distinct_step_impl`, presto_tpu/ops/sort.py:106:
+    `hashagg._group_reduce` with zero aggregates, here K3 + `torch.sort`
+    + K6). Groups beyond the state's capacity are dropped; the operator
+    grows the state before that can happen. The concat stays
+    `torch.cat`, as in the grouping's partial merge."""
+    _tk.count("distinct")
+    return _distinct_fold(state, batch, plain=False)
+
+
+def distinct_step_plain(state: Batch, batch: Batch) -> Batch:
+    """`distinct_step` through the plain versions of K3 and K6, on any
+    device (the yardstick the card's composition is held against)."""
+    return _distinct_fold(state, batch, plain=True)
+
+
+def _distinct_fold(state: Batch, batch: Batch, plain: bool) -> Batch:
+    from presto_tpu_torch.ops import hashagg
+    merged = {}
+    for name, sc in state.columns.items():
+        bc = batch.columns[name]
+        merged[name] = Column(torch.cat([sc.data, bc.data.to(sc.data.dtype)]),
+                              torch.cat([sc.mask, bc.mask]), sc.type,
+                              sc.dictionary)
+    valid = torch.cat([state.row_valid, batch.row_valid])
+    gr = hashagg._group_reduce([merged[n].astuple() for n in state.names],
+                               valid, [], [], state.capacity, plain)
+    cols = {name: Column(d, m, merged[name].type, merged[name].dictionary)
+            for name, (d, m) in zip(state.names, gr.keys)}
+    return Batch(cols, gr.valid)

@@ -3,13 +3,17 @@
 sql/planner/LocalExecutionPlanner.java:549).
 
 The port plans TableScan, Values, Filter, Project, Aggregation
-(direct slot-table, streaming and sort-based paths), inner/left/right
-hash Join (a right join becomes a flipped left join), SemiJoin (IN,
-EXISTS, NOT IN), Sort, TopN, Limit and Output. A join spawns a build
-pipeline that runs before the pipeline holding its probe, as in the
-reference; inner joins and IN/EXISTS semi joins also wire dynamic
-filters from the build keys to probe-side scans. Every other node
-raises `LocalPlanningError` naming the ROADMAP item that ports it.
+(direct slot-table, streaming and sort-based paths), inner/left/right/
+full hash Join (a right join becomes a flipped left join), the cross
+join (nested loop), SemiJoin (IN, EXISTS, NOT IN), Sort, TopN, Limit,
+Distinct, Union (through a local queue), EnforceSingleRow,
+AssignUniqueId and Output. A join spawns a build pipeline that runs
+before the pipeline holding its probe, as in the reference; inner joins
+and IN/EXISTS semi joins also wire dynamic filters from the build keys
+to probe-side scans. A subtree with several plan parents is planned
+once into a spool that each parent replays, and no dynamic filter
+lands on a scan inside it. Every other node raises
+`LocalPlanningError` naming the ROADMAP item that ports it.
 `fragment_fusion_enabled` is accepted and has no effect yet:
 whole-fragment fusion is a later slice (A7).
 """
@@ -34,12 +38,13 @@ from presto_tpu_torch.operators.core import (
     OutputCollectorOperatorFactory, TableScanOperatorFactory,
     ValuesOperatorFactory,
 )
+from presto_tpu_torch.operators import misc_ops
 from presto_tpu_torch.operators.join_ops import (
     HashBuildOperatorFactory, JoinBridge, LookupJoinOperatorFactory,
     SemiJoinOperatorFactory,
 )
 from presto_tpu_torch.operators.sort_ops import (
-    OrderByOperatorFactory, TopNOperatorFactory,
+    DistinctOperatorFactory, OrderByOperatorFactory, TopNOperatorFactory,
 )
 from presto_tpu_torch.ops import hashagg
 from presto_tpu_torch.planner import nodes as N
@@ -62,13 +67,9 @@ class LocalPlanningError(Exception):
 
 #: plan nodes of later slices -> the ROADMAP item that ports them
 _LATER = {
-    "DistinctNode": "A6 (distinct)",
     "WindowNode": "A8 (windows)",
     "TopNRowNumberNode": "A8 (windows)",
     "MergeNode": "A8 (merge)",
-    "UnionNode": "A8 (set operations)",
-    "EnforceSingleRowNode": "A8 (misc operators)",
-    "AssignUniqueIdNode": "A8 (misc operators)",
     "UnnestNode": "A8 (misc operators)",
     "GroupIdNode": "A8 (misc operators)",
     "TableWriterNode": "A9 (storage)",
@@ -104,6 +105,10 @@ class LocalExecutionPlanner:
         self._df_registry = DynamicFilterRegistry()
         self._df_scans: Dict[int, List] = {}
         self._stats = None
+        #: plan nodes with several parents, each planned once into a
+        #: spool (node id -> Spool)
+        self._shared: set = set()
+        self._spools: Dict[int, misc_ops.Spool] = {}
 
     def _next_id(self) -> int:
         self._op_id += 1
@@ -117,10 +122,7 @@ class LocalExecutionPlanner:
         prune_unused_columns(root)
         from presto_tpu_torch.planner.validation import validate
         validate(root, "local_planner", session=self.session)
-        if _shared_nodes(root):
-            raise LocalPlanningError(
-                "shared plan subtrees (spools): later slice of the port "
-                "(ROADMAP A8)")
+        self._shared = _shared_nodes(root)
         sink: List[Batch] = []
         pipeline: List = []
         self._visit(root.source, pipeline)
@@ -140,6 +142,28 @@ class LocalExecutionPlanner:
                                   root.output)
 
     def _visit(self, node: N.PlanNode, pipe: List) -> None:
+        """A node with several plan parents (a DAG) is computed once into
+        a Spool and replayed to each consumer (reference:
+        presto_tpu/planner/local_planner.py:318-345): the spool's
+        pipeline is appended before any consumer's, so it has run by the
+        time they read it."""
+        nid = id(node)
+        if nid in self._shared:
+            spool = self._spools.get(nid)
+            if spool is None:
+                spool = misc_ops.Spool()
+                self._spools[nid] = spool
+                sp: List = []
+                self._dispatch(node, sp)
+                sp.append(misc_ops.spool_sink_factory(self._next_id(),
+                                                      spool))
+                self._pipelines.append(sp)
+            pipe.append(misc_ops.spool_source_factory(self._next_id(),
+                                                      spool))
+            return
+        self._dispatch(node, pipe)
+
+    def _dispatch(self, node: N.PlanNode, pipe: List) -> None:
         name = type(node).__name__
         m = getattr(self, f"_visit_{name}", None)
         if m is None:
@@ -333,12 +357,39 @@ class LocalExecutionPlanner:
         return factor
 
     def _visit_JoinNode(self, node: N.JoinNode, pipe: List):
-        if node.join_type not in ("inner", "left", "right"):
-            item = "A6 (nested loop)" if node.join_type == "cross" \
-                else "B7 (join_outer)"
+        if node.join_type == "cross":
+            self._plan_cross_join(node, pipe)
+        elif node.join_type in ("inner", "left", "right", "full"):
+            self._plan_hash_join(node, pipe)
+        else:
             raise LocalPlanningError(
-                f"{node.join_type} join: later slice of the port "
-                f"(ROADMAP {item})")
+                f"{node.join_type} join not supported")
+        if node.filter is not None:
+            schema = _schema_of(node)
+            pred = self._compile(node.filter, schema)
+            projections = [
+                (f.symbol, self._compile(InputRef(f.symbol, f.type),
+                                         schema))
+                for f in node.output]
+            pipe.append(FilterProjectOperatorFactory(
+                self._next_id(), pred, projections))
+
+    def _plan_cross_join(self, node: N.JoinNode, pipe: List):
+        """Nested loop: the right side is materialized by a build
+        pipeline, the left side streams through the cross product
+        (K10)."""
+        bridge = misc_ops.NestedLoopBridge()
+        build_pipe: List = []
+        self._visit(node.right, build_pipe)
+        build_pipe.append(misc_ops.nested_loop_build_factory(
+            self._next_id(), bridge,
+            [(f.symbol, f.type, f.dictionary) for f in node.right.output]))
+        self._pipelines.append(build_pipe)
+        self._visit(node.left, pipe)
+        pipe.append(misc_ops.nested_loop_join_factory(self._next_id(),
+                                                      bridge))
+
+    def _plan_hash_join(self, node: N.JoinNode, pipe: List):
         probe, build = node.left, node.right
         criteria = node.criteria
         jt = node.join_type
@@ -370,16 +421,9 @@ class LocalExecutionPlanner:
             probe_output=[f.symbol for f in probe.output],
             build_output=[f.symbol for f in build.output],
             build_keys=[r for _, r in criteria], key_dicts=key_dicts,
-            expansion_factor=factor))
-        if node.filter is not None:
-            schema = _schema_of(node)
-            pred = self._compile(node.filter, schema)
-            projections = [
-                (f.symbol, self._compile(InputRef(f.symbol, f.type),
-                                         schema))
-                for f in node.output]
-            pipe.append(FilterProjectOperatorFactory(
-                self._next_id(), pred, projections))
+            expansion_factor=factor,
+            probe_schema=[(f.symbol, f.type, f.dictionary)
+                          for f in probe.output] if jt == "full" else None))
 
     def _plan_dynamic_filters(self, probe, build, criteria):
         """For an INNER join, wire build-key bounds (and distinct sets)
@@ -395,7 +439,7 @@ class LocalExecutionPlanner:
             if bf is None or bf.dictionary is not None \
                     or bf.type.name == "boolean":
                 continue
-            traced = _trace_scan_column(probe, l)
+            traced = _trace_scan_column(probe, l, self._shared)
             if traced is None:
                 continue
             scan_node, scan_sym = traced
@@ -449,6 +493,44 @@ class LocalExecutionPlanner:
         self._visit(node.source, pipe)
         pipe.append(LimitOperatorFactory(self._next_id(), node.n))
 
+    def _visit_DistinctNode(self, node: N.DistinctNode, pipe: List):
+        self._visit(node.source, pipe)
+        pipe.append(DistinctOperatorFactory(
+            self._next_id(), [(f.symbol, f.type, f.dictionary)
+                              for f in node.output]))
+
+    def _visit_EnforceSingleRowNode(self, node: N.EnforceSingleRowNode,
+                                    pipe: List):
+        self._visit(node.source, pipe)
+        pipe.append(misc_ops.enforce_single_row_factory(
+            self._next_id(), [(f.symbol, f.type, f.dictionary)
+                              for f in node.output]))
+
+    def _visit_AssignUniqueIdNode(self, node: N.AssignUniqueIdNode,
+                                  pipe: List):
+        # one local task: ids start at 0 with stride 1 (the reference
+        # strides them by task on the distributed path)
+        self._visit(node.source, pipe)
+        pipe.append(misc_ops.AssignUniqueIdOperatorFactory(
+            self._next_id(), node.symbol, start=0, stride=1))
+
+    def _visit_UnionNode(self, node: N.UnionNode, pipe: List):
+        """Each input is a producer pipeline whose tail renames its
+        symbols to the union's, re-encodes its string columns onto the
+        union's dictionaries (the union of its inputs') and pushes into
+        one local queue; the consumer pipeline starts from the queue."""
+        queue = misc_ops.LocalQueue(len(node.inputs))
+        dicts = {f.symbol: f.dictionary for f in node.output
+                 if f.dictionary}
+        for inp, symmap in zip(node.inputs, node.symbol_maps):
+            p: List = []
+            self._visit(inp, p)
+            rename = {src: out for out, src in symmap.items()}
+            p.append(misc_ops.queue_sink_factory(self._next_id(), queue,
+                                                 rename, dicts))
+            self._pipelines.append(p)
+        pipe.append(misc_ops.queue_source_factory(self._next_id(), queue))
+
     def _visit_OutputNode(self, node: N.OutputNode, pipe: List):
         self._visit(node.source, pipe)
 
@@ -498,11 +580,15 @@ def agg_function_for(name: str, input_type: Optional[Type],
     raise LocalPlanningError(f"unknown aggregate {name}")
 
 
-def _trace_scan_column(node: N.PlanNode, symbol: str):
+def _trace_scan_column(node: N.PlanNode, symbol: str, shared=frozenset()):
     """Follow `symbol` down through filters and identity projections to
     the TableScanNode that produces it: (scan node, scan symbol), or
-    None when anything else (a join, an aggregation) intervenes."""
+    None when anything else (a join, an aggregation) intervenes, or when
+    any node on the path is in `shared` (a spooled subtree also feeds
+    other consumers: a join's filter there would drop their rows)."""
     while True:
+        if id(node) in shared:
+            return None
         if isinstance(node, N.TableScanNode):
             return (node, symbol) if symbol in node.assignments else None
         if isinstance(node, N.FilterNode):

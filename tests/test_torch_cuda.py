@@ -500,7 +500,7 @@ def _assert_expand_equal(got, want, names):
         assert torch.equal(g.data[w.mask], w.data[w.mask]), nm
 
 
-@pytest.mark.parametrize("join_type", ["inner", "left"])
+@pytest.mark.parametrize("join_type", ["inner", "left", "full"])
 @pytest.mark.parametrize("verify", ["hash", "full"])
 @pytest.mark.parametrize("layout", ["aligned", "general_dup",
                                     "general_skewed", "general_unique",
@@ -509,7 +509,8 @@ def test_k9_join_expand_matches_plain(hopper, layout, verify, join_type):
     """Both layouts against the plain expand: the rows, the overflow
     flag (at the exact capacity the probe needs and one slot below) and
     the live count. q13_shape: 65,536 probe rows into 2,097,152 slots
-    over a skewed duplicate-key build."""
+    over a skewed duplicate-key build. A full join also sets the
+    matched flags, compared exactly."""
     rng = np.random.default_rng(19)
     nb, npr = 1 << 18, 1 << 20
     dup = {"aligned": None, "general_unique": None,
@@ -549,11 +550,157 @@ def test_k9_join_expand_matches_plain(hopper, layout, verify, join_type):
     for cap in caps:
         args = (table, probe, names, lo_enc, cap, join_type, probe_out,
                 build_out_names, names, verify, h2)
+        g_matched = w_matched = None
+        if join_type == "full":
+            g_matched = torch.zeros(nb, dtype=torch.bool, device=hopper)
+            w_matched = torch.zeros(nb, dtype=torch.bool, device=hopper)
         before = tj.JOIN_EXPAND_KERNEL.launches
-        got = tj._expand_from_enc(*args)
+        got = tj._expand_from_enc(*args, g_matched)
         assert tj.JOIN_EXPAND_KERNEL.launches == before + 1
-        want = tj.expand_plain(*args)
+        want = tj.expand_plain(*args, w_matched)
         torch.cuda.synchronize()
         _assert_expand_equal(got, want, probe_out + build_out_names)
+        if join_type == "full":
+            assert torch.equal(g_matched, w_matched)
+            assert 0 < int(w_matched.sum()) < nb
         if layout == "overflow":
             assert bool(got[1]) == (cap < need)
+
+
+# -- K10 cross product, K11 outer tail, K6 with no aggregate -------------
+
+
+def _side(rng, n, live, dev, prefix):
+    """A compacted batch of `n` rows (the first `live` live) with a
+    BIGINT, a DOUBLE, an INTEGER and a BOOLEAN column."""
+    cols = {
+        f"{prefix}a": tb.Column(
+            torch.from_numpy(rng.integers(-1 << 40, 1 << 40, n)).to(dev),
+            torch.from_numpy(rng.random(n) < 0.9).to(dev), tt.BIGINT),
+        f"{prefix}b": tb.Column(
+            torch.from_numpy(rng.normal(0, 1e6, n)).to(dev),
+            torch.from_numpy(rng.random(n) < 0.8).to(dev), tt.DOUBLE),
+        f"{prefix}c": tb.Column(
+            torch.from_numpy(rng.integers(-9, 9, n).astype(np.int32))
+            .to(dev), torch.ones(n, dtype=torch.bool, device=dev),
+            tt.INTEGER),
+        f"{prefix}d": tb.Column(
+            torch.from_numpy(rng.random(n) < 0.5).to(dev),
+            torch.from_numpy(rng.random(n) < 0.7).to(dev), tt.BOOLEAN)}
+    rv = torch.zeros(n, dtype=torch.bool, device=dev)
+    rv[:live] = True
+    return tb.Batch(cols, rv)
+
+
+def _assert_batches_equal(got, want):
+    assert torch.equal(got.row_valid, want.row_valid)
+    assert got.names == want.names
+    for nm in want.names:
+        g, w = got.columns[nm], want.columns[nm]
+        assert torch.equal(g.mask, w.mask), nm
+        assert torch.equal(g.data[w.mask], w.data[w.mask]), nm
+
+
+@pytest.mark.parametrize("np_rows,probe_live,nb_rows,build_live,slots", [
+    (8192, 6005, 256, 200, None), (65536, 50000, 16, 1, None),
+    (4096, 3000, 16, 0, 16), (4096, 0, 16, 5, 16),
+    (1024, 700, 64, 40, 1 << 16), (1 << 20, 1 << 20, 16, 16, 1 << 24)],
+    ids=["q19_tiny", "nb_1", "empty_build", "empty_probe",
+         "out_cap_larger", "full_capacity"])
+def test_k10_cross_product_matches_plain(hopper, np_rows, probe_live,
+                                         nb_rows, build_live, slots):
+    """Every slot, live or not, against the plain cross product: Q19's
+    shape at tiny (~1.2M live slots), a one-row build (Q11/Q22), empty
+    sides, an output capacity past nb * np, and 2^24 slots."""
+    from presto_tpu_torch.operators import misc_ops
+    rng = np.random.default_rng(41)
+    probe = _side(rng, np_rows, probe_live, hopper, "p_")
+    build = _side(rng, nb_rows, build_live, hopper, "b_")
+    out_cap = slots or tb.bucket_capacity(max(probe_live * build_live, 1))
+    before = misc_ops.CROSS_PRODUCT_KERNEL.launches
+    args = (probe, build, probe_live, build_live, out_cap)
+    got = misc_ops.cross_product(*args)
+    assert misc_ops.CROSS_PRODUCT_KERNEL.launches == before + 1
+    want = misc_ops.cross_product_plain(*args)
+    torch.cuda.synchronize()
+    _assert_batches_equal(got, want)
+    assert int(got.row_valid.sum()) == min(probe_live * build_live, out_cap)
+
+
+@pytest.mark.parametrize("verify", ["hash", "full"])
+@pytest.mark.parametrize("dup,live", [(None, 0.6), (2000, 0.6), (None, 0.0)],
+                         ids=["unique", "dup", "all_dead"])
+def test_k11_join_outer_matches_plain(hopper, dup, live, verify):
+    """The FULL join's tail after a probe whose matched flags came from
+    K9's full mode: liveness, the build masks, the NULL probe side and
+    the device live count."""
+    rng = np.random.default_rng(43)
+    nb, npr = 1 << 18, 1 << 18
+    build = _build_batch(rng, nb, int(nb * live), hopper, dup)
+    names = ("k0",)
+    table = tj.build_for_backend(build, names)
+    probe = _probe_like(rng, build, names, npr, hopper, dup, 1)
+    matched = torch.zeros(nb, dtype=torch.bool, device=hopper)
+    tj.probe_join_full(table, probe, names, matched, 4 * npr, ("k0", "v"),
+                       ("v",), names, verify)
+    schema = (("p_k0", tt.BIGINT, None), ("p_v", tt.DOUBLE, None),
+              ("p_s", tt.VARCHAR, ("a", "b")))
+    before = tj.JOIN_OUTER_KERNEL.launches
+    got, gcount = tj.unmatched_build(table, matched, schema, ("v",))
+    assert tj.JOIN_OUTER_KERNEL.launches == before + 1
+    want, wcount = tj.unmatched_build_plain(table, matched, schema, ("v",))
+    torch.cuda.synchronize()
+    _assert_batches_equal(got, want)
+    for nm, _, _ in schema:
+        assert not bool(got.columns[nm].mask.any())
+        assert not bool(got.columns[nm].data.bool().any())
+    assert int(gcount) == int(wcount) == int(want.row_valid.sum())
+    if live:
+        assert 0 < int(wcount) < int(nb * live)
+
+
+@pytest.mark.parametrize("nkeys", [1, 2], ids=["fits", "overflows"])
+def test_k6_with_no_aggregate_matches_plain(hopper, nkeys):
+    """The DISTINCT step reaches K6 with zero state components: group
+    count, first rows and overflow against the plain version (a second,
+    nearly unique DOUBLE key overflows the slots)."""
+    rng = np.random.default_rng(47)
+    n, out_cap = 1 << 20, 1 << 19
+    b = _build_batch(rng, n, int(n * 0.8), hopper, 200_000, nkeys)
+    keys = [b.columns[f"k{i}"].astuple() for i in range(nkeys)]
+    h1, h2 = tc.row_hash_pair(keys, b.row_valid, False)
+    perm = tc.lex_perm([h1, h2])
+    args = (h1[perm], h2[perm], [(d[perm], m[perm]) for d, m in keys],
+            b.row_valid[perm], [], out_cap)
+    before = th.SEGMENT_REDUCE_KERNEL.launches
+    got = th.segment_reduce(*args)
+    assert th.SEGMENT_REDUCE_KERNEL.launches == before + 1
+    want = th.segment_reduce_plain(*args)
+    torch.cuda.synchronize()
+    assert got[0] == want[0] == []
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+    assert bool(want[3]) == (nkeys == 2) == (int(want[2]) > out_cap)
+
+
+def test_distinct_step_matches_plain(hopper):
+    """DISTINCT's fold on the card (K3 + sort + K6) against the same
+    fold on the CPU: the same set of kept rows."""
+    from presto_tpu_torch.ops import sort as tsort
+    rng = np.random.default_rng(53)
+    n = 1 << 20
+    b = _build_batch(rng, n, int(n * 0.9), hopper, 30_000)
+    k1 = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(hopper)
+    b = tb.Batch({"k0": b.columns["k0"],
+                  "k1": tb.Column(k1, k1 != 2, tt.INTEGER)}, b.row_valid)
+    schema = [(k, c.type, None) for k, c in b.columns.items()]
+    results = []
+    for dev in (hopper, torch.device("cpu")):
+        state = tsort.distinct_state(schema, 1 << 18, dev)
+        batch = tb.Batch({k: tb.Column(c.data.to(dev), c.mask.to(dev),
+                                       c.type) for k, c in
+                          b.columns.items()}, b.row_valid.to(dev))
+        out = tsort.distinct_step(state, batch)
+        results.append(sorted(out.to_pylist(), key=repr))
+    assert results[0] == results[1]
+    assert 0 < len(results[0]) < 1 << 18

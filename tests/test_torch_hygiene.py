@@ -137,12 +137,34 @@ def _k9(common, join, hashagg):
                           _meta(64, torch.int64))
 
 
-@pytest.mark.parametrize("call", [_k3, _k4, _k5, _k6, _k7, _k8, _k9],
+def _k9_full(common, join, hashagg):
+    table, b = _meta_table(join)
+    join.probe_join_full(table, b, ("k",), _meta(64, torch.bool), 128,
+                         ("k",), ("k",), ("k",))
+
+
+def _k10(common, join, hashagg):
+    from presto_tpu_torch.operators import misc_ops
+    _, b = _meta_table(join)
+    misc_ops.cross_product(b, b, 64, 64, 4096)
+
+
+def _k11(common, join, hashagg):
+    from presto_tpu_torch.types import BIGINT
+    table, _ = _meta_table(join)
+    join.unmatched_build(table, _meta(64, torch.bool),
+                         (("p", BIGINT, None),), ("k",))
+
+
+@pytest.mark.parametrize("call", [_k3, _k4, _k5, _k6, _k7, _k8, _k9,
+                                  _k9_full, _k10, _k11],
                          ids=["row_hash", "join_build", "join_probe",
                               "segment_reduce", "semi_join",
-                              "stream_reduce", "join_expand"])
+                              "stream_reduce", "join_expand",
+                              "join_expand_full", "cross_product",
+                              "join_outer"])
 def test_device_tensor_never_takes_the_plain_version(monkeypatch, call):
-    """K3-K9 on tensors that are not on the CPU (meta tensors here) go
+    """K3-K11 on tensors that are not on the CPU (meta tensors here) go
     to the kernel or raise: with the build made to fail, the error
     surfaces. The plain versions would compute meta results silently."""
     from presto_tpu_torch.native import cuda

@@ -271,18 +271,6 @@ def test_two_key_probe_and_counts_match_reference():
         np.testing.assert_array_equal(t.numpy(), _np(j))
 
 
-def test_full_join_is_a_later_slice():
-    rng = np.random.default_rng(31)
-    bcols, brv = _build_cols(rng, 64, "unique")
-    _, tbuild = _both(bcols, brv)
-    tt = tj.build_for_backend(tbuild, ("bk",))
-    with pytest.raises(tj.JoinLaterSlice, match="ROADMAP B7"):
-        tj.probe_join(tt, tbuild, ("bk",), 64, "full", ("bk",), (),
-                      ("bk",))
-    with pytest.raises(tj.JoinLaterSlice, match="ROADMAP B7"):
-        tj.unmatched_build(tt)
-
-
 # -- dynamic filters ------------------------------------------------------
 
 

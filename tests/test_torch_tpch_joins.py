@@ -1,8 +1,8 @@
 """The TPC-H queries the join slices of the port bring (inner, left and
 right hash joins, dynamic filters, sort-based grouping; semi joins and
-streaming aggregation), through both
-LocalRunners at `tiny`: the port on the CPU (plain versions of its
-kernels) against the JAX package AND against sqlite, compared by
+streaming aggregation; cross joins, scalar subqueries and spools),
+through both LocalRunners at `tiny`: the port on the CPU (plain versions
+of its kernels) against the JAX package AND against sqlite, compared by
 assert_rows_equal's rule (DOUBLE rel_tol 1e-6, everything else exact,
 fully ordered queries in order); plus join shapes TPC-H lacks."""
 
@@ -184,3 +184,84 @@ def test_q18_inner_aggregation_streams_in_both_packages():
     _check(18, "tiny")
     assert tk.CALLS["agg_stream"] > before.get("agg_stream", 0)
 
+
+
+# -- cross joins, scalar subqueries and spools ---------------------------
+
+#: plannable since the fourth slice: Q11 and Q22 cross-join a one-row
+#: EnforceSingleRow, Q15 joins against one, Q19 is a cross join with the
+#: OR-predicate above it, Q21 shares two subtrees through spools
+SLICE4_QUERIES = [11, 15, 19, 21, 22]
+
+
+@pytest.mark.parametrize("qn", SLICE4_QUERIES)
+def test_slice4_query_matches_reference_and_sqlite(qn, sqlite_tiny):
+    got = _check(qn, "tiny")
+    types = [f.type.name for f in got.fields]
+    exp = [tuple(r) for r in
+           sqlite_tiny.execute(to_sqlite(QUERIES[qn])).fetchall()]
+    assert_rows_equal(normalize(got.rows(), types), exp, qn,
+                      qn in FULLY_ORDERED)
+
+
+@pytest.mark.parametrize("qn", SLICE4_QUERIES)
+def test_slice4_query_matches_reference_at_sf0_01(qn):
+    """At sf0_01 Q19's cross product (lineitem x part) passes 2^24 slots:
+    both packages raise the reference's guard instead of materializing
+    it."""
+    if qn != 19:
+        _check(qn, "sf0_01")
+        return
+    ref, port = _runners("sf0_01")
+    with pytest.raises(Exception) as jerr:
+        ref.execute(QUERIES[19])
+    with pytest.raises(RuntimeError) as terr:
+        port.execute(QUERIES[19])
+    assert str(terr.value) == str(jerr.value) == (
+        "cross join would materialize 65490000 rows; add a join condition")
+
+
+def test_slice4_queries_run_their_families():
+    """Q11, Q19 and Q22 take the cross product (nested_loop)."""
+    for qn in (11, 19, 22):
+        before = tk.CALLS["nested_loop"]
+        _check(qn, "tiny")
+        assert tk.CALLS["nested_loop"] > before, qn
+
+
+#: cross joins whose product keeps rows: Q19 keeps no line at `tiny` (one
+#: NULL) and Q22 no customer at SF1. These keep Q19's plan (a cross join
+#: under an OR-predicate) with wider branches, and Q22's with EXISTS.
+LIVE_CROSS = {
+    "q19_live": """select sum(l.extendedprice * (1 - l.discount)) as revenue,
+       count(*) as lines
+from lineitem l, part p
+where (
+        p.partkey = l.partkey
+    and p.size between 1 and 25
+    and l.quantity <= 25
+) or (
+        p.partkey = l.partkey
+    and p.brand in ('Brand#12', 'Brand#23', 'Brand#34')
+    and l.shipinstruct = 'DELIVER IN PERSON'
+)""",
+    "q22_exists": QUERIES[22].replace("not exists", "exists"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LIVE_CROSS))
+def test_live_cross_variant_matches_reference_and_sqlite(name, sqlite_tiny):
+    """The cross product with live rows, through the port against the
+    JAX package and sqlite at `tiny`; the result is not empty."""
+    sql = LIVE_CROSS[name]
+    ref, port = _runners("tiny")
+    before = tk.CALLS["nested_loop"]
+    got = port.execute(sql)
+    assert tk.CALLS["nested_loop"] > before
+    want = ref.execute(sql)
+    assert got.names == want.names
+    assert_rows_equal(got.rows(), want.rows(), name, True)
+    rows = normalize(got.rows(), [f.type.name for f in got.fields])
+    assert rows and all(v is not None for r in rows for v in r)
+    exp = [tuple(r) for r in sqlite_tiny.execute(to_sqlite(sql)).fetchall()]
+    assert_rows_equal(rows, exp, name, True)
