@@ -23,11 +23,20 @@ nothing of JAX.
 Main path: LocalRunner("tpch", "sf1", properties={"batch_rows": 1<<20})
 executes each query cold with every kernel's launch counter set to 0
 just before the query and read just after (those counts are the
-"launches" of the summary line), then three times warm. The kernels
-(KERNELS below): K1 direct_slot_reduce, K2 compact, K3 row_hash, K4
-join_build, K5 join_probe, K6 segment_reduce, K7 semi_join, K8
-stream_reduce, K9 join_expand (with its full mode), K10 cross_product,
-K11 join_outer. The kernel measurements run on inputs captured from a
+"launches" of the summary line), then three times warm. It runs with
+the defaults, so whole-fragment fusion is on: every query launches
+K12, no chain runs its composed form on the card, and no fusion report
+holds a `not_lowered` reason; each query's line gives its fused / total
+chains, the fusion pass's decisions as the FUSED_FRAGMENTS counter
+counted them, and the Triton compiles (count, seconds) inside its cold
+wall. The kernels (KERNELS below): K1 direct_slot_reduce, K2
+compact, K3 row_hash, K4 join_build, K5 join_probe, K6 segment_reduce,
+K7 semi_join, K8 stream_reduce, K9 join_expand (with its full mode), K10
+cross_product, K11 join_outer (CUDA C++, built with nvcc), and K12
+fragment (a Triton kernel generated per filter/project chain at its
+first launch). Q1, Q3, Q6 and Q18 also run with fusion off (their
+FilterProjects as one-stage K12 kernels), rows checked and walls beside
+the fused ones. The kernel measurements run on inputs captured from a
 separate run of the same queries (the largest call of each kernel; K9
 per layout and in full mode at the FULL join's largest call; K10 at
 the calls of K10_AT; the DISTINCT fold, K3 + sort + K6, at
@@ -35,9 +44,17 @@ the DISTINCT query's largest call), so their shapes are the main path's;
 compact is also measured on a 1M-row lineitem batch at ~2% and ~98%
 live. Launches made while comparing or timing are not counted. K4 and
 K6 also report the time of the `torch.sort` that precedes them on the
-main path. The composed torch forms that have no hand-written kernel
-yet (COMPOSED, and filter_project) are timed at their largest call too,
-with their byte bound and their family's calls per query.
+main path. K12 is held against its composed form at the largest call
+of every distinct generated kernel, fused and fusion off (every kernel
+launched in the run is compared), and timed at the three largest by
+bytes and at Q1's chain fused into its aggregation, from a cold L2: each
+timed call reads one of several copies of its batch, which together
+overflow the L2 (the warm device time, one batch again and again, is
+reported beside it). The composed torch
+forms that have no hand-written kernel yet (COMPOSED) are timed at
+their largest call too, with their byte bound and their family's calls
+per query. The profile phase counts the CUDA kernel launches of one
+warm execution of each query (and of Q1, Q3 and Q6 with fusion off).
 
 Tolerances: K2 (compact), K3, K4, K5 and K7 (semi_join) must match their
 plain versions exactly (row order, hashes, offsets, slots and keep masks
@@ -52,12 +69,16 @@ overflow flag and the live count exactly; in full mode the matched
 flags exactly too. K10 (cross_product) and K11 (join_outer): liveness,
 masks and every value under a set mask exactly (they copy). The DISTINCT
 fold: the kept rows, their order and their masks exactly (both sort by
-the same hashes). Query results: DOUBLE columns to a relative 1e-6 (the
+the same hashes). K12 (fragment): row_valid, masks and every value under
+a set mask exactly (FMA contraction off, IEEE division, floored integer
+division, as the composed form computes). Query results: DOUBLE columns to a relative 1e-6 (the
 repository's TPC-H comparison rule), everything else exact, in the
 query's order (as a multiset where the query has no ORDER BY; Q11 as a
 multiset whose rows come in descending value).
 """
 
+import collections
+import itertools
 import json
 import statistics
 import subprocess
@@ -847,10 +868,11 @@ COMPOSED = {
 
 class Capture:
     """Wraps the kernel wrappers (and the composed torch forms of
-    COMPOSED and filter_project) during one run of the queries and keeps
-    the inputs of each one's largest call: a copy for K1 and K2 (K1
-    updates its state in place), references for the rest (their inputs
-    are not written after the call)."""
+    COMPOSED) during one run of the queries and keeps the inputs of each
+    one's largest call: a copy for K1 and K2 (K1 updates its state in
+    place), references for the rest (their inputs are not written after
+    the call). K12 records its own largest call per generated kernel
+    (`codegen.CAPTURE`), with the query that made it (`k12_query`)."""
 
     def __init__(self, mods):
         self.m = mods
@@ -872,8 +894,20 @@ class Capture:
         self.distinct = None
         #: composed form -> (rows, query, function, args)
         self.composed = {}
+        #: K12 kernel fingerprint -> the query of its largest call
+        self.k12_query = {}
         self.query = None
         self._patches = []
+
+    def run(self, label, fn):
+        """Run one query under capture as `label`."""
+        cg = self.m["codegen"]
+        self.query = label
+        before = {fp: id(v[2]) for fp, v in cg.CAPTURE.items()}
+        fn()
+        for fp, v in cg.CAPTURE.items():
+            if before.get(fp) != id(v[2]):
+                self.k12_query[fp] = label
 
     def _keep(self, kernel, rows, args):
         if rows > self.big.get(kernel, (0,))[0]:
@@ -951,19 +985,6 @@ class Capture:
                 return orig(table, probe, *args)
             return rec
 
-        def filter_project(orig):
-            def make_kernel(*a):
-                kern = orig(*a)
-
-                def rec(batch):
-                    label = "filter_project"
-                    if batch.capacity > self.composed.get(label, (0,))[0]:
-                        self.composed[label] = (batch.capacity, self.query,
-                                                kern, (batch,))
-                    return kern(batch)
-                return rec
-            return make_kernel
-
         self._patch(th, "direct_slot_reduce", slot_reduce)
         self._patch(tb, "compact_shrink", shrink)
         self._patch(tc, "row_hash_pair", keep(
@@ -1008,14 +1029,16 @@ class Capture:
         self._patch(m["misc"], "cross_product", cross)
         self._patch(tj, "unmatched_build", outer)
         self._patch(m["sort"], "distinct_step", distinct)
-        self._patch(m["core"], "make_filter_project_kernel", filter_project)
         for label, (_, mod, fn) in COMPOSED.items():
             self._patch(m[mod], fn, self._record(label))
+        m["codegen"].CAPTURE = {}
         return self
 
     def __exit__(self, *exc):
         for mod, attr, orig in reversed(self._patches):
             setattr(mod, attr, orig)
+        self.k12 = self.m["codegen"].CAPTURE
+        self.m["codegen"].CAPTURE = None
         return False
 
 
@@ -1067,7 +1090,12 @@ def profile_query(torch, gen_module, runner, sql):
               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy_us = sum(dev_us(e) for e in events)
     top = sorted(events, key=dev_us, reverse=True)[:6]
+    # kernel launches: every device event that is not a copy or a fill
+    launched = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not e.key.lower().startswith(("memcpy", "memset"))]
     return {"wall_s": wall, "datagen_s": datagen[0],
+            "cuda_kernel_launches": sum(e.count for e in launched),
             "datagen_by_table": {
                 t: {"calls": c, "s": sec, "slowest_s": mx, "rows": r}
                 for t, (c, sec, mx, r) in sorted(by_table.items())},
@@ -1593,59 +1621,188 @@ def measure_distinct(torch, tsort, args):
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
-#: the hand-written kernels, by launch counter: (source under
-#: presto_tpu_torch/csrc/, the reference function it replaces). Every
-#: entry of presto_tpu_torch/native/cuda.py SOURCES is here.
+def compare_fragment(torch, got, want, what):
+    """K12's output against its composed form: row_valid and every
+    mask exactly, every value under a set mask exactly (NaN equal to
+    NaN). Returns (values compared, max abs difference)."""
+    check(torch.equal(got.row_valid, want.row_valid)
+          and list(got.columns) == list(want.columns),
+          f"{what}: row_valid or columns differ from the composed form")
+    compared, max_abs = 0, 0.0
+    for name, w in want.columns.items():
+        g = got.columns[name]
+        check(g.data.dtype == w.data.dtype
+              and torch.equal(g.mask, w.mask),
+              f"{what}: {name}'s dtype or mask differs")
+        a, b = g.data[w.mask], w.data[w.mask]
+        if a.is_floating_point():
+            nan = torch.isnan(b)
+            check(torch.equal(torch.isnan(a), nan),
+                  f"{what}: {name}'s NaNs differ")
+            a, b = a[~nan], b[~nan]
+        if a.numel():
+            diff = (a.to(torch.float64) - b.to(torch.float64)).abs()
+            max_abs = max(max_abs, float(diff.max()))
+        check(torch.equal(a, b),
+              f"{what}: {name} differs from the composed form")
+        compared += int(w.mask.sum())
+    return compared, max_abs
+
+
+def measure_k12(torch, ff, kernel, batch, query):
+    """K12 at one captured call: compared with its composed form on the
+    same CUDA batch, then timed beside it. The bound is the bytes the
+    kernel must move (the columns it reads and writes, once) over
+    HBM_BYTES_PER_S; no single PyTorch call computes a chain."""
+    got = kernel(batch)
+    want = ff.compose_chain(kernel.stages, batch)
+    torch.cuda.synchronize()
+    compared, max_abs = compare_fragment(torch, got, want,
+                                         f"K12 {kernel.fingerprint}")
+    moved = kernel.io_bytes(batch)
+    return {"fingerprint": kernel.fingerprint, "shape_from": query,
+            "rows": batch.capacity, "stages": len(kernel.stages),
+            "values_compared": compared, "max_abs_err": max_abs,
+            "bytes": moved, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "library_ms": None}
+
+
+def device_ms(torch, fn, match=None) -> float:
+    """Device time of one call of `fn` (the kernels whose name holds
+    `match`, or every device event but copies and fills), from
+    torch.profiler over ITERS calls after one warm-up: the part of
+    time_ms that is not the host's launch work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(ITERS):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if match is not None and match not in e.key:
+            continue
+        if e.key.lower().startswith(("memcpy", "memset")):
+            continue
+        total += getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+    return total / ITERS / 1e3
+
+
+def time_k12(torch, tb, ff, kernel, batch, m):
+    """K12 and its composed form timed from a cold L2: each call reads
+    the next of several copies of `batch`, which together hold at least
+    four times the card's L2, so a call finds none of its inputs there;
+    the outputs of as many calls are kept alive, so no call writes into
+    the buffers of the call before it (whose lines may still sit dirty
+    in the L2).
+    `ms` / `plain_ms` are CUDA events around the call (the host's
+    launch work included), `device_ms` / `plain_device_ms` the device
+    time alone; `warm_device_ms` is K12's device time on one batch
+    again and again (its inputs then sit in the L2)."""
+    m = dict(m)
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                 50 << 20)
+    copies = max(2, min(64, -(-4 * l2 // max(1, m["bytes"]))))
+
+    def clone(b):
+        return tb.Batch({n: tb.Column(c.data.clone(), c.mask.clone(),
+                                      c.type, c.dictionary)
+                         for n, c in b.columns.items()},
+                        b.row_valid.clone())
+    ring = itertools.cycle([batch] + [clone(batch)
+                                      for _ in range(copies - 1)])
+    held = collections.deque(maxlen=copies)
+
+    def k12():
+        held.append(kernel(next(ring)))
+
+    def plain():
+        held.append(ff.compose_chain(kernel.stages, next(ring)))
+    m["l2_copies"] = copies
+    m["ms"] = time_ms(k12, torch)
+    m["plain_ms"] = time_ms(plain, torch)
+    m["device_ms"] = device_ms(torch, k12, "fragment_kernel")
+    m["plain_device_ms"] = device_ms(torch, plain)
+    m["warm_device_ms"] = device_ms(torch, lambda: kernel(batch),
+                                    "fragment_kernel")
+    return m
+
+
+#: the hand-written kernels, by launch counter: (route, source in the
+#: repository, the reference function it replaces). Every entry of
+#: presto_tpu_torch/native/cuda.py SOURCES is here (route cuda); K12
+#: is generated per chain by presto_tpu_torch/expr/codegen.py.
 KERNELS = {
-    "direct_slot_reduce": ("slot_reduce.cu",
+    "direct_slot_reduce": ("cuda", "presto_tpu_torch/csrc/slot_reduce.cu",
                            "presto_tpu/ops/hashagg.py:884"),
-    "compact": ("compact.cu", "presto_tpu/batch.py:450"),
-    "row_hash": ("row_hash.cu", "presto_tpu/ops/common.py:167"),
-    "join_build": ("join_build.cu", "presto_tpu/ops/join.py:248"),
-    "join_probe": ("join_probe.cu", "presto_tpu/ops/join.py:353"),
-    "segment_reduce": ("segment_reduce.cu",
+    "compact": ("cuda", "presto_tpu_torch/csrc/compact.cu",
+                "presto_tpu/batch.py:450"),
+    "row_hash": ("cuda", "presto_tpu_torch/csrc/row_hash.cu",
+                 "presto_tpu/ops/common.py:167"),
+    "join_build": ("cuda", "presto_tpu_torch/csrc/join_build.cu",
+                   "presto_tpu/ops/join.py:248"),
+    "join_probe": ("cuda", "presto_tpu_torch/csrc/join_probe.cu",
+                   "presto_tpu/ops/join.py:353"),
+    "segment_reduce": ("cuda", "presto_tpu_torch/csrc/segment_reduce.cu",
                        "presto_tpu/ops/hashagg.py:569"),
-    "semi_join": ("semi_join.cu", "presto_tpu/ops/join.py:708"),
-    "stream_reduce": ("stream_reduce.cu",
+    "semi_join": ("cuda", "presto_tpu_torch/csrc/semi_join.cu",
+                  "presto_tpu/ops/join.py:708"),
+    "stream_reduce": ("cuda", "presto_tpu_torch/csrc/stream_reduce.cu",
                       "presto_tpu/operators/aggregation.py:651"),
-    "join_expand": ("join_expand.cu", "presto_tpu/ops/join.py:609"),
-    "cross_product": ("cross_product.cu",
+    "join_expand": ("cuda", "presto_tpu_torch/csrc/join_expand.cu",
+                    "presto_tpu/ops/join.py:609"),
+    "cross_product": ("cuda", "presto_tpu_torch/csrc/cross_product.cu",
                       "presto_tpu/operators/misc_ops.py:120"),
-    "join_outer": ("join_outer.cu", "presto_tpu/ops/join.py:689"),
+    "join_outer": ("cuda", "presto_tpu_torch/csrc/join_outer.cu",
+                   "presto_tpu/ops/join.py:689"),
+    "fragment": ("triton", "presto_tpu_torch/expr/codegen.py",
+                 "presto_tpu/operators/fused_fragment.py:187"),
 }
+
+#: queries run again with fusion off (their walls beside the fused ones)
+FUSION_OFF = ("q1", "q3", "q6", "q18")
+#: queries whose CUDA kernel launches are counted fused and unfused
+LAUNCH_PROFILE = ("q1", "q3", "q6")
 
 #: the queries whose largest K10 call is held against the plain version:
 #: Q19 at tiny (K10's largest call), Q11, Q22 (no live slot at SF1) and
 #: Q22_EXISTS (tens of thousands of live probe rows x 1)
 K10_AT = ("q19", "q11", "q22", "q22_exists")
 
-#: the kernels each query's plan must launch
-MUST = {"q1": ("direct_slot_reduce",),
-        "q6": ("direct_slot_reduce", "compact"),
+#: the kernels each query's plan must launch (K12 in every one: each
+#: plans at least one filter/project chain)
+MUST = {"q1": ("direct_slot_reduce", "fragment"),
+        "q6": ("direct_slot_reduce", "compact", "fragment"),
         "q3": ("row_hash", "join_build", "join_probe", "join_expand",
-               "segment_reduce"),
+               "segment_reduce", "fragment"),
         "q5": ("row_hash", "join_build", "join_probe", "join_expand",
-               "direct_slot_reduce"),
+               "direct_slot_reduce", "fragment"),
         "q13": ("row_hash", "join_build", "join_probe", "join_expand",
-                "segment_reduce"),
+                "segment_reduce", "fragment"),
         "q4": ("row_hash", "join_build", "semi_join",
-               "direct_slot_reduce"),
+               "direct_slot_reduce", "fragment"),
         "q16": ("join_probe", "join_expand", "semi_join",
-                "segment_reduce"),
+                "segment_reduce", "fragment"),
         "q18": ("stream_reduce", "semi_join", "join_probe", "join_expand",
-                "segment_reduce"),
+                "segment_reduce", "fragment"),
         "q20": ("semi_join", "join_probe", "join_expand",
-                "segment_reduce"),
-        "q11": ("cross_product", "join_probe", "join_expand"),
-        "q15": ("join_probe", "join_expand"),
-        "q21": ("semi_join", "join_probe", "join_expand"),
-        "q22": ("cross_product", "semi_join"),
-        "q22_exists": ("cross_product", "semi_join"),
-        "full": ("join_expand", "join_outer"),
-        "distinct": ("row_hash", "segment_reduce"),
-        "union": ("row_hash", "segment_reduce"),
-        "q19": ("cross_product",),
-        "q19_live": ("cross_product",)}
+                "segment_reduce", "fragment"),
+        "q11": ("cross_product", "join_probe", "join_expand", "fragment"),
+        "q15": ("join_probe", "join_expand", "fragment"),
+        "q21": ("semi_join", "join_probe", "join_expand", "fragment"),
+        "q22": ("cross_product", "semi_join", "fragment"),
+        "q22_exists": ("cross_product", "semi_join", "fragment"),
+        "full": ("join_expand", "join_outer", "fragment"),
+        "distinct": ("row_hash", "segment_reduce", "fragment"),
+        "union": ("row_hash", "segment_reduce", "fragment"),
+        "q19": ("cross_product", "fragment"),
+        "q19_live": ("cross_product", "fragment")}
 
 
 def run_phases(torch, np, mods, dev, schema, profile=True):
@@ -1653,6 +1810,7 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
     per-kernel summary. `mods` holds the port's modules by short name."""
     tb, tt, gen_module = mods["tb"], mods["tt"], mods["gen"]
     th, tc, tj, tk = mods["th"], mods["tc"], mods["tj"], mods["tk"]
+    cg, ff = mods["codegen"], mods["ff"]
     # 3. tpch: the main path ------------------------------------------
     want_q1, want_q6, lineitem = oracle(np, gen_module, schema)
     want_q19, n_lineitem_q19 = q19_oracle(np, gen_module)
@@ -1670,24 +1828,71 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
         return runners[QUERY_SCHEMA.get(label, schema)]
     counters = list(tk.COUNTERS.values())
     launches, calls, walls, results = {}, {}, {}, {}
-    for label, sql in QUERIES.items():
-        runner = runner_of(label)
-        for c in counters:
-            c.launches = 0
-        before = dict(tk.CALLS)
-        t = time.perf_counter()
-        results[label] = runner.execute(sql).rows()
-        cold = time.perf_counter() - t
-        launches[label] = {c.name: c.launches for c in counters}
-        calls[label] = {f: n - before.get(f, 0)
-                        for f, n in tk.CALLS.items()
-                        if n - before.get(f, 0)}
-        warm = []
-        for _ in range(3):
+    chains, compiles, decisions = {}, {}, {}
+    # no chain may run its composed form on the card on the main path:
+    # every call of it there is counted
+    composed_on_card = []
+    compose = ff.compose_chain
+
+    def counting_compose(stages, batch):
+        if batch.device.type != "cpu":
+            composed_on_card.append(len(stages))
+        return compose(stages, batch)
+    ff.compose_chain = counting_compose
+    try:
+        for label, sql in QUERIES.items():
+            runner = runner_of(label)
+            for c in counters:
+                c.launches = 0
+            before = dict(tk.CALLS)
+            c0 = dict(cg.COMPILES)
+            f0 = collections.Counter(tk.FUSED_FRAGMENTS)
             t = time.perf_counter()
-            runner.execute(sql).rows()
-            warm.append(time.perf_counter() - t)
-        walls[label] = (cold, statistics.median(warm))
+            res = runner.execute(sql)
+            results[label] = res.rows()
+            cold = time.perf_counter() - t
+            launches[label] = {c.name: c.launches for c in counters}
+            compiles[label] = (cg.COMPILES["count"] - c0["count"],
+                               cg.COMPILES["seconds"] - c0["seconds"])
+            calls[label] = {f: n - before.get(f, 0)
+                            for f, n in tk.CALLS.items()
+                            if n - before.get(f, 0)}
+            rep = res.fusion_report
+            check(rep is not None, f"{label}: fusion did not run")
+            reasons = [str(e["reason"]) for e in rep["fragments"]]
+            check(not any(r.startswith("not_lowered") for r in reasons),
+                  f"{label}: a chain has no lowering: {reasons}")
+            chains[label] = (rep["fused"], len(rep["fragments"]))
+            # the fusion pass's decisions, as its counter counted them:
+            # the report's, once per planning (a query re-planned after
+            # an overflow is counted again)
+            f1 = collections.Counter(tk.FUSED_FRAGMENTS)
+            f1.subtract(f0)
+            f1 = +f1
+            mine = collections.Counter(
+                (("partial" if e["reason"] else "fused") if e["fused"]
+                 else "fallback", e["reason"] or "")
+                for e in rep["fragments"])
+            plans = sum(f1.values()) // max(1, len(rep["fragments"]))
+            check(plans >= 1 and all(f1[k] == plans * n
+                                     for k, n in mine.items())
+                  and sum(f1.values()) == plans * len(rep["fragments"]),
+                  f"{label}: FUSED_FRAGMENTS {dict(f1)} disagrees with "
+                  f"the fusion report")
+            by_status = collections.Counter()
+            for (status, _), n in f1.items():
+                by_status[status] += n // plans
+            decisions[label] = {**by_status, "plans": plans}
+            warm = []
+            for _ in range(3):
+                t = time.perf_counter()
+                runner.execute(sql).rows()
+                warm.append(time.perf_counter() - t)
+            walls[label] = (cold, statistics.median(warm))
+    finally:
+        ff.compose_chain = compose
+    check(not composed_on_card, "a filter/project chain ran its composed "
+          f"form on the card {len(composed_on_card)} times")
     for label in QUERIES:
         check(result_matches(label, results[label], want[label]),
               f"{label} differs from the oracle: {results[label][:20]} vs "
@@ -1705,9 +1910,54 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
               "rows": rows if len(rows) <= 200 else len(rows),
               "matches_oracle": True, "launches": launches[label],
               "family_calls": calls[label],
-              "cold_s": cold, "warm_s": warm,
+              "fused_chains": f"{chains[label][0]}/{chains[label][1]}",
+              "fused_fragments": decisions[label],
+              "cold_s": cold, "cold_k12_compiles": compiles[label][0],
+              "cold_k12_compile_s": compiles[label][1], "warm_s": warm,
               "lineitem_rows": n_lineitem[sc],
               "warm_lineitem_rows_per_s": n_lineitem[sc] / warm})
+
+    # 3b. fusion off (one-stage K12 kernels) ---------------------------
+    # K12 records its largest call per generated kernel here too, so the
+    # kernels only this path generates are held against their composed
+    # form with the main path's
+    unfused = mods["LocalRunner"]("tpch", schema, properties={
+        **PROPS, "fragment_fusion_enabled": False}, device=dev)
+    unfused_k12, unfused_query = {}, {}
+    ff.compose_chain = counting_compose
+    cg.CAPTURE = unfused_k12
+    try:
+        for label in FUSION_OFF:
+            for c in counters:
+                c.launches = 0
+            seen = {fp: id(v[2]) for fp, v in unfused_k12.items()}
+            t = time.perf_counter()
+            res = unfused.execute(QUERIES[label])
+            rows = res.rows()
+            cold = time.perf_counter() - t
+            k12 = tk.COUNTERS["fragment"].launches
+            t = time.perf_counter()
+            unfused.execute(QUERIES[label]).rows()
+            warm = time.perf_counter() - t
+            for fp, v in unfused_k12.items():
+                if seen.get(fp) != id(v[2]):
+                    unfused_query[fp] = label + "_unfused"
+            check(res.fusion_report is None,
+                  f"{label}: fusion ran with fragment_fusion_enabled off")
+            check(result_matches(label, rows, want[label]),
+                  f"{label} with fusion off differs from the oracle")
+            check(k12 > 0, f"{label} with fusion off launched no K12")
+            emit({"phase": "fusion_off", "query": label, "schema": schema,
+                  "matches_oracle": True, "k12_launches": k12,
+                  "cold_s": cold, "warm_s": warm,
+                  "fused_cold_s": walls[label][0],
+                  "fused_warm_s": walls[label][1]})
+    finally:
+        cg.CAPTURE = None
+        ff.compose_chain = compose
+    check(not composed_on_card, "a filter/project chain ran its composed "
+          f"form on the card with fusion off {len(composed_on_card)} "
+          "times")
     # Q19 at SF1: the reference's guard, before anything is materialized
     import re
     try:
@@ -1726,12 +1976,15 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
             emit({"phase": "profile", "query": label,
                   **profile_query(torch, gen_module, runner_of(label),
                                   sql)})
+        for label in LAUNCH_PROFILE:
+            emit({"phase": "profile", "query": label, "fusion": False,
+                  **profile_query(torch, gen_module, unfused,
+                                  QUERIES[label])})
 
     # 5. kernels at the main path's shapes ----------------------------
     with Capture(mods) as cap:
         for label, sql in QUERIES.items():
-            cap.query = label
-            runner_of(label).execute(sql).rows()
+            cap.run(label, lambda: runner_of(label).execute(sql).rows())
     check({"q1", "q6"} <= set(cap.k1) and "q6" in cap.k2
           and set(cap.big) == {"row_hash", "join_build", "join_probe",
                                "segment_reduce", "semi_join",
@@ -1767,6 +2020,47 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
     distinct = measure_distinct(torch, mods["sort"], cap.distinct[2])
     composed = {label: (q, measure_composed(torch, fn, args))
                 for label, (_, q, fn, args) in cap.composed.items()}
+    # K12: every distinct generated kernel at its largest call against
+    # its composed form; timed at the three largest by bytes and at
+    # Q1's chain fused into its aggregation
+    # (the fusion-off path's kernels where it made their largest call)
+    k12_calls = dict(cap.k12)
+    k12_query = dict(cap.k12_query)
+    for fp, v in unfused_k12.items():
+        if fp not in k12_calls or k12_calls[fp][0] < v[0]:
+            k12_calls[fp] = v
+            k12_query[fp] = unfused_query.get(fp, "?")
+    k12 = {fp: (kern, batch, measure_k12(torch, ff, kern, batch,
+                                         k12_query.get(fp, "?")))
+           for fp, (_, kern, batch) in k12_calls.items()}
+    check(bool(k12), "no K12 input was captured from the main path")
+    check(set(k12) == set(cg.LAUNCHED),
+          f"{len(set(cg.LAUNCHED) - set(k12))} generated kernels were "
+          "launched but not held against their composed form")
+    emit({"phase": "k12_compare", "kernels": len(k12),
+          "first_launches": len(cg.LAUNCHED),
+          "from_fusion_off": sum(1 for fp in k12
+                                 if k12_query.get(fp, "").endswith(
+                                     "_unfused")),
+          "values_compared": sum(m["values_compared"]
+                                 for _, _, m in k12.values()),
+          "max_abs_err": max(m["max_abs_err"] for _, _, m in k12.values())})
+    timed = sorted(k12, key=lambda fp: -k12[fp][2]["bytes"])[:3]
+    q1_agg = [fp for fp, (kern, _, m) in k12.items()
+              if m["shape_from"] == "q1" and kern.stages[-1].raw]
+    check(len(q1_agg) == 1, "Q1's chain fused into its aggregation was "
+          "not captured")
+    k12_timed = {}
+    for fp in dict.fromkeys(timed + q1_agg):
+        kern, batch, m = k12[fp]
+        k12_timed[fp] = time_k12(torch, tb, ff, kern, batch, m)
+        emit({"phase": "kernels", "kernel": "fragment",
+              "role": "q1 chain + aggregation keys/inputs"
+              if fp in q1_agg else "largest by bytes",
+              **k12_timed[fp],
+              "calls": {qq: {f: c.get(f, 0) for f in
+                             ("filter_project", "fragment")}
+                        for qq, c in calls.items()}})
     del big, cap
     # a 1M-row lineitem-shaped batch (the seven columns Q1 reads) with
     # Q6's predicate as row_valid (~2% live, shrunk) and its complement
@@ -1824,12 +2118,20 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
     measured["join_expand"] = expand["general"][1]
     measured["cross_product"] = k10["q19"]
     measured["join_outer"] = k11
+    # K12's figures are those of its largest call by bytes
+    measured["fragment"] = k12_timed[timed[0]]
+    # every first launch of a generated kernel in this process (main
+    # path, fusion off, capture and comparisons), and those inside the
+    # main path's cold walls
+    emit({"phase": "k12_compiles", "count": cg.COMPILES["count"],
+          "seconds": cg.COMPILES["seconds"],
+          "in_cold_walls": {q: {"count": n, "s": sec}
+                            for q, (n, sec) in compiles.items()}})
     kernels = []
-    for k, (src, replaces) in KERNELS.items():
+    for k, (route, src, replaces) in KERNELS.items():
         m = measured[k]
         kernels.append({
-            "name": k, "route": "cuda",
-            "source": "presto_tpu_torch/csrc/" + src, "replaces": replaces,
+            "name": k, "route": route, "source": src, "replaces": replaces,
             "family": tk.COUNTERS[k].family,
             "launches": sum(v[k] for v in launches.values()),
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
@@ -1850,7 +2152,9 @@ def main() -> int:
         from presto_tpu_torch import types as tt
         from presto_tpu_torch.connectors import tpch as gen_module
         from presto_tpu_torch.execution import dynamic_filters as tdf
+        from presto_tpu_torch.expr import codegen
         from presto_tpu_torch.native import cuda
+        from presto_tpu_torch.operators import fused_fragment as tff
         from presto_tpu_torch.operators import aggregation as tagg
         from presto_tpu_torch.operators import core as tcore
         from presto_tpu_torch.operators import misc_ops as tmisc
@@ -1867,11 +2171,12 @@ def main() -> int:
     dev = torch.device("cuda")
     mods = {"tb": tb, "tt": tt, "gen": gen_module, "th": th, "tc": tc,
             "tj": tj, "df": tdf, "agg": tagg, "core": tcore, "sort": tsort,
-            "misc": tmisc,
+            "misc": tmisc, "codegen": codegen, "ff": tff,
             "tk": tk, "LocalRunner": LocalRunner}
     check(set(KERNELS) == set(tk.COUNTERS)
-          and {src for src, _ in KERNELS.values()}
-          == set(cuda.SOURCES.values()),
+          and {src for route, src, _ in KERNELS.values()
+               if route == "cuda"}
+          == {"presto_tpu_torch/csrc/" + s for s in cuda.SOURCES.values()},
           "KERNELS, the launch counters and native/cuda.py SOURCES "
           "disagree")
 

@@ -14,6 +14,17 @@ Strings: VARCHAR data is dictionary codes. String predicates and
 string functions are evaluated host-side over the (static) dictionary
 at compile time, becoming lookup tables the device gathers from.
 
+Lowering: beside its closure, every compiled expression carries
+`lowering`, the (data, mask) pair of typed element-wise DAGs the
+closure computes (`expr/lowering.py`, recorded by running the closure
+once over symbolic columns). The fragment kernel generator
+(`expr/codegen.py`) emits its Triton source from it. Every subtree the
+compiler evaluates as a lookup table (LIKE, string IN lists and
+comparisons, substr and the other string functions, dictionary remaps)
+lowers as a clamped gather from that table. An expression whose closure
+applies an operation with no lowering has `lowering` None and names the
+function in `not_lowered`.
+
 Where the port differs from the JAX reference:
 
 * Constants (literals, lookup tables) are tensors made ONCE, at
@@ -40,6 +51,9 @@ import numpy as np
 import torch
 
 from presto_tpu_torch.expr import dates as D
+from presto_tpu_torch.expr.lowering import (
+    LNode, Unlowerable, lower_fn,
+)
 from presto_tpu_torch.expr.ir import (
     Call, InputRef, Literal, RowExpression, SpecialForm,
 )
@@ -68,11 +82,17 @@ NOT_YET_PORTED = frozenset({
 @dataclasses.dataclass
 class CompiledExpr:
     """fn(env) -> (data, mask); `dictionary` set when type is a string.
-    `ir` is the source RowExpression."""
+    `ir` is the source RowExpression. `lowering` is what `fn` computes
+    as (data, mask) LNodes over its input columns (set by
+    compile_expression); `not_lowered` names the function that has no
+    lowering when `lowering` is None."""
     fn: Callable[[Env], CVal]
     type: Type
     dictionary: Optional[Tuple[str, ...]] = None
     ir: Optional[RowExpression] = None
+    lowering: Optional[Tuple[LNode, LNode]] = None
+    not_lowered: Optional[str] = None
+    device: Optional[torch.device] = None
 
 
 class ExpressionCompileError(Exception):
@@ -82,9 +102,41 @@ class ExpressionCompileError(Exception):
 def compile_expression(expr: RowExpression,
                        schema: Dict[str, ColumnSchema],
                        device: torch.device = _CPU) -> CompiledExpr:
-    """Compile `expr` for batches on `device`."""
+    """Compile `expr` for batches on `device`, with its lowering."""
     ce = _Compiler(schema, torch.device(device)).compile(expr)
     ce.ir = expr
+    ce.device = torch.device(device)
+    lower_expression(ce, {n: cs.type.torch_dtype
+                          for n, cs in schema.items()})
+    return ce
+
+
+def compile_column(name: str, columns, device: torch.device = _CPU,
+                   remap_to: Optional[Tuple[str, ...]] = None
+                   ) -> CompiledExpr:
+    """A column reference over `columns` [(name, type, dictionary)] —
+    re-encoded onto the sorted superset dictionary `remap_to` (a
+    lookup) when given and different from the column's own."""
+    schema = {n: ColumnSchema(n, t, d) for n, t, d in columns}
+    ref = InputRef(name, schema[name].type)
+    comp = _Compiler(schema, torch.device(device))
+    ce = comp.compile(ref)
+    if remap_to is not None and ce.dictionary != remap_to:
+        ce = comp._remap_to(ce, tuple(remap_to))
+    ce = CompiledExpr(ce.fn, ce.type, ce.dictionary, ref,
+                      device=torch.device(device))
+    return lower_expression(ce, {n: cs.type.torch_dtype
+                                 for n, cs in schema.items()})
+
+
+def lower_expression(ce: CompiledExpr,
+                     dtypes: Dict[str, torch.dtype]) -> CompiledExpr:
+    """Set `ce.lowering` (or `ce.not_lowered`) from its closure, over
+    input columns of the given data dtypes."""
+    try:
+        ce.lowering, ce.not_lowered = lower_fn(ce.fn, dtypes), None
+    except Unlowerable as e:
+        ce.lowering, ce.not_lowered = None, e.function or e.op
     return ce
 
 
@@ -124,9 +176,10 @@ def _like_to_regex(pattern: str, escape: Optional[str] = None) -> str:
 _EVAL_MEMO = threading.local()
 
 
-def _share(fn, key: int):
+def _share(fn, key: int, label: str):
     """Wrap a compiled closure so one EVALUATION of a shared node runs
-    once per env."""
+    once per env. `label` (the node's function or form) names the
+    innermost node of a closure that cannot be lowered."""
     def wrapped(env):
         memo = getattr(_EVAL_MEMO, "m", None)
         top = memo is None
@@ -137,7 +190,12 @@ def _share(fn, key: int):
             k = (id(env), key)
             hit = memo.get(k)
             if hit is None:
-                hit = fn(env)
+                try:
+                    hit = fn(env)
+                except Unlowerable as e:
+                    if e.function is None:
+                        e.function = label
+                    raise
                 memo[k] = hit
             return hit
         finally:
@@ -187,7 +245,10 @@ class _Compiler:
         else:
             raise ExpressionCompileError(
                 f"unknown expression node: {expr!r}")
-        out = CompiledExpr(_share(out.fn, id(expr)), out.type,
+        label = expr.name if isinstance(expr, Call) else \
+            expr.form if isinstance(expr, SpecialForm) else \
+            type(expr).__name__.lower()
+        out = CompiledExpr(_share(out.fn, id(expr), label), out.type,
                            out.dictionary, out.ir)
         self._memo[id(expr)] = out
         return out
@@ -482,7 +543,7 @@ class _Compiler:
 
             def f_tut(env):
                 d, m = a.fn(env)
-                return d.to(torch.float64) / 1000.0, m
+                return _div_scalar(d.to(torch.float64), 1000.0), m
             return CompiledExpr(f_tut, DOUBLE)
         if name in ("is_nan", "is_finite", "is_infinite"):
             (a,) = args
@@ -556,7 +617,8 @@ class _Compiler:
                         b_tie=bd - b_days * DAY_MS)
                 else:
                     months = D.months_between(ad, bd)
-                return torch.trunc(months / k).to(torch.int64), am & bm
+                return torch.trunc(_div_scalar(months, k)) \
+                    .to(torch.int64), am & bm
         else:
             units = _MS_UNITS if is_ts else _DAY_UNITS
             if unit not in units:
@@ -569,7 +631,8 @@ class _Compiler:
                 ad, am = a1.fn(env)
                 bd, bm = a2.fn(env)
                 x, y = _promote(bd, ad)
-                return torch.trunc((x - y) / mult).to(torch.int64), \
+                return torch.trunc(_div_scalar(x - y, mult)) \
+                    .to(torch.int64), \
                     am & bm
         return CompiledExpr(f, BIGINT)
 
@@ -959,6 +1022,16 @@ def _apply_lookup(fn, tbl: torch.Tensor, env) -> CVal:
     return tbl[d.clamp(0, tbl.shape[0] - 1).long()], m
 
 
+def _div_scalar(d: torch.Tensor, k) -> torch.Tensor:
+    """`d / k` for a Python number `k`, divided as IEEE division on
+    every device: torch's CUDA kernels multiply by the reciprocal of a
+    Python-number divisor (one bit off the quotient, and a truncation
+    after it can then be off by one), so the divisor becomes a 0-d
+    tensor of the same promotion category on `d`'s device."""
+    dt = torch.float64 if isinstance(k, float) else torch.int64
+    return d / torch.full((), k, dtype=dt, device=d.device)
+
+
 def _rescale(unscaled: torch.Tensor, from_scale: int, to_scale: int):
     if to_scale == from_scale:
         return unscaled
@@ -970,7 +1043,7 @@ def _rescale(unscaled: torch.Tensor, from_scale: int, to_scale: int):
 def _div_half_up(num: torch.Tensor, den) -> torch.Tensor:
     """Integer division rounding half away from zero (SQL DECIMAL)."""
     num = num.to(torch.int64)
-    if not isinstance(den, torch.Tensor):
+    if isinstance(den, int):
         den = torch.tensor(den, dtype=torch.int64, device=num.device)
     sign = torch.sign(num) * torch.sign(den)
     return sign * ((2 * num.abs() + den.abs()) // (2 * den.abs()))
@@ -980,7 +1053,7 @@ def _cast_data(d: torch.Tensor, frm: Type, to: Type) -> torch.Tensor:
     if frm.is_decimal and to.is_decimal:
         return _rescale(d, frm.scale, to.scale)
     if frm.is_decimal and to.is_floating:
-        return d.to(to.torch_dtype) / (10 ** frm.scale)
+        return _div_scalar(d.to(to.torch_dtype), 10 ** frm.scale)
     if frm.is_decimal and to.is_integer:
         return _div_half_up(d, 10 ** frm.scale).to(to.torch_dtype)
     if to.is_decimal:
@@ -1003,7 +1076,7 @@ def _coerce_pair(a: CompiledExpr, b: CompiledExpr):
 
             def f(env):
                 d, m = x.fn(env)
-                return d.to(torch.float64) / (10 ** scale), m
+                return _div_scalar(d.to(torch.float64), 10 ** scale), m
             return f
         return x.fn
     return conv(a, b.type), conv(b, a.type)
@@ -1017,7 +1090,7 @@ def _numeric_prep(args):
 
             def f(env, a=a, scale=scale):
                 d, m = a.fn(env)
-                return d.to(torch.float64) / (10 ** scale), m
+                return _div_scalar(d.to(torch.float64), 10 ** scale), m
             out.append(f)
         else:
             out.append(a.fn)
@@ -1045,14 +1118,14 @@ def _round(x, d=None):
     if d is None:
         return torch.round(x)
     scale = 10.0 ** d
-    return torch.round(x * scale) / scale
+    return _div_scalar(torch.round(x * scale), scale)
 
 
 def _truncate(x, d=None):
     if d is None:
         return torch.trunc(x)
     scale = 10.0 ** d
-    return torch.trunc(x * scale) / scale
+    return _div_scalar(torch.trunc(x * scale), scale)
 
 
 def _width_bucket(x, lo, hi, n):

@@ -34,9 +34,9 @@ def parse_date_literal(text: str) -> int:
 
 
 def _i64(x, like: torch.Tensor) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.to(torch.int64)
-    return torch.full_like(like, int(x), dtype=torch.int64)
+    if isinstance(x, int):
+        return torch.full_like(like, x, dtype=torch.int64)
+    return x.to(torch.int64)
 
 
 def civil_from_days(z: torch.Tensor):
@@ -84,7 +84,7 @@ def extract_doy(days):
 def days_from_civil(y, m, d):
     """(year, month, day) -> days since epoch, vectorized inverse.
     At least one argument is a tensor; plain ints broadcast."""
-    like = next(t for t in (y, m, d) if isinstance(t, torch.Tensor))
+    like = next(t for t in (y, m, d) if not isinstance(t, int))
     y, m, d = _i64(y, like), _i64(m, like), _i64(d, like)
     y = y - (m <= 2).to(torch.int64)
     era = torch.where(y >= 0, y, y - 399) // 400

@@ -115,63 +115,108 @@ def _direct_domains(key_exprs) -> Optional[Tuple[int, ...]]:
 def make_agg_step_kernel(key_exprs: Sequence[CompiledExpr],
                          specs: Sequence[AggSpec],
                          domains: Optional[Tuple[int, ...]],
-                         presorted: bool = False):
+                         presorted: bool = False, pre=None, pre_key=None):
     """The fold step. Direct path: (state, batch) -> state. Sort path:
     (out_cap, batch) -> the batch's packed partial state. `presorted`
     (the streaming operator, rows arriving in key order) swaps the sort
     for K8: (out_cap, batch, carry) -> one streaming round
-    (`hashagg.stream_aggregate`)."""
+    (`hashagg.stream_aggregate`).
+
+    `pre` is the upstream filter/project chain (a list of ChainStage)
+    fused ahead of the step (planner/fusion.py): the chain and this
+    step's key, input and FILTER expressions then run as ONE K12
+    launch, whose outputs K1, K3 + K6 or K8 read directly. `pre_key` is
+    the chain's fingerprint (the kernel-cache key). A fused step counts
+    under `fragment` (the K12 launch) and `agg_step` (the fold)."""
     aggs = tuple(s.function for s in specs)
+    body = None
+    if pre is not None:
+        from presto_tpu_torch.operators.fused_fragment import (
+            ChainStage, cached_chain_body,
+        )
+        projections = [(f"__key{i}", ke) for i, ke in enumerate(key_exprs)]
+        for j, s in enumerate(specs):
+            if s.input is not None:
+                projections.append((f"__in{j}", s.input))
+            if s.mask is not None:
+                projections.append((f"__mask{j}", s.mask))
+        stages = list(pre) + [ChainStage(None, tuple(projections), None,
+                                         raw=True)]
+        key = None
+        if pre_key is not None \
+                and all(ce.ir is not None for _, ce in projections):
+            from presto_tpu_torch.expr.ir import fingerprint as _fp
+            key = ("agg", pre_key, tuple(
+                (n, _fp(ce.ir), ce.dictionary) for n, ce in projections))
+        body = cached_chain_body(stages, key)
 
     def batch_parts(batch: Batch):
-        env = {n: (c.data, c.mask) for n, c in batch.columns.items()}
+        if body is not None:
+            # the chained batch: its row_valid holds the chain's
+            # filters, so groups never form from rows they dropped
+            batch = body(batch)
+            env = {n: (c.data, c.mask) for n, c in batch.columns.items()}
+            key_vals = [env[f"__key{i}"] for i in range(len(key_exprs))]
+            in_vals = [env.get(f"__in{j}") for j in range(len(specs))]
+            mask_vals = [env.get(f"__mask{j}") for j in range(len(specs))]
+        else:
+            env = {n: (c.data, c.mask) for n, c in batch.columns.items()}
+            key_vals = [ke.fn(env) for ke in key_exprs]
+            in_vals = [s.input.fn(env) if s.input is not None else None
+                       for s in specs]
+            mask_vals = [s.mask.fn(env) if s.mask is not None else None
+                         for s in specs]
         cap = batch.capacity
         key_cols = []
-        for ke in key_exprs:
-            d, m = ke.fn(env)
+        for ke, (d, m) in zip(key_exprs, key_vals):
             key_cols.append((d.to(ke.type.torch_dtype).expand(cap),
                              m.expand(cap)))
         agg_inputs, agg_weights = [], []
-        for s in specs:
-            if s.input is None:
+        for s, iv, mv in zip(specs, in_vals, mask_vals):
+            if iv is None:
                 agg_inputs.append(None)
                 w = batch.row_valid
             else:
-                d, m = s.input.fn(env)
+                d, m = iv
                 agg_inputs.append(d.expand(cap))
                 w = batch.row_valid & m.expand(cap)
-            if s.mask is not None:
+            if mv is not None:
                 # FILTER (WHERE ...): NULL counts as excluded; groups
                 # still form from row_valid — only contributions gate
-                fd, fm = s.mask.fn(env)
+                fd, fm = mv
                 w = w & (fd & fm).expand(cap)
             agg_weights.append(w)
-        return key_cols, agg_inputs, agg_weights
+        return batch.row_valid, key_cols, agg_inputs, agg_weights
 
     if domains is not None:
         def kernel(state: hashagg.DirectState, batch: Batch):
             _tk.count("agg_step")
-            key_cols, agg_inputs, agg_weights = batch_parts(batch)
-            return hashagg.direct_step(state, batch.row_valid, key_cols,
+            row_valid, key_cols, agg_inputs, agg_weights = \
+                batch_parts(batch)
+            return hashagg.direct_step(state, row_valid, key_cols,
                                        domains, agg_inputs, agg_weights,
                                        aggs)
+        kernel.body = body
         return kernel
 
     if presorted:
         def presorted_kernel(out_cap: int, batch: Batch, carry):
             _tk.count("agg_step")
-            key_cols, agg_inputs, agg_weights = batch_parts(batch)
+            row_valid, key_cols, agg_inputs, agg_weights = \
+                batch_parts(batch)
             return hashagg.stream_aggregate(
-                carry, batch.row_valid, key_cols, agg_inputs, agg_weights,
+                carry, row_valid, key_cols, agg_inputs, agg_weights,
                 aggs, out_cap)
+        presorted_kernel.body = body
         return presorted_kernel
 
     def sort_kernel(out_cap: int, batch: Batch):
         _tk.count("agg_step")
-        key_cols, agg_inputs, agg_weights = batch_parts(batch)
-        return hashagg.batch_aggregate(batch.row_valid, key_cols,
-                                       agg_inputs, agg_weights, aggs,
-                                       out_cap)
+        row_valid, key_cols, agg_inputs, agg_weights = batch_parts(batch)
+        return hashagg.batch_aggregate(row_valid, key_cols, agg_inputs,
+                                       agg_weights, aggs, out_cap)
+    #: the fused chain body (None when nothing is fused)
+    sort_kernel.body = body
     return sort_kernel
 
 
@@ -220,6 +265,11 @@ class AggregationOperator(Operator):
             self._pending: list = []
         self._finishing = False
         self._emitted = False
+
+    def use_kernel(self, step_kernel) -> None:
+        """Install the factory's step (with a fused upstream chain when
+        the fusion pass folded one in)."""
+        self._kernel = step_kernel
 
     def needs_input(self) -> bool:
         return not self._finishing
@@ -393,6 +443,11 @@ class StreamingAggregationOperator(Operator):
             tuple(k.dictionary for k in self.key_exprs), None,
             tuple(s.out_name for s in self.specs), self._aggs())(state)
 
+    def use_kernel(self, step_kernel) -> None:
+        """Install the factory's step (with a fused upstream chain when
+        the fusion pass folded one in)."""
+        self._kernel = step_kernel
+
     def needs_input(self) -> bool:
         return not self._finishing and len(self._pending) < 4
 
@@ -437,12 +492,35 @@ class StreamingAggregationOperatorFactory(OperatorFactory):
                  key_exprs: Sequence[CompiledExpr],
                  specs: Sequence[AggSpec]):
         super().__init__(operator_id, "aggregation(streaming)")
-        self.args = (list(key_names), list(key_exprs), list(specs))
+        self.key_names = list(key_names)
+        self.key_exprs = list(key_exprs)
+        self.specs = list(specs)
+        self._created = False
+        self._step_kernel = make_agg_step_kernel(
+            self.key_exprs, self.specs, None, presorted=True)
+
+    @property
+    def args(self):
+        return (self.key_names, self.key_exprs, self.specs)
+
+    def fuse_pre(self, pre, pre_key, name: str) -> None:
+        """Whole-fragment fusion: rebuild the step with the upstream
+        filter/project chain ahead of the key evaluation, in one K12
+        launch (planner/fusion.py; only legal before the first
+        create)."""
+        assert not self._created, "fuse_pre() after create()"
+        self._step_kernel = make_agg_step_kernel(
+            self.key_exprs, self.specs, None, presorted=True, pre=pre,
+            pre_key=pre_key)
+        self.name = name
 
     def create(self, driver_context: DriverContext) -> Operator:
-        return StreamingAggregationOperator(
+        self._created = True
+        op = StreamingAggregationOperator(
             OperatorContext(self.operator_id, self.name, driver_context),
-            *self.args)
+            self.key_names, self.key_exprs, self.specs)
+        op.use_kernel(self._step_kernel)
+        return op
 
 
 class AggregationOperatorFactory(OperatorFactory):
@@ -450,15 +528,41 @@ class AggregationOperatorFactory(OperatorFactory):
                  key_exprs: Sequence[CompiledExpr],
                  specs: Sequence[AggSpec], mode: str,
                  max_groups: int = 4096):
-        super().__init__(operator_id, "aggregation")
+        super().__init__(operator_id, f"aggregation({mode})")
         if mode != "single":
             raise ValueError(
                 f"{mode} aggregation step: the partial/final split is "
                 "a later slice of the port (ROADMAP A12)")
-        self.args = (list(key_names), list(key_exprs), list(specs),
-                     _direct_domains(key_exprs), int(max_groups))
+        self.key_names = list(key_names)
+        self.key_exprs = list(key_exprs)
+        self.specs = list(specs)
+        self.mode = mode
+        self.max_groups = int(max_groups)
+        self._domains = _direct_domains(self.key_exprs)
+        self._created = False
+        self._step_kernel = make_agg_step_kernel(
+            self.key_exprs, self.specs, self._domains)
+
+    @property
+    def args(self):
+        return (self.key_names, self.key_exprs, self.specs,
+                self._domains, self.max_groups)
+
+    def fuse_pre(self, pre, pre_key, name: str) -> None:
+        """Whole-fragment fusion: rebuild the step with the upstream
+        filter/project chain ahead of the key evaluation, in one K12
+        launch (planner/fusion.py; only legal before the first
+        create)."""
+        assert not self._created, "fuse_pre() after create()"
+        self._step_kernel = make_agg_step_kernel(
+            self.key_exprs, self.specs, self._domains, pre=pre,
+            pre_key=pre_key)
+        self.name = name
 
     def create(self, driver_context: DriverContext) -> Operator:
-        return AggregationOperator(
+        self._created = True
+        op = AggregationOperator(
             OperatorContext(self.operator_id, self.name, driver_context),
             *self.args)
+        op.use_kernel(self._step_kernel)
+        return op

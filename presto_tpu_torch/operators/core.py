@@ -10,7 +10,7 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 import torch
 
 from presto_tpu_torch.batch import (
-    Batch, Column, begin_deferred_compact, end_deferred_compact,
+    Batch, begin_deferred_compact, end_deferred_compact,
 )
 from presto_tpu_torch.expr.compile import CompiledExpr
 from presto_tpu_torch.native.pages import PendingScalar
@@ -18,7 +18,6 @@ from presto_tpu_torch.operators.base import (
     DriverContext, Operator, OperatorContext, OperatorFactory,
 )
 from presto_tpu_torch.ops import sort as sort_ops
-from presto_tpu_torch.telemetry import kernels as _tk
 
 
 class SourceOperator(Operator):
@@ -115,31 +114,28 @@ class TableScanOperatorFactory(OperatorFactory):
 
 def make_filter_project_kernel(
         filter_expr: Optional[CompiledExpr],
-        projections: Sequence[Tuple[str, CompiledExpr]]):
-    """The batch -> batch body of a FilterProject (the reference's
-    one-stage `fused_fragment.make_chain_body`): the predicate ANDed
+        projections: Sequence[Tuple[str, CompiledExpr]],
+        input_dicts: Optional[Tuple[Tuple[str, tuple], ...]] = None):
+    """The batch -> batch body of a FilterProject: the predicate ANDed
     into row_valid (NULL is false) and the projection forest, each
-    result broadcast to the batch capacity in its declared dtype."""
-    projections = tuple(projections)
+    result in its declared dtype at the batch capacity. It is the
+    whole-fragment compiler's one-stage chain
+    (operators/fused_fragment.py) — one definition of the
+    filter/project semantics, so fused and unfused results cannot
+    drift: K12 on a CUDA batch, the composed closures on the CPU.
 
-    def kernel(batch: Batch) -> Batch:
-        _tk.count("filter_project")
-        env = {n: (c.data, c.mask) for n, c in batch.columns.items()}
-        cap = batch.capacity
-        rv = batch.row_valid
-        if filter_expr is not None:
-            d, m = filter_expr.fn(env)
-            rv = rv & (d & m).expand(cap)
-        cols = {}
-        for name, ce in projections:
-            d, m = ce.fn(env)
-            # constants come back 0-d: materialize them at full width
-            # (no-op views for full-size results)
-            cols[name] = Column(
-                d.to(ce.type.torch_dtype).expand(cap).contiguous(),
-                m.expand(cap).contiguous(), ce.type, ce.dictionary)
-        return Batch(cols, rv)
-    return kernel
+    Bodies are shared through the fragment LRU, keyed by the
+    expressions' fingerprints and `input_dicts` (the dict-encoded input
+    columns they were compiled against: lookup tables bake those
+    dictionaries in)."""
+    from presto_tpu_torch.operators.fused_fragment import (
+        ChainStage, cached_chain_body, chain_fingerprint,
+    )
+    stages = [ChainStage(filter_expr, tuple(projections), input_dicts)]
+    key = chain_fingerprint(stages)
+    return cached_chain_body(
+        stages, ("filter_project", key) if key is not None else None,
+        family="filter_project")
 
 
 class FilterProjectOperator(Operator):
@@ -186,10 +182,28 @@ class FilterProjectOperator(Operator):
 class FilterProjectOperatorFactory(OperatorFactory):
     def __init__(self, operator_id: int,
                  filter_expr: Optional[CompiledExpr],
-                 projections: Sequence[Tuple[str, CompiledExpr]]):
+                 projections: Sequence[Tuple[str, CompiledExpr]],
+                 input_dicts: Optional[Tuple[Tuple[str, tuple], ...]] = None,
+                 selectivity: Optional[float] = None,
+                 sel_provenance: str = "static"):
         super().__init__(operator_id, "filter_project")
-        self._kernel = make_filter_project_kernel(filter_expr, projections)
+        self._kernel = make_filter_project_kernel(filter_expr, projections,
+                                                  input_dicts)
         self._selective = filter_expr is not None
+        # kept for the whole-fragment fusion pass (planner/fusion.py):
+        # adjacent FilterProjects collapse into the downstream
+        # terminal's kernel, which needs the expression forest, plus
+        # the planner's estimated fraction of surviving rows (None =
+        # unknown), which gates fold-terminal fusion: a highly
+        # selective chain keeps its deferred compaction instead of
+        # handing the fold full-width dead rows
+        self.filter_expr = filter_expr
+        self.projections = tuple(projections)
+        self.input_dicts = input_dicts
+        self.selectivity = selectivity
+        #: "static" (derived estimate); "history" (measured) comes
+        #: with the history slice (ROADMAP A11)
+        self.sel_provenance = sel_provenance
 
     def create(self, driver_context: DriverContext) -> Operator:
         return FilterProjectOperator(
@@ -221,10 +235,17 @@ class LimitOperator(Operator):
         return self._pending is None and not self._finishing \
             and not self._done
 
+    def _step(self, batch: Batch):
+        """(truncated batch, new emitted count) — the whole-fragment
+        compiler runs the upstream chain first
+        (operators/fused_fragment.py); the early-termination protocol
+        around it is shared."""
+        out = sort_ops.limit_batch(batch, self._n, self._emitted)
+        return out, self._emitted + out.row_valid.sum()
+
     def add_input(self, batch: Batch) -> None:
         self._count_in(batch)
-        out = sort_ops.limit_batch(batch, self._n, self._emitted)
-        self._emitted = self._emitted + out.row_valid.sum()
+        out, self._emitted = self._step(batch)
         self._flag = PendingScalar(self._emitted >= self._n)
         self._pending = out
 

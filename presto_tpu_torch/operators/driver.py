@@ -5,9 +5,11 @@ next.addInput()).
 
 The host loop only moves tensor handles between operators; CUDA work
 is queued asynchronously, so the device stays busy while the host
-walks the chain. This is the pair loop only: the reference's batch
-pump (a fused scan -> kernel fast path with prefetch) comes with the
-fusion slice.
+walks the chain: while split N's kernels run, the next pass already
+pulls split N+1 from the source. The reference's batch pump (a second
+loop that double-buffers a fused `scan -> kernel` pipeline) adds no
+overlap this loop lacks here, so the port has the pair loop only
+(ROADMAP A7).
 """
 
 from __future__ import annotations

@@ -156,21 +156,51 @@ class HashBuildOperator(Operator):
 def make_probe_kernel(key_names: Tuple[str, ...], join_type: str,
                       probe_output: Tuple[str, ...],
                       build_output: Tuple[str, ...],
-                      build_keys: Tuple[str, ...]):
-    """The probe step, unfused: kernel(table, batch, matched,
-    out_capacity) -> (batch, overflow flag, live rows); `matched` is the
-    full join's running flags (updated in place), None otherwise. The
-    fused probe -> filter/project form comes with the fusion slice
-    (ROADMAP A7)."""
+                      build_keys: Tuple[str, ...],
+                      fused_filter=None, fused_projections=None,
+                      input_dicts=None, pre=None):
+    """The probe step: kernel(table, batch, matched, out_capacity) ->
+    (batch, overflow flag, live rows or None); `matched` is the full
+    join's running flags (updated in place), None otherwise.
+
+    `pre` (a chain body, operators/fused_fragment.py) is the upstream
+    filter/project chain fused ahead of the probe, with the
+    unified-dictionary key remap as a gather in its last stage: one
+    K12 launch, then K5's search. `fused_filter`/`fused_projections`
+    are the FilterProject that followed the join (probe-tail fusion,
+    the planner's `_append_filter_project`): one K12 launch over K9's
+    output, so the join's rows go through the expression forest before
+    the deferred compaction, without an operator between them."""
+    tail = make_tail_kernel(fused_filter, fused_projections, input_dicts)
+
     def kernel(table, batch: Batch, matched, out_capacity: int):
+        if pre is not None:
+            batch = pre(batch)
         if join_type == "full":
-            return join_ops.probe_join_full(
+            out, ovf, live = join_ops.probe_join_full(
                 table, batch, key_names, matched, out_capacity,
                 probe_output, build_output, build_keys)
-        return join_ops.probe_join(table, batch, key_names, out_capacity,
-                                   join_type, probe_output, build_output,
-                                   build_keys)
+        else:
+            out, ovf, live = join_ops.probe_join(
+                table, batch, key_names, out_capacity, join_type,
+                probe_output, build_output, build_keys)
+        if tail is not None:
+            out, live = tail(out), None
+        return out, ovf, live
+    # the fused chain bodies (None when nothing is fused)
+    kernel.pre, kernel.tail = pre, tail
     return kernel
+
+
+def make_tail_kernel(fused_filter, fused_projections, input_dicts=None):
+    """The FilterProject fused onto a join's output (probe rows and the
+    FULL join's outer tail alike), or None when nothing was fused."""
+    if fused_filter is None and not fused_projections:
+        return None
+    from presto_tpu_torch.operators.core import make_filter_project_kernel
+    return make_filter_project_kernel(fused_filter,
+                                      list(fused_projections or ()),
+                                      input_dicts)
 
 
 class LookupJoinOperator(Operator):
@@ -220,6 +250,10 @@ class LookupJoinOperator(Operator):
             tuple(key_names), join_type, tuple(probe_output),
             tuple(build_output),
             tuple(build_keys) if build_keys else tuple(key_names))
+        self._tail_kernel = None
+        #: the upstream chain (and the key remap) run inside the probe
+        #: kernel: the host-side remap must not run twice
+        self.pre_fused = False
         self._overflow = None
         # two-slot output queue: a probed batch is emitted one driver
         # pass after its probe, so its live count's copy to the host
@@ -227,6 +261,14 @@ class LookupJoinOperator(Operator):
         self._pending: List = []
         self._finishing = False
         ctx.driver_context.deferred_checks.append(self._deferred_check)
+
+    def use_kernels(self, probe_kernel, tail_kernel,
+                    pre_fused: bool) -> None:
+        """Install the factory's fused probe kernel and the FULL join's
+        tail FilterProject (None = identity)."""
+        self._kernel = probe_kernel
+        self._tail_kernel = tail_kernel
+        self.pre_fused = pre_fused
 
     def _deferred_check(self):
         return self._overflow, \
@@ -240,7 +282,8 @@ class LookupJoinOperator(Operator):
         if not self.bridge.ready:
             raise RuntimeError(f"{self.ctx.name}: probe before its build "
                                "finished (build pipelines run first)")
-        batch = _remap_keys(batch, self.key_names, self.key_dicts)
+        if not self.pre_fused:
+            batch = _remap_keys(batch, self.key_names, self.key_dicts)
         table = self.bridge.table
         cap = bucket_capacity(batch.capacity * self.expansion_factor)
         if self.join_type == "full" and self._matched is None:
@@ -262,6 +305,10 @@ class LookupJoinOperator(Operator):
                         device=table.sorted_hash.device)
         out, total = join_ops.unmatched_build(
             table, matched, self.probe_schema, self.build_output)
+        if self._tail_kernel is not None:
+            # the filter/projections the probe kernel fused apply to
+            # the outer tail too
+            out, total = self._tail_kernel(out), None
         self._outer_emitted = True
         return end_deferred_compact(*begin_deferred_compact(out, total))
 
@@ -385,16 +432,120 @@ class LookupJoinOperatorFactory(OperatorFactory):
         super().__init__(operator_id, f"lookup_join({join_type})")
         if join_type not in join_ops.JOIN_TYPES:
             raise ValueError(f"lookup join: join type {join_type!r}")
-        self.args = (tuple(key_names), join_type, list(probe_output),
-                     list(build_output),
-                     tuple(build_keys) if build_keys else None, key_dicts,
-                     probe_schema, expansion_factor)
         self.bridge = bridge
+        self.key_names = tuple(key_names)
+        self.join_type = join_type
+        self.probe_output = list(probe_output)
+        self.build_output = list(build_output)
+        self.build_keys = tuple(build_keys) if build_keys else None
+        self.key_dicts = key_dicts
+        self.expansion_factor = expansion_factor
+        self.probe_schema = probe_schema
+        self._fused_filter = None
+        self._fused_projections = None
+        self._fused_dicts = None
+        #: estimated surviving fraction of the fused tail filter (None =
+        #: no filter / unknown), read by planner/fusion.py: chains this
+        #: probe feeds into fold terminals inherit the sparsity its
+        #: filter leaves behind
+        self.fused_selectivity = None
+        self.fused_sel_provenance = "static"
+        self._pre = None        # (stages, chain_key) upstream chain
+        self._kernels = None
+
+    @property
+    def args(self):
+        return (self.key_names, self.join_type, self.probe_output,
+                self.build_output, self.build_keys, self.key_dicts,
+                self.probe_schema, self.expansion_factor)
+
+    @property
+    def fused(self) -> bool:
+        return self._fused_filter is not None \
+            or self._fused_projections is not None
+
+    @property
+    def pre_fused(self) -> bool:
+        return self._pre is not None
+
+    def fuse(self, filter_expr, projections, input_dicts=None,
+             selectivity=None, sel_provenance: str = "static") -> None:
+        """Planner peephole: absorb the FilterProject that would follow
+        this join, so its expressions run over the probe's output in
+        the same operator (one K12 launch after K9). `selectivity` is
+        the absorbed filter's estimated surviving fraction. Only legal
+        before the first create()."""
+        assert self._kernels is None, "fuse() after create()"
+        assert not self.fused, "join already fused a projection"
+        self._fused_filter = filter_expr
+        self._fused_projections = list(projections) if projections \
+            else None
+        self._fused_dicts = input_dicts
+        if filter_expr is not None:
+            self.fused_selectivity = selectivity
+            self.fused_sel_provenance = sel_provenance
+
+    def fuse_pre(self, pre, pre_key, name: str) -> None:
+        """Whole-fragment fusion (planner/fusion.py): absorb the
+        UPSTREAM filter/project chain, so scan -> chain -> key remap
+        runs as one K12 launch ahead of the probe. Only legal before the
+        first create(); the pass excludes full joins."""
+        assert self._kernels is None, "fuse_pre() after create()"
+        assert self._pre is None, "join already fused an upstream chain"
+        assert self.join_type != "full", \
+            "full-join probes keep the host-side remap (outer tail)"
+        self._pre = (tuple(pre), pre_key)
+        self.name = name
+
+    def _pre_body(self):
+        """The upstream chain plus a last stage that re-encodes the
+        string keys onto the planner's unified dictionaries (a gather
+        in K12, where the unfused operator remaps on its own)."""
+        from presto_tpu_torch.expr.compile import compile_column
+        from presto_tpu_torch.operators.fused_fragment import (
+            ChainStage, cached_chain_body,
+        )
+        stages, chain_key = self._pre
+        last = stages[-1]
+        targets = {k: d for k, d in zip(self.key_names,
+                                        self.key_dicts or ())
+                   if d is not None}
+        remapped = [(n, ce) for n, ce in last.projections
+                    if n in targets and ce.dictionary != targets[n]]
+        if remapped:
+            out_schema = [(n, ce.type, ce.dictionary)
+                          for n, ce in last.projections]
+            device = last.projections[0][1].device
+            stages = stages + (ChainStage(None, tuple(
+                (n, compile_column(n, out_schema, device,
+                                   remap_to=targets.get(n)))
+                for n, _, _ in out_schema), None),)
+        key = ("probe", chain_key, tuple(
+            (n, targets[n]) for n, _ in remapped)) \
+            if chain_key is not None else None
+        return cached_chain_body(stages, key)
+
+    def _build_kernels(self):
+        pre = self._pre_body() if self._pre is not None else None
+        probe_kernel = make_probe_kernel(
+            self.key_names, self.join_type, tuple(self.probe_output),
+            tuple(self.build_output),
+            self.build_keys if self.build_keys else self.key_names,
+            self._fused_filter, self._fused_projections,
+            self._fused_dicts, pre=pre)
+        tail_kernel = make_tail_kernel(
+            self._fused_filter, self._fused_projections,
+            self._fused_dicts) if self.join_type == "full" else None
+        return probe_kernel, tail_kernel
 
     def create(self, driver_context: DriverContext) -> Operator:
-        return LookupJoinOperator(
+        if self._kernels is None:
+            self._kernels = self._build_kernels()
+        op = LookupJoinOperator(
             OperatorContext(self.operator_id, self.name, driver_context),
             self.bridge, *self.args)
+        op.use_kernels(*self._kernels, pre_fused=self.pre_fused)
+        return op
 
 
 class SemiJoinOperatorFactory(OperatorFactory):

@@ -77,11 +77,18 @@ class TopNOperator(Operator):
     def needs_input(self) -> bool:
         return not self._finishing
 
-    def add_input(self, batch: Batch) -> None:
-        self._count_in(batch)
-        self._state = sort_kernels.topn_step(
+    def _step(self, batch: Batch) -> Batch:
+        """The fold of one batch into the state — the whole-fragment
+        compiler runs the upstream chain first
+        (operators/fused_fragment.py); the protocol around it is
+        shared."""
+        return sort_kernels.topn_step(
             self._state, batch, self.n, self.key_names, self.descending,
             self.nulls_first)
+
+    def add_input(self, batch: Batch) -> None:
+        self._count_in(batch)
+        self._state = self._step(batch)
 
     def get_output(self) -> Optional[Batch]:
         if not self._finishing or self._emitted:
@@ -118,10 +125,17 @@ class DistinctOperator(Operator):
     def needs_input(self) -> bool:
         return not self._finishing
 
+    def _step(self, batch: Batch) -> Batch:
+        """The merge of one batch into the state — the whole-fragment
+        compiler runs the upstream chain first
+        (operators/fused_fragment.py); the growth below re-merges the
+        old state through the plain step."""
+        return sort_kernels.distinct_step(self._state, batch)
+
     def add_input(self, batch: Batch) -> None:
         self._count_in(batch)
         while True:
-            new_state = sort_kernels.distinct_step(self._state, batch)
+            new_state = self._step(batch)
             if new_state.num_valid() < new_state.capacity:
                 self._state = new_state
                 return
@@ -160,8 +174,10 @@ class TopNOperatorFactory(OperatorFactory):
                  descending: Sequence[bool], nulls_first: Sequence[bool],
                  schema_cols: Sequence[tuple]):
         super().__init__(operator_id, "topn")
+        # read by the fusion pass (planner/fusion.py)
         self.args = (n, tuple(key_names), tuple(descending),
                      tuple(nulls_first), schema_cols)
+        self.schema_cols = schema_cols
 
     def create(self, driver_context: DriverContext) -> Operator:
         return TopNOperator(

@@ -14,8 +14,14 @@ to probe-side scans. A subtree with several plan parents is planned
 once into a spool that each parent replays, and no dynamic filter
 lands on a scan inside it. Every other node raises
 `LocalPlanningError` naming the ROADMAP item that ports it.
-`fragment_fusion_enabled` is accepted and has no effect yet:
-whole-fragment fusion is a later slice (A7).
+
+A FilterProject that directly follows a lookup join is fused into the
+probe (`_append_filter_project`, whatever the session says, as in the
+reference). After every visitor, the whole-fragment fusion pass
+(planner/fusion.py) folds each run of adjacent FilterProjects into the
+operator that consumes it, gated by `fragment_fusion_enabled` (default
+on); its report is `fusion_report`, and `node_ops` / `id_remap` map
+plan nodes onto the operators that survived it.
 """
 
 from __future__ import annotations
@@ -79,6 +85,15 @@ _LATER = {
 }
 
 
+def _schema_dicts(schema: Dict[str, ColumnSchema]
+                  ) -> Tuple[Tuple[str, tuple], ...]:
+    """Hashable (name, dictionary) token of a compile schema's
+    dict-encoded columns — part of the chain-kernel cache key, because
+    compiled expressions bake input dictionaries into lookup tables."""
+    return tuple(sorted((n, cs.dictionary) for n, cs in schema.items()
+                        if cs.dictionary is not None))
+
+
 def _schema_of(node: N.PlanNode) -> Dict[str, ColumnSchema]:
     out = {}
     for f in node.output:
@@ -109,9 +124,22 @@ class LocalExecutionPlanner:
         #: spool (node id -> Spool)
         self._shared: set = set()
         self._spools: Dict[int, misc_ops.Spool] = {}
+        #: plan-node id() -> operator ids minted while that node was
+        #: being dispatched (rewritten by the fusion pass onto the
+        #: operators that survive it)
+        self.node_ops: Dict[int, List[int]] = {}
+        #: node -> operator ids before the fusion pass remapped them
+        self.node_ops_prefusion: Dict[int, List[int]] = {}
+        self._node_stack: List[int] = []
+        #: whole-fragment fusion report (planner/fusion.py); None when
+        #: the pass is disabled
+        self.fusion_report = None
 
     def _next_id(self) -> int:
         self._op_id += 1
+        if self._node_stack:
+            self.node_ops.setdefault(
+                self._node_stack[-1], []).append(self._op_id)
         return self._op_id
 
     def _compile(self, expr: RowExpression,
@@ -134,12 +162,39 @@ class LocalExecutionPlanner:
                                      src_schema))
             for f in root.output]
         pipeline.append(FilterProjectOperatorFactory(
-            self._next_id(), None, projections))
+            self._next_id(), None, projections, _schema_dicts(src_schema)))
         pipeline.append(OutputCollectorOperatorFactory(
             self._next_id(), sink))
         self._pipelines.append(pipeline)
+        self._fuse()
         return LocalExecutionPlan(self._pipelines, sink, root.names,
                                   root.output)
+
+    def _fuse(self) -> None:
+        """Whole-fragment fusion (planner/fusion.py): collapse adjacent
+        FilterProject runs into their consumer. Runs LAST — after
+        spools, queues and the sink are placed — so every barrier is
+        visible and falling back is keeping the unfused chain. Gated by
+        the session's `fragment_fusion_enabled`."""
+        self.node_ops_prefusion = {k: list(v)
+                                   for k, v in self.node_ops.items()}
+        from presto_tpu_torch.planner.fusion import fuse_pipelines
+        if not get_property(self.session.properties,
+                            "fragment_fusion_enabled"):
+            return
+        from presto_tpu_torch.planner import validation as _validation
+        check = _validation.validation_enabled(self.session)
+        snapshot = _validation.CHECKER.snapshot_pipelines(
+            self._pipelines) if check else None
+        # builds stay resident until the memory slice (ROADMAP A10), so
+        # no probe can be handed a host-partitioned table; measured
+        # selectivities come with the history slice (A11)
+        self.fusion_report = fuse_pipelines(
+            self._pipelines, self.node_ops, spill_enabled=False)
+        if check:
+            _validation.CHECKER.check_fusion(
+                snapshot, self._pipelines,
+                self.fusion_report.get("id_remap", {}))
 
     def _visit(self, node: N.PlanNode, pipe: List) -> None:
         """A node with several plan parents (a DAG) is computed once into
@@ -172,7 +227,13 @@ class LocalExecutionPlanner:
                 f"no local planning for {name}"
                 + (f": later slice of the port (ROADMAP {later})"
                    if later else ""))
-        m(node, pipe)
+        # operator ids minted while this node is on top of the stack
+        # belong to it (children push their own frame)
+        self._node_stack.append(id(node))
+        try:
+            m(node, pipe)
+        finally:
+            self._node_stack.pop()
 
     def _visit_TableScanNode(self, node: N.TableScanNode, pipe: List):
         conn = self.catalogs.connector(node.handle.catalog)
@@ -218,6 +279,59 @@ class LocalExecutionPlanner:
         pipe.append(ValuesOperatorFactory(self._next_id(),
                                           [Batch(cols, rv)]))
 
+    def _append_filter_project(self, pipe: List, filter_expr,
+                               projections, input_dicts,
+                               selectivity=None,
+                               sel_provenance: str = "static") -> None:
+        """Append a FilterProject — or fuse it into a lookup join it
+        directly follows, so its expressions run over the probe's
+        output in the same operator (probe-tail fusion; whatever
+        `fragment_fusion_enabled` says, as in the reference).
+        `selectivity` is the estimated surviving-row fraction the
+        fusion pass gates fold-terminal fusion on (None = unknown)."""
+        tail = pipe[-1] if pipe else None
+        if isinstance(tail, LookupJoinOperatorFactory) and not tail.fused:
+            # the probe keeps the estimate: a chain it later feeds into
+            # a fold terminal inherits this fraction
+            tail.fuse(filter_expr, projections, input_dicts,
+                      selectivity=selectivity,
+                      sel_provenance=sel_provenance)
+            return
+        pipe.append(FilterProjectOperatorFactory(
+            self._next_id(), filter_expr, projections, input_dicts,
+            selectivity=selectivity, sel_provenance=sel_provenance))
+
+    def _est_selectivity(self, node: N.FilterNode):
+        """(estimated fraction of source rows surviving `node`,
+        provenance), or (None, "static") when nothing can be said. The
+        port has no history store yet (ROADMAP A11): every estimate is
+        derived, "static"."""
+        try:
+            est = self._estimator()
+            inner = est.estimate(node.source).rows
+            if inner <= 0:
+                return None, "static"
+            return min(1.0, est.estimate(node).rows / inner), "static"
+        except Exception:  # noqa: BLE001 — stats are advisory
+            return None, "static"
+
+    def _est_predicate_selectivity(self, source_node, predicate):
+        """Estimated surviving fraction of a join's residual predicate
+        over `source_node`'s rows (the join-filter analog of
+        _est_selectivity)."""
+        try:
+            est = self._estimator()
+            inner = est.estimate(source_node)
+            if inner.rows <= 0:
+                return None
+            from presto_tpu_torch.planner.stats import (
+                predicate_selectivity,
+            )
+            return min(1.0, max(0.0, predicate_selectivity(
+                predicate, inner)))
+        except Exception:  # noqa: BLE001 — stats are advisory
+            return None
+
     def _visit_FilterNode(self, node: N.FilterNode, pipe: List):
         self._visit(node.source, pipe)
         schema = _schema_of(node.source)
@@ -225,16 +339,18 @@ class LocalExecutionPlanner:
         projections = [
             (f.symbol, self._compile(InputRef(f.symbol, f.type), schema))
             for f in node.output]
-        pipe.append(FilterProjectOperatorFactory(
-            self._next_id(), pred, projections))
+        sel, prov = self._est_selectivity(node)
+        self._append_filter_project(pipe, pred, projections,
+                                    _schema_dicts(schema),
+                                    selectivity=sel, sel_provenance=prov)
 
     def _visit_ProjectNode(self, node: N.ProjectNode, pipe: List):
         self._visit(node.source, pipe)
         schema = _schema_of(node.source)
         projections = [(sym, self._compile(e, schema))
                        for sym, e in node.assignments]
-        pipe.append(FilterProjectOperatorFactory(
-            self._next_id(), None, projections))
+        self._append_filter_project(pipe, None, projections,
+                                    _schema_dicts(schema))
 
     def _visit_AggregationNode(self, node: N.AggregationNode, pipe: List):
         self._visit(node.source, pipe)
@@ -371,8 +487,10 @@ class LocalExecutionPlanner:
                 (f.symbol, self._compile(InputRef(f.symbol, f.type),
                                          schema))
                 for f in node.output]
-            pipe.append(FilterProjectOperatorFactory(
-                self._next_id(), pred, projections))
+            self._append_filter_project(
+                pipe, pred, projections, _schema_dicts(schema),
+                selectivity=self._est_predicate_selectivity(
+                    node, node.filter))
 
     def _plan_cross_join(self, node: N.JoinNode, pipe: List):
         """Nested loop: the right side is materialized by a build

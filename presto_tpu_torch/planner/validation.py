@@ -227,6 +227,87 @@ class PlanChecker:
         if violations:
             raise PlanValidationError(pass_name, violations)
 
+    @staticmethod
+    def snapshot_pipelines(pipelines: Sequence[Sequence]) -> List[List]:
+        """Pre-fusion snapshot: per pipeline, (operator_id, fusible,
+        name) per factory — `fusible` marks the FilterProject stages
+        fusion is ALLOWED to absorb; everything else is a barrier."""
+        from presto_tpu_torch.operators import fused_fragment as ff
+        snap: List[List] = []
+        for pipe in pipelines:
+            snap.append([
+                (f.operator_id,
+                 ff.stages_from_factory(f) is not None,
+                 getattr(f, "name", type(f).__name__))
+                for f in pipe])
+        return snap
+
+    def check_fusion(self, snapshot: Sequence[Sequence],
+                     pipelines: Sequence[Sequence],
+                     id_remap: Dict[int, int],
+                     pass_name: str = "fusion") -> None:
+        """Fused-chain barrier legality: fusion may only absorb
+        adjacent fusible (FilterProject) factories; every barrier
+        operator of the pre-fusion pipelines must survive."""
+        violations: List[Violation] = []
+        surviving = {f.operator_id for pipe in pipelines for f in pipe}
+        fusible: Dict[int, bool] = {}
+        name_of: Dict[int, str] = {}
+        index_of: Dict[int, Tuple[int, int]] = {}
+        for pi, pipe in enumerate(snapshot):
+            for i, (op_id, fus, name) in enumerate(pipe):
+                fusible[op_id] = fus
+                name_of[op_id] = name
+                index_of[op_id] = (pi, i)
+        absorbed_by: Dict[int, List[int]] = {}
+        for src, dst in id_remap.items():
+            absorbed_by.setdefault(dst, []).append(src)
+        for op_id, fus in fusible.items():
+            if op_id in surviving or op_id in id_remap:
+                continue
+            violations.append(Violation(
+                "fusion-dropped-operator", name_of[op_id],
+                f"operator {op_id} vanished during fusion without "
+                "being absorbed into a fused kernel"))
+        for src, dst in id_remap.items():
+            if not fusible.get(src, False):
+                violations.append(Violation(
+                    "fusion-barrier", name_of.get(src, f"op {src}"),
+                    f"fusion absorbed barrier operator {src} "
+                    f"({name_of.get(src, '?')}) into {dst} — chains "
+                    "must not span record/replay/spool/exchange "
+                    "barriers"))
+        for dst, srcs in absorbed_by.items():
+            if dst not in index_of:
+                violations.append(Violation(
+                    "fusion-nonadjacent", f"op {dst}",
+                    f"fused target {dst} absent from the pre-fusion "
+                    "pipelines"))
+                continue
+            dpi, di = index_of[dst]
+            idxs = []
+            bad = False
+            for src in srcs:
+                if src not in index_of or index_of[src][0] != dpi:
+                    violations.append(Violation(
+                        "fusion-nonadjacent", name_of.get(
+                            src, f"op {src}"),
+                        f"operator {src} fused into {dst} from a "
+                        "different pipeline"))
+                    bad = True
+                    continue
+                idxs.append(index_of[src][1])
+            if bad or not idxs:
+                continue
+            run = sorted(idxs + [di])
+            if run != list(range(run[0], run[0] + len(run))):
+                violations.append(Violation(
+                    "fusion-nonadjacent", name_of[dst],
+                    f"operators {sorted(idxs)} fused into {dst} were "
+                    "not adjacent in the pre-fusion pipeline"))
+        if violations:
+            raise PlanValidationError(pass_name, violations)
+
     # -- plan-tree internals -------------------------------------------
 
     @staticmethod

@@ -97,6 +97,9 @@ class MaterializedResult:
         self.names = names
         self.batches = batches
         self.fields = fields
+        #: the whole-fragment fusion report of the query's plan
+        #: (planner/fusion.py), None when fusion was off
+        self.fusion_report = None
 
     @property
     def row_count(self) -> int:
@@ -169,8 +172,9 @@ class LocalRunner:
         session = self.session
         while True:
             try:
-                lplan = LocalExecutionPlanner(
-                    self.catalogs, session, self.device).plan(plan)
+                planner = LocalExecutionPlanner(self.catalogs, session,
+                                                self.device)
+                lplan = planner.plan(plan)
             except LocalPlanningError as e:
                 raise QueryError(str(e)) from e
             dctx = DriverContext(session=session, device=self.device)
@@ -196,9 +200,11 @@ class LocalRunner:
                     **session.properties,
                     "join_expansion_factor": e.suggested})
                 continue
-            return MaterializedResult(lplan.result_names,
-                                      lplan.result_sink,
-                                      lplan.result_fields)
+            result = MaterializedResult(lplan.result_names,
+                                        lplan.result_sink,
+                                        lplan.result_fields)
+            result.fusion_report = planner.fusion_report
+            return result
 
     def _set_session(self, stmt: T.SetSession) -> MaterializedResult:
         from presto_tpu_torch.expr.ir import Literal

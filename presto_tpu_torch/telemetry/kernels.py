@@ -9,7 +9,16 @@ reference's `presto_tpu_kernel_calls_total`. A `LaunchCounter` belongs
 to one hand-written CUDA kernel's wrapper and counts only the launches
 of that kernel, so a run can show that the main path went through it;
 it names the reference family the kernel computes, and `COUNTERS` holds
-every counter by kernel name.
+every counter by kernel name. The `fragment` kernel (K12,
+`expr/codegen.py`) serves two reference families: `filter_project` (a
+lone FilterProject) and `fragment` (a fused chain).
+
+`FUSED_FRAGMENTS[(status, reason)]` counts the fusion pass's decisions
+(planner/fusion.py; the counterpart of
+`presto_tpu_fused_fragments_total{status,reason}`). A call
+of a fused step counts under both `fragment` (its K12 launch) and the
+terminal's own family (its fold), where the reference counts one
+`fragment` call for the one program it traces.
 """
 
 from __future__ import annotations
@@ -22,6 +31,10 @@ CALLS: "collections.Counter[str]" = collections.Counter()
 
 def count(family: str) -> None:
     CALLS[family] += 1
+
+
+#: (status, reason) -> chains; status is fused / partial / fallback
+FUSED_FRAGMENTS: "collections.Counter[tuple]" = collections.Counter()
 
 
 class LaunchCounter:

@@ -20,6 +20,7 @@ from presto_tpu_torch import batch as tb
 from presto_tpu_torch import interop
 from presto_tpu_torch import types as tt
 from presto_tpu_torch.ops import hashagg as th
+from torch_fragment_cases import CASES as FRAGMENT_CASES
 
 pytestmark = pytest.mark.cuda
 
@@ -704,3 +705,48 @@ def test_distinct_step_matches_plain(hopper):
         results.append(sorted(out.to_pylist(), key=repr))
     assert results[0] == results[1]
     assert 0 < len(results[0]) < 1 << 18
+
+
+# -- K12: the generated fragment kernel --------------------------------
+
+@pytest.mark.parametrize("cap", [1, 1023, 1024, 1025, (1 << 20) + 3])
+@pytest.mark.parametrize("case", sorted(FRAGMENT_CASES))
+def test_k12_fragment_matches_composed(hopper, case, cap):
+    """One generated Triton kernel per lowered operation against the
+    composed closures on the same CUDA batch: row_valid and masks
+    exactly, every value under a set mask exactly (FMA contraction is
+    off, float32 division rounds to nearest, integer // and % floor)."""
+    from presto_tpu_torch.expr import codegen
+    from torch_fragment_cases import (
+        assert_batches_equal, port_batch, port_body,
+    )
+    body = port_body(case, hopper)
+    batch = port_batch(cap, 11, hopper)
+    before = codegen.COUNTER.launches
+    got = body.kernel(batch)
+    torch.cuda.synchronize()
+    assert_batches_equal(got, body.plain(batch))
+    assert codegen.COUNTER.launches == before + 1
+
+
+from presto_tpu_torch.expr import ir as tir  # noqa: E402
+from torch_fragment_cases import function_calls  # noqa: E402
+
+
+@pytest.mark.parametrize("label", sorted(function_calls(tir, tt)))
+def test_k12_every_function_matches_composed(hopper, label):
+    """Every scalar function the compiler knows, as a one-stage K12,
+    against its composed closure on the same CUDA batch, exactly: the
+    CUDA math library's functions included, which PyTorch's CUDA
+    kernels call too."""
+    from presto_tpu_torch.operators.fused_fragment import make_chain_body
+    from torch_fragment_cases import (
+        assert_batches_equal, function_stage, port_batch,
+    )
+    body = make_chain_body([function_stage(
+        function_calls(tir, tt)[label], hopper)])
+    assert body.not_lowered is None
+    batch = port_batch((1 << 16) + 3, 13, hopper)
+    got = body.kernel(batch)
+    torch.cuda.synchronize()
+    assert_batches_equal(got, body.plain(batch))

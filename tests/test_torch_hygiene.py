@@ -24,6 +24,7 @@ def test_import_loads_no_jax_module():
         "import sys\n"
         "import presto_tpu_torch.runner, presto_tpu_torch.interop\n"
         "import presto_tpu_torch.native.cuda\n"
+        "import presto_tpu_torch.expr.codegen\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'presto_tpu')]\n"
         "print(','.join(bad))\n")
@@ -179,23 +180,84 @@ def test_device_tensor_never_takes_the_plain_version(monkeypatch, call):
 
 def test_chip_smoke_checks_every_built_kernel():
     """chip_smoke.py's kernels line names every source native/cuda.py
-    builds and every launch counter of the package, so no built kernel
-    goes unchecked on the card."""
+    builds (route cuda), the generated fragment kernel (route triton)
+    and every launch counter of the package, so no built kernel goes
+    unchecked on the card."""
     import importlib.util
     from presto_tpu_torch import batch  # noqa: F401  (registers K2)
+    from presto_tpu_torch.expr import codegen  # noqa: F401  (K12)
     from presto_tpu_torch.native import cuda
+    from presto_tpu_torch.operators import misc_ops  # noqa: F401  (K10)
     from presto_tpu_torch.ops import common, hashagg, join  # noqa: F401
     from presto_tpu_torch.telemetry import kernels as tk
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert {src for src, _ in smoke.KERNELS.values()} \
-        == set(cuda.SOURCES.values())
+    assert {src for route, src, _ in smoke.KERNELS.values()
+            if route == "cuda"} \
+        == {"presto_tpu_torch/csrc/" + s for s in cuda.SOURCES.values()}
     assert set(smoke.KERNELS) == set(tk.COUNTERS)
-    for k, (src, replaces) in smoke.KERNELS.items():
-        assert (ROOT / "presto_tpu_torch" / "csrc" / src).exists(), k
+    for k, (route, src, replaces) in smoke.KERNELS.items():
+        assert route in ("cuda", "triton"), k
+        assert (ROOT / src).exists(), k
         path, line = replaces.split(":")
         assert (ROOT / path).exists() and int(line) > 0, k
+    assert smoke.KERNELS["fragment"][0] == "triton"
     assert set(smoke.MUST) == set(smoke.QUERIES)
+    assert all("fragment" in names for names in smoke.MUST.values())
 
+
+def _case_sources():
+    """Generated sources of every lowered-operation case and of every
+    scalar function (those calling libdevice import it)."""
+    from presto_tpu_torch import types as PT
+    from presto_tpu_torch.expr import ir as PIR
+    from presto_tpu_torch.operators.fused_fragment import make_chain_body
+    from torch_fragment_cases import (
+        CASES, function_calls, function_stage, port_body,
+    )
+    out = {name: port_body(name).kernel.source for name in sorted(CASES)}
+    for label, expr in function_calls(PIR, PT).items():
+        out[label] = make_chain_body([function_stage(expr)]).kernel.source
+    assert any("libdevice" in src for src in out.values())
+    return out
+
+
+def test_generated_sources_import_only_triton():
+    """A generated fragment kernel imports `triton` and nothing else:
+    no JAX, no JAX package, not even torch."""
+    for name, src in _case_sources().items():
+        tree = ast.parse(src)
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = [a.name for a in node.names] \
+                    if isinstance(node, ast.Import) else [node.module]
+                assert all(n.split(".")[0] == "triton" for n in names), \
+                    (name, names)
+
+
+def test_fragment_kernel_never_takes_the_composed_form(monkeypatch):
+    """K12 on tensors that are not on the CPU launches or raises: on a
+    meta batch its wrapper refuses, and with CUDA faked but no Triton
+    installed the import error surfaces; the chain body hands such a
+    batch to K12, never to the composed form."""
+    from presto_tpu_torch.batch import Batch, Column
+    from presto_tpu_torch.expr import codegen
+    from torch_fragment_cases import port_batch, port_body
+    body = port_body("add")
+    meta = Batch({n: Column(_meta(64, c.data.dtype), _meta(64, torch.bool),
+                            c.type, c.dictionary)
+                  for n, c in port_batch(64, 1).columns.items()},
+                 _meta(64, torch.bool))
+    with pytest.raises(codegen.FragmentError, match="not a CUDA device"):
+        body(meta)
+
+    class FakeCuda:
+        type = "cuda"
+    monkeypatch.setattr(Batch, "device", property(lambda s: FakeCuda()))
+    monkeypatch.setattr(codegen.FragmentKernel, "prepare",
+                        lambda self, b: (64, [64], {("o1", "data"): None}))
+    monkeypatch.setitem(sys.modules, "triton", None)
+    with pytest.raises(ImportError):
+        body(meta)
