@@ -8,7 +8,11 @@ product passes the reference's 2^24-slot guard, which the script checks
 is raised), through LocalRunner, and check the rows against a numpy
 oracle. Q22 keeps no row at SF1 and Q19 none at `tiny`, so Q22_EXISTS
 and Q19_LIVE, their plans with predicates that keep rows, are checked
-too.
+too. Then the window path: WIN_RUNNING, WIN_RANK, WIN_TOPN and
+WIN_FRAMES over lineitem and orders at SF1, and TPC-DS Q12, Q20, Q98,
+Q36 (a rollup: GroupId) and the q67-shape rank (Q104) at sf1, each
+against a numpy oracle, with K13-K16 held against their plain versions
+at their largest call (`run_window_phases`).
 
     python3 chip_smoke.py
 
@@ -23,7 +27,9 @@ nothing of JAX.
 Main path: LocalRunner("tpch", "sf1", properties={"batch_rows": 1<<20})
 executes each query cold with every kernel's launch counter set to 0
 just before the query and read just after (those counts are the
-"launches" of the summary line), then three times warm. It runs with
+"launches" of the summary line, summed over both paths), then warm:
+once on the TPC-H path (EARLIER_WARM, to keep the script inside its
+time), three times on the window path (WINDOW_WARM, the median). It runs with
 the defaults, so whole-fragment fusion is on: every query launches
 K12, no chain runs its composed form on the card, and no fusion report
 holds a `not_lowered` reason; each query's line gives its fused / total
@@ -71,10 +77,17 @@ masks and every value under a set mask exactly (they copy). The DISTINCT
 fold: the kept rows, their order and their masks exactly (both sort by
 the same hashes). K12 (fragment): row_valid, masks and every value under
 a set mask exactly (FMA contraction off, IEEE division, floored integer
-division, as the composed form computes). Query results: DOUBLE columns to a relative 1e-6 (the
+division, as the composed form computes). K13 (window_segments), K15
+(window_frame_minmax) and K16 (window_emit): every position, value and
+mask exactly (NaN equal to NaN); K14 (window_frame_sum): masks, counts
+and integer sums exactly, float sums to a relative 1e-9 (both keep
+double-double prefixes, combined in another order). Query results:
+DOUBLE columns to a relative 1e-6 (the
 repository's TPC-H comparison rule), everything else exact, in the
 query's order (as a multiset where the query has no ORDER BY; Q11 as a
-multiset whose rows come in descending value).
+multiset whose rows come in descending value; TPC-DS Q36's rows equal
+on its ORDER BY keys as a multiset, since a data group whose class is
+NULL ties with its category's rollup row).
 """
 
 import collections
@@ -90,6 +103,10 @@ PROPS = {"batch_rows": 1 << 20}
 #: H100 SXM HBM3 bandwidth (NVIDIA data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
 WARMUP, ITERS = 3, 25
+#: warm executions per query: the earlier slices' TPC-H path runs one
+#: (to keep the script inside its time), the window and TPC-DS path
+#: the median of three
+EARLIER_WARM, WINDOW_WARM = 1, 3
 
 Q1 = """select
     returnflag, linestatus,
@@ -410,22 +427,25 @@ def q6_predicate(li, gen_module):
             & (li["quantity"] < 24))
 
 
+def lineitem_table(np, gen, cols):
+    """Lineitem columns in the connector's order (it generates by order
+    index)."""
+    norders = gen.rows("orders")
+    step = 1 << 18
+    parts = [gen.generate("lineitem", lo, min(lo + step, norders))
+             for lo in range(0, norders, step)]
+    return {c: np.concatenate([p[c] for p in parts]) for c in cols}
+
+
 def oracle(np, gen_module, schema=SCHEMA):
     """Q1 and Q6 in numpy over the same generated lineitem (the
     connector's generator, chunk by chunk). Returns (Q1 rows, Q6 rows,
     the lineitem columns the oracles read)."""
     gen = gen_module.TpchGenerator(gen_module.TpchConnector.SCHEMAS[schema])
-    norders = gen.rows("orders")
-    cols = ("quantity", "extendedprice", "discount", "tax", "returnflag",
-            "linestatus", "shipdate", "orderkey", "suppkey", "partkey",
-            "commitdate", "receiptdate")
-    parts = {c: [] for c in cols}
-    step = 1 << 18
-    for lo in range(0, norders, step):
-        d = gen.generate("lineitem", lo, min(lo + step, norders))
-        for c in cols:
-            parts[c].append(d[c])
-    li = {c: np.concatenate(v) for c, v in parts.items()}
+    li = lineitem_table(np, gen, (
+        "quantity", "extendedprice", "discount", "tax", "returnflag",
+        "linestatus", "shipdate", "orderkey", "suppkey", "partkey",
+        "commitdate", "receiptdate"))
     schema = gen.schema("lineitem")
     rf_dic = schema.column("returnflag").dictionary
     ls_dic = schema.column("linestatus").dictionary
@@ -1044,15 +1064,15 @@ class Capture:
 
 # -- phases ------------------------------------------------------------------
 
-def profile_query(torch, gen_module, runner, sql):
+def profile_query(torch, gen_module, runner, sql, gen_cls=None):
     """One warm execution under torch.profiler: wall time, the host
-    seconds spent generating tpch data (in all, and per table: calls,
-    seconds, the slowest call, rows), device busy time (the sum of the
-    kernels' self device time) and the kernels that took most of it.
-    `device_busy_ms` is None when the profiler recorded no device
-    time."""
+    seconds spent generating data (tpch's generator, or `gen_cls`'s; in
+    all, and per table: calls, seconds, the slowest call, rows), device
+    busy time (the sum of the kernels' self device time) and the kernels
+    that took most of it. `device_busy_ms` is None when the profiler
+    recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
-    gen_cls = gen_module.TpchGenerator
+    gen_cls = gen_cls or gen_module.TpchGenerator
     orig = gen_cls.generate
     datagen = [0.0]
     by_table = {}
@@ -1067,7 +1087,8 @@ def profile_query(torch, gen_module, runner, sql):
             dt = time.perf_counter() - t
             datagen[0] += dt
             calls, secs, slowest, rows = by_table.get(table, (0, 0.0, 0.0, 0))
-            n = len(next(iter(out.values()))) if out else 0
+            data = out[0] if isinstance(out, tuple) else out
+            n = len(next(iter(data.values()))) if data else 0
             by_table[table] = (calls + 1, secs + dt, max(slowest, dt),
                                rows + n)
     gen_cls.generate = timed_generate
@@ -1763,7 +1784,20 @@ KERNELS = {
                    "presto_tpu/ops/join.py:689"),
     "fragment": ("triton", "presto_tpu_torch/expr/codegen.py",
                  "presto_tpu/operators/fused_fragment.py:187"),
+    "window_segments": ("cuda", "presto_tpu_torch/csrc/window_segments.cu",
+                        "presto_tpu/ops/window.py:164"),
+    "window_frame_sum": ("cuda",
+                         "presto_tpu_torch/csrc/window_frame_sum.cu",
+                         "presto_tpu/ops/window.py:285"),
+    "window_frame_minmax": ("cuda",
+                            "presto_tpu_torch/csrc/window_frame_minmax.cu",
+                            "presto_tpu/ops/window.py:80"),
+    "window_emit": ("cuda", "presto_tpu_torch/csrc/window_emit.cu",
+                    "presto_tpu/ops/window.py:341"),
 }
+#: the window kernels, measured on the window and TPC-DS path
+WINDOW_KERNELS = ("window_segments", "window_frame_sum",
+                  "window_frame_minmax", "window_emit")
 
 #: queries run again with fusion off (their walls beside the fused ones)
 FUSION_OFF = ("q1", "q3", "q6", "q18")
@@ -1884,7 +1918,7 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
                 by_status[status] += n // plans
             decisions[label] = {**by_status, "plans": plans}
             warm = []
-            for _ in range(3):
+            for _ in range(EARLIER_WARM):
                 t = time.perf_counter()
                 runner.execute(sql).rows()
                 warm.append(time.perf_counter() - t)
@@ -2129,6 +2163,8 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
                             for q, (n, sec) in compiles.items()}})
     kernels = []
     for k, (route, src, replaces) in KERNELS.items():
+        if k in WINDOW_KERNELS:
+            continue
         m = measured[k]
         kernels.append({
             "name": k, "route": route, "source": src, "replaces": replaces,
@@ -2138,6 +2174,678 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": "bytes", "library_ms": m["library_ms"]})
     return kernels
+
+
+# -- the window and TPC-DS path (K13-K16, GroupId) ------------------------
+
+#: running aggregates over every lineitem (two window specs: the
+#: default RANGE frame and a ROWS frame), wrapped in an outer aggregate
+WIN_RUNNING = """select count(*), sum(rs), sum(rc), sum(rp), max(rc)
+from (select
+    sum(quantity) over (partition by orderkey order by linenumber) rs,
+    count(*) over (partition by orderkey order by linenumber) rc,
+    sum(extendedprice) over (partition by orderkey order by linenumber
+                             rows unbounded preceding) rp
+  from lineitem) t"""
+
+_BY_CUST = "over (partition by custkey order by totalprice desc)"
+#: the ranking functions over orders
+WIN_RANK = f"""select count(*), sum(rn), sum(rk), sum(drk), sum(nt),
+       sum(pr), sum(cd), max(rk)
+from (select row_number() {_BY_CUST} rn, rank() {_BY_CUST} rk,
+             dense_rank() {_BY_CUST} drk, ntile(4) {_BY_CUST} nt,
+             percent_rank() {_BY_CUST} pr, cume_dist() {_BY_CUST} cd
+  from orders) t"""
+
+#: top three orders per customer: the TopN-row-number path
+WIN_TOPN = f"""select count(*), sum(totalprice), sum(rn)
+from (select custkey, totalprice, row_number() {_BY_CUST} rn
+  from orders) t
+where rn <= 3"""
+
+_BY_SUPP = ("partition by suppkey order by shipdate, orderkey, "
+            "linenumber")
+#: sliding ROWS frames, lag / lead / first_value and RANGE offset frames
+#: over each supplier's lines by ship date
+WIN_FRAMES = f"""select count(*), sum(mn), sum(mx), sum(lg), sum(ld),
+       sum(fv), sum(rc), sum(rs)
+from (select
+    min(extendedprice) over ({_BY_SUPP}
+        rows between 5 preceding and 5 following) mn,
+    max(extendedprice) over ({_BY_SUPP}
+        rows between 5 preceding and 5 following) mx,
+    lag(extendedprice) over ({_BY_SUPP}) lg,
+    lead(quantity, 2) over ({_BY_SUPP}) ld,
+    first_value(extendedprice) over ({_BY_SUPP}
+        rows between 3 preceding and current row) fv,
+    count(*) over (partition by suppkey order by shipdate
+        range between 30 preceding and 30 following) rc,
+    sum(quantity) over (partition by suppkey order by shipdate
+        range between 7 preceding and current row) rs
+  from lineitem) t"""
+
+WIN_QUERIES = {"win_running": WIN_RUNNING, "win_rank": WIN_RANK,
+               "win_topn": WIN_TOPN, "win_frames": WIN_FRAMES}
+
+#: TPC-DS at sf1 (tests/tpcds_queries.py): the windowed revenue ratios
+#: Q12, Q20, Q98, Q36's rollup (GroupId) and the q67-shape rank
+_RATIO = """select {ids}i_item_desc, i_category, i_class, i_current_price,
+       sum({p}_ext_sales_price) itemrevenue,
+       sum({p}_ext_sales_price) * 100.0 /
+         sum(sum({p}_ext_sales_price)) over (partition by i_class)
+         revenueratio
+from {sales}, item, date_dim
+where {p}_item_sk = i_item_sk and {p}_sold_date_sk = d_date_sk
+  and {pred}
+group by {ids}i_item_desc, i_category, i_class, i_current_price
+order by i_category, i_class, {ids}i_item_desc, revenueratio{limit}"""
+DS_Q12 = _RATIO.format(ids="i_item_id, ", p="ws", sales="web_sales",
+                       pred="d_year = 2000", limit="\nlimit 100")
+DS_Q20 = _RATIO.format(ids="i_item_id, ", p="cs", sales="catalog_sales",
+                       pred="d_year = 1999 and d_moy between 2 and 3",
+                       limit="\nlimit 100")
+DS_Q98 = _RATIO.format(ids="", p="ss", sales="store_sales",
+                       pred="i_category in ('Sports', 'Books', 'Home') "
+                            "and d_year = 1999", limit="")
+DS_Q36 = """select sum(ss_net_profit) / sum(ss_ext_sales_price) gross_margin,
+       i_category, i_class
+from store_sales, date_dim, item, store
+where d_date_sk = ss_sold_date_sk and i_item_sk = ss_item_sk
+  and s_store_sk = ss_store_sk and d_year = 2000
+group by rollup (i_category, i_class)
+order by i_category, i_class
+limit 100"""
+DS_Q104 = """select i_category, i_class, sumsales, rk
+from (select i_category, i_class, sum(ss_ext_sales_price) sumsales,
+             rank() over (partition by i_category
+                          order by sum(ss_ext_sales_price) desc) rk
+      from store_sales, date_dim, item
+      where ss_sold_date_sk = d_date_sk and ss_item_sk = i_item_sk
+        and d_year = 2001
+      group by i_category, i_class) t
+where rk <= 3
+order by i_category, rk, i_class"""
+DS_SCHEMA = "sf1"
+DS_QUERIES = {"ds_q12": DS_Q12, "ds_q20": DS_Q20, "ds_q98": DS_Q98,
+              "ds_q36": DS_Q36, "ds_q104": DS_Q104}
+
+#: the kernels each query of this path must launch (K12 is not
+#: required: a chain whose outputs all pass through launches nothing;
+#: that no chain ran its composed form on the card is checked instead)
+WIN_MUST = {"win_running": ("window_segments", "window_frame_sum",
+                            "window_emit"),
+            "win_rank": ("window_segments", "window_emit"),
+            "win_topn": ("window_segments", "window_emit"),
+            "win_frames": ("window_segments", "window_frame_sum",
+                           "window_frame_minmax", "window_emit"),
+            "ds_q12": ("window_segments", "window_frame_sum",
+                       "window_emit", "join_probe"),
+            "ds_q20": ("window_segments", "window_frame_sum",
+                       "window_emit", "join_probe"),
+            "ds_q98": ("window_segments", "window_frame_sum",
+                       "window_emit", "join_probe"),
+            "ds_q36": ("join_probe",),
+            "ds_q104": ("window_segments", "window_emit", "join_probe")}
+
+
+def _q36_key(row):
+    """Q36's ORDER BY (category, class; NULLs last), then the margin:
+    a data group whose class is NULL ties with its category's rollup
+    row, so rows equal on the ORDER BY keys may come in either order."""
+    gm, cat, cls = row
+    return (cat is None, cat or "", cls is None, cls or "",
+            float("-inf") if gm is None else gm)
+
+
+def window_rows_match(label, got, want) -> bool:
+    """rows_match, with Q36's ties on its ORDER BY keys compared as a
+    multiset (the engine's order must still follow the keys)."""
+    if label == "ds_q36":
+        keys = [_q36_key(r)[:4] for r in got]
+        return keys == sorted(keys) and rows_match(
+            sorted(got, key=_q36_key), sorted(want, key=_q36_key))
+    return rows_match(got, want)
+
+
+def first_difference(got, want):
+    """(index, got row, oracle row) of the first rows that differ."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not rows_match([g], [w]):
+            return i, g, w
+    return min(len(got), len(want)), None, None
+
+
+def _group_starts(np, *keys):
+    """Over rows sorted by `keys`: True where a key changes."""
+    n = len(keys[0])
+    start = np.zeros(n, bool)
+    start[0] = True
+    for k in keys:
+        start[1:] |= k[1:] != k[:-1]
+    return start
+
+
+def _seg_first(np, start):
+    """Index of each row's group start."""
+    return np.maximum.accumulate(np.where(start, np.arange(len(start)), 0))
+
+
+def window_oracle(np, gen_module, schema=SCHEMA):
+    """WIN_RUNNING, WIN_RANK, WIN_TOPN and WIN_FRAMES in numpy over the
+    same generated lineitem and orders."""
+    gen = gen_module.TpchGenerator(gen_module.TpchConnector.SCHEMAS[schema])
+    li = lineitem_table(np, gen, ("orderkey", "linenumber", "quantity",
+                                  "extendedprice", "suppkey", "shipdate"))
+    out = {}
+    # running sums per order by line number (line numbers are unique
+    # within an order, so the RANGE and ROWS frames agree)
+    o = np.lexsort((li["linenumber"], li["orderkey"]))
+    ok, ln = li["orderkey"][o], li["linenumber"][o]
+    q, p = li["quantity"][o], li["extendedprice"][o]
+    start = _group_starts(np, ok)
+    check(not (~start[1:] & (ln[1:] == ln[:-1])).any(),
+          "lineitem (orderkey, linenumber) is not unique")
+    first = _seg_first(np, start)
+    pos = np.arange(len(ok))
+    cq, cp = np.cumsum(q), np.cumsum(p)
+    rs = cq - (cq - q)[first]
+    rp = cp - (cp - p)[first]
+    rc = pos - first + 1
+    out["win_running"] = [(len(ok), float(rs.sum()), int(rc.sum()),
+                           float(rp.sum()), int(rc.max()))]
+    # the ranking functions per customer by total price, descending
+    orders = table(np, gen, "orders", ("custkey", "totalprice"))
+    o = np.lexsort((-orders["totalprice"], orders["custkey"]))
+    ck, tp = orders["custkey"][o], orders["totalprice"][o]
+    n = len(ck)
+    pos = np.arange(n)
+    pstart_b = _group_starts(np, ck)
+    peer_b = _group_starts(np, ck, tp)
+    pstart = _seg_first(np, pstart_b)
+    peer_start = _seg_first(np, peer_b)
+    pid = np.cumsum(pstart_b) - 1
+    psize = np.bincount(pid)[pid]
+    peer_id = np.cumsum(peer_b) - 1
+    peer_end = peer_start + np.bincount(peer_id)[peer_id] - 1
+    dense = np.cumsum(peer_b)
+    rn = pos - pstart + 1
+    rk = peer_start - pstart + 1
+    drk = dense - dense[pstart] + 1
+    nq, nr = psize // 4, psize % 4
+    idx = pos - pstart
+    cut = nr * (nq + 1)
+    nt = np.where(idx < cut, idx // np.maximum(nq + 1, 1) + 1,
+                  nr + (idx - cut) // np.maximum(nq, 1) + 1)
+    pr = np.where(psize > 1, (rk - 1) / np.maximum(psize - 1, 1), 0.0)
+    cd = (peer_end - pstart + 1) / psize
+    out["win_rank"] = [(n, int(rn.sum()), int(rk.sum()), int(drk.sum()),
+                        int(nt.sum()), float(pr.sum()), float(cd.sum()),
+                        int(rk.max()))]
+    top = rn <= 3
+    out["win_topn"] = [(int(top.sum()), float(tp[top].sum()),
+                        int(rn[top].sum()))]
+    # frames per supplier by ship date (ties broken by order and line)
+    o = np.lexsort((li["linenumber"], li["orderkey"], li["shipdate"],
+                    li["suppkey"]))
+    sk, sd = li["suppkey"][o], li["shipdate"][o].astype(np.int64)
+    p, q = li["extendedprice"][o], li["quantity"][o]
+    n = len(sk)
+    pos = np.arange(n)
+    mn = np.full(n, np.inf)
+    mx = np.full(n, -np.inf)
+    for d in range(-5, 6):
+        j = np.clip(pos + d, 0, n - 1)
+        same = (pos + d >= 0) & (pos + d < n) & (sk[j] == sk)
+        mn = np.where(same, np.minimum(mn, p[j]), mn)
+        mx = np.where(same, np.maximum(mx, p[j]), mx)
+    prev = np.r_[False, sk[1:] == sk[:-1]]
+    lg = p[np.maximum(pos - 1, 0)][prev]
+    nxt2 = np.r_[sk[2:] == sk[:-2], False, False]
+    ld = q[np.minimum(pos + 2, n - 1)][nxt2]
+    first = _seg_first(np, _group_starts(np, sk))
+    fv = p[np.maximum(first, pos - 3)]
+    key = sk * 100_000 + sd
+    rc = np.searchsorted(key, key + 30, "right") \
+        - np.searchsorted(key, key - 30, "left")
+    cq = np.r_[0.0, np.cumsum(q)]
+    rs = cq[np.searchsorted(key, key, "right")] \
+        - cq[np.searchsorted(key, key - 7, "left")]
+    out["win_frames"] = [(n, float(mn.sum()), float(mx.sum()),
+                          float(lg.sum()), float(ld.sum()),
+                          float(fv.sum()), int(rc.sum()), float(rs.sum()))]
+    return out, len(li["orderkey"]), len(orders["custkey"])
+
+
+def ds_table(np, gen, name, cols):
+    """Columns (data, not-NULL mask) of a whole generated TPC-DS table."""
+    n = gen.rows(name)
+    step = 1 << 20
+    data = {c: [] for c in cols}
+    mask = {c: [] for c in cols}
+    for lo in range(0, n, step):
+        hi = min(lo + step, n)
+        d, m = gen.generate(name, lo, hi, list(cols))
+        for c in cols:
+            data[c].append(d[c])
+            mask[c].append(m.get(c, np.ones(hi - lo, bool)))
+    return ({c: np.concatenate(v) for c, v in data.items()},
+            {c: np.concatenate(v) for c, v in mask.items()})
+
+
+def _sort_key(row, cols):
+    """ORDER BY on `cols` ascending, NULLs last."""
+    return tuple((row[c] is None, row[c] if row[c] is not None else 0)
+                 for c in cols)
+
+
+def tpcds_oracle(np, ds_module, schema=DS_SCHEMA):
+    """Q12, Q20, Q98, Q36 and Q104 in numpy over the same generated
+    tables: sales rows keep a non-NULL item and date, items by their
+    unique surrogate key, groups by the decoded attribute tuples."""
+    gen = ds_module.TpcdsGenerator(ds_module.TpcdsConnector.SCHEMAS[schema])
+    icols = ("i_item_sk", "i_item_id", "i_item_desc", "i_category",
+             "i_class", "i_current_price")
+    item, imask = ds_table(np, gen, "item", icols)
+    isch = gen.schema("item")
+
+    def attr(c):
+        dic = isch.column(c).dictionary
+        vals = item[c]
+        return [None if not m else (dic[v] if dic is not None
+                                    else (float(v) if c == "i_current_price"
+                                          else v))
+                for v, m in zip(vals.tolist(), imask[c].tolist())]
+    attrs = {c: attr(c) for c in icols[1:]}
+    row_of_sk = {int(sk): i for i, sk in enumerate(item["i_item_sk"])}
+    dd, _ = ds_table(np, gen, "date_dim", ("d_date_sk", "d_year", "d_moy"))
+    sk_lo = int(dd["d_date_sk"].min())
+    yr = np.zeros(int(dd["d_date_sk"].max()) - sk_lo + 1, np.int64)
+    mo = np.zeros_like(yr)
+    yr[dd["d_date_sk"] - sk_lo] = dd["d_year"]
+    mo[dd["d_date_sk"] - sk_lo] = dd["d_moy"]
+
+    def sales(name, p, extra=()):
+        cols = (f"{p}_item_sk", f"{p}_sold_date_sk", f"{p}_ext_sales_price",
+                *extra)
+        d, m = ds_table(np, gen, name, cols)
+        keep = m[cols[0]] & m[cols[1]]
+        date = d[cols[1]]
+        inside = (date >= sk_lo) & (date < sk_lo + len(yr))
+        keep &= inside
+        di = np.where(inside, date - sk_lo, 0)
+        return d, m, keep, yr[di], mo[di]
+
+    out = {}
+    for label, (name, p, pred, ids, limit) in {
+            "ds_q12": ("web_sales", "ws", lambda y, m: y == 2000, True, 100),
+            "ds_q20": ("catalog_sales", "cs",
+                       lambda y, m: (y == 1999) & (m >= 2) & (m <= 3), True,
+                       100),
+            "ds_q98": ("store_sales", "ss", lambda y, m: y == 1999, False,
+                       None)}.items():
+        d, m, keep, y, mm = sales(name, p)
+        keep &= pred(y, mm) & m[f"{p}_ext_sales_price"]
+        items = d[f"{p}_item_sk"][keep]
+        rev = np.bincount(items, weights=d[f"{p}_ext_sales_price"][keep],
+                          minlength=len(item["i_item_sk"]) + 2)
+        hit = np.bincount(items, minlength=len(rev)) > 0
+        cols = (["i_item_id"] if ids else []) + [
+            "i_item_desc", "i_category", "i_class", "i_current_price"]
+        groups = {}
+        for sk in np.flatnonzero(hit).tolist():
+            i = row_of_sk[sk]
+            if label == "ds_q98" and attrs["i_category"][i] not in (
+                    "Sports", "Books", "Home"):
+                continue
+            g = tuple(attrs[c][i] for c in cols)
+            groups[g] = groups.get(g, 0.0) + float(rev[sk])
+        by_class = {}
+        for g, v in groups.items():
+            by_class[g[-2]] = by_class.get(g[-2], 0.0) + v
+        rows = [dict(zip(cols, g), itemrevenue=v,
+                     revenueratio=v * 100.0 / by_class[g[-2]])
+                for g, v in groups.items()]
+        order = ["i_category", "i_class"] + (["i_item_id"] if ids else []) \
+            + ["i_item_desc", "revenueratio"]
+        rows.sort(key=lambda r: _sort_key(r, order))
+        rows = rows[:limit] if limit else rows
+        out[label] = [tuple(r[c] for c in cols)
+                      + (r["itemrevenue"], r["revenueratio"]) for r in rows]
+    # Q36 (rollup) and Q104 over store_sales
+    d, m, keep, y, _ = sales("store_sales", "ss",
+                             ("ss_store_sk", "ss_net_profit"))
+    nstore = gen.rows("store")
+    st = d["ss_store_sk"]
+    k36 = keep & (y == 2000) & m["ss_store_sk"] & (st >= 1) \
+        & (st <= nstore)
+    cat = np.array([attrs["i_category"][row_of_sk[s]]
+                    for s in item["i_item_sk"].tolist()], object)
+    cls = np.array([attrs["i_class"][row_of_sk[s]]
+                    for s in item["i_item_sk"].tolist()], object)
+    base = int(item["i_item_sk"].min())
+
+    def rollup(mask_rows):
+        """Per rollup group: [sum, rows] of the non-NULL net profits and
+        of the non-NULL sales prices."""
+        it = d["ss_item_sk"][mask_rows] - base
+        cols = [(d[c][mask_rows].tolist(), m[c][mask_rows].tolist())
+                for c in ("ss_net_profit", "ss_ext_sales_price")]
+        sums = {}
+        for r, (c, k) in enumerate(zip(cat[it].tolist(), cls[it].tolist())):
+            # the grouping set is part of the group: a NULL class of the
+            # data is not the rollup's NULL
+            for g in ((0, c, k), (1, c, None), (2, None, None)):
+                s = sums.setdefault(g, [0.0, 0, 0.0, 0])
+                for j, (vals, ok) in enumerate(cols):
+                    if ok[r]:
+                        s[2 * j] += vals[r]
+                        s[2 * j + 1] += 1
+        return sums
+    sums = rollup(k36)
+    rows = [dict(gross_margin=a / b if na and nb else None, i_category=c,
+                 i_class=k)
+            for (_, c, k), (a, na, b, nb) in sums.items()]
+    rows.sort(key=lambda r: _sort_key(r, ["i_category", "i_class"]))
+    out["ds_q36"] = [(r["gross_margin"], r["i_category"], r["i_class"])
+                     for r in rows[:100]]
+    k104 = keep & (y == 2001) & m["ss_ext_sales_price"]
+    it = d["ss_item_sk"][k104] - base
+    sums = {}
+    for c, k, v in zip(cat[it].tolist(), cls[it].tolist(),
+                       d["ss_ext_sales_price"][k104].tolist()):
+        sums[(c, k)] = sums.get((c, k), 0.0) + v
+    rows = []
+    for c in {c for c, _ in sums}:
+        part = [(v, k) for (cc, k), v in sums.items() if cc == c]
+        for v, k in part:
+            rk = 1 + sum(1 for w, _ in part if w > v)
+            if rk <= 3:
+                rows.append((c, k, v, rk))
+    rows.sort(key=lambda r: (r[0] is None, r[0] or "", r[3],
+                             r[1] is None, r[1] or ""))
+    out["ds_q104"] = rows
+    return out, gen.rows("store_sales")
+
+
+class WindowCapture:
+    """The inputs of the largest call (by rows) of K13-K16 during one
+    run of the window and TPC-DS queries: references (the window pass
+    writes no input after the call)."""
+
+    NAMES = ("window_segments", "window_frame_sum", "window_frame_minmax",
+             "window_emit")
+
+    def __init__(self, tw):
+        self.tw = tw
+        self.big = {}  # kernel -> (rows, query, args)
+        self.query = None
+        self._orig = {}
+
+    def __enter__(self):
+        def make(name, orig):
+            def rec(*args):
+                rows = rows_of(*args)
+                if rows > self.big.get(name, (0,))[0]:
+                    self.big[name] = (rows, self.query, args)
+                return orig(*args)
+            return rec
+        for name in self.NAMES:
+            self._orig[name] = getattr(self.tw, name)
+            setattr(self.tw, name, make(name, self._orig[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self._orig.items():
+            setattr(self.tw, name, orig)
+        return False
+
+
+def _seg_bytes(seg, names):
+    return sum(getattr(seg, n).numel() * 8 for n in names)
+
+
+def _frame_seg_names(frame):
+    names = ["pstart", "part_end"]
+    if frame.mode == "range":
+        names += ["peer_start", "peer_end"]
+    return names
+
+
+def _col_bytes(col):
+    return 0 if col is None else col[0].numel() * col[0].element_size() \
+        + col[1].numel()
+
+
+def _cmp_cols(torch, got, want, what, exact_float=True):
+    """Masks exactly; values under a set mask exactly (NaN equal to NaN)
+    or, for float64 with exact_float False, to a relative 1e-9. Returns
+    the largest absolute difference."""
+    gd, gm = got
+    wd, wm = want
+    check(torch.equal(gm, wm), f"{what}: masks differ")
+    a, b = gd[wm], wd[wm]
+    check(a.dtype == b.dtype, f"{what}: dtype {a.dtype} != {b.dtype}")
+    if not a.is_floating_point():
+        check(torch.equal(a, b), f"{what}: values differ")
+        return 0.0
+    nan = torch.isnan(a)
+    check(torch.equal(nan, torch.isnan(b)), f"{what}: NaN positions differ")
+    a, b = a[~nan], b[~nan]
+    if a.numel() == 0:
+        return 0.0
+    same = a == b    # equal infinities included
+    diff = torch.where(same, torch.zeros_like(a), (a - b).abs())
+    if exact_float:
+        check(bool(same.all()), f"{what}: values differ")
+    else:
+        check(bool(torch.all(same | (diff <= 1e-9 * b.abs()))),
+              f"{what}: float values differ beyond rel 1e-9")
+    return float(diff.max())
+
+
+def measure_window(torch, tw, name, args):
+    """One of K13-K16 at its largest call against its plain version on
+    the same CUDA inputs, both timed; the bound is the bytes the kernel
+    must move (each input it reads once, each output written once) over
+    HBM_BYTES_PER_S."""
+    plain = {"window_segments": tw.segments_plain,
+             "window_frame_sum": tw.frame_sum_plain,
+             "window_frame_minmax": tw.frame_minmax_plain,
+             "window_emit": tw.emit_plain}[name]
+    kern = getattr(tw, name)
+    got = kern(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    max_abs = 0.0
+    if name == "window_segments":
+        spart, sorder, svalid = args
+        for f in ("pid", "pstart", "part_end", "peer_start", "peer_end",
+                  "dense"):
+            check(torch.equal(getattr(got, f), getattr(want, f)),
+                  f"K13 window_segments: {f} differs from its plain version")
+        n = svalid.shape[0]
+        moved = nbytes(svalid) + sum(nbytes(d, m) for d, m in
+                                     list(spart) + list(sorder)) + 6 * 8 * n
+        info = {"rows": n, "part_keys": len(spart),
+                "order_keys": len(sorder)}
+    elif name in ("window_frame_sum", "window_frame_minmax"):
+        if name == "window_frame_sum":
+            seg, order, fn, vals, filt, svalid, frame, dt = args
+        else:
+            seg, order, fn, vals, filt, svalid, frame = args
+        max_abs = _cmp_cols(torch, got, want, name,
+                            exact_float=name == "window_frame_minmax")
+        n = svalid.shape[0]
+        ord_bytes = nbytes(order.data, order.mask) \
+            if order is not None and frame.mode == "range" \
+            and not (frame.start in ("u", "c") and frame.end in ("u", "c")) \
+            else 0
+        moved = nbytes(svalid) + _seg_bytes(seg, _frame_seg_names(frame)) \
+            + ord_bytes + _col_bytes(vals) + _col_bytes(filt) \
+            + nbytes(got[0]) + nbytes(got[1])
+        info = {"rows": n, "function": fn, "frame": [frame.mode,
+                                                     frame.start, frame.end]}
+    else:
+        seg, order, svalid, iota, emits = args
+        for e, g, w in zip(emits, got, want):
+            max_abs = max(max_abs, _cmp_cols(torch, g, w,
+                                             f"K16 window_emit {e.kind}"))
+        n = svalid.shape[0]
+        used = {"pstart", "part_end"}
+        srcs = 0
+        for e in emits:
+            if e.kind in ("rank", "percent_rank"):
+                used.add("peer_start")
+            if e.kind == "cume_dist":
+                used.add("peer_end")
+            if e.kind == "dense_rank":
+                used.add("dense")
+            if e.kind in ("lag", "lead"):
+                used.add("pid")
+            if e.frame is not None and e.kind not in ("lag", "lead"):
+                used.update(_frame_seg_names(e.frame))
+            srcs += _col_bytes(e.src)
+        moved = nbytes(svalid, iota) + _seg_bytes(seg, used) + srcs \
+            + sum(nbytes(d, m) for d, m in got)
+        info = {"rows": n, "emits": [e.kind for e in emits]}
+    ms = time_ms(lambda: kern(*args), torch)
+    plain_ms = time_ms(lambda: plain(*args), torch)
+    return {**info, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+def run_window_phases(torch, np, mods, dev, schema):
+    """The window and TPC-DS path: WIN_QUERIES at `schema` and
+    DS_QUERIES at DS_SCHEMA through LocalRunner, rows against numpy
+    oracles, every kernel's launches per query, cold and warm walls, a
+    profile of one warm execution each, every new K12 kernel held
+    against its composed form, and K13-K16 at their largest call
+    against their plain versions. Returns {kernel: measurement} and
+    {kernel: launches on this path}."""
+    tk, cg, ff, tw = mods["tk"], mods["codegen"], mods["ff"], mods["tw"]
+    t = time.perf_counter()
+    want, n_lineitem, n_orders = window_oracle(np, mods["gen"], schema)
+    want_ds, n_store_sales = tpcds_oracle(np, mods["ds"], DS_SCHEMA)
+    emit({"phase": "window_oracle", "seconds": time.perf_counter() - t})
+    runners = {"tpch": mods["LocalRunner"]("tpch", schema, properties=PROPS,
+                                           device=dev),
+               "tpcds": mods["LocalRunner"]("tpcds", DS_SCHEMA,
+                                            properties=PROPS, device=dev)}
+    queries = {**{k: ("tpch", v) for k, v in WIN_QUERIES.items()},
+               **{k: ("tpcds", v) for k, v in DS_QUERIES.items()}}
+    want = {**want, **want_ds}
+    counters = list(tk.COUNTERS.values())
+    launched_before = set(cg.LAUNCHED)
+    composed_on_card = []
+    compose = ff.compose_chain
+
+    def counting_compose(stages, batch):
+        if batch.device.type != "cpu":
+            composed_on_card.append(len(stages))
+        return compose(stages, batch)
+    launches, lines = {}, {}
+    ff.compose_chain = counting_compose
+    try:
+        for label, (cat, sql) in queries.items():
+            runner = runners[cat]
+            for c in counters:
+                c.launches = 0
+            before = dict(tk.CALLS)
+            c0 = dict(cg.COMPILES)
+            t = time.perf_counter()
+            res = runner.execute(sql)
+            rows = res.rows()
+            cold = time.perf_counter() - t
+            launches[label] = {c.name: c.launches for c in counters}
+            calls = {f: n - before.get(f, 0) for f, n in tk.CALLS.items()
+                     if n - before.get(f, 0)}
+            rep = res.fusion_report
+            check(rep is not None, f"{label}: fusion did not run")
+            check(not any(str(e["reason"]).startswith("not_lowered")
+                          for e in rep["fragments"]),
+                  f"{label}: a chain has no lowering")
+            warm = []
+            for _ in range(WINDOW_WARM):
+                t = time.perf_counter()
+                runner.execute(sql).rows()
+                warm.append(time.perf_counter() - t)
+            check(window_rows_match(label, rows, want[label]),
+                  f"{label} differs from the oracle: {len(rows)} rows vs "
+                  f"{len(want[label])}; first difference "
+                  f"{first_difference(rows, want[label])}")
+            for k in WIN_MUST[label]:
+                check(launches[label][k] > 0,
+                      f"{k} was not launched in {label}")
+            lines[label] = {
+                "phase": "window" if cat == "tpch" else "tpcds",
+                "query": label,
+                "schema": schema if cat == "tpch" else DS_SCHEMA,
+                "batch_rows": PROPS["batch_rows"],
+                "rows": rows if len(rows) <= 12 else len(rows),
+                "matches_oracle": True, "launches": launches[label],
+                "family_calls": calls,
+                "fused_chains": f"{rep['fused']}/{len(rep['fragments'])}",
+                "cold_s": cold,
+                "cold_k12_compiles": cg.COMPILES["count"] - c0["count"],
+                "cold_k12_compile_s": cg.COMPILES["seconds"]
+                - c0["seconds"], "warm_s": statistics.median(warm)}
+    finally:
+        ff.compose_chain = compose
+    check(not composed_on_card, "a filter/project chain ran its composed "
+          f"form on the card {len(composed_on_card)} times")
+    for label, line in lines.items():
+        emit(line)
+    emit({"phase": "window_sizes", "lineitem_rows": n_lineitem,
+          "orders_rows": n_orders, "store_sales_rows": n_store_sales})
+    # where a warm query's time goes
+    for label, (cat, sql) in queries.items():
+        gen_cls = mods["gen"].TpchGenerator if cat == "tpch" \
+            else mods["ds"].TpcdsGenerator
+        emit({"phase": "profile", "query": label,
+              **profile_query(torch, mods["gen"], runners[cat], sql,
+                              gen_cls)})
+    # kernels at this path's shapes, and every K12 kernel it generated
+    cg.CAPTURE = {}
+    k12_query = {}
+    try:
+        with WindowCapture(tw) as cap:
+            for label, (cat, sql) in queries.items():
+                cap.query = label
+                seen = {fp: id(v[2]) for fp, v in cg.CAPTURE.items()}
+                runners[cat].execute(sql).rows()
+                for fp, v in cg.CAPTURE.items():
+                    if seen.get(fp) != id(v[2]):
+                        k12_query[fp] = label
+        k12_calls = cg.CAPTURE
+    finally:
+        cg.CAPTURE = None
+    check(set(cap.big) == set(WindowCapture.NAMES),
+          f"window kernel inputs were not captured: {sorted(cap.big)}")
+    compared = {}
+    for fp, (_, kern, batch) in k12_calls.items():
+        compared[fp] = measure_k12(torch, ff, kern, batch,
+                                   k12_query.get(fp, "?"))
+    new = set(cg.LAUNCHED) - launched_before
+    check(new <= set(compared), f"{len(new - set(compared))} generated "
+          "kernels of the window path were not held against their "
+          "composed form")
+    emit({"phase": "k12_compare", "path": "window", "kernels": len(compared),
+          "new_first_launches": len(new),
+          "values_compared": sum(m["values_compared"]
+                                 for m in compared.values()),
+          "max_abs_err": max([m["max_abs_err"] for m in compared.values()],
+                             default=0.0)})
+    measured = {}
+    for name in WindowCapture.NAMES:
+        _, q, args = cap.big[name]
+        measured[name] = measure_window(torch, tw, name, args)
+        emit({"phase": "kernels", "kernel": name, "family": "window",
+              "shape_from": q, **measured[name],
+              "launches": {label: launches[label][name]
+                           for label in queries}})
+    totals = {name: sum(launches[label][name] for label in queries)
+              for name in tk.COUNTERS}
+    return measured, totals
 
 
 def main() -> int:
@@ -2150,6 +2858,7 @@ def main() -> int:
         import numpy as np
         from presto_tpu_torch import batch as tb
         from presto_tpu_torch import types as tt
+        from presto_tpu_torch.connectors import tpcds as ds_module
         from presto_tpu_torch.connectors import tpch as gen_module
         from presto_tpu_torch.execution import dynamic_filters as tdf
         from presto_tpu_torch.expr import codegen
@@ -2162,6 +2871,7 @@ def main() -> int:
         from presto_tpu_torch.ops import hashagg as th
         from presto_tpu_torch.ops import join as tj
         from presto_tpu_torch.ops import sort as tsort
+        from presto_tpu_torch.ops import window as tw
         from presto_tpu_torch.runner import LocalRunner
         from presto_tpu_torch.telemetry import kernels as tk
     except ImportError as e:
@@ -2172,7 +2882,8 @@ def main() -> int:
     mods = {"tb": tb, "tt": tt, "gen": gen_module, "th": th, "tc": tc,
             "tj": tj, "df": tdf, "agg": tagg, "core": tcore, "sort": tsort,
             "misc": tmisc, "codegen": codegen, "ff": tff,
-            "tk": tk, "LocalRunner": LocalRunner}
+            "tk": tk, "tw": tw, "ds": ds_module,
+            "LocalRunner": LocalRunner}
     check(set(KERNELS) == set(tk.COUNTERS)
           and {src for route, src, _ in KERNELS.values()
                if route == "cuda"}
@@ -2194,8 +2905,8 @@ def main() -> int:
         timeout=60)
     smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
         else f"nvidia-smi failed: {smi.stderr.strip()}"
-    name = torch.cuda.get_device_name(0)
-    emit({"phase": "device", "name": name,
+    device_name = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "name": device_name,
           "capability": list(torch.cuda.get_device_capability(0)),
           "nvidia_smi": smi_line, "torch": torch.__version__,
           "cuda": torch.version.cuda})
@@ -2203,9 +2914,23 @@ def main() -> int:
           "the kernels are built for sm_90a")
 
     kernels = run_phases(torch, np, mods, dev, SCHEMA)
+    window, window_launches = run_window_phases(torch, np, mods, dev,
+                                                SCHEMA)
+    for k in kernels:
+        k["launches"] += window_launches[k["name"]]
+    for kname in WINDOW_KERNELS:
+        route, src, replaces = KERNELS[kname]
+        m = window[kname]
+        kernels.append({
+            "name": kname, "route": route, "source": src,
+            "replaces": replaces, "family": tk.COUNTERS[kname].family,
+            "launches": window_launches[kname],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": "bytes", "library_ms": m["library_ms"]})
     print(smi_line, flush=True)
     emit({"kernels": kernels})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})
     return 0
 

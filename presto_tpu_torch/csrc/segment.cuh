@@ -76,9 +76,14 @@ __device__ __forceinline__ int64_t add_wrap(int64_t x, int64_t y) {
 __device__ __forceinline__ float add_wrap(float x, float y) { return x + y; }
 __device__ __forceinline__ double add_wrap(double x, double y) { return x + y; }
 
+// min / max let a NaN win, as the reference's segment_min / segment_max
+// (jnp.minimum / jnp.maximum) do, whatever the order of combination
+// (x != x only for a NaN; CUDA's fmin / fmax would drop it).
 template <typename T>
 __device__ __forceinline__ T combine(T x, T y, int op) {
   if (op == OP_SUM) return add_wrap(x, y);
+  if (x != x) return x;
+  if (y != y) return y;
   if (op == OP_MIN) return y < x ? y : x;
   return y > x ? y : x;
 }

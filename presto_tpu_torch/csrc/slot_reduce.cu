@@ -32,9 +32,11 @@
 // rounding, not bit for bit. Integer sums wrap like the reference's
 // int64 segment_sum.
 //
-// float min/max use a compare-and-swap loop; a NaN contribution never
-// wins (the reference's jnp.minimum would propagate it). No query of
-// this slice feeds NaN to min/max.
+// float min/max use a compare-and-swap loop in which a NaN wins, as
+// the reference's segment_min / segment_max let it: a NaN contribution
+// replaces any value, and nothing replaces a NaN. The warp's combine
+// does the same (NanMin / NanMax; cg::less / cg::greater would keep or
+// drop the NaN depending on the order).
 
 #include <cooperative_groups.h>
 #include <cooperative_groups/reduce.h>
@@ -95,7 +97,8 @@ __device__ __forceinline__ void atomic_op(double* p, double v, int op) {
   do {
     assumed = old;
     double cur = __longlong_as_double(assumed);
-    if (op == OP_MIN ? !(v < cur) : !(v > cur)) return;
+    if (cur != cur) return;  // a NaN stays
+    if (v == v && (op == OP_MIN ? !(v < cur) : !(v > cur))) return;
     old = atomicCAS(a, assumed, __double_as_longlong(v));
   } while (old != assumed);
 }
@@ -110,7 +113,8 @@ __device__ __forceinline__ void atomic_op(float* p, float v, int op) {
   do {
     assumed = old;
     float cur = __uint_as_float(assumed);
-    if (op == OP_MIN ? !(v < cur) : !(v > cur)) return;
+    if (cur != cur) return;  // a NaN stays
+    if (v == v && (op == OP_MIN ? !(v < cur) : !(v > cur))) return;
     old = atomicCAS(a, assumed, __float_as_uint(v));
   } while (old != assumed);
 }
@@ -138,6 +142,20 @@ __device__ __forceinline__ double identity<double>(int op) {
                                       : -__longlong_as_double(0x7fefffffffffffffLL));
 }
 
+// min / max with a NaN winning (x != x only for a NaN)
+template <typename T>
+struct NanMin {
+  __device__ __forceinline__ T operator()(T a, T b) const {
+    return a != a ? a : (b != b ? b : (b < a ? b : a));
+  }
+};
+template <typename T>
+struct NanMax {
+  __device__ __forceinline__ T operator()(T a, T b) const {
+    return a != a ? a : (b != b ? b : (b > a ? b : a));
+  }
+};
+
 // Combine `v` across the lanes of `grp` (lanes of one warp holding the
 // same slot) and let the group's first lane apply it to `dst`.
 template <typename T>
@@ -145,8 +163,8 @@ __device__ __forceinline__ void group_apply(const cg::coalesced_group& grp,
                                             T* dst, T v, int op) {
   T r;
   if (op == OP_SUM) r = cg::reduce(grp, v, cg::plus<T>());
-  else if (op == OP_MIN) r = cg::reduce(grp, v, cg::less<T>());
-  else r = cg::reduce(grp, v, cg::greater<T>());
+  else if (op == OP_MIN) r = cg::reduce(grp, v, NanMin<T>());
+  else r = cg::reduce(grp, v, NanMax<T>());
   if (grp.thread_rank() == 0) atomic_op(dst, r, op);
 }
 

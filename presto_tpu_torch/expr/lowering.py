@@ -289,14 +289,18 @@ def _build(key: str, args, kwargs, meta: torch.Tensor) -> LNode:
                                    None if lo is None else _operand(lo),
                                    None if hi is None else _operand(hi)))
     if key in LIBM:
-        if dt != torch.float64:
-            # float32's libdevice forms flush denormals in Triton
+        if dt not in (torch.float32, torch.float64):
             raise Unlowerable(f"{key} of {dt}")
         arity = 2 if key in _LIBM_BINARY else 1
         if kwargs or len(args) != arity:
             raise Unlowerable(key)
-        return LNode("libm", dt, tuple(_operand(x) for x in args),
-                     value=key)
+        if dt == torch.float64:
+            return LNode("libm", dt, tuple(_operand(x) for x in args),
+                         value=key)
+        # REAL: the float64 libdevice function of the widened operands,
+        # rounded to float32 (Triton's float32 libdevice forms flush
+        # denormals)
+        return _widened("libm", args, key)
     if key in _SCALE:
         x = _operand(args[0])
         if x.dtype != dt:
@@ -329,11 +333,25 @@ def _build(key: str, args, kwargs, meta: torch.Tensor) -> LNode:
         na, nb = _operand(a), _operand(b)
         cdt = _result_type(a, b) if op in _COMPARE \
             or op in ("and", "or", "xor") else dt
-        if (op == "floordiv" and cdt.is_floating_point) \
-                or (op == "mod" and cdt == torch.float32):
+        if op == "floordiv" and cdt.is_floating_point:
             raise Unlowerable(f"{op} of {cdt}")
+        if op == "mod" and cdt == torch.float32:
+            # REAL remainder in float64 (fmod is exact, so its float32
+            # rounding is PyTorch's float32 result)
+            return _widened("mod", (na, nb), None)
         return LNode(op, dt, (na, nb), cdt=cdt)
     raise Unlowerable(key)
+
+
+def _widened(op: str, args, value) -> LNode:
+    """A float32 `op` computed in float64 and rounded to float32."""
+    wide = tuple(LNode("cast", torch.float64, (x,))
+                 if x.dtype != torch.float64 else x
+                 for x in (_operand(a) if not isinstance(a, LNode) else a
+                           for a in args))
+    return LNode("cast", torch.float32,
+                 (LNode(op, torch.float64, wide, value=value,
+                        cdt=torch.float64),))
 
 
 class LeafEnv(dict):

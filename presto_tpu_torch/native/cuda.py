@@ -44,6 +44,10 @@ SOURCES = {
     "join_expand": "join_expand.cu",
     "cross_product": "cross_product.cu",
     "join_outer": "join_outer.cu",
+    "window_segments": "window_segments.cu",
+    "window_frame_sum": "window_frame_sum.cu",
+    "window_frame_minmax": "window_frame_minmax.cu",
+    "window_emit": "window_emit.cu",
 }
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
@@ -108,6 +112,28 @@ SIGNATURES = {
         "presto_join_outer": (
             ctypes.c_int, [_P, _P, _I64, _P, _P, _P, _P, _P, _P, _I32, _P,
                            _P, _P]),
+    },
+    "window_segments": {
+        "presto_window_tile": (ctypes.c_int, []),
+        "presto_window_key_changes": (
+            ctypes.c_int, [_P, _P, _P, _I32, _I64, _I32, _P, _P]),
+        "presto_window_segments": (
+            ctypes.c_int, [_P, _P, _I64, _I32, _I32, _P, _P, _P, _P, _P, _P,
+                           _P, _P]),
+    },
+    "window_frame_sum": {
+        "presto_window_tile": (ctypes.c_int, []),
+        "presto_window_frame_sum": (
+            ctypes.c_int, [_P, _P, _P, _I32, _P, _P, _I32, _P, _P, _P, _P,
+                           _P, _P]),
+    },
+    "window_frame_minmax": {
+        "presto_window_frame_minmax": (
+            ctypes.c_int, [_P, _P, _P, _I32, _I32, _P, _P, _P, _P, _P, _P,
+                           _I64, _I32, _P, _P, _P]),
+    },
+    "window_emit": {
+        "presto_window_emit": (ctypes.c_int, [_P, _P, _P, _P, _I32, _P]),
     },
 }
 

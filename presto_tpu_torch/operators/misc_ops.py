@@ -1,7 +1,7 @@
-"""Cross join, EnforceSingleRow, AssignUniqueId, the local union queue
-and the spool (reference: presto_tpu/operators/misc_ops.py;
+"""Cross join, EnforceSingleRow, AssignUniqueId, GroupId, the local
+union queue and the spool (reference: presto_tpu/operators/misc_ops.py;
 NestedLoopBuildOperator / NestedLoopJoinOperator,
-EnforceSingleRowOperator, AssignUniqueIdOperator and
+EnforceSingleRowOperator, AssignUniqueIdOperator, GroupIdOperator and
 operator/exchange/LocalExchange.java:64 for the union queue).
 
 The cross product is kernel K10 `cross_product` (csrc/cross_product.cu)
@@ -15,7 +15,7 @@ the spool keep the reference's protocol all the same.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -181,16 +181,16 @@ def _cross_product_cuda(probe: Batch, build: Batch, np_rows: int, nb: int,
             spec.append((c.data.data_ptr(), c.mask.data_ptr(),
                          data.data_ptr(), mask.data_ptr(),
                          c.data.element_size(), side))
-    table_args = common.gather_table(spec, "cross_product")
     live = torch.empty(out_cap, dtype=torch.bool, device=dev)
     lib = cuda.library("cross_product")
-    status = lib.presto_cross_product(
-        ctypes.c_int64(np_rows), ctypes.c_int64(probe.capacity),
-        ctypes.c_int64(nb), ctypes.c_int64(build.capacity), *table_args,
-        ctypes.c_void_p(live.data_ptr()), ctypes.c_int64(out_cap),
-        ctypes.c_void_p(cuda.stream_ptr(dev)))
-    cuda.check(lib, status, "cross_product")
-    CROSS_PRODUCT_KERNEL.launches += 1
+    for table_args in common.gather_chunks(spec, "cross_product"):
+        status = lib.presto_cross_product(
+            ctypes.c_int64(np_rows), ctypes.c_int64(probe.capacity),
+            ctypes.c_int64(nb), ctypes.c_int64(build.capacity),
+            *table_args, ctypes.c_void_p(live.data_ptr()),
+            ctypes.c_int64(out_cap), ctypes.c_void_p(cuda.stream_ptr(dev)))
+        cuda.check(lib, status, "cross_product")
+        CROSS_PRODUCT_KERNEL.launches += 1
     return Batch(cols, live)
 
 
@@ -263,6 +263,93 @@ class AssignUniqueIdOperatorFactory(OperatorFactory):
         return AssignUniqueIdOperator(
             OperatorContext(self.operator_id, self.name, driver_context),
             self.symbol, self.start, self.stride)
+
+
+class GroupIdOperator(Operator):
+    """GROUPING SETS replication (reference: GroupIdOperator.java):
+    each input batch is emitted once per grouping set with the key
+    columns not in that set masked NULL, plus a constant group-id
+    column and one constant column per grouping(...) call. Aggregation
+    arguments flow through unchanged; only the materialized key copies
+    are masked. Constant columns and masks are fills, no kernel."""
+
+    def __init__(self, ctx: OperatorContext,
+                 groupings: Sequence[Tuple[str, ...]],
+                 gid_symbol: str,
+                 grouping_outputs: Sequence[Tuple[str, Tuple[int, ...]]]):
+        super().__init__(ctx)
+        self.groupings = list(groupings)
+        self.gid_symbol = gid_symbol
+        self.grouping_outputs = list(grouping_outputs)
+        self._all_keys = set().union(*map(set, self.groupings)) \
+            if self.groupings else set()
+        # constant gid/grouping columns per batch capacity
+        self._consts: Dict[int, List[Dict[str, Column]]] = {}
+        self._pending: List[Batch] = []
+        self._finishing = False
+
+    def needs_input(self) -> bool:
+        return not self._pending and not self._finishing
+
+    def _const_cols(self, cap: int, dev: torch.device
+                    ) -> List[Dict[str, Column]]:
+        cached = self._consts.get(cap)
+        if cached is None:
+            true_mask = torch.ones(cap, dtype=torch.bool, device=dev)
+            cached = []
+            for g in range(len(self.groupings)):
+                cols = {self.gid_symbol: Column(
+                    torch.full((cap,), g, dtype=torch.int64, device=dev),
+                    true_mask, BIGINT, None)}
+                for sym, vals in self.grouping_outputs:
+                    cols[sym] = Column(
+                        torch.full((cap,), vals[g], dtype=torch.int64,
+                                   device=dev), true_mask, BIGINT, None)
+                cached.append(cols)
+            self._consts[cap] = cached
+        return cached
+
+    def add_input(self, batch: Batch) -> None:
+        self._count_in(batch)
+        cap = batch.capacity
+        consts = self._const_cols(cap, batch.device)
+        null_mask = torch.zeros(cap, dtype=torch.bool, device=batch.device)
+        for g, present in enumerate(self.groupings):
+            cols = dict(batch.columns)
+            for name in self._all_keys:
+                if name not in present:
+                    col = batch.columns[name]
+                    cols[name] = Column(col.data, null_mask, col.type,
+                                        col.dictionary)
+            cols.update(consts[g])
+            self._pending.append(Batch(cols, batch.row_valid))
+
+    def get_output(self) -> Optional[Batch]:
+        if not self._pending:
+            return None
+        return self._count_out(self._pending.pop(0))
+
+    def finish(self) -> None:
+        self._finishing = True
+
+    def is_finished(self) -> bool:
+        return self._finishing and not self._pending
+
+
+class GroupIdOperatorFactory(OperatorFactory):
+    def __init__(self, operator_id: int,
+                 groupings: Sequence[Tuple[str, ...]],
+                 gid_symbol: str,
+                 grouping_outputs: Sequence[Tuple[str, Tuple[int, ...]]]):
+        super().__init__(operator_id, "group_id")
+        self.groupings = groupings
+        self.gid_symbol = gid_symbol
+        self.grouping_outputs = grouping_outputs
+
+    def create(self, driver_context: DriverContext) -> Operator:
+        return GroupIdOperator(
+            OperatorContext(self.operator_id, self.name, driver_context),
+            self.groupings, self.gid_symbol, self.grouping_outputs)
 
 
 class EnforceSingleRowOperator(Operator):

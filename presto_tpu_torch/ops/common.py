@@ -155,6 +155,16 @@ def gather_table(spec: Sequence[Tuple[int, int, int, int, int, int]],
             ctypes.c_int32(len(spec)))
 
 
+def gather_chunks(spec: Sequence[Tuple[int, int, int, int, int, int]],
+                  what: str):
+    """`gather_table`'s arguments for each run of at most
+    GATHER_MAX_COLS output columns (one run when there are none): a
+    gathering kernel takes more columns over several launches."""
+    runs = [spec[lo:lo + GATHER_MAX_COLS]
+            for lo in range(0, len(spec), GATHER_MAX_COLS)] or [spec]
+    return [gather_table(run, what) for run in runs]
+
+
 def key_args(keys: Sequence[CVal], n: int, dev: torch.device,
              what: str):
     """Check key columns for a CUDA kernel that hashes them and build
@@ -196,6 +206,36 @@ def check_rows(t: torch.Tensor, n: int, dev: torch.device, dtypes,
 
 def _row_hash_cuda(keys: Sequence[CVal], row_valid: torch.Tensor,
                    nulls_invalid: bool):
+    """K3; more than MAX_KEYS keys are hashed MAX_KEYS at a time and
+    chained: row_hash is linear in its parts (h = h_a * 31^m + h_b, m
+    the keys of the later part, wrapping like the reference's uint64
+    arithmetic), and likewise row_hash2 with 37, so the chained result
+    equals the reference's bit for bit; the dead-row sentinels are
+    folded in at the end."""
+    if len(keys) <= MAX_KEYS:
+        return _row_hash_launch(keys, row_valid, nulls_invalid)
+    every = torch.ones_like(row_valid)
+    h = h2 = None
+    for lo in range(0, len(keys), MAX_KEYS):
+        part = keys[lo:lo + MAX_KEYS]
+        ph, ph2 = _row_hash_launch(part, every, False)
+        if h is None:
+            h, h2 = ph, ph2
+        else:
+            h = h * _s64(31 ** len(part)) + ph
+            h2 = h2 * _s64(37 ** len(part)) + ph2
+    live = row_valid
+    if nulls_invalid:
+        for _, m in keys:
+            live = live & m
+    h = torch.where(live, h, torch.full_like(h, H_INVALID))
+    if nulls_invalid:
+        h2 = torch.where(live, h2, torch.full_like(h2, H2_INVALID))
+    return h, h2
+
+
+def _row_hash_launch(keys: Sequence[CVal], row_valid: torch.Tensor,
+                     nulls_invalid: bool):
     from presto_tpu_torch.native import cuda
     dev = row_valid.device
     n = row_valid.shape[0]

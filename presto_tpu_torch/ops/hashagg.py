@@ -340,8 +340,65 @@ _KERNEL_DTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
 _KERNEL_OPS = {"sum": 0, "min": 1, "max": 2}
 
 
+#: most keys and state components one launch of K1, K6 or K8 takes
+#: (csrc/slot_reduce.cu MAX_KEYS, csrc/segment.cuh PRESTO_MAX_COMPS)
+KERNEL_MAX_KEYS = 8
+KERNEL_MAX_COMPS = 64
+
+
+def comp_chunks(n: int) -> List[Tuple[int, int]]:
+    """[lo, hi) runs of at most KERNEL_MAX_COMPS components (one run
+    when there are none): K1 and K6 take more over several launches."""
+    return [(lo, min(lo + KERNEL_MAX_COMPS, n))
+            for lo in range(0, n, KERNEL_MAX_COMPS)] or [(0, 0)]
+
+
+def agg_chunks(aggs: Sequence[AggFunction]) -> List[Tuple[int, int]]:
+    """[lo, hi) runs of whole aggregates whose state components fit one
+    launch of K8 (one run when there are none)."""
+    runs, lo, held = [], 0, 0
+    for i, agg in enumerate(aggs):
+        k = len(agg.reduces)
+        if held + k > KERNEL_MAX_COMPS and i > lo:
+            runs.append((lo, i))
+            lo, held = i, 0
+        held += k
+    runs.append((lo, len(aggs)))
+    return runs
+
+
+def fold_key_codes(key_codes: Sequence[CVal], domains: Tuple[int, ...]
+                   ) -> Tuple[List[CVal], Tuple[int, ...]]:
+    """At most KERNEL_MAX_KEYS (code, mask) keys for K1: the leading
+    keys beyond that fold into one always-present code, their
+    mixed-radix slot id (NULL = domain), whose domain is the product of
+    theirs. K1 then computes the same slot ids as `slot_ids`."""
+    if len(key_codes) <= KERNEL_MAX_KEYS:
+        return list(key_codes), tuple(domains)
+    m = len(key_codes) - KERNEL_MAX_KEYS + 1
+    gid = None
+    dom = 1
+    for (code, mask), d in zip(key_codes[:m], domains[:m]):
+        c = torch.where(mask, code.to(torch.int64),
+                        torch.full_like(code, d, dtype=torch.int64))
+        gid = c if gid is None else gid * (d + 1) + c
+        dom *= d + 1
+    lead = (gid.to(torch.int32), torch.ones_like(key_codes[0][1]))
+    return [lead] + list(key_codes[m:]), (dom - 1,) + tuple(domains[m:])
+
+
 def _slot_reduce_cuda(row_valid, key_codes, domains, comps,
                       present) -> None:
+    """K1 over any number of keys and components: see fold_key_codes
+    and comp_chunks (every launch marks the same present slots)."""
+    key_codes, domains = fold_key_codes(key_codes, domains)
+    for lo, hi in comp_chunks(len(comps)):
+        _slot_reduce_launch(row_valid, key_codes, domains, comps[lo:hi],
+                            present)
+
+
+def _slot_reduce_launch(row_valid, key_codes, domains, comps,
+                        present) -> None:
     """Launch csrc/slot_reduce.cu. Takes contiguous 1-D tensors on
     one device: int32 key codes, bool key masks and row_valid, and
     per component a contribution of the state's dtype (int32, int64,
@@ -361,9 +418,10 @@ def _slot_reduce_cuda(row_valid, key_codes, domains, comps,
                 f"stride {t.stride()} on {t.device}")
     need(row_valid, n, (torch.bool,), "row_valid")
     need(present, num_slots, (torch.bool,), "present")
-    if len(key_codes) > 8 or len(comps) > 64:
-        raise ValueError("direct_slot_reduce: at most 8 keys and 64 "
-                         "state components")
+    if len(key_codes) > KERNEL_MAX_KEYS or len(comps) > KERNEL_MAX_COMPS:
+        raise ValueError(f"direct_slot_reduce: at most {KERNEL_MAX_KEYS} "
+                         f"keys and {KERNEL_MAX_COMPS} state components "
+                         "per launch")
     for code, mask in key_codes:
         need(code, n, (torch.int32,), "key codes")
         need(mask, n, (torch.bool,), "key mask")
@@ -567,6 +625,17 @@ SEGMENT_REDUCE_KERNEL = _tk.LaunchCounter("segment_reduce", "agg_step")
 
 
 def _segment_reduce_cuda(h1, h2, keys, valid, comps, out_cap):
+    """K6 over any number of components (comp_chunks): every launch
+    finds the same groups, first rows and count."""
+    reduced = []
+    for lo, hi in comp_chunks(len(comps)):
+        outs, first_row, groups, overflow = _segment_reduce_launch(
+            h1, h2, keys, valid, comps[lo:hi], out_cap)
+        reduced.extend(outs)
+    return reduced, first_row, groups, overflow
+
+
+def _segment_reduce_launch(h1, h2, keys, valid, comps, out_cap):
     from presto_tpu_torch.native import cuda
     dev = valid.device
     n = valid.shape[0]
@@ -575,9 +644,10 @@ def _segment_reduce_cuda(h1, h2, keys, valid, comps, out_cap):
     common.check_rows(h1, n, dev, (torch.int64,), "segment_reduce: h1")
     common.check_rows(h2, n, dev, (torch.int64,), "segment_reduce: h2")
     kd, km, kt, nk = common.key_args(keys, n, dev, "segment_reduce")
-    if len(comps) > 64 or n < 1 or out_cap < 1:
-        raise ValueError("segment_reduce: at most 64 components, at "
-                         "least one row and one output slot")
+    if len(comps) > KERNEL_MAX_COMPS or n < 1 or out_cap < 1:
+        raise ValueError(f"segment_reduce: at most {KERNEL_MAX_COMPS} "
+                         "components per launch, at least one row and "
+                         "one output slot")
     for c, r in comps:
         common.check_rows(c, n, dev, tuple(_KERNEL_DTYPES),
                           "segment_reduce: contribution")
@@ -885,6 +955,32 @@ STREAM_REDUCE_KERNEL = _tk.LaunchCounter("stream_reduce", "agg_stream")
 
 def _stream_reduce_cuda(row_valid, key_cols, contribs, aggs, out_cap,
                         carry: Optional[GroupByState]):
+    """K8 over any number of state components: whole aggregates in
+    runs that fit one launch (agg_chunks); every launch finds the same
+    groups, first rows, carry keys and counts, so only the states are
+    gathered from each."""
+    runs = agg_chunks(aggs)
+    if len(runs) == 1:
+        return _stream_reduce_launch(row_valid, key_cols, contribs, aggs,
+                                     out_cap, carry)
+    parts = [_stream_reduce_launch(
+        row_valid, key_cols, contribs[lo:hi], aggs[lo:hi], out_cap,
+        None if carry is None
+        else dataclasses.replace(carry, states=carry.states[lo:hi]))
+        for lo, hi in runs]
+    if carry is None:
+        return dataclasses.replace(
+            parts[0], states=[st for p in parts for st in p.states])
+    carry_emit, emit, carry_out, count = parts[0]
+    return (dataclasses.replace(carry_emit, states=carry.states),
+            dataclasses.replace(emit, states=[
+                st for p in parts for st in p[1].states]),
+            dataclasses.replace(carry_out, states=[
+                st for p in parts for st in p[2].states]), count)
+
+
+def _stream_reduce_launch(row_valid, key_cols, contribs, aggs, out_cap,
+                          carry: Optional[GroupByState]):
     from presto_tpu_torch.native import cuda
     dev = row_valid.device
     n = row_valid.shape[0]
@@ -894,9 +990,10 @@ def _stream_reduce_cuda(row_valid, key_cols, contribs, aggs, out_cap,
     kd, km, kt, nk = common.key_args(key_cols, n, dev, "stream_reduce")
     comps = [(arr.contiguous(), r) for st, agg in zip(contribs, aggs)
              for arr, r in zip(st, agg.reduces)]
-    if len(comps) > 64 or out_cap < 1:
-        raise ValueError("stream_reduce: at most 64 components and at "
-                         "least one output slot")
+    if len(comps) > KERNEL_MAX_COMPS or out_cap < 1:
+        raise ValueError(f"stream_reduce: at most {KERNEL_MAX_COMPS} "
+                         "components per launch and at least one output "
+                         "slot")
     for c, r in comps:
         common.check_rows(c, n, dev, tuple(_KERNEL_DTYPES),
                           "stream_reduce: contribution")

@@ -591,29 +591,33 @@ def _expand_cuda(table, probe, key_names, lo_enc, out_capacity, join_type,
             spec.append((cd.data_ptr(), cm.data_ptr(),
                          0 if aligned and side == 0 else data.data_ptr(),
                          mask.data_ptr(), cd.element_size(), side))
-    table_args = common.gather_table(spec, "join_expand")
     live = torch.empty(cap, dtype=torch.bool, device=dev)
-    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    stats = torch.empty(3, dtype=torch.int64, device=dev)
     lib = cuda.library("join_expand")
     tiles = None if aligned else torch.empty(
         (n + lib.presto_expand_tile() - 1) // lib.presto_expand_tile(),
         dtype=torch.int64, device=dev)
-    status = lib.presto_join_expand(
-        ctypes.c_int32(int(aligned)), ctypes.c_void_p(lo_enc.data_ptr()),
-        ctypes.c_void_p(probe.row_valid.data_ptr()), ctypes.c_int64(n),
-        ctypes.c_void_p(table.run_len.data_ptr()),
-        ctypes.c_void_p(table.hash2.data_ptr()),
-        ctypes.c_void_p(None if h2 is None else h2.data_ptr()),
-        ctypes.c_int64(nb),
-        ctypes.c_int32(int(join_type in ("left", "full"))),
-        ctypes.c_int32(int(full)), pk[0], pk[1], pk[2], bk[0], bk[1],
-        bk[2], pk[3], *table_args, ctypes.c_void_p(live.data_ptr()),
-        ctypes.c_int64(cap), ctypes.c_void_p(stats.data_ptr()),
-        ctypes.c_void_p(None if tiles is None else tiles.data_ptr()),
-        ctypes.c_void_p(None if matched is None else matched.data_ptr()),
-        ctypes.c_void_p(cuda.stream_ptr(dev)))
-    cuda.check(lib, status, "join_expand")
-    JOIN_EXPAND_KERNEL.launches += 1
+    # more than GATHER_MAX_COLS output columns take several launches;
+    # each recomputes the same slots, liveness, stats and matched flags
+    for table_args in common.gather_chunks(spec, "join_expand"):
+        stats.zero_()
+        status = lib.presto_join_expand(
+            ctypes.c_int32(int(aligned)), ctypes.c_void_p(lo_enc.data_ptr()),
+            ctypes.c_void_p(probe.row_valid.data_ptr()), ctypes.c_int64(n),
+            ctypes.c_void_p(table.run_len.data_ptr()),
+            ctypes.c_void_p(table.hash2.data_ptr()),
+            ctypes.c_void_p(None if h2 is None else h2.data_ptr()),
+            ctypes.c_int64(nb),
+            ctypes.c_int32(int(join_type in ("left", "full"))),
+            ctypes.c_int32(int(full)), pk[0], pk[1], pk[2], bk[0], bk[1],
+            bk[2], pk[3], *table_args, ctypes.c_void_p(live.data_ptr()),
+            ctypes.c_int64(cap), ctypes.c_void_p(stats.data_ptr()),
+            ctypes.c_void_p(None if tiles is None else tiles.data_ptr()),
+            ctypes.c_void_p(None if matched is None
+                            else matched.data_ptr()),
+            ctypes.c_void_p(cuda.stream_ptr(dev)))
+        cuda.check(lib, status, "join_expand")
+        JOIN_EXPAND_KERNEL.launches += 1
     if aligned:
         return Batch(cols, live), torch.zeros((), dtype=torch.bool,
                                               device=dev), stats[0]
@@ -790,18 +794,19 @@ def _unmatched_build_cuda(table: BuildTable, matched: torch.Tensor,
         mask = torch.empty(n, dtype=torch.bool, device=dev)
         cols[name] = Column(c.data, mask, c.type, c.dictionary)
         spec.append((0, c.mask.data_ptr(), 0, mask.data_ptr(), 8, 1))
-    table_args = common.gather_table(spec, "join_outer")
     live = torch.empty(n, dtype=torch.bool, device=dev)
-    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    count = torch.empty(1, dtype=torch.int64, device=dev)
     lib = cuda.library("join_outer")
-    status = lib.presto_join_outer(
-        ctypes.c_void_p(build.row_valid.data_ptr()),
-        ctypes.c_void_p(matched.data_ptr()), ctypes.c_int64(n),
-        *table_args, ctypes.c_void_p(live.data_ptr()),
-        ctypes.c_void_p(count.data_ptr()),
-        ctypes.c_void_p(cuda.stream_ptr(dev)))
-    cuda.check(lib, status, "join_outer")
-    JOIN_OUTER_KERNEL.launches += 1
+    for table_args in common.gather_chunks(spec, "join_outer"):
+        count.zero_()
+        status = lib.presto_join_outer(
+            ctypes.c_void_p(build.row_valid.data_ptr()),
+            ctypes.c_void_p(matched.data_ptr()), ctypes.c_int64(n),
+            *table_args, ctypes.c_void_p(live.data_ptr()),
+            ctypes.c_void_p(count.data_ptr()),
+            ctypes.c_void_p(cuda.stream_ptr(dev)))
+        cuda.check(lib, status, "join_outer")
+        JOIN_OUTER_KERNEL.launches += 1
     return Batch(cols, live), count[0]
 
 

@@ -839,9 +839,202 @@ def _plan_windows(calls: List[T.FunctionCall], rp: RelationPlan,
     """Plan one WindowNode per distinct OVER() spec, chained; returns
     the new relation plan plus rewrites mapping each call's AST to its
     output symbol (consumed by the SELECT/ORDER BY analyzers)."""
-    # the window kernels (ops/window.py) are not ported yet
-    raise AnalysisError("window functions: later slice of the port "
-                        "(ROADMAP B11)")
+    from presto_tpu_torch.ops import window as wk
+
+    groups: Dict[tuple, List[T.FunctionCall]] = {}
+    for c in calls:
+        groups.setdefault(_ast_key(c.window), []).append(c)
+
+    node = rp.node
+    scope_fields = list(rp.scope.fields)
+    out_rewrites: Dict[tuple, Tuple[str, Type, Optional[tuple]]] = {}
+
+    for group in groups.values():
+        w = group[0].window
+        an = _Analyzer(Scope(scope_fields, rp.scope.parent), ctx,
+                       rewrites)
+        assignments = [(f.symbol, InputRef(f.symbol, f.type))
+                       for f in scope_fields]
+        proj_fields = [N.Field(f.symbol, f.type, f.dictionary)
+                       for f in scope_fields]
+        added: Dict[tuple, str] = {}
+
+        def to_symbol(ast: T.Node, hint: str) -> str:
+            e = fold_constants(an.analyze(ast))
+            if isinstance(e, InputRef):
+                return e.name
+            key = _ast_key(ast)
+            if key in added:
+                return added[key]
+            sym = ctx.symbols.new(hint)
+            assignments.append((sym, e))
+            proj_fields.append(N.Field(sym, e.type,
+                                       an.dictionary_of(e)))
+            added[key] = sym
+            return sym
+
+        part_syms = [to_symbol(p, "wpart") for p in w.partition_by]
+        order_syms, desc, nf = [], [], []
+        for item in w.order_by:
+            order_syms.append(to_symbol(item.expr, "worder"))
+            d = item.descending
+            desc.append(d)
+            nf.append(item.nulls_first if item.nulls_first is not None
+                      else d)
+        fmode, fstart, fend = _window_frame(w)
+
+        def field_of(sym: str) -> N.Field:
+            # proj_fields grows as to_symbol projects helper columns —
+            # resolve at call time, not from a snapshot
+            return next(f for f in proj_fields if f.symbol == sym)
+
+        if fmode == "range" and (isinstance(fstart, (int, float))
+                                 or isinstance(fend, (int, float))):
+            # value-based RANGE offsets: SQL requires exactly one
+            # numeric/date order key
+            if len(order_syms) != 1:
+                raise AnalysisError(
+                    "RANGE with an offset requires exactly one ORDER "
+                    "BY key")
+            okt = field_of(order_syms[0])
+            if okt.dictionary is not None or okt.type.is_string:
+                raise AnalysisError(
+                    "RANGE offsets require a numeric or date ORDER BY "
+                    "key")
+
+        def const_arg(ast, what: str):
+            e = fold_constants(an.analyze(ast))
+            if not isinstance(e, Literal):
+                raise AnalysisError(f"{what} must be a constant")
+            return e.value
+
+        wcalls: List[N.WindowCall] = []
+        call_fields: List[N.Field] = []
+        for c in group:
+            name = c.name
+            if c.distinct:
+                raise AnalysisError(
+                    f"DISTINCT is not supported in window {name}")
+            if name not in WINDOW_FUNCTIONS and \
+                    name not in AGG_FUNCTIONS:
+                raise AnalysisError(f"unknown window function {name}")
+            offset = 1
+            arg_sym = None
+            filter_sym = None
+            default = None
+            is_agg = name in ("sum", "avg", "count", "min", "max")
+            if c.filter is not None:
+                if not is_agg:
+                    raise AnalysisError(
+                        "FILTER is only supported on aggregate window "
+                        "functions")
+                filter_sym = to_symbol(c.filter, "wfilter")
+            if name in ("rank", "dense_rank", "row_number",
+                        "percent_rank", "cume_dist"):
+                if c.args:
+                    raise AnalysisError(f"{name}() takes no arguments")
+                out_type: Type = DOUBLE \
+                    if name in ("percent_rank", "cume_dist") else BIGINT
+                if name != "row_number" and not w.order_by:
+                    raise AnalysisError(f"{name} requires ORDER BY")
+            elif name == "ntile":
+                if len(c.args) != 1:
+                    raise AnalysisError("ntile(n) takes one argument")
+                n_val = const_arg(c.args[0], "ntile bucket count")
+                if not isinstance(n_val, int) or n_val <= 0:
+                    raise AnalysisError(
+                        "ntile bucket count must be a positive integer")
+                offset = n_val
+                out_type = BIGINT
+            elif name in ("lag", "lead", "first_value", "last_value",
+                          "nth_value"):
+                if not c.args:
+                    raise AnalysisError(f"{name} requires an argument")
+                if not w.order_by:
+                    raise AnalysisError(f"{name} requires ORDER BY")
+                arg_sym = to_symbol(c.args[0], name)
+                if name == "nth_value":
+                    if len(c.args) != 2:
+                        raise AnalysisError(
+                            "nth_value(x, n) takes two arguments")
+                    n_val = const_arg(c.args[1], "nth_value position")
+                    if not isinstance(n_val, int) or n_val <= 0:
+                        raise AnalysisError(
+                            "nth_value position must be a positive "
+                            "integer")
+                    offset = n_val
+                if name in ("lag", "lead") and len(c.args) > 1:
+                    offset = const_arg(c.args[1], f"{name} offset")
+                    if not isinstance(offset, int):
+                        raise AnalysisError(
+                            f"{name} offset must be an integer")
+                if name in ("lag", "lead") and len(c.args) > 2:
+                    default = const_arg(c.args[2],
+                                        f"{name} default value")
+                    af = field_of(arg_sym)
+                    if default is not None:
+                        if af.dictionary is not None:
+                            if not isinstance(default, str):
+                                raise AnalysisError(
+                                    f"{name} default must be a string "
+                                    "for a varchar argument")
+                        elif isinstance(default, str):
+                            raise AnalysisError(
+                                f"{name} default type does not match "
+                                "the argument")
+                        elif isinstance(default, float) \
+                                and af.type.np_dtype.kind in "iu":
+                            if default != int(default):
+                                raise AnalysisError(
+                                    f"{name} default must be integral "
+                                    "for an integer argument")
+                            default = int(default)
+                out_type = field_of(arg_sym).type
+            else:  # aggregate OVER
+                if not is_agg:
+                    raise AnalysisError(
+                        f"{name} is not supported as a window function")
+                if c.is_star or not c.args:
+                    arg_type = None
+                    if name != "count":
+                        raise AnalysisError(f"{name} requires an "
+                                            "argument")
+                else:
+                    a_ast = c.args[0]
+                    e = fold_constants(an.analyze(a_ast))
+                    if name == "avg" and e.type.is_decimal:
+                        a_ast = T.Cast(a_ast, "double")
+                    arg_sym = to_symbol(a_ast, name)
+                    arg_type = field_of(arg_sym).type
+                out_type = _agg_output_type(name, arg_type)
+            sym = ctx.symbols.new(name)
+            dic = field_of(arg_sym).dictionary \
+                if arg_sym and out_type.is_string else None
+            if isinstance(default, str) and dic is not None \
+                    and default not in dic:
+                # the output dictionary grows to hold the default;
+                # input codes stay valid under suffix extension
+                dic = tuple(dic) + (default,)
+            wcalls.append(N.WindowCall(
+                sym, name, arg_sym, fmode, out_type, offset,
+                frame_start=fstart, frame_end=fend, filter=filter_sym,
+                default=default))
+            call_fields.append(N.Field(sym, out_type, dic))
+            out_rewrites[_ast_key(c)] = (sym, out_type, dic)
+
+        node = N.ProjectNode(node, assignments, tuple(proj_fields))
+        node = N.WindowNode(node, part_syms, order_syms, desc, nf,
+                            wcalls, tuple(proj_fields)
+                            + tuple(call_fields))
+        # call outputs join the scope (resolved only through rewrites);
+        # projected helper symbols stay hidden but remain addressable
+        # through the WindowNode's output until pruned
+        scope_fields = scope_fields + [
+            ScopeField(None, f.symbol, f.symbol, f.type, f.dictionary)
+            for f in call_fields]
+
+    return RelationPlan(node, Scope(scope_fields, rp.scope.parent)), \
+        out_rewrites
 
 
 def _resolve_group_item(g, select_items, rp: RelationPlan):

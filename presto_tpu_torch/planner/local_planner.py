@@ -5,10 +5,11 @@ sql/planner/LocalExecutionPlanner.java:549).
 The port plans TableScan, Values, Filter, Project, Aggregation
 (direct slot-table, streaming and sort-based paths), inner/left/right/
 full hash Join (a right join becomes a flipped left join), the cross
-join (nested loop), SemiJoin (IN, EXISTS, NOT IN), Sort, TopN, Limit,
-Distinct, Union (through a local queue), EnforceSingleRow,
-AssignUniqueId and Output. A join spawns a build pipeline that runs
-before the pipeline holding its probe, as in the reference; inner joins
+join (nested loop), SemiJoin (IN, EXISTS, NOT IN), Window,
+TopNRowNumber (a window plus a `rank <= N` filter), GroupId (grouping
+sets), Sort, TopN, Limit, Distinct, Union (through a local queue),
+EnforceSingleRow, AssignUniqueId and Output. A join spawns a build
+pipeline that runs before the pipeline holding its probe, as in the reference; inner joins
 and IN/EXISTS semi joins also wire dynamic filters from the build keys
 to probe-side scans. A subtree with several plan parents is planned
 once into a spool that each parent replays, and no dynamic filter
@@ -73,11 +74,8 @@ class LocalPlanningError(Exception):
 
 #: plan nodes of later slices -> the ROADMAP item that ports them
 _LATER = {
-    "WindowNode": "A8 (windows)",
-    "TopNRowNumberNode": "A8 (windows)",
-    "MergeNode": "A8 (merge)",
+    "MergeNode": "A12 (merge, made by the exchange planner)",
     "UnnestNode": "A8 (misc operators)",
-    "GroupIdNode": "A8 (misc operators)",
     "TableWriterNode": "A9 (storage)",
     "TableFinishNode": "A9 (storage)",
     "RemoteSourceNode": "A12 (distributed path)",
@@ -592,6 +590,68 @@ class LocalExecutionPlanner:
         pipe.append(SemiJoinOperatorFactory(
             self._next_id(), bridge, [node.source_key], node.negate,
             build_keys=[node.filtering_key], key_dicts=key_dicts))
+
+    def _visit_TopNRowNumberNode(self, node: N.TopNRowNumberNode,
+                                 pipe: List):
+        """Window (single rank call) + a `rank <= N` FilterProject."""
+        from presto_tpu_torch.expr.ir import Call, Literal
+        from presto_tpu_torch.operators.window_ops import (
+            WindowOperatorFactory,
+        )
+        from presto_tpu_torch.ops.window import WindowCallSpec
+        from presto_tpu_torch.types import BIGINT, BOOLEAN
+        self._visit(node.source, pipe)
+        pipe.append(WindowOperatorFactory(
+            self._next_id(), node.partition_by, node.order_by,
+            node.descending, node.nulls_first,
+            [WindowCallSpec(node.row_number_symbol, node.function,
+                            None, "FULL", BIGINT, None, 1)]))
+        schema = {f.symbol: ColumnSchema(f.symbol, f.type, f.dictionary)
+                  for f in node.source.output}
+        schema[node.row_number_symbol] = ColumnSchema(
+            node.row_number_symbol, BIGINT, None)
+        pred = self._compile(
+            Call("less_than_or_equal",
+                 (InputRef(node.row_number_symbol, BIGINT),
+                  Literal(node.max_rank, BIGINT)), BOOLEAN), schema)
+        projections = [
+            (f.symbol, self._compile(InputRef(f.symbol, f.type), schema))
+            for f in node.output]
+        pipe.append(FilterProjectOperatorFactory(
+            self._next_id(), pred, projections, _schema_dicts(schema)))
+
+    def _visit_WindowNode(self, node: N.WindowNode, pipe: List):
+        from presto_tpu_torch.operators.window_ops import (
+            WindowOperatorFactory,
+        )
+        from presto_tpu_torch.ops.window import WindowCallSpec
+        self._visit(node.source, pipe)
+        out_fields = {f.symbol: f for f in node.output}
+        calls = []
+        for c in node.calls:
+            out_dict = None
+            default = c.default
+            if c.argument is not None and c.output_type is not None \
+                    and c.output_type.is_string:
+                # the call's OUTPUT field carries the (possibly
+                # default-extended) dictionary the analyzer chose
+                out_dict = out_fields[c.out_symbol].dictionary
+                if isinstance(default, str) and out_dict is not None:
+                    default = out_dict.index(default)
+            calls.append(WindowCallSpec(
+                c.out_symbol, c.function, c.argument, c.frame,
+                c.output_type, out_dict, c.offset,
+                fstart=c.frame_start, fend=c.frame_end,
+                filter_arg=c.filter, default=default))
+        pipe.append(WindowOperatorFactory(
+            self._next_id(), node.partition_by, node.order_by,
+            node.descending, node.nulls_first, calls))
+
+    def _visit_GroupIdNode(self, node: N.GroupIdNode, pipe: List):
+        self._visit(node.source, pipe)
+        pipe.append(misc_ops.GroupIdOperatorFactory(
+            self._next_id(), node.groupings, node.gid_symbol,
+            node.grouping_outputs))
 
     def _visit_SortNode(self, node: N.SortNode, pipe: List):
         self._visit(node.source, pipe)

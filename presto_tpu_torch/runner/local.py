@@ -130,10 +130,12 @@ class LocalRunner:
     def __init__(self, catalog: str = "tpch", schema: str = "tiny",
                  properties: Optional[Dict[str, Any]] = None,
                  device: Union[None, str, torch.device] = None):
+        from presto_tpu_torch.connectors.tpcds import TpcdsConnector
         from presto_tpu_torch.connectors.tpch import TpchConnector
         self.device = resolve_device(device)
         self.catalogs = CatalogManager()
         self.catalogs.register("tpch", TpchConnector())
+        self.catalogs.register("tpcds", TpcdsConnector())
         self.session = Session(catalog, schema, dict(properties or {}))
 
     def execute(self, sql: str) -> MaterializedResult:

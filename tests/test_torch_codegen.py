@@ -177,26 +177,27 @@ def test_tpch_kernels_match_composed_through_standin(runner, qn,
                              body.plain(batch))
 
 
-def _exp_of_real():
-    """exp over a REAL column: float32's libdevice functions flush
-    denormals in Triton, so it has no lowering."""
+def _round_by_column():
+    """round(x, d) with the digits in a column: its closure scales by
+    a per-row power of ten, which has no lowering."""
     from presto_tpu_torch.expr import ir
     from presto_tpu_torch.expr.compile import compile_expression
     from presto_tpu_torch.schema import ColumnSchema
-    from presto_tpu_torch.types import DOUBLE, REAL
-    schema = {"r": ColumnSchema("r", REAL), "x": ColumnSchema("x", DOUBLE)}
+    from presto_tpu_torch.types import BIGINT, DOUBLE
+    schema = {"d": ColumnSchema("d", BIGINT), "x": ColumnSchema("x", DOUBLE)}
     return schema, compile_expression(
-        ir.call("exp", DOUBLE, ir.ref("r", REAL)), schema)
+        ir.call("round", DOUBLE, ir.ref("x", DOUBLE), ir.ref("d", BIGINT)),
+        schema)
 
 
 def test_unlowered_function_is_named():
     from presto_tpu_torch.expr import ir
     from presto_tpu_torch.expr.compile import compile_expression
     from presto_tpu_torch.types import DOUBLE
-    schema, ce = _exp_of_real()
-    assert ce.lowering is None and ce.not_lowered == "exp"
+    schema, ce = _round_by_column()
+    assert ce.lowering is None and ce.not_lowered == "round"
     ok = compile_expression(
-        ir.call("exp", DOUBLE, ir.ref("x", DOUBLE)), schema)
+        ir.call("round", DOUBLE, ir.ref("x", DOUBLE)), schema)
     assert ok.lowering is not None
 
 
@@ -215,25 +216,32 @@ class _CudaBatch:
         return torch.device("cuda")
 
 
-def test_chain_with_unlowered_function_raises_on_the_card():
+def test_chain_with_unlowered_function_raises_on_the_card(monkeypatch):
     """A chain holding an unlowered function runs composed on the CPU;
     on a CUDA batch K12's wrapper raises, naming the function, and the
-    composed form does not run."""
+    composed form does not run. (exp is made unlowerable here by
+    computing it through erf, which has no lowering: every scalar
+    function the compiler knows now lowers.)"""
     from presto_tpu_torch.batch import Batch, Column
+    from presto_tpu_torch.expr import compile as C
+    from presto_tpu_torch.expr import ir
     from presto_tpu_torch.operators.fused_fragment import (
         ChainStage, make_chain_body,
     )
-    from presto_tpu_torch.types import REAL
-    _, ce = _exp_of_real()
+    from presto_tpu_torch.schema import ColumnSchema
+    from presto_tpu_torch.types import DOUBLE
+    monkeypatch.setitem(C._MATH_FNS, "exp", torch.special.erf)
+    ce = C.compile_expression(ir.call("exp", DOUBLE, ir.ref("x", DOUBLE)),
+                              {"x": ColumnSchema("x", DOUBLE)})
     body = make_chain_body([ChainStage(None, (("o", ce),), None)])
     assert body.not_lowered == "exp"
     n = 8
-    batch = Batch({"r": Column(torch.arange(n, dtype=torch.float32),
-                               torch.ones(n, dtype=torch.bool), REAL)},
+    batch = Batch({"x": Column(torch.arange(n, dtype=torch.float64) / 7,
+                               torch.ones(n, dtype=torch.bool), DOUBLE)},
                   torch.ones(n, dtype=torch.bool))
     out = body(batch)
     assert torch.equal(out.columns["o"].data,
-                       torch.exp(batch.columns["r"].data).double())
+                       torch.special.erf(batch.columns["x"].data))
     with pytest.raises(codegen.FragmentError, match="exp"):
         body(_CudaBatch(batch))
     with pytest.raises(codegen.FragmentError, match="exp"):

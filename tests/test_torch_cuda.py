@@ -750,3 +750,458 @@ def test_k12_every_function_matches_composed(hopper, label):
     got = body.kernel(batch)
     torch.cuda.synchronize()
     assert_batches_equal(got, body.plain(batch))
+
+
+# -- repairs: NaN in min / max (K1, K6, K8), width caps, REAL math -------
+#
+# Tolerances: min / max exactly (NaN equal to NaN); the splits past one
+# launch's cap as the tests above (integers exactly, float64 sums to a
+# relative 1e-9); REAL math to a relative 2**-20 (~8 float32 ulp), since
+# K12 computes the float64 function and rounds once while PyTorch's
+# float32 CUDA kernels call the float32 functions; the test also counts
+# how many values agree bit for bit.
+
+
+def _nan_data(rng, n, groups):
+    ids = np.sort(rng.integers(0, groups, n))
+    vals = rng.normal(0, 100, n)
+    vals[rng.random(n) < 0.001] = np.nan
+    vals[np.isin(ids, [3, 4])] = np.nan       # whole NaN groups
+    return ids, vals
+
+
+def _same_or_nan(a, b):
+    a, b = a.cpu(), b.cpu()
+    assert torch.equal(torch.isnan(a), torch.isnan(b))
+    assert torch.equal(a[~torch.isnan(a)], b[~torch.isnan(b)])
+
+
+@pytest.mark.parametrize("fn", ["min", "max"])
+def test_nan_wins_in_k1_k6_k8(hopper, fn):
+    rng = np.random.default_rng(61)
+    n, groups = 1 << 18, 200
+    ids, vals = _nan_data(rng, n, groups)
+    agg = th.make_min(tt.DOUBLE) if fn == "min" else th.make_max(tt.DOUBLE)
+    res = {}
+    for dev in (torch.device("cpu"), hopper):
+        rv = torch.ones(n, dtype=torch.bool, device=dev)
+        x = torch.from_numpy(vals).to(dev)
+        # K1: one dictionary-coded key of `groups` codes
+        st = th.direct_init([agg], groups + 1, dev)
+        th.direct_step(st, rv, [(torch.from_numpy(ids.astype(np.int32))
+                                 .to(dev), rv)], (groups,), [x], [rv],
+                       [agg])
+        k1 = st.states[0][0][:groups]
+        # K8: rows already sorted by the key
+        keys = [(torch.from_numpy(ids).to(dev), rv)]
+        k8 = th.presorted_reduce(rv, keys, [agg.init(x, rv)], [agg],
+                                 1 << 10).states[0][0][:groups]
+        # K6: hash-sorted grouping, back to key order
+        gst = th._group_reduce(keys, rv, [agg.init(x, rv)], [agg], 1 << 10)
+        order = torch.argsort(gst.keys[0][0][:groups])
+        k6 = gst.states[0][0][:groups][order]
+        res[dev.type] = (k1, k8, k6)
+    torch.cuda.synchronize()
+    for got, want in zip(res["cuda"], res["cpu"]):
+        _same_or_nan(got, want)
+        assert bool(torch.isnan(want[3])) and bool(torch.isnan(want[4]))
+
+
+def test_k1_past_its_key_and_component_caps(hopper):
+    """9 keys (the leading two folded into one code) and 65 components
+    (two launches) against the plain version over all of them."""
+    rng = np.random.default_rng(62)
+    n = 1 << 18
+    domains = (2, 1, 3, 1, 2, 1, 1, 2, 1)
+    slots = int(np.prod([d + 1 for d in domains]))
+    keys_np = [(rng.integers(0, d, n).astype(np.int32), rng.random(n) < 0.9)
+               for d in domains]
+    rv_np = rng.random(n) < 0.9
+    ops = (["sum", "min", "max"] * 22)[:65]
+    xs = [rng.normal(0, 10, n) for _ in ops]
+    out = {}
+    for dev in (torch.device("cpu"), hopper):
+        def t(a):
+            return torch.from_numpy(np.array(a)).to(dev)
+        states = [torch.full((slots,), th._ident_for(o, torch.float64),
+                             dtype=torch.float64, device=dev) for o in ops]
+        present = torch.zeros(slots, dtype=torch.bool, device=dev)
+        before = th.SLOT_REDUCE_KERNEL.launches
+        th.direct_slot_reduce(t(rv_np), [(t(c), t(m)) for c, m in keys_np],
+                              domains, [(t(x), s, o) for x, s, o in
+                                        zip(xs, states, ops)], present)
+        if dev.type == "cuda":
+            assert th.SLOT_REDUCE_KERNEL.launches == before + 2
+        out[dev.type] = (states, present)
+    torch.cuda.synchronize()
+    assert torch.equal(out["cuda"][1].cpu(), out["cpu"][1])
+    for g, w, o in zip(out["cuda"][0], out["cpu"][0], ops):
+        if o == "sum":
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-9, atol=1e-9)
+        else:
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("nulls_invalid", [True, False])
+def test_k3_past_its_key_cap(hopper, nulls_invalid):
+    rng = np.random.default_rng(63)
+    n = 1 << 18
+    keys = _key_columns(rng, n, hopper, 5) + _key_columns(rng, n, hopper, 4)
+    rv = torch.from_numpy(rng.random(n) < 0.9).to(hopper)
+    before = tc.ROW_HASH_KERNEL.launches
+    got = tc.row_hash_pair(keys, rv, nulls_invalid)
+    assert tc.ROW_HASH_KERNEL.launches == before + 2
+    want = tc.row_hash_pair_plain(keys, rv, nulls_invalid)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_k6_past_its_component_cap(hopper):
+    rng = np.random.default_rng(64)
+    n = 1 << 18
+    keys = [(torch.from_numpy(rng.integers(0, 5000, n)).to(hopper),
+             torch.ones(n, dtype=torch.bool, device=hopper))]
+    valid = torch.from_numpy(rng.random(n) < 0.9).to(hopper)
+    h1, h2 = tc.row_hash_pair(keys, valid, False)
+    perm = tc.lex_perm([h1, h2])
+    sk = [(d[perm], m[perm]) for d, m in keys]
+    comps = [(torch.from_numpy(rng.integers(-99, 99, n)).to(hopper)[perm],
+              ["sum", "min", "max"][j % 3]) for j in range(65)]
+    args = (h1[perm], h2[perm], sk, valid[perm], comps, 1 << 13)
+    before = th.SEGMENT_REDUCE_KERNEL.launches
+    got = th.segment_reduce(*args)
+    assert th.SEGMENT_REDUCE_KERNEL.launches == before + 2
+    want = th.segment_reduce_plain(*args)
+    torch.cuda.synchronize()
+    assert int(got[2]) == int(want[2])
+    live = torch.arange(1 << 13, device=hopper) < want[2]
+    assert torch.equal(got[1][live], want[1][live])
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(g[live], w[live])
+
+
+def test_k8_past_its_component_cap(hopper):
+    rng = np.random.default_rng(65)
+    rv, keys, _, _ = _stream_batch(rng, 1 << 18, hopper, "random", 2)
+    aggs = [th.make_min(tt.BIGINT), th.make_max(tt.BIGINT),
+            th.make_sum(tt.BIGINT, tt.BIGINT)] * 11          # 66 components
+    contribs = [a.init(torch.from_numpy(rng.integers(-9, 9, 1 << 18))
+                       .to(hopper), rv) for a in aggs]
+    before = th.STREAM_REDUCE_KERNEL.launches
+    got = th.presorted_reduce(rv, keys, contribs, aggs, 1 << 18)
+    assert th.STREAM_REDUCE_KERNEL.launches == before + 2
+    want = th.presorted_reduce_plain(rv, keys, contribs, aggs, 1 << 18)
+    torch.cuda.synchronize()
+    assert torch.equal(got.valid, want.valid)
+    for gs, ws in zip(got.states, want.states):
+        for g, w in zip(gs, ws):
+            assert torch.equal(g[want.valid], w[want.valid])
+
+
+def _wide(batch, name, k, prefix):
+    """`batch` plus k aliases of column `name`."""
+    cols = dict(batch.columns)
+    for j in range(k):
+        cols[f"{prefix}{j}"] = batch.columns[name]
+    return tb.Batch(cols, batch.row_valid)
+
+
+@pytest.mark.parametrize("join_type", ["inner", "full"])
+def test_k9_past_its_column_cap(hopper, join_type):
+    rng = np.random.default_rng(66)
+    nb, npr = 1 << 14, 1 << 15
+    build = _build_batch(rng, nb, int(nb * 0.7), hopper, 3000)
+    names = ("k0",)
+    table = tj.build_for_backend(build, names)
+    table.batch = _wide(table.batch, "v", 64, "b_v")
+    probe = _probe_like(rng, build, names, npr, hopper, 3000, 1)
+    lo_enc, h2 = tj.probe_search(table, probe, names, "hash")
+    build_out = tuple(f"b_v{j}" for j in range(64))
+    args = (table, probe, names, lo_enc, 1 << 18, join_type, ("k0",),
+            build_out, names, "hash", h2)
+    gm = wm = None
+    if join_type == "full":
+        gm = torch.zeros(nb, dtype=torch.bool, device=hopper)
+        wm = torch.zeros(nb, dtype=torch.bool, device=hopper)
+    before = tj.JOIN_EXPAND_KERNEL.launches
+    got = tj._expand_from_enc(*args, gm)
+    assert tj.JOIN_EXPAND_KERNEL.launches == before + 2
+    want = tj.expand_plain(*args, wm)
+    torch.cuda.synchronize()
+    _assert_expand_equal(got, want, ("k0",) + build_out)
+    if join_type == "full":
+        assert torch.equal(gm, wm)
+
+
+def test_k10_past_its_column_cap(hopper):
+    from presto_tpu_torch.operators import misc_ops
+    rng = np.random.default_rng(67)
+    probe = _wide(_side(rng, 4096, 3000, hopper, "p_"), "p_b", 30, "p_x")
+    build = _wide(_side(rng, 16, 12, hopper, "b_"), "b_a", 30, "b_x")
+    args = (probe, build, 3000, 12, 1 << 16)
+    before = misc_ops.CROSS_PRODUCT_KERNEL.launches
+    got = misc_ops.cross_product(*args)
+    assert misc_ops.CROSS_PRODUCT_KERNEL.launches == before + 2
+    want = misc_ops.cross_product_plain(*args)
+    torch.cuda.synchronize()
+    _assert_batches_equal(got, want)
+
+
+def test_k11_past_its_column_cap(hopper):
+    rng = np.random.default_rng(68)
+    nb = 1 << 14
+    build = _build_batch(rng, nb, int(nb * 0.6), hopper, None)
+    names = ("k0",)
+    table = tj.build_for_backend(build, names)
+    probe = _probe_like(rng, build, names, nb, hopper, None, 1)
+    matched = torch.zeros(nb, dtype=torch.bool, device=hopper)
+    tj.probe_join_full(table, probe, names, matched, 4 * nb, ("k0", "v"),
+                       ("v",), names, "hash")
+    schema = tuple((f"p_{j}", tt.DOUBLE, None) for j in range(64))
+    before = tj.JOIN_OUTER_KERNEL.launches
+    got, gcount = tj.unmatched_build(table, matched, schema, ("v",))
+    assert tj.JOIN_OUTER_KERNEL.launches == before + 2
+    want, wcount = tj.unmatched_build_plain(table, matched, schema, ("v",))
+    torch.cuda.synchronize()
+    _assert_batches_equal(got, want)
+    assert int(gcount) == int(wcount)
+
+
+from torch_fragment_cases import real_function_calls  # noqa: E402
+
+
+@pytest.mark.parametrize("label", sorted(real_function_calls(tir, tt)))
+def test_k12_real_function_matches_composed(hopper, label):
+    """REAL math as a one-stage K12 against the composed float32
+    closure on the same CUDA batch (PyTorch's float32 CUDA kernels)."""
+    from presto_tpu_torch.operators.fused_fragment import make_chain_body
+    from torch_fragment_cases import port_batch, real_stage
+    body = make_chain_body([real_stage(label, hopper)])
+    assert body.not_lowered is None
+    batch = port_batch((1 << 16) + 3, 13, hopper)
+    got = body.kernel(batch)
+    want = body.plain(batch)
+    torch.cuda.synchronize()
+    g, w = got.columns["o"], want.columns["o"]
+    assert torch.equal(g.mask, w.mask)
+    a, b = g.data[w.mask].cpu(), w.data[w.mask].cpu()
+    exact = int(((a == b) | (torch.isnan(a) & torch.isnan(b))).sum())
+    print(f"REAL {label}: {exact} of {a.numel()} bit-equal")
+    torch.testing.assert_close(a, b, rtol=2.0 ** -20, atol=1e-37,
+                               equal_nan=True)
+
+
+# -- K13-K16: the window kernels -----------------------------------------
+#
+# Tolerances: K13, K15 and K16 exactly (positions, ranks, gathered
+# values, min / max with NaN equal to NaN, masks); K14's counts and
+# integer sums exactly, its float sums and averages to a relative 1e-9
+# (both sides keep double-double prefixes, combined in another order).
+
+from presto_tpu_torch.ops import window as tw  # noqa: E402
+
+_FRAMES = [tw.Frame("rows", "u", "c"), tw.Frame("rows", "u", "u"),
+           tw.Frame("rows", -5, 5), tw.Frame("rows", 1, 3),
+           tw.Frame("rows", "c", "u"), tw.Frame("rows", -3, -1),
+           tw.Frame("range", "u", "c"), tw.Frame("range", "c", "u"),
+           tw.Frame("range", "c", "c"), tw.Frame("range", -2, 2),
+           tw.Frame("range", -50, "c"), tw.Frame("range", 1, 40)]
+
+
+def _window_input(rng, n, live, dev, nparts=300, order="int", desc=False,
+                  nkeys=1):
+    """Sorted window input: `nkeys` partition keys (a few values each,
+    NULLs), one order key (ties, NULLs), values with NULLs, NaN and
+    +-Inf, a FILTER column; rows past `live` are padding."""
+    rv = torch.zeros(n, dtype=torch.bool)
+    rv[:live] = True
+    part = [(torch.from_numpy(rng.integers(0, max(nparts >> (2 * j), 2), n)),
+             torch.from_numpy(rng.random(n) < 0.95)) for j in range(nkeys)]
+    if order == "int":
+        od = torch.from_numpy(rng.integers(0, 1000, n))
+    else:
+        od = torch.from_numpy(np.round(rng.normal(0, 100, n), 1))
+    om = torch.from_numpy(rng.random(n) < 0.97)
+    keys = part + [(od, om)]
+    skeys, svalid, spay = tc.sort_rows(
+        keys, [False] * nkeys + [desc], [False] * nkeys + [False], rv,
+        [torch.arange(n)])
+    f = rng.normal(0, 100, n)
+    f[rng.random(n) < 0.002] = np.nan
+    f[rng.random(n) < 0.001] = np.inf
+    f[rng.random(n) < 0.001] = -np.inf
+    vals = {
+        "f64": torch.from_numpy(f), "f32": torch.from_numpy(f.astype(np.float32)),
+        "i64": torch.from_numpy(rng.integers(-1 << 40, 1 << 40, n)),
+        "i32": torch.from_numpy(rng.integers(-999, 999, n).astype(np.int32)),
+    }
+    vm = torch.from_numpy(rng.random(n) < 0.9)
+    filt = (torch.from_numpy(rng.random(n) < 0.7),
+            torch.ones(n, dtype=torch.bool))
+
+    def to(x):
+        return x.to(dev).contiguous()
+    skeys = [(to(d), to(m)) for d, m in skeys]
+    order_key = tw.OrderKey(skeys[-1][0], skeys[-1][1], desc, False)
+    return (skeys[:nkeys], skeys[nkeys:], to(svalid), to(spay[0]),
+            order_key, {k: (to(v), to(vm)) for k, v in vals.items()},
+            (to(filt[0]), to(filt[1])))
+
+
+def _seg_equal(a, b):
+    for name in ("pid", "pstart", "part_end", "peer_start", "peer_end",
+                 "dense"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+@pytest.mark.parametrize("layout", ["part_order", "no_part", "no_order",
+                                    "nine_part_keys", "all_dead", "tiny"])
+def test_k13_window_segments_matches_plain(hopper, layout):
+    rng = np.random.default_rng(71)
+    n = 5000 if layout == "tiny" else (1 << 18) + 5
+    live = 0 if layout == "all_dead" else n - 777
+    spart, sorder, svalid, _, _, _, _ = _window_input(
+        rng, n, live, hopper, nkeys=9 if layout == "nine_part_keys" else 1)
+    if layout == "no_part":
+        spart = []
+    if layout == "no_order":
+        sorder = []
+    before = tw.SEGMENTS_KERNEL.launches
+    got = tw.window_segments(spart, sorder, svalid)
+    assert tw.SEGMENTS_KERNEL.launches == before + 1
+    want = tw.segments_plain(spart, sorder, svalid)
+    torch.cuda.synchronize()
+    _seg_equal(got, want)
+
+
+@pytest.mark.parametrize("desc", [False, True])
+@pytest.mark.parametrize("order", ["int", "double"])
+def test_k14_window_frame_sum_matches_plain(hopper, order, desc):
+    rng = np.random.default_rng(72)
+    n = (1 << 18) + 5
+    spart, sorder, svalid, _, ok, vals, filt = _window_input(
+        rng, n, n - 1000, hopper, order=order, desc=desc)
+    seg = tw.segments_plain(spart, sorder, svalid)
+    for frame in _FRAMES:
+        for fn, arg, dt, fl in [("count", None, torch.int64, None),
+                                ("count", "f64", torch.int64, filt),
+                                ("sum", "i64", torch.int64, filt),
+                                ("sum", "f64", torch.float64, None),
+                                ("sum", "f32", torch.float64, filt),
+                                ("avg", "i32", torch.float64, None),
+                                ("avg", "f64", torch.float64, filt)]:
+            v = None if arg is None else vals[arg]
+            before = tw.FRAME_SUM_KERNEL.launches
+            gd, gm = tw.window_frame_sum(seg, ok, fn, v, fl, svalid, frame,
+                                         dt)
+            assert tw.FRAME_SUM_KERNEL.launches == before + 1
+            wd, wm = tw.frame_sum_plain(seg, ok, fn, v, fl, svalid, frame,
+                                        dt)
+            torch.cuda.synchronize()
+            what = f"{fn}({arg}) {frame}"
+            assert torch.equal(gm, wm), what
+            if dt == torch.int64:
+                assert torch.equal(gd[wm], wd[wm]), what
+            else:
+                torch.testing.assert_close(gd[wm], wd[wm], rtol=1e-9,
+                                           atol=1e-9, equal_nan=True,
+                                           msg=what)
+
+
+@pytest.mark.parametrize("arg", ["f64", "f32", "i64", "i32"])
+def test_k15_window_frame_minmax_matches_plain(hopper, arg):
+    rng = np.random.default_rng(73)
+    n = (1 << 18) + 5
+    spart, sorder, svalid, _, ok, vals, filt = _window_input(
+        rng, n, n - 1000, hopper, nparts=40)
+    seg = tw.segments_plain(spart, sorder, svalid)
+    for frame in _FRAMES:
+        for fn in ("min", "max"):
+            for fl in (None, filt):
+                before = tw.FRAME_MINMAX_KERNEL.launches
+                gd, gm = tw.window_frame_minmax(seg, ok, fn, vals[arg], fl,
+                                                svalid, frame)
+                assert tw.FRAME_MINMAX_KERNEL.launches == before + 1
+                wd, wm = tw.frame_minmax_plain(seg, ok, fn, vals[arg], fl,
+                                               svalid, frame)
+                torch.cuda.synchronize()
+                what = f"{fn}({arg}) {frame}"
+                assert torch.equal(gm, wm), what
+                _same_or_nan(gd[wm], wd[wm])
+
+
+def test_k16_window_emit_matches_plain(hopper):
+    rng = np.random.default_rng(74)
+    n = (1 << 18) + 5
+    spart, sorder, svalid, iota, ok, vals, _ = _window_input(
+        rng, n, n - 1000, hopper)
+    seg = tw.segments_plain(spart, sorder, svalid)
+    s32 = (vals["i32"][0].to(torch.int32), vals["i32"][1])
+    emits = [tw.Emit(k, out_dtype=torch.int64) for k in
+             ("row_number", "rank", "dense_rank")]
+    emits += [tw.Emit("ntile", offset=k) for k in (1, 4, 7)]
+    emits += [tw.Emit(k, out_dtype=torch.float64)
+              for k in ("percent_rank", "cume_dist")]
+    emits += [tw.Emit("lag", vals["f64"], offset=1),
+              tw.Emit("lead", vals["i64"], offset=3),
+              tw.Emit("lag", s32, offset=2, default=-5),
+              tw.Emit("lead", vals["f64"], offset=1, default=-1.5)]
+    for frame in _FRAMES[:8]:
+        emits += [tw.Emit("first_value", vals["f32"], frame=frame),
+                  tw.Emit("last_value", s32, frame=frame),
+                  tw.Emit("nth_value", vals["i64"], offset=3, frame=frame)]
+    emits.append(tw.Emit("copy", vals["f64"]))
+    assert len(emits) > tw.EMIT_MAX
+    before = tw.EMIT_KERNEL.launches
+    got = tw.window_emit(seg, ok, svalid, iota, emits)
+    assert tw.EMIT_KERNEL.launches == before + len(tw.emit_chunks(
+        len(emits)))
+    want = tw.emit_plain(seg, ok, svalid, iota, emits)
+    torch.cuda.synchronize()
+    for e, (gd, gm), (wd, wm) in zip(emits, got, want):
+        assert gd.dtype == wd.dtype, e.kind
+        assert torch.equal(gm, wm), e.kind
+        _same_or_nan(gd[wm], wd[wm])
+
+
+def test_window_pass_matches_cpu(hopper):
+    """The whole window pass (sort, K13-K16) on the card against the
+    plain versions on the CPU, over a batch of every call shape."""
+    from presto_tpu_torch.ops.window import WindowCallSpec as W
+    rng = np.random.default_rng(75)
+    n = 1 << 16
+    cols = {
+        "p": (rng.integers(0, 50, n), rng.random(n) < 0.95, "bigint", None),
+        "o": (rng.integers(0, 500, n), rng.random(n) < 0.97, "bigint", None),
+        "v": (rng.normal(0, 10, n), rng.random(n) < 0.9, "double", None),
+        "s": (rng.integers(0, 3, n).astype(np.int32), rng.random(n) < 0.9,
+              "varchar", ("a", "b", "c")),
+    }
+    rv = rng.random(n) < 0.95
+    calls = (W("rn", "row_number", None, "full", tt.BIGINT),
+             W("rk", "rank", None, "full", tt.BIGINT),
+             W("nt", "ntile", None, "full", tt.BIGINT, offset=4),
+             W("cd", "cume_dist", None, "full", tt.DOUBLE),
+             W("sm", "sum", "v", "rows", tt.DOUBLE, fstart=-5, fend=5),
+             W("c", "count", None, "range", tt.BIGINT, fstart=-20, fend=20),
+             W("mn", "min", "s", "rows", tt.VARCHAR, ("a", "b", "c"),
+               fstart="u", fend="c"),
+             W("mx", "max", "v", "range", tt.DOUBLE, fstart="c", fend="u"),
+             W("lg", "lag", "s", "full", tt.VARCHAR, ("a", "b", "c"),
+               offset=2, default=0),
+             W("fv", "first_value", "v", "rows", tt.DOUBLE, fstart=-3,
+               fend=0))
+    out = {}
+    for dev in (torch.device("cpu"), hopper):
+        b = interop.batch_from_numpy(cols, rv, dev)
+        out[dev.type] = tw.window_kernel(b, ("p",), ("o",), (True,),
+                                         (False,), calls)
+    torch.cuda.synchronize()
+    for c in calls:
+        g, w = out["cuda"].columns[c.out_name], out["cpu"].columns[c.out_name]
+        assert torch.equal(g.mask.cpu(), w.mask), c.out_name
+        if g.data.is_floating_point():
+            torch.testing.assert_close(g.data.cpu()[w.mask], w.data[w.mask],
+                                       rtol=1e-9, atol=1e-9)
+        else:
+            assert torch.equal(g.data.cpu()[w.mask], w.data[w.mask])

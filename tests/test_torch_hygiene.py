@@ -25,6 +25,9 @@ def test_import_loads_no_jax_module():
         "import presto_tpu_torch.runner, presto_tpu_torch.interop\n"
         "import presto_tpu_torch.native.cuda\n"
         "import presto_tpu_torch.expr.codegen\n"
+        "import presto_tpu_torch.ops.window\n"
+        "import presto_tpu_torch.operators.window_ops\n"
+        "import presto_tpu_torch.connectors.tpcds\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'presto_tpu')]\n"
         "print(','.join(bad))\n")
@@ -157,17 +160,53 @@ def _k11(common, join, hashagg):
                          (("p", BIGINT, None),), ("k",))
 
 
+def _meta_window():
+    from presto_tpu_torch.ops import window
+    seg = window.Segments(*[_meta(64, torch.int64) for _ in range(6)])
+    return window, seg, _meta(64, torch.bool)
+
+
+def _k13(common, join, hashagg):
+    window, _, valid = _meta_window()
+    keys = [(_meta(64, torch.int64), _meta(64, torch.bool))]
+    window.window_segments(keys, keys, valid)
+
+
+def _k14(common, join, hashagg):
+    window, seg, valid = _meta_window()
+    window.window_frame_sum(seg, None, "sum",
+                            (_meta(64, torch.float64), valid), None, valid,
+                            window.Frame("rows", -2, 2), torch.float64)
+
+
+def _k15(common, join, hashagg):
+    window, seg, valid = _meta_window()
+    window.window_frame_minmax(seg, None, "min",
+                               (_meta(64, torch.int64), valid), None, valid,
+                               window.Frame("rows", "u", "c"))
+
+
+def _k16(common, join, hashagg):
+    window, seg, valid = _meta_window()
+    window.window_emit(seg, None, valid, _meta(64, torch.int64),
+                       [window.Emit("row_number")])
+
+
 @pytest.mark.parametrize("call", [_k3, _k4, _k5, _k6, _k7, _k8, _k9,
-                                  _k9_full, _k10, _k11],
+                                  _k9_full, _k10, _k11, _k13, _k14, _k15,
+                                  _k16],
                          ids=["row_hash", "join_build", "join_probe",
                               "segment_reduce", "semi_join",
                               "stream_reduce", "join_expand",
                               "join_expand_full", "cross_product",
-                              "join_outer"])
+                              "join_outer", "window_segments",
+                              "window_frame_sum", "window_frame_minmax",
+                              "window_emit"])
 def test_device_tensor_never_takes_the_plain_version(monkeypatch, call):
-    """K3-K11 on tensors that are not on the CPU (meta tensors here) go
-    to the kernel or raise: with the build made to fail, the error
-    surfaces. The plain versions would compute meta results silently."""
+    """K3-K11 and K13-K16 on tensors that are not on the CPU (meta
+    tensors here) go to the kernel or raise: with the build made to
+    fail, the error surfaces. The plain versions would compute meta
+    results silently."""
     from presto_tpu_torch.native import cuda
     from presto_tpu_torch.ops import common, hashagg, join
 
@@ -189,6 +228,7 @@ def test_chip_smoke_checks_every_built_kernel():
     from presto_tpu_torch.native import cuda
     from presto_tpu_torch.operators import misc_ops  # noqa: F401  (K10)
     from presto_tpu_torch.ops import common, hashagg, join  # noqa: F401
+    from presto_tpu_torch.ops import window  # noqa: F401  (K13-K16)
     from presto_tpu_torch.telemetry import kernels as tk
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", ROOT / "chip_smoke.py")
@@ -206,6 +246,12 @@ def test_chip_smoke_checks_every_built_kernel():
     assert smoke.KERNELS["fragment"][0] == "triton"
     assert set(smoke.MUST) == set(smoke.QUERIES)
     assert all("fragment" in names for names in smoke.MUST.values())
+    assert set(smoke.WIN_MUST) == set(smoke.WIN_QUERIES) \
+        | set(smoke.DS_QUERIES)
+    assert all(isinstance(names, tuple) and set(names) <= set(tk.COUNTERS)
+               for names in smoke.WIN_MUST.values())
+    assert set(smoke.WINDOW_KERNELS) == {
+        k for k, c in tk.COUNTERS.items() if c.family == "window"}
 
 
 def _case_sources():

@@ -1,0 +1,73 @@
+"""Which session properties the port honours (ROADMAP C1).
+
+The port registers every session property of the reference, with the
+reference's defaults, so `SET SESSION` accepts each of them. It reads
+only some: a property whose name appears nowhere in the package but
+its registry is accepted and ignored, and the port's default run then
+differs from the reference's wherever that property is on by default.
+This file pins the ignored set as it stands: it fails when a property
+joins it, so the gap cannot grow unseen. A slice that starts reading
+one removes it from IGNORED.
+"""
+
+import pathlib
+import re
+
+from presto_tpu_torch import session_properties as sp
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent / "presto_tpu_torch"
+
+#: registered, not read anywhere in the port (ROADMAP C1 and the items
+#: that close them: caches A15, executor and memory A10, history A11,
+#: the distributed path A12, the fleet and telemetry A13 / A14)
+IGNORED = frozenset({
+    "admission_queue_timeout_ms", "broadcast_join_threshold_rows",
+    "cache_memory_bytes", "cluster_memory_bytes", "fault_injection",
+    "fleet_memory_bytes", "fragment_result_cache_enabled",
+    "hbm_budget_bytes", "history_based_optimization",
+    "history_driven_fusion", "host_spool_bytes", "kernel_shape_buckets",
+    "lifespans", "page_source_cache_enabled", "phased_execution",
+    "plan_cache_enabled", "query_max_run_time_ms", "query_memory_bytes",
+    "query_retries", "query_trace_enabled",
+    "recoverable_grouped_execution", "spill_enabled",
+    "task_dispatch_stagger_ms", "task_executor_enabled",
+    "task_executor_quantum_ms", "task_partitions", "task_retries",
+})
+
+
+def _read_by_port():
+    """Registered properties whose quoted name appears in a module of
+    the package other than the registry."""
+    sources = [p.read_text() for p in ROOT.rglob("*.py")
+               if p.name != "session_properties.py"]
+    return {n for n in sp.SESSION_PROPERTIES
+            if any(re.search(r"[\"']" + re.escape(n) + r"[\"']", s)
+                   for s in sources)}
+
+
+def test_ignored_properties_do_not_grow():
+    ignored = set(sp.SESSION_PROPERTIES) - _read_by_port()
+    grown = ignored - IGNORED
+    assert not grown, f"registered but never read by the port: {grown}"
+
+
+def test_honoured_properties_are_read():
+    read = _read_by_port()
+    assert read | IGNORED >= set(sp.SESSION_PROPERTIES)
+    for name in ("batch_rows", "target_splits", "max_groups",
+                 "dynamic_filtering", "streaming_aggregation",
+                 "fragment_fusion_enabled", "join_expansion_factor",
+                 "plan_validation_enabled"):
+        assert name in read, name
+
+
+def test_an_ignored_property_is_accepted_and_changes_nothing():
+    """SET SESSION of an ignored default-on property succeeds, and the
+    rows stay the same: what C1 describes."""
+    from presto_tpu_torch.runner import LocalRunner
+    sql = "select returnflag, count(*) from lineitem group by returnflag"
+    r = LocalRunner("tpch", "tiny", device="cpu")
+    before = sorted(r.execute(sql).rows())
+    r.execute("SET SESSION page_source_cache_enabled = false")
+    assert r.session.properties["page_source_cache_enabled"] is False
+    assert sorted(r.execute(sql).rows()) == before

@@ -364,3 +364,25 @@ def function_stage(expr, device="cpu"):
     schema = {n: ColumnSchema(n, t, d) for n, t, d in columns(PT)}
     return ChainStage(None, (("o", compile_expression(expr, schema,
                                                       device)),), None)
+
+
+def real_function_calls(ir, T):
+    """{label: (result type, args)}: the CUDA math library's functions
+    and the remainder over REAL arguments (the float32 column is the
+    case batch's DOUBLE column cast to REAL)."""
+    cols = {n: t for n, t, _ in columns(T)}
+
+    def real(name):
+        return ir.SpecialForm("cast", (ir.ref(name, cols[name]),), T.REAL)
+    out = {}
+    for name in ("exp", "ln", "log2", "log10", "sin", "cos", "tan", "asin",
+                 "acos", "atan", "sinh", "cosh", "tanh", "cbrt"):
+        out[f"{name}/real"] = (T.REAL, [real("x")])
+    for name in ("power", "atan2", "mod"):
+        out[f"{name}/real"] = (T.REAL, [real("x"), real("y")])
+    return out
+
+
+def real_stage(label, device="cpu"):
+    rt, args = real_function_calls(PIR, PT)[label]
+    return function_stage(PIR.call(label.split("/")[0], rt, *args), device)
