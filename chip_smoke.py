@@ -12,7 +12,13 @@ too. Then the window path: WIN_RUNNING, WIN_RANK, WIN_TOPN and
 WIN_FRAMES over lineitem and orders at SF1, and TPC-DS Q12, Q20, Q98,
 Q36 (a rollup: GroupId) and the q67-shape rank (Q104) at sf1, each
 against a numpy oracle, with K13-K16 held against their plain versions
-at their largest call (`run_window_phases`).
+at their largest call (`run_window_phases`). Then the array path:
+array_agg / map_agg over lineitem and orders, UNNEST back to every
+lineitem, a CREATE TABLE AS of arrays into the memory catalog read
+back and dropped, a 9-key grouping and a 9-key join, and round with a
+column scale, at SF1, each against a numpy oracle read from the result
+batches, with K17 held against its plain version at its largest call
+(`run_array_phases`).
 
     python3 chip_smoke.py
 
@@ -1064,13 +1070,14 @@ class Capture:
 
 # -- phases ------------------------------------------------------------------
 
-def profile_query(torch, gen_module, runner, sql, gen_cls=None):
+def profile_query(torch, gen_module, runner, sql, gen_cls=None, read=None):
     """One warm execution under torch.profiler: wall time, the host
     seconds spent generating data (tpch's generator, or `gen_cls`'s; in
     all, and per table: calls, seconds, the slowest call, rows), device
     busy time (the sum of the kernels' self device time) and the kernels
     that took most of it. `device_busy_ms` is None when the profiler
-    recorded no device time."""
+    recorded no device time. `read` reads the result (`rows()` unless
+    given)."""
     from torch.profiler import ProfilerActivity, profile
     gen_cls = gen_cls or gen_module.TpchGenerator
     orig = gen_cls.generate
@@ -1096,7 +1103,8 @@ def profile_query(torch, gen_module, runner, sql, gen_cls=None):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            runner.execute(sql).rows()
+            res = runner.execute(sql)
+            res.rows() if read is None else read(res)
             wall = time.perf_counter() - t
     finally:
         gen_cls.generate = orig
@@ -1794,10 +1802,14 @@ KERNELS = {
                             "presto_tpu/ops/window.py:80"),
     "window_emit": ("cuda", "presto_tpu_torch/csrc/window_emit.cu",
                     "presto_tpu/ops/window.py:341"),
+    "array_collect": ("cuda", "presto_tpu_torch/csrc/array_collect.cu",
+                      "presto_tpu/operators/array_agg.py:66"),
 }
 #: the window kernels, measured on the window and TPC-DS path
 WINDOW_KERNELS = ("window_segments", "window_frame_sum",
                   "window_frame_minmax", "window_emit")
+#: the array path's kernel, measured there
+ARRAY_KERNELS = ("array_collect",)
 
 #: queries run again with fusion off (their walls beside the fused ones)
 FUSION_OFF = ("q1", "q3", "q6", "q18")
@@ -2163,7 +2175,7 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
                             for q, (n, sec) in compiles.items()}})
     kernels = []
     for k, (route, src, replaces) in KERNELS.items():
-        if k in WINDOW_KERNELS:
+        if k in WINDOW_KERNELS or k in ARRAY_KERNELS:
             continue
         m = measured[k]
         kernels.append({
@@ -2848,6 +2860,469 @@ def run_window_phases(torch, np, mods, dev, schema):
     return measured, totals
 
 
+# -- the array path: array_agg / map_agg, UNNEST, the memory connector, ----
+# -- and the repaired key caps (C6) and round(x, d) (C7) --------------------
+
+ARR_ORDERS = """select orderkey, array_agg(partkey) p,
+    array_agg(quantity) filter (where returnflag = 'R') rq
+from lineitem group by orderkey"""
+ARR_CUST = """select custkey, array_agg(orderkey) o, array_agg(totalprice) t
+from orders group by custkey"""
+MAP_LINES = """select orderkey, map_agg(linenumber, extendedprice) m
+from lineitem where shipdate >= date '1995-01-01' group by orderkey"""
+UNNEST_BACK = """select count(*), sum(x) from (select array_agg(partkey) p
+    from lineitem group by orderkey) t cross join unnest(t.p) u(x)"""
+CTAS_ARR = (
+    "create table memory.default.order_parts as select orderkey, "
+    "array_agg(partkey) p from lineitem group by orderkey",
+    "select orderkey, cardinality(p) c from memory.default.order_parts",
+    "select count(*), sum(x) from memory.default.order_parts t "
+    "cross join unnest(t.p) u(x)",
+    "drop table memory.default.order_parts")
+#: C6: nine group keys (sort-based grouping, K6 with a second key
+#: group) and a nine-key self-join of lineitem (K5 / K9 over key groups)
+C6_KEYS = ("orderkey", "partkey", "suppkey", "linenumber", "quantity",
+           "returnflag", "linestatus", "shipdate", "shipmode")
+C6_GROUP = ("select orderkey % 1000 g0, linenumber, partkey % 7 g2, "
+            "returnflag, linestatus, shipmode, shipinstruct, tax, discount, "
+            "count(*) c, sum(extendedprice) s from lineitem "
+            "where orderkey < 240000 group by 1, 2, 3, 4, 5, 6, 7, 8, 9")
+C6_JOIN = ("select count(*), sum(a.extendedprice) from lineitem a join "
+           "lineitem b on " + " and ".join(f"a.{k} = b.{k}" for k in C6_KEYS)
+           + " where a.orderkey < 600000")
+#: C7: round with a column scale, through K12
+C7_ROUND = ("select custkey, round(acctbal, nationkey % 3) r "
+            "from customer")
+ARRAY_QUERIES = {"arr_orders": ARR_ORDERS, "arr_cust": ARR_CUST,
+                 "map_lines": MAP_LINES, "unnest_back": UNNEST_BACK,
+                 "ctas_arr": CTAS_ARR, "c6_group9": C6_GROUP,
+                 "c6_join9": C6_JOIN, "c7_round": C7_ROUND}
+ARRAY_MUST = {"arr_orders": ("array_collect", "window_segments", "fragment"),
+              "arr_cust": ("array_collect", "window_segments"),
+              "map_lines": ("array_collect", "fragment"),
+              "unnest_back": ("array_collect",),
+              "ctas_arr": ("array_collect",),
+              "c6_group9": ("segment_reduce", "fragment"),
+              "c6_join9": ("join_probe", "join_expand", "fragment"),
+              "c7_round": ("fragment",)}
+#: warm executions per query of the array path (the median)
+ARRAY_WARM = 3
+
+
+class DatagenTimer:
+    """Sums the host seconds of every `generate` call of a generator
+    class while active (the datagen share of a wall)."""
+
+    def __init__(self, gen_cls):
+        self.gen_cls = gen_cls
+        self.seconds = 0.0
+
+    def __enter__(self):
+        orig = self.orig = self.gen_cls.generate
+        timer = self
+
+        def timed(gen, *args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return orig(gen, *args, **kwargs)
+            finally:
+                timer.seconds += time.perf_counter() - t
+        self.gen_cls.generate = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.gen_cls.generate = self.orig
+        return False
+
+
+class CollectCapture:
+    """The inputs of the largest K17 call (by rows) of one run."""
+
+    def __init__(self, taa):
+        self.taa = taa
+        self.big = None
+        self.query = None
+
+    def __enter__(self):
+        orig = self.orig = self.taa.array_collect
+
+        def rec(order, *args):
+            if self.big is None or order.shape[0] > self.big[0]:
+                self.big = (order.shape[0], self.query, (order,) + args)
+            return orig(order, *args)
+        self.taa.array_collect = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.taa.array_collect = self.orig
+        return False
+
+
+def result_columns(torch, np, res):
+    """The live rows of a result as numpy arrays per field: a scalar
+    field as (data, mask); an array field as ([W, n] data, [W, n] mask,
+    lengths); a map field as (keys, key masks, values, value masks,
+    lengths). Read from the batches, not through rows()."""
+    out = {}
+    for name, f in zip(res.names, res.fields):
+        form = getattr(f, "form", None)
+        syms = [f.symbol] if form is None else \
+            [x.name for x in (list(getattr(form, "elements", ()))
+                              + list(getattr(form, "keys", ()))
+                              + list(getattr(form, "values", ())))]
+        parts = {s: ([], []) for s in syms}
+        lens = []
+        for b in res.batches:
+            live = b.row_valid
+            for s in syms:
+                c = b.columns[s]
+                parts[s][0].append(c.data[live].cpu().numpy())
+                parts[s][1].append(c.mask[live].cpu().numpy())
+            if form is not None:
+                lens.append(b.columns[form.length.name].data[live].cpu()
+                            .numpy())
+        cat = {s: (np.concatenate(d), np.concatenate(m))
+               for s, (d, m) in parts.items()}
+        if form is None:
+            out[name] = cat[f.symbol]
+            continue
+        lens = np.concatenate(lens)
+        if hasattr(form, "elements"):
+            names = [x.name for x in form.elements]
+            out[name] = (np.stack([cat[s][0] for s in names]),
+                         np.stack([cat[s][1] for s in names]), lens)
+        else:
+            ks, vs = [x.name for x in form.keys], [x.name for x in form.values]
+            out[name] = (np.stack([cat[s][0] for s in ks]),
+                         np.stack([cat[s][1] for s in ks]),
+                         np.stack([cat[s][0] for s in vs]),
+                         np.stack([cat[s][1] for s in vs]), lens)
+    return out
+
+
+def collect_oracle(np, gid, ngroups, keep, values, width):
+    """What array_agg collects per group in arrival order: [W, groups]
+    values and masks (slot j of group g: the j-th row of g with `keep`),
+    and the lengths. Rows are in arrival order."""
+    perm = np.argsort(gid, kind="stable")   # groups, arrival order kept
+    g, k = gid[perm], keep[perm].astype(np.int64)
+    before = np.cumsum(k) - k
+    rank = before - before[np.searchsorted(g, np.arange(ngroups))][g]
+    lens = np.bincount(g, weights=k, minlength=ngroups).astype(np.int64)
+    vals = np.zeros((width, ngroups), values.dtype)
+    mask = np.zeros((width, ngroups), bool)
+    sel = (k > 0) & (rank < width)
+    vals[rank[sel], g[sel]] = values[perm][sel]
+    mask[rank[sel], g[sel]] = True
+    return vals, mask, lens
+
+
+def check_collected(np, label, got, key, want_keys, want, field):
+    """An array field against collect_oracle's (values, masks, lengths),
+    rows matched by their group key (the result comes in no order):
+    slot masks and lengths exactly, slot values where set."""
+    kd, km = got[key]
+    check(bool(km.all()), f"{label}: NULL group key")
+    order = np.argsort(kd, kind="stable")
+    check(np.array_equal(kd[order], want_keys),
+          f"{label}: group keys differ from the oracle")
+    vals, mask, lens = (x[..., order] for x in got[field])
+    wv, wm, wl = want
+    rows = wm.shape[0]
+    check(np.array_equal(mask[:rows], wm) and not mask[rows:].any(),
+          f"{label}: {field} slot masks differ")
+    check(np.array_equal(vals[:rows][wm], wv[wm]),
+          f"{label}: {field} slot values differ")
+    check(np.array_equal(lens, wl), f"{label}: {field} lengths differ")
+
+
+def array_oracle(np, gen_module, schema):
+    """The numpy side of the array path: per query what its result must
+    hold, from the connector's own generator."""
+    gen = gen_module.TpchGenerator(gen_module.TpchConnector.SCHEMAS[schema])
+    days = gen_module.parse_date_literal
+    li = lineitem_table(np, gen, ("orderkey", "partkey", "quantity",
+                                  "returnflag", "linenumber",
+                                  "extendedprice", "shipdate", "suppkey",
+                                  "linestatus", "shipmode", "shipinstruct",
+                                  "tax", "discount"))
+    orders = table(np, gen, "orders", ("orderkey", "custkey", "totalprice"))
+    cust = table(np, gen, "customer", ("custkey", "acctbal", "nationkey"))
+    rf = gen.schema("lineitem").column("returnflag").dictionary
+    want = {"lineitem_rows": len(li["orderkey"])}
+    okeys, ogid = np.unique(li["orderkey"], return_inverse=True)
+    n_ord = len(okeys)
+    want["arr_orders"] = (okeys, collect_oracle(
+        np, ogid, n_ord, np.ones(len(ogid), bool), li["partkey"], 8),
+        collect_oracle(np, ogid, n_ord, li["returnflag"] == rf.index("R"),
+                       li["quantity"], 8))
+    ckeys, cgid = np.unique(orders["custkey"], return_inverse=True)
+    longest = int(np.bincount(cgid).max())
+    want["arr_cust_longest"] = longest
+    w = longest + 1
+    want["arr_cust"] = (ckeys, collect_oracle(
+        np, cgid, len(ckeys), np.ones(len(cgid), bool), orders["orderkey"], w),
+        collect_oracle(np, cgid, len(ckeys), np.ones(len(cgid), bool),
+                       orders["totalprice"], w))
+    sel = li["shipdate"] >= days("1995-01-01")
+    mkeys, mgid = np.unique(li["orderkey"][sel], return_inverse=True)
+    want["map_lines"] = (mkeys, collect_oracle(
+        np, mgid, len(mkeys), np.ones(len(mgid), bool),
+        li["linenumber"][sel], 8), collect_oracle(
+        np, mgid, len(mkeys), np.ones(len(mgid), bool),
+        li["extendedprice"][sel], 8))
+    want["unnest_back"] = [(len(li["partkey"]), int(li["partkey"].sum()))]
+    want["ctas_arr"] = (okeys, np.bincount(ogid).astype(np.int64),
+                        want["unnest_back"])
+    g = li["orderkey"] < 240000
+    gk = np.stack([li["orderkey"][g] % 1000, li["linenumber"][g],
+                   li["partkey"][g] % 7, li["returnflag"][g],
+                   li["linestatus"][g], li["shipmode"][g],
+                   li["shipinstruct"][g],
+                   np.round(li["tax"][g] * 100).astype(np.int64),
+                   np.round(li["discount"][g] * 100).astype(np.int64)], 1)
+    uk, inv, cnt = np.unique(gk, axis=0, return_inverse=True,
+                             return_counts=True)
+    inv = inv.reshape(-1)
+    want["c6_group9"] = (uk, cnt, np.bincount(
+        inv, weights=li["extendedprice"][g]))
+    j = li["orderkey"] < 600000
+    want["c6_join9"] = [(int(j.sum()), float(li["extendedprice"][j].sum()))]
+    d = cust["nationkey"] % 3
+    scale = 10.0 ** d.astype(np.float64)
+    want["c7_round"] = (cust["custkey"],
+                        np.round(cust["acctbal"].astype(np.float64) * scale)
+                        / scale)
+    return want, n_ord, len(ckeys), longest
+
+
+def check_array_result(np, torch, label, res, want):
+    """One query of the array path against its oracle (the big results
+    read from the batches as numpy)."""
+    if label in ("unnest_back", "c6_join9"):
+        rows = res.rows()
+        check(rows_match(rows, want[label]),
+              f"{label}: {rows} != oracle {want[label]}")
+        return
+    got = result_columns(torch, np, res)
+    if label == "arr_orders":
+        keys, p, rq = want[label]
+        check_collected(np, label, got, "orderkey", keys, p, "p")
+        check_collected(np, label, got, "orderkey", keys, rq, "rq")
+    elif label == "arr_cust":
+        keys, o, t = want[label]
+        check_collected(np, label, got, "custkey", keys, o, "o")
+        check_collected(np, label, got, "custkey", keys, t, "t")
+    elif label == "map_lines":
+        keys, mk, mv = want[label]
+        kd, km = got["orderkey"]
+        order = np.argsort(kd, kind="stable")
+        check(np.array_equal(kd[order], keys), f"{label}: keys differ")
+        gk, gkm, gv, gvm, lens = got["m"]
+        check(np.array_equal(lens[order], mk[2]), f"{label}: lengths differ")
+        rows = mk[0].shape[0]
+        for gd, gm, (wd, wm, _) in ((gk, gkm, mk), (gv, gvm, mv)):
+            gd, gm = gd[:, order], gm[:, order]
+            check(np.array_equal(gm[:rows], wm) and not gm[rows:].any(),
+                  f"{label}: map slot masks differ")
+            check(np.array_equal(gd[:rows][wm], wd[wm]),
+                  f"{label}: map slot values differ")
+    elif label == "c6_group9":
+        uk, cnt, sums = want[label]
+        cols = [got[n][0] for n in res.names[:9]]
+        cols[7] = np.round(cols[7] * 100).astype(np.int64)
+        cols[8] = np.round(cols[8] * 100).astype(np.int64)
+        gk = np.stack([c.astype(np.int64) for c in cols], 1)
+        order = np.lexsort(gk.T[::-1])
+        check(np.array_equal(gk[order], uk), f"{label}: groups differ")
+        check(np.array_equal(got["c"][0][order], cnt),
+              f"{label}: counts differ")
+        check(bool(np.allclose(got["s"][0][order], sums, rtol=1e-6,
+                               atol=0)), f"{label}: sums differ")
+    elif label == "c7_round":
+        keys, vals = want[label]
+        kd, _ = got["custkey"]
+        order = np.argsort(kd, kind="stable")
+        check(np.array_equal(kd[order], keys), f"{label}: keys differ")
+        check(bool(np.allclose(got["r"][0][order], vals, rtol=1e-6,
+                               atol=0)), f"{label}: values differ")
+
+
+def run_ctas(runner, want, np, torch):
+    """CTAS_ARR's statements in turn; returns the stored table's
+    cardinalities and the unnest over it, checked against the oracle."""
+    keys, lens, unnest_rows = want["ctas_arr"]
+    res = [runner.execute(sql) for sql in CTAS_ARR]
+    check(res[0].rows() == [(f"CREATE TABLE: {len(keys)} rows",)],
+          f"ctas_arr: {res[0].rows()}")
+    got = result_columns(torch, np, res[1])
+    order = np.argsort(got["orderkey"][0], kind="stable")
+    check(np.array_equal(got["orderkey"][0][order], keys)
+          and np.array_equal(got["c"][0][order], lens),
+          "ctas_arr: cardinalities of the stored arrays differ")
+    check(rows_match(res[2].rows(), unnest_rows),
+          f"ctas_arr: unnest of the stored table {res[2].rows()}")
+    check(res[3].rows() == [("DROP TABLE",)], "ctas_arr: drop")
+    return res
+
+
+def measure_k17(torch, taa, args):
+    """K17 at its largest call against collect_plain on the same CUDA
+    inputs, both timed; the bound is the bytes it must move: order and
+    pid, each spec's value, mask, FILTER and map-value columns read
+    once, the blocks, masks, lengths and first rows written once."""
+    order, pid, nlive, groups, specs, width, out_rows = args
+    got = taa.array_collect(*args)
+    want = taa.collect_plain(*args)
+    torch.cuda.synchronize()
+    (gouts, gfirst, gover), (wouts, wfirst, wover) = got, want
+    check(bool(gover) == bool(wover) and torch.equal(gfirst, wfirst),
+          "K17 array_collect: overflow or first rows differ")
+    max_abs = 0.0
+    moved = nbytes(order, pid) + nbytes(gfirst)
+    for go, wo, (val, mval, filt) in zip(gouts, wouts, specs):
+        check(torch.equal(go[4], wo[4]), "K17 array_collect: lengths differ")
+        for g, w in zip(go[:4], wo[:4]):
+            if g is None:
+                continue
+            same = torch.equal(g, w) if not g.is_floating_point() else \
+                bool(((g == w) | (torch.isnan(g) & torch.isnan(w))).all())
+            check(same, "K17 array_collect: blocks differ")
+            moved += nbytes(g)
+        moved += nbytes(go[4]) + sum(nbytes(*c) for c in (val, mval, filt)
+                                     if c is not None)
+    ms = time_ms(lambda: taa.array_collect(*args), torch)
+    plain_ms = time_ms(lambda: taa.collect_plain(*args), torch)
+    return {"rows": order.shape[0], "groups": groups, "out_rows": out_rows,
+            "width": width, "specs": len(specs), "max_abs_err": max_abs,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+def run_array_phases(torch, np, mods, dev, schema):
+    """The array path: ARRAY_QUERIES at `schema` through LocalRunner,
+    each against its numpy oracle, with cold and warm walls, the
+    datagen share, the peak device memory and every kernel's launches
+    per query; every new K12 kernel held against its composed form; K17
+    at its largest call against collect_plain. Returns (K17's
+    measurement, {kernel: launches on this path})."""
+    tk, cg, ff, taa = mods["tk"], mods["codegen"], mods["ff"], mods["taa"]
+    t = time.perf_counter()
+    want, n_orders, n_cust, longest = array_oracle(np, mods["gen"], schema)
+    emit({"phase": "array_oracle", "seconds": time.perf_counter() - t,
+          "groups": {"arr_orders": n_orders, "arr_cust": n_cust},
+          "arr_cust_longest_array": longest})
+    runner = mods["LocalRunner"]("tpch", schema, properties=PROPS, device=dev)
+    counters = list(tk.COUNTERS.values())
+    launched_before = set(cg.LAUNCHED)
+    composed_on_card = []
+    compose = ff.compose_chain
+
+    def counting_compose(stages, batch):
+        if batch.device.type != "cpu":
+            composed_on_card.append(len(stages))
+        return compose(stages, batch)
+
+    def run(label, sql):
+        if label == "ctas_arr":
+            return run_ctas(runner, want, np, torch)[1]
+        return runner.execute(sql)
+    launches, lines = {}, {}
+    ff.compose_chain = counting_compose
+    try:
+        for label, sql in ARRAY_QUERIES.items():
+            for c in counters:
+                c.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            res = run(label, sql)
+            if label != "ctas_arr":
+                check_array_result(np, torch, label, res, want)
+            cold = time.perf_counter() - t
+            launches[label] = {c.name: c.launches for c in counters}
+            peak = torch.cuda.max_memory_allocated()
+            for k in ARRAY_MUST[label]:
+                check(launches[label][k] > 0,
+                      f"{k} was not launched in {label}")
+            width = None
+            if label == "arr_cust":
+                width = len(res.fields[1].form.elements)
+                check(width > longest, "arr_cust: width below the longest")
+            warm, shares = [], []
+            for _ in range(ARRAY_WARM):
+                with DatagenTimer(mods["gen"].TpchGenerator) as dg:
+                    t = time.perf_counter()
+                    r = run(label, sql)
+                    if label != "ctas_arr":
+                        r.rows() if label in ("unnest_back", "c6_join9",
+                                              "c7_round") \
+                            else result_columns(torch, np, r)
+                    warm.append(time.perf_counter() - t)
+                shares.append(dg.seconds / warm[-1])
+            i = sorted(range(len(warm)), key=warm.__getitem__)[len(warm) // 2]
+            lines[label] = {
+                "phase": "array", "query": label, "schema": schema,
+                "batch_rows": PROPS["batch_rows"], "matches_oracle": True,
+                "launches": launches[label],
+                "k17_launches": launches[label]["array_collect"],
+                "peak_device_bytes": peak, "cold_s": cold,
+                "warm_s": warm[i], "warm_datagen_share": shares[i],
+                **({"array_agg_width": width,
+                    "width_retry": width != 64} if width else {})}
+            emit(lines[label])
+    finally:
+        ff.compose_chain = compose
+    check(not composed_on_card, "a filter/project chain ran its composed "
+          f"form on the card {len(composed_on_card)} times")
+    for label in ("arr_orders", "arr_cust"):
+        emit({"phase": "profile", "query": label,
+              **profile_query(torch, mods["gen"], runner,
+                              ARRAY_QUERIES[label],
+                              read=lambda r: result_columns(torch, np, r))})
+    # K17 at its largest call, and every K12 kernel of this path
+    cg.CAPTURE = {}
+    k12_query = {}
+    try:
+        with CollectCapture(taa) as cap:
+            for label in ("arr_orders", "arr_cust", "map_lines"):
+                cap.query = label
+                seen = {fp: id(v[2]) for fp, v in cg.CAPTURE.items()}
+                runner.execute(ARRAY_QUERIES[label])
+                for fp, v in cg.CAPTURE.items():
+                    if seen.get(fp) != id(v[2]):
+                        k12_query[fp] = label
+            for label in ("c6_group9", "c6_join9", "c7_round",
+                          "unnest_back"):
+                seen = {fp: id(v[2]) for fp, v in cg.CAPTURE.items()}
+                runner.execute(ARRAY_QUERIES[label]).rows()
+                for fp, v in cg.CAPTURE.items():
+                    if seen.get(fp) != id(v[2]):
+                        k12_query[fp] = label
+        k12_calls = cg.CAPTURE
+    finally:
+        cg.CAPTURE = None
+    check(cap.big is not None, "K17's inputs were not captured")
+    compared = {fp: measure_k12(torch, ff, kern, batch,
+                                k12_query.get(fp, "?"))
+                for fp, (_, kern, batch) in k12_calls.items()}
+    new = set(cg.LAUNCHED) - launched_before
+    check(new <= set(compared), f"{len(new - set(compared))} generated "
+          "kernels of the array path were not held against their "
+          "composed form")
+    emit({"phase": "k12_compare", "path": "array", "kernels": len(compared),
+          "new_first_launches": len(new),
+          "values_compared": sum(m["values_compared"]
+                                 for m in compared.values())})
+    m = measure_k17(torch, taa, cap.big[2])
+    emit({"phase": "kernels", "kernel": "array_collect",
+          "family": "array_agg", "shape_from": cap.big[1], **m,
+          "launches": {label: launches[label]["array_collect"]
+                       for label in ARRAY_QUERIES}})
+    totals = {name: sum(launches[label][name] for label in ARRAY_QUERIES)
+              for name in tk.COUNTERS}
+    return m, totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2865,6 +3340,7 @@ def main() -> int:
         from presto_tpu_torch.native import cuda
         from presto_tpu_torch.operators import fused_fragment as tff
         from presto_tpu_torch.operators import aggregation as tagg
+        from presto_tpu_torch.operators import array_agg as taa
         from presto_tpu_torch.operators import core as tcore
         from presto_tpu_torch.operators import misc_ops as tmisc
         from presto_tpu_torch.ops import common as tc
@@ -2882,7 +3358,7 @@ def main() -> int:
     mods = {"tb": tb, "tt": tt, "gen": gen_module, "th": th, "tc": tc,
             "tj": tj, "df": tdf, "agg": tagg, "core": tcore, "sort": tsort,
             "misc": tmisc, "codegen": codegen, "ff": tff,
-            "tk": tk, "tw": tw, "ds": ds_module,
+            "tk": tk, "tw": tw, "ds": ds_module, "taa": taa,
             "LocalRunner": LocalRunner}
     check(set(KERNELS) == set(tk.COUNTERS)
           and {src for route, src, _ in KERNELS.values()
@@ -2916,15 +3392,17 @@ def main() -> int:
     kernels = run_phases(torch, np, mods, dev, SCHEMA)
     window, window_launches = run_window_phases(torch, np, mods, dev,
                                                 SCHEMA)
+    k17, array_launches = run_array_phases(torch, np, mods, dev, SCHEMA)
     for k in kernels:
-        k["launches"] += window_launches[k["name"]]
-    for kname in WINDOW_KERNELS:
+        k["launches"] += window_launches[k["name"]] \
+            + array_launches[k["name"]]
+    for kname, m in [(n, window[n]) for n in WINDOW_KERNELS] \
+            + [(n, k17) for n in ARRAY_KERNELS]:
         route, src, replaces = KERNELS[kname]
-        m = window[kname]
         kernels.append({
             "name": kname, "route": route, "source": src,
             "replaces": replaces, "family": tk.COUNTERS[kname].family,
-            "launches": window_launches[kname],
+            "launches": window_launches[kname] + array_launches[kname],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": "bytes", "library_ms": m["library_ms"]})

@@ -69,8 +69,8 @@ struct ExpandArgs {
   int64_t nbuild;
   bool left;
   bool verify_full;
-  KeyCols probe_keys;
-  KeyCols build_keys;
+  KeyGroups probe_keys;
+  KeyGroups build_keys;
   Cols cols;
   bool* live;
   int64_t out_cap;
@@ -218,7 +218,8 @@ int presto_expand_tile() { return TILE; }
 
 // lo_enc[n] from K5 and the probe's row_valid[n]; the build's run_len
 // and hash2[nbuild >= 1]; probe_h2[n] or null; probe and build key columns
-// (nkeys each, read under verify_full only); ncols output columns
+// (nkeys each, flat, up to PRESTO_MAX_KEYS * PRESTO_MAX_KEY_GROUPS; read
+// under verify_full only); ncols output columns
 // (src data/mask, dst data/mask — dst data null for an aligned probe
 // column — element size and side); matched[nbuild] (full mode, which
 // needs left) or null. Writes live[out_cap], sets matched[brow] for every
@@ -241,12 +242,12 @@ int presto_join_expand(int32_t aligned, const void* lo_enc, const void* row_vali
       out_cap < 1 || nbuild < 1 || (aligned && out_cap != n) || (matched != nullptr && !left))
     return static_cast<int>(cudaErrorInvalidValue);
   if (verify_full) {
-    if (!presto_fill_keys(&a.probe_keys, pkey_data, pkey_mask, pkey_dtypes, nkeys) ||
-        !presto_fill_keys(&a.build_keys, bkey_data, bkey_mask, bkey_dtypes, nkeys))
+    if (!presto_fill_key_groups(&a.probe_keys, pkey_data, pkey_mask, pkey_dtypes, nkeys) ||
+        !presto_fill_key_groups(&a.build_keys, bkey_data, bkey_mask, bkey_dtypes, nkeys))
       return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    a.probe_keys.nkeys = 0;
-    a.build_keys.nkeys = 0;
+    a.probe_keys.ngroups = 0;
+    a.build_keys.ngroups = 0;
   }
   a.lo_enc = static_cast<const int64_t*>(lo_enc);
   a.row_valid = static_cast<const bool*>(row_valid);

@@ -35,7 +35,7 @@
 #define THREADS 256
 
 __global__ void __launch_bounds__(THREADS)
-probe_search(const KeyCols keys, const bool* __restrict__ row_valid, int64_t n,
+probe_search(const KeyGroups keys, const bool* __restrict__ row_valid, int64_t n,
              const int64_t* __restrict__ sorted_hash, const int64_t* __restrict__ hash2,
              const int64_t* __restrict__ part_starts, int k, bool verify_hash2,
              int64_t* __restrict__ lo_enc, int64_t* __restrict__ h2_out) {
@@ -58,7 +58,8 @@ const char* presto_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// Probe keys (as in row_hash.cu) against a build's sorted_hash[nbuild],
+// Probe keys (flat, up to PRESTO_MAX_KEYS * PRESTO_MAX_KEY_GROUPS
+// columns, hashed over their groups in turn) against a build's sorted_hash[nbuild],
 // hash2[nbuild] and part_starts[2^k + 1]; writes lo_enc[n] and, when
 // h2_out is not null, h2[n].
 int presto_join_probe(const int64_t* key_data, const int64_t* key_mask, const int32_t* dtypes,
@@ -66,8 +67,8 @@ int presto_join_probe(const int64_t* key_data, const int64_t* key_mask, const in
                       const void* sorted_hash, const void* hash2, const void* part_starts,
                       int32_t k, int32_t verify_hash2, void* lo_enc, void* h2_out,
                       void* stream) {
-  KeyCols keys;
-  if (!presto_fill_keys(&keys, key_data, key_mask, dtypes, nkeys) || k < 0 || k > 30)
+  KeyGroups keys;
+  if (!presto_fill_key_groups(&keys, key_data, key_mask, dtypes, nkeys) || k < 0 || k > 30)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   int device = 0, sms = 0;

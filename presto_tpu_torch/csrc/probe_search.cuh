@@ -2,7 +2,8 @@
 // compare that verifies a candidate, as device functions. K5
 // (join_probe.cu) and K7 (semi_join.cu) search with the same function,
 // so a join and a semi join cannot disagree on a candidate; K7 and K9
-// (join_expand.cu) compare keys with the same function.
+// (join_expand.cu) compare keys with the same function, over up to
+// PRESTO_MAX_KEY_GROUPS groups of key columns in turn.
 //
 // The search is the reference's presto_tpu/ops/join.py `_search_enc`
 // (:353-379) over `common.bounded_searchsorted`: the probe row's radix
@@ -55,12 +56,12 @@ __device__ __forceinline__ double presto_key_double(const KeyCols& k, int j, int
   }
 }
 
-// Probe row i and build row r have equal keys, none NULL: the
-// reference's `(pd == bd[brow]) & pm & bm[brow]` over every key column
-// (integers compared as int64, floats as float64, so NaN matches
+// Probe row i and build row r have equal keys, none NULL, over one key
+// group: the reference's `(pd == bd[brow]) & pm & bm[brow]` per key
+// column (integers compared as int64, floats as float64, so NaN matches
 // nothing).
-__device__ __forceinline__ bool presto_keys_match(const KeyCols& p, int64_t i, const KeyCols& b,
-                                                  int64_t r) {
+__device__ __forceinline__ bool presto_key_group_match(const KeyCols& p, int64_t i,
+                                                       const KeyCols& b, int64_t r) {
   for (int j = 0; j < p.nkeys; ++j) {
     if (!p.mask[j][i] || !b.mask[j][r]) return false;
     if (presto_key_is_float(p.dtype[j]) || presto_key_is_float(b.dtype[j])) {
@@ -69,5 +70,22 @@ __device__ __forceinline__ bool presto_keys_match(const KeyCols& p, int64_t i, c
       return false;
     }
   }
+  return true;
+}
+
+// The same over every key group in turn: a NULL in any group matches
+// nothing.
+__device__ __forceinline__ bool presto_keys_match(const KeyGroups& p, int64_t i,
+                                                  const KeyGroups& b, int64_t r) {
+  for (int g = 0; g < p.ngroups; ++g)
+    if (!presto_key_group_match(p.g[g], i, b.g[g], r)) return false;
+  return true;
+}
+
+// No key of row i, in any group, is NULL.
+__device__ __forceinline__ bool presto_keys_present(const KeyGroups& k, int64_t i) {
+  for (int g = 0; g < k.ngroups; ++g)
+    for (int j = 0; j < k.g[g].nkeys; ++j)
+      if (!k.g[g].mask[j][i]) return false;
   return true;
 }

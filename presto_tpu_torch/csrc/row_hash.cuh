@@ -17,6 +17,10 @@
 #include <stdint.h>
 
 #define PRESTO_MAX_KEYS 8
+// Most key groups one K5, K7, K8 or K9 launch compares (so at most
+// PRESTO_MAX_KEYS * PRESTO_MAX_KEY_GROUPS = 24 key columns; K3, K6 and
+// K13 take any number over several launches).
+#define PRESTO_MAX_KEY_GROUPS 3
 #define PRESTO_H_INVALID INT64_MAX
 #define PRESTO_H2_INVALID INT64_MIN
 
@@ -41,6 +45,27 @@ static inline bool presto_fill_keys(KeyCols* k, const int64_t* data, const int64
     k->dtype[j] = dtypes[j];
   }
   k->nkeys = nkeys;
+  return true;
+}
+
+// Key columns past PRESTO_MAX_KEYS: successive groups of at most
+// PRESTO_MAX_KEYS columns, in key order, passed by value.
+struct KeyGroups {
+  KeyCols g[PRESTO_MAX_KEY_GROUPS];
+  int32_t ngroups;
+};
+
+// Fill `k` from flat host arrays of nkeys entries (groups of
+// PRESTO_MAX_KEYS in order); false when nkeys is out of range.
+static inline bool presto_fill_key_groups(KeyGroups* k, const int64_t* data, const int64_t* mask,
+                                          const int32_t* dtypes, int32_t nkeys) {
+  if (nkeys < 1 || nkeys > PRESTO_MAX_KEYS * PRESTO_MAX_KEY_GROUPS) return false;
+  k->ngroups = (nkeys + PRESTO_MAX_KEYS - 1) / PRESTO_MAX_KEYS;
+  for (int g = 0; g < k->ngroups; ++g) {
+    const int lo = g * PRESTO_MAX_KEYS;
+    const int m = nkeys - lo < PRESTO_MAX_KEYS ? nkeys - lo : PRESTO_MAX_KEYS;
+    presto_fill_keys(&k->g[g], data + lo, mask + lo, dtypes + lo, m);
+  }
   return true;
 }
 
@@ -77,6 +102,30 @@ __device__ __forceinline__ uint64_t presto_hash64b(uint64_t x, bool present) {
   return x ^ (x >> 33);
 }
 
+// Mix the keys of one group of row i into the running hashes (`first`:
+// no key mixed yet); clears *live on a NULL key.
+__device__ __forceinline__ void presto_hash_group(const KeyCols& k, int64_t i, bool* first,
+                                                  uint64_t* h, uint64_t* h2, bool* all_present) {
+  for (int j = 0; j < k.nkeys; ++j) {
+    const bool m = k.mask[j][i];
+    const uint64_t x = presto_key_bits(k, j, i);
+    const uint64_t a = presto_hash64(x, m);
+    const uint64_t b = presto_hash64b(x, m);
+    *h = *first ? a : *h * 31ULL + a;
+    *h2 = *first ? b : *h2 * 37ULL + b;
+    *first = false;
+    if (!m) *all_present = false;
+  }
+}
+
+__device__ __forceinline__ void presto_hash_finish(uint64_t h, uint64_t h2, bool row_valid,
+                                                   bool all_present, bool nulls_invalid,
+                                                   int64_t* h_out, int64_t* h2_out) {
+  const bool live = row_valid && (all_present || !nulls_invalid);
+  *h_out = live ? static_cast<int64_t>(h) : PRESTO_H_INVALID;
+  *h2_out = (live || !nulls_invalid) ? static_cast<int64_t>(h2) : PRESTO_H2_INVALID;
+}
+
 // Both hashes of row i. A dead row (row_valid false, or with
 // nulls_invalid any NULL key) takes h = PRESTO_H_INVALID; with
 // nulls_invalid (the join's rule) also h2 = PRESTO_H2_INVALID, without
@@ -85,16 +134,18 @@ __device__ __forceinline__ void presto_row_hash_pair(const KeyCols& k, int64_t i
                                                      bool nulls_invalid, int64_t* h_out,
                                                      int64_t* h2_out) {
   uint64_t h = 0, h2 = 0;
-  bool live = row_valid;
-  for (int j = 0; j < k.nkeys; ++j) {
-    const bool m = k.mask[j][i];
-    const uint64_t x = presto_key_bits(k, j, i);
-    const uint64_t a = presto_hash64(x, m);
-    const uint64_t b = presto_hash64b(x, m);
-    h = j == 0 ? a : h * 31ULL + a;
-    h2 = j == 0 ? b : h2 * 37ULL + b;
-    if (nulls_invalid && !m) live = false;
-  }
-  *h_out = live ? static_cast<int64_t>(h) : PRESTO_H_INVALID;
-  *h2_out = (live || !nulls_invalid) ? static_cast<int64_t>(h2) : PRESTO_H2_INVALID;
+  bool first = true, all_present = true;
+  presto_hash_group(k, i, &first, &h, &h2, &all_present);
+  presto_hash_finish(h, h2, row_valid, all_present, nulls_invalid, h_out, h2_out);
+}
+
+// The same over key groups: mixing the groups in turn into one running
+// hash is the reference's row_hash / row_hash2 over all the keys.
+__device__ __forceinline__ void presto_row_hash_pair(const KeyGroups& k, int64_t i,
+                                                     bool row_valid, bool nulls_invalid,
+                                                     int64_t* h_out, int64_t* h2_out) {
+  uint64_t h = 0, h2 = 0;
+  bool first = true, all_present = true;
+  for (int g = 0; g < k.ngroups; ++g) presto_hash_group(k.g[g], i, &first, &h, &h2, &all_present);
+  presto_hash_finish(h, h2, row_valid, all_present, nulls_invalid, h_out, h2_out);
 }

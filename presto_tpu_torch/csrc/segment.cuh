@@ -11,6 +11,7 @@
 
 #pragma once
 
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "row_hash.cuh"
@@ -109,6 +110,37 @@ __device__ __forceinline__ bool presto_keys_differ(const KeyCols& k, int64_t i, 
   for (int j = 0; j < k.nkeys; ++j)
     if (presto_key_differs(k, j, i, p)) return true;
   return false;
+}
+
+__device__ __forceinline__ bool presto_keys_differ(const KeyGroups& k, int64_t i, int64_t p) {
+  for (int g = 0; g < k.ngroups; ++g)
+    if (presto_keys_differ(k.g[g], i, p)) return true;
+  return false;
+}
+
+// ORs `bit` into flags[i] where row i's keys of one group differ from
+// row i - 1's: one launch per group of at most PRESTO_MAX_KEYS columns,
+// so a boundary pass over rows in key order takes any number of keys
+// (K6's keys past the first group, K13's partition and order keys).
+__global__ void presto_key_changes_kernel(const KeyCols k, int64_t n, int bit,
+                                          uint8_t* __restrict__ flags) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < 1 || i >= n) return;
+  if (presto_keys_differ(k, i, i - 1)) flags[i] |= static_cast<uint8_t>(bit);
+}
+
+static inline int presto_launch_key_changes(const int64_t* data, const int64_t* mask,
+                                            const int32_t* dtypes, int32_t nkeys, int64_t n,
+                                            int32_t bit, void* flags, void* stream) {
+  KeyCols k;
+  if (!presto_fill_keys(&k, data, mask, dtypes, nkeys)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 2) return static_cast<int>(cudaGetLastError());
+  const int threads = 256;
+  const int64_t blocks = (n + threads - 1) / threads;
+  presto_key_changes_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(k, n, bit,
+                                                                   static_cast<uint8_t*>(flags));
+  return static_cast<int>(cudaGetLastError());
 }
 
 struct ScanSum {

@@ -10,7 +10,10 @@
 // per-row id column is written. A row starts a group when it is live and the row
 // before it is dead, or its h1, h2 or any key differs from that row's
 // (two NULLs compare equal; a float NaN differs from itself, as the
-// reference's `!=`).
+// reference's `!=`). The kernel compares one group of at most
+// PRESTO_MAX_KEYS key columns itself; the keys past it arrive as a
+// per-row "changed" byte ORed by one presto_segment_key_changes launch
+// per further group, so any number of keys works.
 //
 // Four launches on one stream:
 //   1. seg_flags: one thread per row writes its boundary flag; each
@@ -43,6 +46,9 @@ struct SegArgs {
   const int64_t* h1;
   const int64_t* h2;
   KeyCols keys;
+  // keys past the first group: 1 where row i's differ from row i - 1's
+  // (presto_segment_key_changes, one launch per group), or null
+  const uint8_t* key_changes;
   const bool* valid;
   int64_t n;
   Comps comps;
@@ -70,7 +76,10 @@ seg_flags(const SegArgs a, uint8_t* __restrict__ flags, int64_t* __restrict__ ti
       if (i == 0 || !a.valid[i - 1] || a.h1[i] != a.h1[i - 1] || a.h2[i] != a.h2[i - 1]) {
         b = 1;
       } else {
-        b = presto_keys_differ(a.keys, i, i - 1) ? 1 : 0;
+        b = presto_keys_differ(a.keys, i, i - 1) ||
+                    (a.key_changes != nullptr && a.key_changes[i] != 0)
+                ? 1
+                : 0;
       }
     }
     flags[i] = static_cast<uint8_t>(b);
@@ -132,7 +141,15 @@ const char* presto_error_string(int status) {
 
 int presto_segment_tile() { return TILE; }
 
-// Sorted h1[n], h2[n], keys (as in row_hash.cu) and valid[n]; ncomp
+// ORs 1 into flags[i] (zeroed by the caller) where row i's keys of one
+// group of at most PRESTO_MAX_KEYS columns differ from row i - 1's.
+int presto_segment_key_changes(const int64_t* data, const int64_t* mask, const int32_t* dtypes,
+                               int32_t nkeys, int64_t n, void* flags, void* stream) {
+  return presto_launch_key_changes(data, mask, dtypes, nkeys, n, 1, flags, stream);
+}
+
+// Sorted h1[n], h2[n], keys (as in row_hash.cu: the first group),
+// key_changes[n] for the keys past it (or null) and valid[n]; ncomp
 // sorted contributions with their out[out_cap] slots, dtype and op
 // codes. Writes first_row[out_cap] and stats[3] = {groups,
 // overflow, last live row + 1}; stats must be zeroed by the caller.
@@ -140,8 +157,8 @@ int presto_segment_tile() { return TILE; }
 // int64s.
 int presto_segment_reduce(const void* h1, const void* h2, const int64_t* key_data,
                           const int64_t* key_mask, const int32_t* key_dtypes, int32_t nkeys,
-                          const void* valid, int64_t n, const int64_t* contrib,
-                          const int64_t* out, const int32_t* dtypes, const int32_t* ops,
+                          const void* key_changes, const void* valid, int64_t n,
+                          const int64_t* contrib, const int64_t* out, const int32_t* dtypes, const int32_t* ops,
                           int32_t ncomp, int64_t out_cap, void* first_row,
                           void* stats, void* flags, void* tiles, void* starts, void* stream) {
   SegArgs a;
@@ -150,6 +167,7 @@ int presto_segment_reduce(const void* h1, const void* h2, const int64_t* key_dat
     return static_cast<int>(cudaErrorInvalidValue);
   a.h1 = static_cast<const int64_t*>(h1);
   a.h2 = static_cast<const int64_t*>(h2);
+  a.key_changes = static_cast<const uint8_t*>(key_changes);
   a.valid = static_cast<const bool*>(valid);
   a.n = n;
   a.out_cap = out_cap;

@@ -37,15 +37,14 @@
 enum SemiMode { SEMI_UNIQUE_HASH = 0, SEMI_WALK_HASH = 1, SEMI_WALK_FULL = 2 };
 
 __global__ void __launch_bounds__(THREADS)
-semi_mark(const KeyCols probe, const bool* __restrict__ row_valid, int64_t n,
+semi_mark(const KeyGroups probe, const bool* __restrict__ row_valid, int64_t n,
           const int64_t* __restrict__ sorted_hash, const int64_t* __restrict__ hash2,
           const int64_t* __restrict__ part_starts, const int64_t* __restrict__ run_len, int k,
-          int mode, const KeyCols build, bool negate, bool* __restrict__ keep) {
+          int mode, const KeyGroups build, bool negate, bool* __restrict__ keep) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    bool valid = row_valid[i];
-    for (int j = 0; j < probe.nkeys; ++j) valid = valid && probe.mask[j][i];
+    const bool valid = row_valid[i] && presto_keys_present(probe, i);
     bool found = false;
     if (valid) {
       int64_t h, h2;
@@ -72,7 +71,8 @@ const char* presto_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// Probe keys (as in row_hash.cu) against a build's sorted_hash, hash2,
+// Probe keys (flat, up to PRESTO_MAX_KEYS * PRESTO_MAX_KEY_GROUPS
+// columns, compared over their groups in turn) against a build's sorted_hash, hash2,
 // part_starts[2^k + 1] and run_len; build keys (same count) only for
 // mode SEMI_WALK_FULL. Writes keep[n].
 int presto_semi_join(const int64_t* key_data, const int64_t* key_mask, const int32_t* dtypes,
@@ -80,15 +80,15 @@ int presto_semi_join(const int64_t* key_data, const int64_t* key_mask, const int
                      const void* hash2, const void* part_starts, const void* run_len, int32_t k,
                      int32_t mode, const int64_t* build_data, const int64_t* build_mask,
                      const int32_t* build_dtypes, int32_t negate, void* keep, void* stream) {
-  KeyCols probe, build;
-  if (!presto_fill_keys(&probe, key_data, key_mask, dtypes, nkeys) || k < 0 || k > 30 ||
+  KeyGroups probe, build;
+  if (!presto_fill_key_groups(&probe, key_data, key_mask, dtypes, nkeys) || k < 0 || k > 30 ||
       mode < SEMI_UNIQUE_HASH || mode > SEMI_WALK_FULL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (mode == SEMI_WALK_FULL) {
-    if (!presto_fill_keys(&build, build_data, build_mask, build_dtypes, nkeys))
+    if (!presto_fill_key_groups(&build, build_data, build_mask, build_dtypes, nkeys))
       return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    build.nkeys = 0;
+    build.ngroups = 0;
   }
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   int device = 0, sms = 0;

@@ -54,7 +54,7 @@
 #define THREADS 256
 
 struct StreamArgs {
-  KeyCols keys;
+  KeyGroups keys;
   const bool* valid;
   int64_t n;
   Comps comps;
@@ -62,15 +62,15 @@ struct StreamArgs {
   // the carried group: one row of keys (same dtypes as `keys`), its
   // validity and one value per component; `carry` false without one
   bool carry;
-  KeyCols carry_keys;
+  KeyGroups carry_keys;
   const bool* carry_valid;
   const void* carry_comp[PRESTO_MAX_COMPS];
 };
 
 // Where the new carry goes (carry mode only).
 struct CarryOut {
-  void* key_data[PRESTO_MAX_KEYS];
-  bool* key_mask[PRESTO_MAX_KEYS];
+  void* key_data[PRESTO_MAX_KEYS * PRESTO_MAX_KEY_GROUPS];
+  bool* key_mask[PRESTO_MAX_KEYS * PRESTO_MAX_KEY_GROUPS];
   void* comp[PRESTO_MAX_COMPS];
   bool* valid;
   bool* emit_carry;
@@ -95,9 +95,9 @@ __device__ __forceinline__ void copy_bytes(const void* src, int64_t i, void* dst
   }
 }
 
-// The carried group's keys equal row r's (the reference's
+// The carried group's keys of one group equal row r's (the reference's
 // `where(cm & pm, cd == pd, ~cm & ~pm)` per key).
-__device__ __forceinline__ bool carry_equals(const KeyCols& c, const KeyCols& k, int64_t r) {
+__device__ __forceinline__ bool carry_group_equals(const KeyCols& c, const KeyCols& k, int64_t r) {
   for (int j = 0; j < k.nkeys; ++j) {
     const bool cm = c.mask[j][0], m = k.mask[j][r];
     if (cm != m) return false;
@@ -119,6 +119,12 @@ __device__ __forceinline__ bool carry_equals(const KeyCols& c, const KeyCols& k,
     }
     if (!eq) return false;
   }
+  return true;
+}
+
+__device__ __forceinline__ bool carry_equals(const KeyGroups& c, const KeyGroups& k, int64_t r) {
+  for (int g = 0; g < k.ngroups; ++g)
+    if (!carry_group_equals(c.g[g], k.g[g], r)) return false;
   return true;
 }
 
@@ -222,14 +228,19 @@ __global__ void sr_carry(const StreamArgs a, const CarryOut o, const int64_t* __
     if (has_groups) copy_bytes(a.comps.out[c], last, o.comp[c], size);
     else copy_bytes(a.carry_comp[c], 0, o.comp[c], size);
   }
-  for (int j = lane; j < a.keys.nkeys; j += 32) {
-    const int size = key_size(a.keys.dtype[j]);
-    if (has_groups) {
-      copy_bytes(a.keys.data[j], row, o.key_data[j], size);
-      *o.key_mask[j] = a.keys.mask[j][row];
-    } else {
-      copy_bytes(a.carry_keys.data[j], 0, o.key_data[j], size);
-      *o.key_mask[j] = a.carry_keys.mask[j][0];
+  for (int g = 0; g < a.keys.ngroups; ++g) {
+    const KeyCols& k = a.keys.g[g];
+    const KeyCols& c = a.carry_keys.g[g];
+    for (int j = lane; j < k.nkeys; j += 32) {
+      const int size = key_size(k.dtype[j]);
+      const int out = g * PRESTO_MAX_KEYS + j;
+      if (has_groups) {
+        copy_bytes(k.data[j], row, o.key_data[out], size);
+        *o.key_mask[out] = k.mask[j][row];
+      } else {
+        copy_bytes(c.data[j], 0, o.key_data[out], size);
+        *o.key_mask[out] = c.mask[j][0];
+      }
     }
   }
   if (lane == 0) {
@@ -247,7 +258,8 @@ const char* presto_error_string(int status) {
 
 int presto_stream_tile() { return TILE; }
 
-// Keys (as in row_hash.cu) and valid[n] in key order; ncomp
+// Keys (flat, up to PRESTO_MAX_KEYS * PRESTO_MAX_KEY_GROUPS columns,
+// compared over their groups in turn) and valid[n] in key order; ncomp
 // contributions with their out[out_cap] slots, dtype and op codes.
 // Writes first_row[out_cap], slot_valid[out_cap] and stats[4] = {groups,
 // overflow, last live row + 1, same}. With carry != 0 also reads the
@@ -267,7 +279,7 @@ int presto_stream_reduce(const int64_t* key_data, const int64_t* key_mask,
                          void* first_row, void* slot_valid, void* stats, void* flags,
                          void* tiles, void* starts, void* stream) {
   StreamArgs a;
-  if (!presto_fill_keys(&a.keys, key_data, key_mask, key_dtypes, nkeys) ||
+  if (!presto_fill_key_groups(&a.keys, key_data, key_mask, key_dtypes, nkeys) ||
       !presto_fill_comps(&a.comps, contrib, out, dtypes, ops, ncomp) || n < 1 || out_cap < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   a.valid = static_cast<const bool*>(valid);
@@ -276,7 +288,7 @@ int presto_stream_reduce(const int64_t* key_data, const int64_t* key_mask,
   a.carry = carry != 0;
   CarryOut o;
   if (a.carry) {
-    presto_fill_keys(&a.carry_keys, carry_key_data, carry_key_mask, key_dtypes, nkeys);
+    presto_fill_key_groups(&a.carry_keys, carry_key_data, carry_key_mask, key_dtypes, nkeys);
     a.carry_valid = static_cast<const bool*>(carry_valid);
     for (int c = 0; c < ncomp; ++c) {
       a.carry_comp[c] = reinterpret_cast<const void*>(carry_comp[c]);

@@ -38,12 +38,6 @@ struct ScanMinI {
   __device__ __forceinline__ int64_t operator()(int64_t a, int64_t b) const { return b < a ? b : a; }
 };
 
-__global__ void key_changes_kernel(const KeyCols k, int64_t n, int bit, uint8_t* __restrict__ flags) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < 1 || i >= n) return;
-  if (presto_keys_differ(k, i, i - 1)) flags[i] |= static_cast<uint8_t>(bit);
-}
-
 // Partition (p) and peer-group (q) boundary of row i.
 __device__ __forceinline__ void win_bounds(const uint8_t* flags, const bool* valid, int64_t n,
                                            int has_part, int has_order, int64_t i, bool* p,
@@ -199,15 +193,7 @@ int presto_window_tile() { return WIN_TILE; }
 
 int presto_window_key_changes(const int64_t* data, const int64_t* mask, const int32_t* dtypes,
                               int32_t nkeys, int64_t n, int32_t bit, void* flags, void* stream) {
-  KeyCols k;
-  if (!presto_fill_keys(&k, data, mask, dtypes, nkeys)) return static_cast<int>(cudaErrorInvalidValue);
-  if (n < 2) return static_cast<int>(cudaGetLastError());
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  key_changes_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(k, n, bit,
-                                                            static_cast<uint8_t*>(flags));
-  return static_cast<int>(cudaGetLastError());
+  return presto_launch_key_changes(data, mask, dtypes, nkeys, n, bit, flags, stream);
 }
 
 // scratch: AG_NUM * ntiles + 1 int64.

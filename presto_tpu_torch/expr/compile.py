@@ -1114,18 +1114,27 @@ _COMPARISONS = {
 }
 
 
+def _scaled(op, x, d):
+    """`op(x * 10.0 ** d) / 10.0 ** d` (the reference's round and
+    truncate with decimals) in float64, as the reference's x64
+    promotion computes it whatever `x` is: torch would keep a REAL `x`
+    in float32 against a 0-d scale, and give `10.0 ** int64_tensor` as
+    float32. A column `d` scales elementwise, and both divisions are by
+    a tensor, IEEE on every device."""
+    x = x.to(torch.float64)
+    if isinstance(d, (int, float)):
+        scale = float(10.0 ** d)
+        return _div_scalar(op(x * scale), scale)
+    scale = 10.0 ** d.to(torch.float64)  # libdevice pow on the card
+    return op(x * scale) / scale
+
+
 def _round(x, d=None):
-    if d is None:
-        return torch.round(x)
-    scale = 10.0 ** d
-    return _div_scalar(torch.round(x * scale), scale)
+    return torch.round(x) if d is None else _scaled(torch.round, x, d)
 
 
 def _truncate(x, d=None):
-    if d is None:
-        return torch.trunc(x)
-    scale = 10.0 ** d
-    return _div_scalar(torch.trunc(x * scale), scale)
+    return torch.trunc(x) if d is None else _scaled(torch.trunc, x, d)
 
 
 def _width_bucket(x, lo, hi, n):

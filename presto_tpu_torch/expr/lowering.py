@@ -288,6 +288,8 @@ def _build(key: str, args, kwargs, meta: torch.Tensor) -> LNode:
         return LNode("clamp", dt, (_operand(x),
                                    None if lo is None else _operand(lo),
                                    None if hi is None else _operand(hi)))
+    if key == "rpow":  # `number ** column`
+        key, args = "pow", (args[1], args[0])
     if key in LIBM:
         if dt not in (torch.float32, torch.float64):
             raise Unlowerable(f"{key} of {dt}")

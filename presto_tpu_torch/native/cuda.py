@@ -48,6 +48,7 @@ SOURCES = {
     "window_frame_sum": "window_frame_sum.cu",
     "window_frame_minmax": "window_frame_minmax.cu",
     "window_emit": "window_emit.cu",
+    "array_collect": "array_collect.cu",
 }
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
@@ -80,9 +81,11 @@ SIGNATURES = {
     },
     "segment_reduce": {
         "presto_segment_tile": (ctypes.c_int, []),
+        "presto_segment_key_changes": (
+            ctypes.c_int, [_P, _P, _P, _I32, _I64, _P, _P]),
         "presto_segment_reduce": (
-            ctypes.c_int, [_P, _P, _P, _P, _P, _I32, _P, _I64, _P, _P, _P,
-                           _P, _I32, _I64, _P, _P, _P, _P, _P, _P]),
+            ctypes.c_int, [_P, _P, _P, _P, _P, _I32, _P, _P, _I64, _P, _P,
+                           _P, _P, _I32, _I64, _P, _P, _P, _P, _P, _P]),
     },
     "semi_join": {
         "presto_semi_join": (
@@ -134,6 +137,12 @@ SIGNATURES = {
     },
     "window_emit": {
         "presto_window_emit": (ctypes.c_int, [_P, _P, _P, _P, _I32, _P]),
+    },
+    "array_collect": {
+        "presto_collect_max_specs": (ctypes.c_int, []),
+        "presto_array_collect": (
+            ctypes.c_int, [_P] * 13 + [_I32, _P, _P, _I64, _I64, _I64, _I64,
+                                       _I32, _P, _P, _P, _P]),
     },
 }
 

@@ -1,7 +1,8 @@
-"""Cross join, EnforceSingleRow, AssignUniqueId, GroupId, the local
-union queue and the spool (reference: presto_tpu/operators/misc_ops.py;
-NestedLoopBuildOperator / NestedLoopJoinOperator,
-EnforceSingleRowOperator, AssignUniqueIdOperator, GroupIdOperator and
+"""Cross join, EnforceSingleRow, AssignUniqueId, Unnest, GroupId, the
+local union queue and the spool (reference:
+presto_tpu/operators/misc_ops.py; NestedLoopBuildOperator /
+NestedLoopJoinOperator, EnforceSingleRowOperator,
+AssignUniqueIdOperator, UnnestOperator, GroupIdOperator and
 operator/exchange/LocalExchange.java:64 for the union queue).
 
 The cross product is kernel K10 `cross_product` (csrc/cross_product.cu)
@@ -263,6 +264,98 @@ class AssignUniqueIdOperatorFactory(OperatorFactory):
         return AssignUniqueIdOperator(
             OperatorContext(self.operator_id, self.name, driver_context),
             self.symbol, self.start, self.stride)
+
+
+class UnnestOperator(Operator):
+    """UNNEST by replication (reference: presto_tpu/operators/
+    misc_ops.py:202-300; operator/unnest/UnnestOperator.java): replica i
+    of each input batch selects every array's i-th element column. An
+    array with a length column (array_agg's, split's, a stored array's)
+    has element i only where i < its length; one without has its static
+    width. Arrays shorter than the longest pad NULL (zip), a row is kept
+    in replica i when any of its arrays has element i, and ordinality is
+    the constant i + 1. String element columns are re-encoded onto the
+    output field's dictionary, so one code space covers every replica.
+    Column selections and mask ANDs only: no kernel."""
+
+    def __init__(self, ctx: OperatorContext,
+                 items: Sequence[Tuple[str, List[str], Optional[str]]],
+                 ordinality_symbol: Optional[str],
+                 out_dicts: Dict[str, Optional[tuple]]):
+        super().__init__(ctx)
+        self.items = list(items)
+        self.ordinality_symbol = ordinality_symbol
+        self.out_dicts = out_dicts
+        self.depth = max(len(syms) for _, syms, _ in items)
+        self._pending: List[Batch] = []
+        self._finishing = False
+
+    def needs_input(self) -> bool:
+        return not self._pending and not self._finishing
+
+    def add_input(self, batch: Batch) -> None:
+        self._count_in(batch)
+        cap = batch.capacity
+        dev = batch.device
+        for i in range(self.depth):
+            cols = dict(batch.columns)
+            row_keep = None
+            for out_sym, elem_syms, len_sym in self.items:
+                in_arr = None   # statically in range (or padding)
+                if len_sym is not None:
+                    lcol = batch.columns[len_sym]
+                    in_arr = lcol.mask & (lcol.data > i)
+                target = self.out_dicts.get(out_sym)
+                if i < len(elem_syms):
+                    col = batch.columns[elem_syms[i]]
+                    if target is not None and col.dictionary != target:
+                        col = remap_column(col, target)
+                    if in_arr is not None:
+                        col = Column(col.data, col.mask & in_arr, col.type,
+                                     col.dictionary)
+                    item_has = in_arr if in_arr is not None else \
+                        torch.ones(cap, dtype=torch.bool, device=dev)
+                else:   # zip padding: a NULL element
+                    ref = batch.columns[elem_syms[0]]
+                    col = Column(ref.data, torch.zeros(cap, dtype=torch.bool,
+                                                       device=dev),
+                                 ref.type, target)
+                    item_has = in_arr if in_arr is not None else \
+                        torch.zeros(cap, dtype=torch.bool, device=dev)
+                cols[out_sym] = col
+                row_keep = item_has if row_keep is None \
+                    else row_keep | item_has
+            if self.ordinality_symbol is not None:
+                cols[self.ordinality_symbol] = Column(
+                    torch.full((cap,), i + 1, dtype=torch.int64, device=dev),
+                    torch.ones(cap, dtype=torch.bool, device=dev), BIGINT,
+                    None)
+            self._pending.append(Batch(cols, batch.row_valid & row_keep))
+
+    def get_output(self) -> Optional[Batch]:
+        if not self._pending:
+            return None
+        return self._count_out(self._pending.pop(0))
+
+    def finish(self) -> None:
+        self._finishing = True
+
+    def is_finished(self) -> bool:
+        return self._finishing and not self._pending
+
+
+class UnnestOperatorFactory(OperatorFactory):
+    def __init__(self, operator_id: int, items, ordinality_symbol,
+                 out_dicts):
+        super().__init__(operator_id, "unnest")
+        self.items = items
+        self.ordinality_symbol = ordinality_symbol
+        self.out_dicts = out_dicts
+
+    def create(self, driver_context: DriverContext) -> Operator:
+        return UnnestOperator(
+            OperatorContext(self.operator_id, self.name, driver_context),
+            self.items, self.ordinality_symbol, self.out_dicts)
 
 
 class GroupIdOperator(Operator):

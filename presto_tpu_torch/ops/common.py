@@ -127,8 +127,11 @@ ROW_HASH_KERNEL = _tk.LaunchCounter("row_hash")
 KEY_DTYPES = {torch.bool: 0, torch.int8: 0, torch.int16: 1,
               torch.int32: 2, torch.int64: 3, torch.float32: 4,
               torch.float64: 5}
-#: most key columns one hashing kernel takes (PRESTO_MAX_KEYS)
+#: most key columns of one KeyCols group (PRESTO_MAX_KEYS)
 MAX_KEYS = 8
+#: most key groups one K5, K7, K8 or K9 launch compares
+#: (PRESTO_MAX_KEY_GROUPS): those kernels take up to 24 key columns
+MAX_KEY_GROUPS = 3
 #: most output columns one gathering kernel takes (csrc/gather.cuh
 #: PRESTO_MAX_COLS), and the element sizes it copies
 GATHER_MAX_COLS = 64
@@ -189,6 +192,29 @@ def key_args(keys: Sequence[CVal], n: int, dev: torch.device,
             (ctypes.c_int32 * MAX_KEYS)(*[KEY_DTYPES[d.dtype]
                                           for d, _ in keys]),
             ctypes.c_int32(len(keys)))
+
+
+def key_groups(keys: Sequence[CVal]) -> List[Sequence[CVal]]:
+    """Successive runs of at most MAX_KEYS key columns, in key order."""
+    return [keys[lo:lo + MAX_KEYS] for lo in range(0, len(keys), MAX_KEYS)]
+
+
+def key_group_args(keys: Sequence[CVal], n: int, dev: torch.device,
+                   what: str):
+    """`key_args` for a kernel that compares up to MAX_KEY_GROUPS groups
+    of key columns in turn (csrc/row_hash.cuh `KeyGroups`): each group
+    is checked as `key_args` checks it, and the tables are passed flat,
+    group after group, with the total key count."""
+    if not 1 <= len(keys) <= MAX_KEYS * MAX_KEY_GROUPS:
+        raise ValueError(f"{what}: 1 to {MAX_KEYS * MAX_KEY_GROUPS} key "
+                         f"columns, got {len(keys)}")
+    groups = key_groups(keys)
+    tables = [key_args(g, n, dev, what) for g in groups]
+    flat = [[t[f][j] for t, g in zip(tables, groups) for j in range(len(g))]
+            for f in range(3)]
+    nk = len(keys)
+    return (*((ctypes.c_int64 * nk)(*f) for f in flat[:2]),
+            (ctypes.c_int32 * nk)(*flat[2]), ctypes.c_int32(nk))
 
 
 def check_rows(t: torch.Tensor, n: int, dev: torch.device, dtypes,

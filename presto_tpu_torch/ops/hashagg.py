@@ -624,9 +624,30 @@ def segment_ids(h1: torch.Tensor, h2: torch.Tensor, keys: Sequence[CVal],
 SEGMENT_REDUCE_KERNEL = _tk.LaunchCounter("segment_reduce", "agg_step")
 
 
+def _segment_key_changes(keys, n, dev):
+    """K6's keys past its first group of MAX_KEYS: a byte per row, 1
+    where any of them differs from the row before (NULL equal to NULL),
+    ORed by one launch per group; None when there are none."""
+    from presto_tpu_torch.native import cuda
+    rest = common.key_groups(keys)[1:]
+    if not rest:
+        return None
+    changes = torch.zeros(n, dtype=torch.uint8, device=dev)
+    lib = cuda.library("segment_reduce")
+    for group in rest:
+        kd, km, kt, nk = common.key_args(group, n, dev, "segment_reduce")
+        cuda.check(lib, lib.presto_segment_key_changes(
+            kd, km, kt, nk, ctypes.c_int64(n),
+            ctypes.c_void_p(changes.data_ptr()),
+            ctypes.c_void_p(cuda.stream_ptr(dev))), "segment_reduce")
+    return changes
+
+
 def _segment_reduce_cuda(h1, h2, keys, valid, comps, out_cap):
-    """K6 over any number of components (comp_chunks): every launch
-    finds the same groups, first rows and count."""
+    """K6 over any number of components (comp_chunks) and key columns
+    (the first MAX_KEYS compared in the kernel, the rest folded into a
+    per-row change flag first): every launch finds the same groups,
+    first rows and count."""
     reduced = []
     for lo, hi in comp_chunks(len(comps)):
         outs, first_row, groups, overflow = _segment_reduce_launch(
@@ -643,7 +664,9 @@ def _segment_reduce_launch(h1, h2, keys, valid, comps, out_cap):
                       "segment_reduce: valid")
     common.check_rows(h1, n, dev, (torch.int64,), "segment_reduce: h1")
     common.check_rows(h2, n, dev, (torch.int64,), "segment_reduce: h2")
-    kd, km, kt, nk = common.key_args(keys, n, dev, "segment_reduce")
+    changes = _segment_key_changes(keys, n, dev)
+    kd, km, kt, nk = common.key_args(keys[:common.MAX_KEYS], n, dev,
+                                     "segment_reduce")
     if len(comps) > KERNEL_MAX_COMPS or n < 1 or out_cap < 1:
         raise ValueError(f"segment_reduce: at most {KERNEL_MAX_COMPS} "
                          "components per launch, at least one row and "
@@ -667,7 +690,9 @@ def _segment_reduce_launch(h1, h2, keys, valid, comps, out_cap):
     P = ctypes.c_int64 * C
     status = lib.presto_segment_reduce(
         ctypes.c_void_p(h1.data_ptr()), ctypes.c_void_p(h2.data_ptr()),
-        kd, km, kt, nk, ctypes.c_void_p(valid.data_ptr()),
+        kd, km, kt, nk,
+        ctypes.c_void_p(None if changes is None else changes.data_ptr()),
+        ctypes.c_void_p(valid.data_ptr()),
         ctypes.c_int64(n), P(*[c.data_ptr() for c, _ in comps]),
         P(*[o.data_ptr() for o in outs]),
         (ctypes.c_int32 * C)(*[_KERNEL_DTYPES[c.dtype] for c, _ in comps]),
@@ -987,7 +1012,8 @@ def _stream_reduce_launch(row_valid, key_cols, contribs, aggs, out_cap,
     common.check_rows(row_valid, n, dev, (torch.bool,),
                       "stream_reduce: row_valid")
     key_cols = [(d.contiguous(), m.contiguous()) for d, m in key_cols]
-    kd, km, kt, nk = common.key_args(key_cols, n, dev, "stream_reduce")
+    kd, km, kt, nk = common.key_group_args(key_cols, n, dev,
+                                           "stream_reduce")
     comps = [(arr.contiguous(), r) for st, agg in zip(contribs, aggs)
              for arr, r in zip(st, agg.reduces)]
     if len(comps) > KERNEL_MAX_COMPS or out_cap < 1:
@@ -1012,7 +1038,7 @@ def _stream_reduce_launch(row_valid, key_cols, contribs, aggs, out_cap,
     starts = torch.empty(out_cap + 1, dtype=torch.int64, device=dev)
     C = max(len(comps), 1)
     P = ctypes.c_int64 * C
-    K = ctypes.c_int64 * common.MAX_KEYS
+    K = ctypes.c_int64 * (common.MAX_KEYS * common.MAX_KEY_GROUPS)
     if carry is not None:
         ckeys = [(d.contiguous(), m.contiguous()) for d, m in carry.keys]
         ccomps = [a.contiguous() for st in carry.states for a in st]

@@ -288,7 +288,7 @@ def _probe_search_cuda(table: BuildTable, probe: Batch,
                            table.part_starts.shape[0], "part_starts")):
         common.check_rows(t, rows, dev, (torch.int64,),
                           f"join_probe: {what}")
-    kd, km, kt, nk = common.key_args(
+    kd, km, kt, nk = common.key_group_args(
         [probe.columns[k].astuple() for k in key_names], n, dev,
         "join_probe")
     lo_enc = torch.empty(n, dtype=torch.int64, device=dev)
@@ -418,11 +418,11 @@ def _semi_mark_cuda(table: BuildTable, probe: Batch,
         common.check_rows(t, rows, dev, (torch.int64,),
                           f"semi_join: {what}")
     mode = _semi_mode(table, verify)
-    kd, km, kt, nk = common.key_args(
+    kd, km, kt, nk = common.key_group_args(
         [probe.columns[k].astuple() for k in key_names], n, dev,
         "semi_join")
     if mode == _SEMI_WALK_FULL:
-        bd, bm, bt, _ = common.key_args(
+        bd, bm, bt, _ = common.key_group_args(
             [table.batch.columns[k].astuple() for k in build_keys], nb,
             dev, "semi_join: build keys")
     else:
@@ -563,11 +563,12 @@ def _expand_cuda(table, probe, key_names, lo_enc, out_capacity, join_type,
                           "join_expand: matched")
     full = verify == "full"
     if full:
-        pk = common.key_args([probe.columns[k].astuple() for k in key_names],
-                             n, dev, "join_expand: probe keys")
-        bk = common.key_args([table.batch.columns[k].astuple()
-                              for k in build_keys], nb, dev,
-                             "join_expand: build keys")
+        pk = common.key_group_args(
+            [probe.columns[k].astuple() for k in key_names], n, dev,
+            "join_expand: probe keys")
+        bk = common.key_group_args(
+            [table.batch.columns[k].astuple() for k in build_keys], nb,
+            dev, "join_expand: build keys")
     else:
         pk = bk = (None, None, None, ctypes.c_int32(0))
     cols: Dict[str, Column] = {}

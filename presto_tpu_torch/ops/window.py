@@ -602,9 +602,9 @@ def _segments_cuda(spart, sorder, svalid) -> Segments:
     # bit 0 marks a partition key change, bit 1 an order key change
     for bit, keys in ((1, spart), (2, sorder)):
         keys = [(d.contiguous(), m.contiguous()) for d, m in keys]
-        for lo in range(0, len(keys), common.MAX_KEYS):
-            kd, km, kt, nk = common.key_args(
-                keys[lo:lo + common.MAX_KEYS], n, dev, "window_segments")
+        for group in common.key_groups(keys):
+            kd, km, kt, nk = common.key_args(group, n, dev,
+                                             "window_segments")
             cuda.check(lib, lib.presto_window_key_changes(
                 kd, km, kt, nk, ctypes.c_int64(n), ctypes.c_int32(bit),
                 ctypes.c_void_p(flags.data_ptr()), stream),

@@ -8,7 +8,10 @@ full hash Join (a right join becomes a flipped left join), the cross
 join (nested loop), SemiJoin (IN, EXISTS, NOT IN), Window,
 TopNRowNumber (a window plus a `rank <= N` filter), GroupId (grouping
 sets), Sort, TopN, Limit, Distinct, Union (through a local queue),
-EnforceSingleRow, AssignUniqueId and Output. A join spawns a build
+EnforceSingleRow, AssignUniqueId, Unnest, the array_agg / map_agg
+collection (operators/array_agg.py), TableWriter / TableFinish and
+Output. An array, map or row column travels as scalar slot columns
+(`Field.form`; `_schema_of`). A join spawns a build
 pipeline that runs before the pipeline holding its probe, as in the reference; inner joins
 and IN/EXISTS semi joins also wire dynamic filters from the build keys
 to probe-side scans. A subtree with several plan parents is planned
@@ -53,7 +56,7 @@ from presto_tpu_torch.operators.join_ops import (
 from presto_tpu_torch.operators.sort_ops import (
     DistinctOperatorFactory, OrderByOperatorFactory, TopNOperatorFactory,
 )
-from presto_tpu_torch.ops import hashagg
+from presto_tpu_torch.ops import common, hashagg
 from presto_tpu_torch.planner import nodes as N
 from presto_tpu_torch.schema import ColumnSchema
 from presto_tpu_torch.session_properties import get_property
@@ -75,9 +78,6 @@ class LocalPlanningError(Exception):
 #: plan nodes of later slices -> the ROADMAP item that ports them
 _LATER = {
     "MergeNode": "A12 (merge, made by the exchange planner)",
-    "UnnestNode": "A8 (misc operators)",
-    "TableWriterNode": "A9 (storage)",
-    "TableFinishNode": "A9 (storage)",
     "RemoteSourceNode": "A12 (distributed path)",
     "ExchangeNode": "A12 (distributed path)",
 }
@@ -93,13 +93,25 @@ def _schema_dicts(schema: Dict[str, ColumnSchema]
 
 
 def _schema_of(node: N.PlanNode) -> Dict[str, ColumnSchema]:
+    """Compile schema of a node's output. A complex-typed field (array,
+    map, row: `Field.form`) has no column of its own and exposes its
+    SLOT columns instead (reference:
+    presto_tpu/planner/local_planner.py:88-109)."""
     out = {}
     for f in node.output:
-        if getattr(f, "form", None) is not None:
-            raise LocalPlanningError(
-                "array/map/row-typed columns: later slice of the port "
-                "(ROADMAP A8)")
-        out[f.symbol] = ColumnSchema(f.symbol, f.type, f.dictionary)
+        form = getattr(f, "form", None)
+        if form is None:
+            out[f.symbol] = ColumnSchema(f.symbol, f.type, f.dictionary)
+            continue
+        form_dicts = getattr(f, "form_dicts", None) or {}
+        leaf_types = {x.name: x.type for x in N.form_leaves(form)
+                      if isinstance(x, InputRef)}
+        for leaf_sym in N.form_slot_symbols(form):
+            t = leaf_types.get(leaf_sym, f.type)
+            dic = form_dicts.get(leaf_sym) if t.is_string else None
+            if dic is None and t.is_string:
+                dic = f.dictionary
+            out[leaf_sym] = ColumnSchema(leaf_sym, t, dic)
     return out
 
 
@@ -152,13 +164,13 @@ class LocalExecutionPlanner:
         sink: List[Batch] = []
         pipeline: List = []
         self._visit(root.source, pipeline)
-        # final projection to output order
+        # final projection to output order; a complex-typed field
+        # projects its slot columns (the named symbol has no column)
         src_schema = _schema_of(root.source)
         projections = [
-            (f.symbol, self._compile(InputRef(f.symbol,
-                                              src_schema[f.symbol].type),
-                                     src_schema))
-            for f in root.output]
+            (sym, self._compile(InputRef(sym, src_schema[sym].type),
+                                src_schema))
+            for f in root.output for sym in field_symbols(f)]
         pipeline.append(FilterProjectOperatorFactory(
             self._next_id(), None, projections, _schema_dicts(src_schema)))
         pipeline.append(OutputCollectorOperatorFactory(
@@ -355,6 +367,12 @@ class LocalExecutionPlanner:
         schema = _schema_of(node.source)
         key_names = [s for s, _ in node.keys]
         key_exprs = [self._compile(e, schema) for _, e in node.keys]
+        collecting = [a for a in node.aggregates
+                      if a.function in ("array_agg", "map_agg")]
+        if collecting:
+            self._plan_collect(node, collecting, schema, key_names,
+                               key_exprs, pipe)
+            return
         specs = []
         for a in node.aggregates:
             arg_ce = None
@@ -389,6 +407,35 @@ class LocalExecutionPlanner:
             self._next_id(), key_names, key_exprs, specs, node.step,
             max_groups))
 
+    def _plan_collect(self, node: N.AggregationNode, collecting,
+                      schema, key_names, key_exprs, pipe: List) -> None:
+        """array_agg / map_agg (reference:
+        presto_tpu/planner/local_planner.py:691-725): one collecting
+        operator per GROUP BY, at the session's `array_agg_width`, which
+        the analyzer also fixed in the output's value forms."""
+        if len(collecting) != len(node.aggregates):
+            raise LocalPlanningError(
+                "array_agg/map_agg cannot be combined with other "
+                "aggregates in one GROUP BY yet — split the query")
+        if node.step != "single":
+            raise LocalPlanningError(
+                f"{node.step} aggregation step: later slice of the port "
+                "(ROADMAP A12)")
+        from presto_tpu_torch.operators.array_agg import (
+            ArrayAggOperatorFactory, CollectSpec,
+        )
+        cspecs = [CollectSpec(
+            a.out_symbol, self._compile(a.argument, schema),
+            self._compile(a.argument2, schema)
+            if a.argument2 is not None else None,
+            self._compile(a.filter, schema)
+            if a.filter is not None else None) for a in collecting]
+        width = int(get_property(self.session.properties,
+                                 "array_agg_width"))
+        pipe.append(ArrayAggOperatorFactory(
+            self._next_id(), key_names, key_exprs, cspecs, width,
+            self.device))
+
     def _streaming_agg_eligible(self, node: N.AggregationNode,
                                 key_exprs) -> bool:
         """True when the aggregation's input arrives sorted by its group
@@ -402,6 +449,8 @@ class LocalExecutionPlanner:
             return False
         if _direct_domains(key_exprs) is not None:
             return False  # the slot-table path is already bounded
+        if len(node.keys) > common.MAX_KEYS * common.MAX_KEY_GROUPS:
+            return False  # past K8's key groups; K6 takes any number
         # group-key symbols in kernel key order (bare columns only)
         syms = []
         for _, e in node.keys:
@@ -647,6 +696,33 @@ class LocalExecutionPlanner:
             self._next_id(), node.partition_by, node.order_by,
             node.descending, node.nulls_first, calls))
 
+    def _visit_UnnestNode(self, node: N.UnnestNode, pipe: List):
+        self._visit(node.source, pipe)
+        out_dicts = {s: node.field(s).dictionary for s, _, _ in node.items}
+        pipe.append(misc_ops.UnnestOperatorFactory(
+            self._next_id(), node.items, node.ordinality_symbol,
+            out_dicts))
+
+    def _visit_TableWriterNode(self, node: N.TableWriterNode, pipe: List):
+        from presto_tpu_torch.operators.write_ops import (
+            TableWriterOperatorFactory,
+        )
+        self._visit(node.source, pipe)
+        conn = self.catalogs.connector(node.handle.catalog)
+        pipe.append(TableWriterOperatorFactory(
+            self._next_id(), conn.page_sink, node.handle,
+            node.column_sources, node.schema_cols,
+            node.output[0].symbol))
+
+    def _visit_TableFinishNode(self, node: N.TableFinishNode, pipe: List):
+        from presto_tpu_torch.operators.write_ops import (
+            TableFinishOperatorFactory,
+        )
+        self._visit(node.source, pipe)
+        pipe.append(TableFinishOperatorFactory(
+            self._next_id(), node.source.output[0].symbol,
+            node.output[0].symbol))
+
     def _visit_GroupIdNode(self, node: N.GroupIdNode, pipe: List):
         self._visit(node.source, pipe)
         pipe.append(misc_ops.GroupIdOperatorFactory(
@@ -751,10 +827,9 @@ def agg_function_for(name: str, input_type: Optional[Type],
         return hashagg.make_moments(name)
     if name == "entropy":
         return hashagg.make_entropy()
-    if name in ("approx_percentile", "approx_distinct", "checksum",
-                "array_agg", "map_agg"):
+    if name in ("approx_percentile", "approx_distinct", "checksum"):
         raise LocalPlanningError(
-            f"aggregate {name}: later slice of the port (ROADMAP B4)")
+            f"aggregate {name}: later slice of the port (ROADMAP A5)")
     raise LocalPlanningError(f"unknown aggregate {name}")
 
 

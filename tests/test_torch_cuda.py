@@ -1205,3 +1205,359 @@ def test_window_pass_matches_cpu(hopper):
                                        rtol=1e-9, atol=1e-9)
         else:
             assert torch.equal(g.data.cpu()[w.mask], w.data[w.mask])
+
+
+# -- C6: K5-K9 past 8 key columns --------------------------------------------
+
+
+_WIDE_DTYPES = (np.int64, np.int32, np.float64, np.int16)
+
+
+def _wide_key_batch(rng, base, nkeys, dev, null_frac=0.03):
+    """A batch whose `nkeys` key columns all derive from one int64 base
+    (so equal bases are equal keys), cycling int64 / int32 / float64 /
+    int16, with NULLs; plus a payload column `v`."""
+    n = base.shape[0]
+    cols = {}
+    for j in range(nkeys):
+        dt = _WIDE_DTYPES[j % 4]
+        d = ((base * (j + 3)) % 20011).astype(dt)
+        m = rng.random(n) >= null_frac
+        typ = {np.int64: tt.BIGINT, np.int32: tt.INTEGER,
+               np.float64: tt.DOUBLE, np.int16: tt.SMALLINT}[dt]
+        cols[f"k{j}"] = tb.Column(torch.from_numpy(d).to(dev),
+                                  torch.from_numpy(m).to(dev), typ)
+    cols["v"] = tb.Column(torch.arange(n, device=dev),
+                          torch.ones(n, dtype=torch.bool, device=dev),
+                          tt.BIGINT)
+    rv = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    return tb.Batch(cols, rv)
+
+
+def _wide_join(rng, nkeys, dev, nb=1 << 16, npr=1 << 18, dup=None):
+    bbase = rng.integers(0, dup or 1 << 40, nb)
+    build = _wide_key_batch(rng, bbase, nkeys, dev)
+    take = rng.random(npr) < 0.5
+    pbase = np.where(take, bbase[rng.integers(0, nb, npr)],
+                     rng.integers(0, 1 << 40, npr))
+    probe = _wide_key_batch(rng, pbase, nkeys, dev)
+    names = tuple(f"k{j}" for j in range(nkeys))
+    return build, probe, names, tj.build_for_backend(build, names)
+
+
+@pytest.mark.parametrize("nkeys", [9, 17])
+@pytest.mark.parametrize("verify", ["hash", "full"])
+@pytest.mark.parametrize("dup", [None, 3000], ids=["unique", "dup"])
+def test_k5_past_eight_keys(hopper, nkeys, verify, dup):
+    rng = np.random.default_rng(70 + nkeys)
+    build, probe, names, table = _wide_join(rng, nkeys, hopper, dup=dup)
+    before = tj.JOIN_PROBE_KERNEL.launches
+    lo, h2 = tj.probe_search(table, probe, names, verify)
+    assert tj.JOIN_PROBE_KERNEL.launches == before + 1
+    plo, ph2 = tj.probe_search_plain(table, probe, names, verify)
+    torch.cuda.synchronize()
+    assert torch.equal(lo, plo)
+    assert (h2 is None) == (ph2 is None)
+    assert h2 is None or torch.equal(h2, ph2)
+    assert int((lo >= 0).sum()) > probe.capacity // 8
+
+
+@pytest.mark.parametrize("nkeys", [9, 17])
+@pytest.mark.parametrize("verify", ["hash", "full"])
+@pytest.mark.parametrize("negate", [False, True], ids=["in", "not_in"])
+def test_k7_past_eight_keys(hopper, nkeys, verify, negate):
+    rng = np.random.default_rng(80 + nkeys)
+    build, probe, names, table = _wide_join(rng, nkeys, hopper, dup=3000)
+    before = tj.SEMI_JOIN_KERNEL.launches
+    got = tj.semi_mark(table, probe, names, names, verify, negate)
+    assert tj.SEMI_JOIN_KERNEL.launches == before + 1
+    want = tj.semi_mark_plain(table, probe, names, names, verify, negate)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert 0 < int(want.sum()) < probe.capacity
+
+
+@pytest.mark.parametrize("nkeys", [9, 17])
+@pytest.mark.parametrize("join_type", ["inner", "left"])
+def test_k9_full_verify_past_eight_keys(hopper, nkeys, join_type):
+    rng = np.random.default_rng(90 + nkeys)
+    build, probe, names, table = _wide_join(rng, nkeys, hopper, dup=3000)
+    lo_enc, h2 = tj.probe_search(table, probe, names, "full")
+    table.batch = tb.Batch({**table.batch.columns,
+                            "b_v": table.batch.columns["v"]},
+                           table.batch.row_valid)
+    found = lo_enc >= 0
+    counts = torch.where(found, table.run_len[torch.clamp(lo_enc, min=0)],
+                         torch.zeros_like(lo_enc))
+    emit = counts if join_type == "inner" else torch.where(
+        probe.row_valid, torch.clamp(counts, min=1), torch.zeros_like(counts))
+    args = (table, probe, names, lo_enc, max(int(emit.sum()), 1), join_type,
+            ("k0", "v"), ("b_v",), names, "full", h2)
+    before = tj.JOIN_EXPAND_KERNEL.launches
+    got = tj._expand_from_enc(*args)
+    assert tj.JOIN_EXPAND_KERNEL.launches == before + 1
+    want = tj.expand_plain(*args)
+    torch.cuda.synchronize()
+    _assert_expand_equal(got, want, ("k0", "v", "b_v"))
+    assert int(want[2]) > 0
+
+
+def _wide_group_keys(rng, n, nkeys, ngroups, dev):
+    base = rng.integers(0, ngroups, n)
+    b = _wide_key_batch(rng, base, nkeys, dev, null_frac=0.02)
+    return [b.columns[f"k{j}"].astuple() for j in range(nkeys)], base
+
+
+@pytest.mark.parametrize("nkeys", [9, 17])
+def test_k6_past_eight_keys(hopper, nkeys):
+    """Groups split by a key past the eighth only (the first eight
+    agree) still split: K6's change flags of the later groups."""
+    rng = np.random.default_rng(100 + nkeys)
+    n = 1 << 20
+    keys, _ = _wide_group_keys(rng, n, nkeys, 5000, hopper)
+    # the last key alone distinguishes rows 0/1 of each pair
+    d, m = keys[-1]
+    keys[-1] = (torch.where(torch.arange(n, device=hopper) % 2 == 0, d,
+                            d + 1), m)
+    valid = torch.from_numpy(rng.random(n) < 0.9).to(hopper)
+    h1, h2 = tc.row_hash_pair(keys, valid, False)
+    perm = tc.lex_perm([h1, h2])
+    skeys = [(kd[perm], km[perm]) for kd, km in keys]
+    comps = [(torch.from_numpy(rng.integers(-5, 5, n)).to(hopper)[perm],
+              "sum"),
+             (torch.from_numpy(rng.normal(0, 1, n)).to(hopper)[perm], "max")]
+    args = (h1[perm], h2[perm], skeys, valid[perm], comps, 1 << 20)
+    before = th.SEGMENT_REDUCE_KERNEL.launches
+    got = th.segment_reduce(*args)
+    assert th.SEGMENT_REDUCE_KERNEL.launches == before + 1
+    want = th.segment_reduce_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got[0] + list(got[1:]), want[0] + list(want[1:])):
+        assert torch.equal(g, w)
+    # the same hashes with the later keys equal would merge the pairs
+    assert int(want[2]) > 5000
+
+
+@pytest.mark.parametrize("nkeys", [9, 17])
+@pytest.mark.parametrize("carry_kind", ["none", "same", "differs"])
+def test_k8_past_eight_keys(hopper, nkeys, carry_kind):
+    rng = np.random.default_rng(110 + nkeys)
+    n = 1 << 20
+    rv, keys2, contribs, aggs = _stream_batch(rng, n, hopper, "random")
+    # nkeys keys in key order: the two stream keys, then copies of the
+    # second; the last differs inside some groups of the first two
+    k0, k1 = keys2
+    keys = [k0] + [k1] * (nkeys - 2)
+    split = (torch.arange(n, device=hopper) // 3) % 2
+    keys.append((k1[0] * 2 + split.to(torch.int32), k1[1]))
+    carry = None
+    if carry_kind != "none":
+        carry = th.init_state([tt.BIGINT] + [tt.INTEGER] * (nkeys - 1),
+                              aggs, 1, hopper)
+        first = int(torch.nonzero(rv)[0])
+        for (cd, cm), (d, m) in zip(carry.keys, keys):
+            cd[0] = d[first]
+            cm[0] = m[first]
+        if carry_kind == "differs":
+            carry.keys[-1][0][0] += 1
+        for st in carry.states:
+            for a in st:
+                a[0] = 3 if not a.is_floating_point() else 2.5
+        carry.valid[0] = True
+    before = th.STREAM_REDUCE_KERNEL.launches
+    if carry is None:
+        got = th.presorted_reduce(rv, keys, contribs, aggs, 1 << 20)
+        want = th.presorted_reduce_plain(rv, keys, contribs, aggs, 1 << 20)
+        pairs = [(got, want)]
+    else:
+        got = th.stream_step(carry, rv, keys, contribs, aggs, 1 << 20)
+        want = th.stream_fold_plain(carry, th.presorted_reduce_plain(
+            rv, keys, contribs, aggs, 1 << 20), aggs)
+        assert int(got[3]) == int(want[3])
+        pairs = list(zip(got[:3], want[:3]))
+    assert th.STREAM_REDUCE_KERNEL.launches == before + 1
+    torch.cuda.synchronize()
+    for g, w in pairs:
+        assert torch.equal(g.valid, w.valid)
+        live = w.valid
+        for (gd, gm), (wd, wm) in zip(g.keys, w.keys):
+            assert torch.equal(gm[live], wm[live])
+            assert torch.equal(gd[live], wd[live])
+        _assert_states_close(g.states, w.states, live)
+
+
+def test_wide_key_queries_match_cpu(hopper):
+    """A 9-key GROUP BY (sort-based: K3, K6) and a 9-key join (K3-K5,
+    K9) through the runner on the card equal the CPU runner's rows."""
+    from presto_tpu_torch.runner import LocalRunner
+    keys9 = ("l_orderkey, l_partkey, l_suppkey, l_linenumber, l_quantity, "
+             "l_returnflag, l_linestatus, l_shipdate, l_shipmode")
+    q_group = (f"select {keys9}, count(*) c, sum(l_extendedprice) s from "
+               "(select orderkey l_orderkey, partkey l_partkey, suppkey "
+               "l_suppkey, linenumber % 2 l_linenumber, quantity "
+               "l_quantity, returnflag l_returnflag, linestatus "
+               "l_linestatus, shipdate l_shipdate, shipmode l_shipmode, "
+               "extendedprice l_extendedprice from lineitem) "
+               f"group by {keys9}")
+    q_join = ("select count(*), sum(a.extendedprice) from lineitem a join "
+              "lineitem b on a.orderkey = b.orderkey and a.partkey = "
+              "b.partkey and a.suppkey = b.suppkey and a.linenumber = "
+              "b.linenumber and a.quantity = b.quantity and a.returnflag = "
+              "b.returnflag and a.linestatus = b.linestatus and a.shipdate "
+              "= b.shipdate and a.shipmode = b.shipmode")
+    gpu = LocalRunner("tpch", "tiny", device=hopper)
+    cpu = LocalRunner("tpch", "tiny", device="cpu")
+    for q in (q_group, q_join):
+        before = th.SEGMENT_REDUCE_KERNEL.launches + \
+            tj.JOIN_PROBE_KERNEL.launches
+        got = sorted(gpu.execute(q).rows(), key=str)
+        assert th.SEGMENT_REDUCE_KERNEL.launches + \
+            tj.JOIN_PROBE_KERNEL.launches > before
+        want = sorted(cpu.execute(q).rows(), key=str)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                assert a == b or abs(a - b) <= 1e-6 * abs(b)
+
+
+# -- C7: round / truncate with a column d through K12 -------------------------
+
+
+@pytest.mark.parametrize("fn", ["round", "truncate"])
+@pytest.mark.parametrize("arg", ["acctbal", "cast(acctbal as real)"])
+def test_round_with_column_decimals_through_k12(hopper, fn, arg):
+    from presto_tpu_torch.expr import codegen
+    from presto_tpu_torch.runner import LocalRunner
+    q = (f"select custkey, {fn}({arg}, nationkey % 3) r, "
+         f"{fn}({arg}, 1 - nationkey % 4) s from customer")
+    before = codegen.COUNTER.launches
+    got = dict((k, (r, s)) for k, r, s in
+               LocalRunner("tpch", "tiny", device=hopper).execute(q).rows())
+    assert codegen.COUNTER.launches > before
+    want = LocalRunner("tpch", "tiny", device="cpu").execute(q).rows()
+    assert len(got) == len(want)
+    for k, r, s in want:
+        for a, b in zip(got[k], (r, s)):
+            assert a == b or abs(a - b) <= 1e-6 * abs(b)
+
+
+# -- K17 array_collect -----------------------------------------------------
+
+
+from presto_tpu_torch.operators import array_agg as taa  # noqa: E402
+
+
+def _collect_inputs(rng, n, ngroups, width, dev, dtypes, dead=0.1,
+                    sizes=None):
+    """Sorted collect inputs: order, pid (groups of random sizes, or of
+    the given `sizes`), the live count, and one spec per dtype (every
+    other one with a FILTER, the last a map_agg with NULL keys)."""
+    if sizes is None:
+        g = np.sort(rng.integers(0, ngroups, n))
+    else:
+        g = np.repeat(np.arange(len(sizes)), sizes)
+        n = len(g)
+    nlive = int(n * (1 - dead))
+    pid = np.concatenate([np.unique(g[:nlive], return_inverse=True)[1],
+                          np.zeros(n - nlive, np.int64)])
+    if nlive:
+        pid[nlive:] = pid[nlive - 1]
+    groups = int(pid[nlive - 1] + 1) if nlive else 0
+    order = rng.permutation(n)
+    specs = []
+    for i, dt in enumerate(dtypes):
+        if np.issubdtype(dt, np.floating):
+            v = rng.normal(0, 100, n).astype(dt)
+            v[rng.random(n) < 0.05] = np.nan
+        elif dt == np.bool_:
+            v = rng.random(n) < 0.5
+        else:
+            v = rng.integers(-100, 100, n).astype(dt)
+
+        def col(x, frac=0.9):
+            return (torch.from_numpy(np.ascontiguousarray(x)).to(dev),
+                    torch.from_numpy(rng.random(n) < frac).to(dev))
+        filt = col(rng.random(n) < 0.7) if i % 2 else None
+        mval = col(rng.normal(0, 1, n)) if i == len(dtypes) - 1 else None
+        specs.append((col(v), mval, filt))
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return t(order.astype(np.int64)), t(pid.astype(np.int64)), nlive, \
+        groups, specs
+
+
+def _assert_collect_equal(got, want):
+    """Every output of K17 equal to the plain version's, the whole block
+    (NaN equal to NaN; empty slots zero in both)."""
+    (gouts, gfirst, gover), (wouts, wfirst, wover) = got, want
+    assert bool(gover) == bool(wover)
+    assert torch.equal(gfirst, wfirst)
+    for go, wo in zip(gouts, wouts):
+        assert torch.equal(go[4], wo[4])
+        for g, w in zip(go[:4], wo[:4]):
+            assert (g is None) == (w is None)
+            if g is not None and g.is_floating_point():
+                torch.testing.assert_close(g, w, rtol=0, atol=0,
+                                           equal_nan=True)
+            elif g is not None:
+                assert torch.equal(g, w)
+
+
+_ALL_DTYPES = (np.int8, np.int16, np.int32, np.int64, np.float32,
+               np.float64, np.bool_)
+
+
+@pytest.mark.parametrize("case", ["random", "exactly_w", "w_plus_one",
+                                  "out_rows_plus_one", "all_dead",
+                                  "many_specs"])
+def test_k17_array_collect_matches_plain(hopper, case):
+    rng = np.random.default_rng(120)
+    width = 64
+    kw = {}
+    dtypes = _ALL_DTYPES
+    n, ngroups = 1 << 20, 150_000
+    if case == "exactly_w":
+        kw = dict(sizes=[width] * 1000 + [3] * 1000, dead=0.0)
+    elif case == "w_plus_one":
+        kw = dict(sizes=[width + 1] + [5] * 1000, dead=0.0)
+    elif case == "all_dead":
+        kw = dict(dead=1.0)
+    elif case == "many_specs":
+        dtypes = _ALL_DTYPES * 3   # 21 specs: two launches
+    order, pid, nlive, groups, specs = _collect_inputs(
+        rng, n, ngroups, width, hopper, dtypes, **kw)
+    out_rows = tb.bucket_capacity(max(groups, 1))
+    if case == "out_rows_plus_one":
+        out_rows = groups - 1
+    before = taa.ARRAY_COLLECT_KERNEL.launches
+    got = taa.array_collect(order, pid, nlive, groups, specs, width,
+                            out_rows)
+    assert taa.ARRAY_COLLECT_KERNEL.launches == before + (
+        2 if case == "many_specs" else 1)
+    want = taa.collect_plain(order, pid, nlive, groups, specs, width,
+                             out_rows)
+    torch.cuda.synchronize()
+    _assert_collect_equal(got, want)
+    if case == "w_plus_one":
+        assert bool(got[2])
+    if case == "exactly_w":
+        assert not bool(got[2])
+
+
+def test_array_agg_queries_match_cpu(hopper):
+    """array_agg (two specs, FILTER), map_agg and an UNNEST of the
+    arrays through the runner on the card equal the CPU runner's rows,
+    element order included, with K17 launched."""
+    from presto_tpu_torch.runner import LocalRunner
+    qs = ["select orderkey, array_agg(partkey) p, array_agg(quantity) "
+          "filter (where returnflag = 'R') rq from lineitem group by orderkey",
+          "select orderkey, map_agg(linenumber, extendedprice) m from "
+          "lineitem where shipdate >= date '1995-01-01' group by orderkey",
+          "select count(*), sum(x) from (select array_agg(partkey) p from "
+          "lineitem group by orderkey) t cross join unnest(t.p) u(x)"]
+    gpu = LocalRunner("tpch", "tiny", device=hopper)
+    cpu = LocalRunner("tpch", "tiny", device="cpu")
+    for q in qs:
+        before = taa.ARRAY_COLLECT_KERNEL.launches
+        got = sorted(gpu.execute(q).rows(), key=str)
+        assert taa.ARRAY_COLLECT_KERNEL.launches > before
+        assert got == sorted(cpu.execute(q).rows(), key=str)

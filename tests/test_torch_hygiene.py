@@ -28,6 +28,9 @@ def test_import_loads_no_jax_module():
         "import presto_tpu_torch.ops.window\n"
         "import presto_tpu_torch.operators.window_ops\n"
         "import presto_tpu_torch.connectors.tpcds\n"
+        "import presto_tpu_torch.connectors.memory\n"
+        "import presto_tpu_torch.operators.array_agg\n"
+        "import presto_tpu_torch.operators.write_ops\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'presto_tpu')]\n"
         "print(','.join(bad))\n")
@@ -227,6 +230,7 @@ def test_chip_smoke_checks_every_built_kernel():
     from presto_tpu_torch.expr import codegen  # noqa: F401  (K12)
     from presto_tpu_torch.native import cuda
     from presto_tpu_torch.operators import misc_ops  # noqa: F401  (K10)
+    from presto_tpu_torch.operators import array_agg  # noqa: F401  (K17)
     from presto_tpu_torch.ops import common, hashagg, join  # noqa: F401
     from presto_tpu_torch.ops import window  # noqa: F401  (K13-K16)
     from presto_tpu_torch.telemetry import kernels as tk
@@ -252,6 +256,11 @@ def test_chip_smoke_checks_every_built_kernel():
                for names in smoke.WIN_MUST.values())
     assert set(smoke.WINDOW_KERNELS) == {
         k for k, c in tk.COUNTERS.items() if c.family == "window"}
+    assert set(smoke.ARRAY_MUST) == set(smoke.ARRAY_QUERIES)
+    assert all(set(names) <= set(tk.COUNTERS)
+               for names in smoke.ARRAY_MUST.values())
+    assert {k for k, c in tk.COUNTERS.items() if c.family == "array_agg"} \
+        == {"array_collect"}
 
 
 def _case_sources():

@@ -334,3 +334,254 @@ def test_real_math_lowers_and_matches_composed(label):
     torch.testing.assert_close(g.data[w.mask], w.data[w.mask],
                                rtol=2.0 ** -20, atol=1e-37,
                                equal_nan=True)
+
+
+# -- C6: key columns past 8 on K5-K8 -----------------------------------------
+
+
+def test_key_group_args_pass_groups_of_eight_flat():
+    """K5, K7, K8 and K9 take up to 24 key columns as successive groups
+    of 8 (csrc/row_hash.cuh KeyGroups); the tables are passed flat,
+    every column checked as key_args checks it."""
+    n = 7
+    keys = [(torch.arange(n, dtype=dt), torch.ones(n, dtype=torch.bool))
+            for dt in [torch.int64, torch.int32, torch.float64,
+                       torch.int16] * 5][:17]
+    dev = torch.device("cpu")
+    kd, km, kt, nk = common.key_group_args(keys, n, dev, "probe")
+    assert nk.value == 17 and len(kd) == len(km) == len(kt) == 17
+    assert list(kd) == [d.data_ptr() for d, _ in keys]
+    assert list(kt) == [common.KEY_DTYPES[d.dtype] for d, _ in keys]
+    assert [len(g) for g in common.key_groups(keys)] == [8, 8, 1]
+    with pytest.raises(ValueError, match="1 to 24"):
+        common.key_group_args(keys * 2, n, dev, "probe")
+    with pytest.raises(ValueError, match="contiguous"):
+        common.key_group_args(keys[:8] + [(keys[8][0][::2], keys[8][1])],
+                              n, dev, "probe")
+
+
+def test_k6_folds_keys_past_eight_into_change_flags(monkeypatch):
+    """K6's wrapper compares the first 8 keys in the kernel and folds
+    the rest into a per-row change byte, one launch per further group:
+    here the launches are replaced by the plain compare behind a check
+    of the 8-key cap, and the groups equal the plain version's."""
+    rng = np.random.default_rng(21)
+    n = 4000
+    base = rng.integers(0, 40, n)
+    keys = [(torch.from_numpy(base % (j + 2)),
+             torch.from_numpy(rng.random(n) < 0.95)) for j in range(17)]
+    valid = torch.from_numpy(rng.random(n) < 0.9)
+    h1, h2 = common.row_hash_pair_plain(keys, valid, False)
+    perm = common.lex_perm([h1, h2])
+    sk = [(d[perm], m[perm]) for d, m in keys]
+    comps = [(torch.from_numpy(rng.normal(0, 1, n))[perm], "sum")]
+    seen = []
+
+    def changes(keys_, n_, dev):
+        groups = common.key_groups(keys_)[1:]
+        seen.append([len(g) for g in groups])
+        out = torch.zeros(n_, dtype=torch.uint8)
+        for g in groups:
+            b = common.boundaries(g, torch.ones(n_, dtype=torch.bool))
+            b[0] = False
+            out |= b.to(torch.uint8)
+        return out
+
+    def one_launch(a, b, k, v, c, cap):
+        ch = th._segment_key_changes(k, v.shape[0], v.device)
+        first = k[:common.MAX_KEYS]
+        assert len(first) <= 8
+        bnd = common.boundaries(first, v, hashes=(a, b)) | (
+            v & (ch != 0))
+        cum = torch.cumsum(bnd.to(torch.int64), 0)
+        gid = torch.where(v, torch.clamp(cum - 1, max=cap),
+                          torch.full_like(cum, cap))
+        red = [th._sorted_reduce(x, gid, cap, r) for x, r in c]
+        return red, th._first_rows(bnd, gid, cap), cum[-1], cum[-1] > cap
+    monkeypatch.setattr(th, "_segment_key_changes", changes)
+    monkeypatch.setattr(th, "_segment_reduce_launch", one_launch)
+    args = (h1[perm], h2[perm], sk, valid[perm], comps, 4096)
+    got = th._segment_reduce_cuda(*args)
+    want = th.segment_reduce_plain(*args)
+    assert seen == [[8, 1]]
+    assert torch.equal(got[0][0], want[0][0])
+    assert torch.equal(got[1], want[1]) and int(got[2]) == int(want[2])
+
+
+def test_streaming_declines_past_k8_key_groups():
+    """A streaming-eligible GROUP BY past 24 keys plans the sort-based
+    path (K6 takes any number of keys)."""
+    from presto_tpu_torch.operators.aggregation import (
+        AggregationOperatorFactory, StreamingAggregationOperatorFactory,
+    )
+    from presto_tpu_torch.runner import LocalRunner
+    r = LocalRunner("tpch", "tiny", device="cpu")
+
+    def kinds(nk):
+        cols = ", ".join(["orderkey"] + [f"orderkey + {j} k{j}"
+                                         for j in range(nk - 1)])
+        by = ", ".join(str(i + 1) for i in range(nk))
+        sql = (f"select {cols}, count(*) from (select * from orders order "
+               f"by orderkey) group by {by}")
+        from presto_tpu_torch.planner.local_planner import (
+            LocalExecutionPlanner,
+        )
+        from presto_tpu_torch.parser import parse_statement
+        plan = r._plan_query(parse_statement(sql))
+        lp = LocalExecutionPlanner(r.catalogs, r.session, r.device).plan(plan)
+        return {type(f).__name__ for p in lp.pipelines for f in p
+                if isinstance(f, (AggregationOperatorFactory,
+                                  StreamingAggregationOperatorFactory))}
+    assert kinds(25) == {"AggregationOperatorFactory"}
+
+
+#: 9- and 17-key joins and groupings (sort-based and streaming), as SQL
+#: over lineitem (SQL reaches a semi join with one key only; its 9- and
+#: 17-key marks are compared below at the kernel level)
+_K9 = ["orderkey", "partkey", "suppkey", "linenumber", "quantity",
+       "returnflag", "linestatus", "shipdate", "shipmode"]
+_K17 = _K9 + ["commitdate", "receiptdate", "shipinstruct", "tax",
+              "discount", "extendedprice", "orderkey + 1", "partkey + 1"]
+WIDE_KEY_QUERIES = {
+    f"{kind}{len(keys)}": sql
+    for keys in (_K9, _K17)
+    for kind, sql in (
+        ("join", "select count(*), sum(a.extendedprice) from lineitem a "
+         "join lineitem b on " + " and ".join(
+             f"a.{k} = b.{k}" if "+" not in k else
+             f"a.{k.split()[0]} + 1 = b.{k.split()[0]} + 1" for k in keys)
+         + " where a.orderkey < 3000"),
+        ("group", "select " + ", ".join(f"{k} g{i}" for i, k in
+                                        enumerate(keys))
+         + ", count(*), sum(extendedprice) from lineitem where orderkey "
+         "< 2000 group by " + ", ".join(str(i + 1) for i in
+                                        range(len(keys)))),
+        ("stream", "select " + ", ".join(f"{k} g{i}" for i, k in
+                                         enumerate(keys[:1] + keys[3:4]
+                                                   + keys[1:]))
+         + ", count(*) from (select * from lineitem where orderkey < 2000 "
+         "order by orderkey, linenumber) group by "
+         + ", ".join(str(i + 1) for i in range(len(keys) + 1))))
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_KEY_QUERIES))
+def test_wide_key_queries_match_reference(name):
+    from presto_tpu.runner import LocalRunner as RefRunner
+    from presto_tpu_torch.runner import LocalRunner
+    sql = WIDE_KEY_QUERIES[name]
+    want = RefRunner("tpch", "tiny").execute(sql).rows()
+    got = LocalRunner("tpch", "tiny", device="cpu").execute(sql).rows()
+    assert_rows_equal(got, want, name, False)
+
+
+# -- C7: round / truncate with a column d -----------------------------------
+
+
+ROUND_QUERIES = {
+    f"{fn}_{label}": f"select custkey, {fn}({arg}, nationkey % 3) r, "
+                     f"{fn}({arg}, 1 - nationkey % 4) s, {fn}({arg}, 1) c "
+                     "from customer"
+    for fn in ("round", "truncate")
+    for label, arg in (("double", "acctbal"),
+                       ("real", "cast(acctbal as real)"),
+                       ("bigint", "custkey * 7"))
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROUND_QUERIES))
+def test_round_with_column_decimals_matches_reference(name):
+    """round(x, d) / truncate(x, d) with a column d: the reference's
+    float64 arithmetic, its result types and values (DOUBLE rel_tol
+    1e-6), DOUBLE, REAL and BIGINT x, a constant d beside it."""
+    from presto_tpu.runner import LocalRunner as RefRunner
+    from presto_tpu_torch.runner import LocalRunner
+    sql = ROUND_QUERIES[name]
+    want = RefRunner("tpch", "tiny").execute(sql)
+    got = LocalRunner("tpch", "tiny", device="cpu").execute(sql)
+    assert [repr(f.type) for f in got.fields] \
+        == [repr(f.type) for f in want.fields]
+    assert_rows_equal(got.rows(), want.rows(), name, False)
+
+
+@pytest.mark.parametrize("fn", ["round", "truncate"])
+@pytest.mark.parametrize("arg", ["x", "real"])
+def test_round_with_column_decimals_lowers_to_k12(fn, arg):
+    """The column-d form lowers (libm pow for 10 ** d), and the
+    generated kernel, run through tests/triton_standin.py, equals the
+    composed closure exactly."""
+    from presto_tpu_torch.expr import lowering
+    from presto_tpu_torch.operators.fused_fragment import make_chain_body
+    from torch_fragment_cases import function_stage
+    x = pir.ref("x", tt.DOUBLE)
+    if arg == "real":
+        x = pir.SpecialForm("cast", (x,), tt.REAL)
+    d = pir.call("modulus", tt.BIGINT, pir.ref("a", tt.BIGINT),
+                 pir.Literal(3, tt.BIGINT))
+    st = function_stage(pir.call(fn, tt.DOUBLE, x, d))
+    ce = st.projections[0][1]
+    assert ce.lowering is not None, ce.not_lowered
+    assert "libm" in [n.op for n in lowering.walk(ce.lowering)]
+    body = make_chain_body([st])
+    batch = port_batch(3000, 9)
+    got, want = standin.run(body.kernel, batch), body.plain(batch)
+    g, w = got.columns["o"], want.columns["o"]
+    assert g.data.dtype == w.data.dtype == torch.float64
+    assert torch.equal(g.mask, w.mask)
+    torch.testing.assert_close(g.data[w.mask], w.data[w.mask], rtol=0,
+                               atol=0, equal_nan=True)
+
+
+def _wide_numpy(rng, base, nkeys):
+    """Key columns derived from one int64 base (equal bases, equal
+    keys), cycling bigint / integer / double / smallint, with NULLs."""
+    kinds = [("bigint", np.int64), ("integer", np.int32),
+             ("double", np.float64), ("smallint", np.int16)]
+    cols = {}
+    for j in range(nkeys):
+        tname, dt = kinds[j % 4]
+        cols[f"k{j}"] = (((base * (j + 3)) % 20011).astype(dt),
+                         rng.random(base.shape[0]) >= 0.03, tname, None)
+    return cols, rng.random(base.shape[0]) < 0.9
+
+
+@pytest.mark.parametrize("nkeys", [9, 17])
+@pytest.mark.parametrize("verify", ["hash", "full"])
+def test_wide_key_semi_mark_matches_reference(nkeys, verify):
+    """K7's plain version at 9 and 17 key columns against the
+    reference's `semi_mark` on one numpy build and probe (duplicate
+    keys, NULLs in every group of keys), exactly."""
+    import jax.numpy as jnp
+    from presto_tpu import types as rt
+    from presto_tpu.batch import Batch as RBatch, Column as RColumn
+    from presto_tpu.ops import join as rj
+    from presto_tpu_torch import interop
+    from presto_tpu_torch.ops import join as pj
+    rng = np.random.default_rng(30 + nkeys)
+    nb, npr = 4096, 8192
+    bbase = rng.integers(0, 1500, nb)
+    pbase = np.where(rng.random(npr) < 0.5, bbase[rng.integers(0, nb, npr)],
+                     rng.integers(0, 1 << 40, npr))
+    names = tuple(f"k{j}" for j in range(nkeys))
+    marks = []
+    for base in (bbase, pbase):
+        marks.append(_wide_numpy(rng, base, nkeys))
+    (bcols, brv), (pcols, prv) = marks
+
+    def ref_batch(cols, rv):
+        return RBatch({n: RColumn(jnp.asarray(d), jnp.asarray(m),
+                                  rt.parse_type(t), dic)
+                       for n, (d, m, t, dic) in cols.items()},
+                      jnp.asarray(rv))
+    cpu = torch.device("cpu")
+    found, valid = (np.asarray(x) for x in rj.semi_mark(
+        rj.build_for_backend(ref_batch(bcols, brv), names),
+        ref_batch(pcols, prv), names, verify=verify))
+    table = pj.build_for_backend(
+        interop.batch_from_numpy(bcols, brv, cpu), names)
+    probe = interop.batch_from_numpy(pcols, prv, cpu)
+    for negate, want in ((False, found), (True, valid & ~found)):
+        got = pj.semi_mark(table, probe, names, verify=verify,
+                           negate=negate)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < found.sum() < valid.sum() < npr

@@ -33,7 +33,7 @@ from presto_tpu_torch.telemetry import kernels as tk
 torch.set_num_threads(1)
 
 #: the battery's set-operation and DISTINCT cases (approx_distinct is
-#: an aggregate of ROADMAP B4, not a DISTINCT)
+#: an aggregate of ROADMAP A5, not a DISTINCT)
 SET_CASES = sorted(n for n in BATTERY
                    if any(w in n for w in ("union", "intersect", "except",
                                            "distinct"))
