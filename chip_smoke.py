@@ -18,7 +18,15 @@ lineitem, a CREATE TABLE AS of arrays into the memory catalog read
 back and dropped, a 9-key grouping and a 9-key join, and round with a
 column scale, at SF1, each against a numpy oracle read from the result
 batches, with K17 held against its plain version at its largest call
-(`run_array_phases`).
+(`run_array_phases`). Last the distributed path: MeshRunner with eight
+workers on the one card runs Q1, Q3, Q4, Q5, Q6, Q18, the wave
+collision query and a 1,500,000-row ORDER BY merged from per-task runs
+at SF1 (every join repartitioned), each against its numpy oracle, with
+its waves, rows and bytes across the exchanges and its K12 / K18 / K19
+launches; K18 (exchange_shuffle) is held against its plain version at
+the largest wave and K19 (merge_pair) at the largest merge, with one
+stable torch.sort of the two runs' leading key as K19's library figure
+(`run_mesh_phases`).
 
     python3 chip_smoke.py
 
@@ -44,9 +52,10 @@ counted them, and the Triton compiles (count, seconds) inside its cold
 wall. The kernels (KERNELS below): K1 direct_slot_reduce, K2
 compact, K3 row_hash, K4 join_build, K5 join_probe, K6 segment_reduce,
 K7 semi_join, K8 stream_reduce, K9 join_expand (with its full mode), K10
-cross_product, K11 join_outer (CUDA C++, built with nvcc), and K12
-fragment (a Triton kernel generated per filter/project chain at its
-first launch). Q1, Q3, Q6 and Q18 also run with fusion off (their
+cross_product, K11 join_outer, K13-K16 (window), K17 array_collect,
+K18 exchange_shuffle and K19 merge_pair (CUDA C++, built with nvcc),
+and K12 fragment (a Triton kernel generated per filter/project chain at
+its first launch). Q1, Q3, Q6 and Q18 also run with fusion off (their
 FilterProjects as one-stage K12 kernels), rows checked and walls beside
 the fused ones. The kernel measurements run on inputs captured from a
 separate run of the same queries (the largest call of each kernel; K9
@@ -64,8 +73,9 @@ timed call reads one of several copies of its batch, which together
 overflow the L2 (the warm device time, one batch again and again, is
 reported beside it). The composed torch
 forms that have no hand-written kernel yet (COMPOSED) are timed at
-their largest call too, with their byte bound and their family's calls
-per query. The profile phase counts the CUDA kernel launches of one
+their largest call too, with their byte bound, their family's calls
+per query and, where one PyTorch call computes the same function
+(COMPOSED_LIBRARY), that call's time. The profile phase counts the CUDA kernel launches of one
 warm execution of each query (and of Q1, Q3 and Q6 with fusion off).
 
 Tolerances: K2 (compact), K3, K4, K5 and K7 (semi_join) must match their
@@ -85,7 +95,9 @@ the same hashes). K12 (fragment): row_valid, masks and every value under
 a set mask exactly (FMA contraction off, IEEE division, floored integer
 division, as the composed form computes). K13 (window_segments), K15
 (window_frame_minmax) and K16 (window_emit): every position, value and
-mask exactly (NaN equal to NaN); K14 (window_frame_sum): masks, counts
+mask exactly (NaN equal to NaN); K18 (exchange_shuffle) and K19
+(merge_pair): every consumer's or the merged batch's row_valid, masks
+and values exactly, in order (NaN equal to NaN); K14 (window_frame_sum): masks, counts
 and integer sums exactly, float sums to a relative 1e-9 (both keep
 double-double prefixes, combined in another order). Query results:
 DOUBLE columns to a relative 1e-6 (the
@@ -1557,6 +1569,26 @@ def measure_composed(torch, fn, args):
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
+def _unique_of_live(torch, data, mask):
+    live = data[mask]
+    return lambda: torch.unique(live)
+
+
+#: one PyTorch call that computes a composed form's function, where
+#: there is one: the distinct set as torch.unique of the live keys (the
+#: masked selection made beforehand), the live count as count_nonzero
+COMPOSED_LIBRARY = {
+    "dynamic_filter distinct_set": _unique_of_live,
+    "agg_count _count_live":
+        lambda torch, valid: lambda: torch.count_nonzero(valid),
+}
+
+
+def composed_library_ms(torch, label, args):
+    make = COMPOSED_LIBRARY.get(label)
+    return None if make is None else time_ms(make(torch, *args), torch)
+
+
 def batch_bytes(batch, rows=None) -> int:
     """Bytes of `rows` rows (all by default) of every column's data and
     mask and of row_valid."""
@@ -1804,7 +1836,15 @@ KERNELS = {
                     "presto_tpu/ops/window.py:341"),
     "array_collect": ("cuda", "presto_tpu_torch/csrc/array_collect.cu",
                       "presto_tpu/operators/array_agg.py:66"),
+    "exchange_shuffle": ("cuda", "presto_tpu_torch/csrc/exchange_shuffle.cu",
+                         "presto_tpu/parallel/shuffle.py:233"),
+    "merge_pair": ("cuda", "presto_tpu_torch/csrc/merge_pair.cu",
+                   "presto_tpu/ops/merge.py:97"),
 }
+#: the mesh path's kernels, measured there
+MESH_KERNELS = ("exchange_shuffle", "merge_pair")
+#: the main path's oracle rows by query label (run_phases fills it)
+ORACLE_ROWS = {}
 #: the window kernels, measured on the window and TPC-DS path
 WINDOW_KERNELS = ("window_segments", "window_frame_sum",
                   "window_frame_minmax", "window_emit")
@@ -1864,6 +1904,8 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
             **join_oracle(np, gen_module, lineitem, schema),
             **semi_oracle(np, gen_module, lineitem, schema),
             **slice4_oracle(np, gen_module, lineitem, schema)}
+    # the mesh path checks its TPC-H queries against the same rows
+    ORACLE_ROWS.update(want)
     n_lineitem = {schema: len(lineitem["quantity"]),
                   Q19_SCHEMA: n_lineitem_q19}
     runners = {sc: mods["LocalRunner"]("tpch", sc, properties=PROPS,
@@ -2064,7 +2106,9 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
            for q in K10_AT}
     k11 = measure_k11(torch, tj, cap.k11[2])
     distinct = measure_distinct(torch, mods["sort"], cap.distinct[2])
-    composed = {label: (q, measure_composed(torch, fn, args))
+    composed = {label: (q, {**measure_composed(torch, fn, args),
+                            "library_ms": composed_library_ms(
+                                torch, label, args)})
                 for label, (_, q, fn, args) in cap.composed.items()}
     # K12: every distinct generated kernel at its largest call against
     # its composed form; timed at the three largest by bytes and at
@@ -2175,7 +2219,7 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
                             for q, (n, sec) in compiles.items()}})
     kernels = []
     for k, (route, src, replaces) in KERNELS.items():
-        if k in WINDOW_KERNELS or k in ARRAY_KERNELS:
+        if k in WINDOW_KERNELS or k in ARRAY_KERNELS or k in MESH_KERNELS:
             continue
         m = measured[k]
         kernels.append({
@@ -3323,6 +3367,289 @@ def run_array_phases(torch, np, mods, dev, schema):
     return m, totals
 
 
+# -- the mesh path (K18, K19) ----------------------------------------------
+
+#: the wave collision query of the reference's mesh tests
+#: (tests/test_mesh_parity.py:33-38): all-integer rows, nationkey 0 a
+#: real join key, and a FilterProject tail the wave absorbs
+COLLISION = """SELECT n.nationkey, count(*) AS c
+FROM supplier s, nation n
+WHERE s.nationkey = n.nationkey AND s.suppkey >= 0
+GROUP BY n.nationkey ORDER BY n.nationkey"""
+
+#: a distributed ORDER BY of every order: 1,500,000 rows, one sorted run
+#: per task, merged by the MergeNode (K19)
+MESH_ORDER = """SELECT orderkey, custkey, totalprice FROM orders
+ORDER BY totalprice DESC, orderkey"""
+
+MESH_QUERIES = {"q1": Q1, "q3": Q3, "q5": Q5, "q6": Q6, "q18": Q18,
+                "q4": Q4, "collision": COLLISION, "mesh_order": MESH_ORDER}
+#: the mesh runner: eight logical workers on one card, every join
+#: repartitioned through the wave
+MESH_PROPS = {**PROPS, "broadcast_join_threshold_rows": 0}
+MESH_WORKERS = 8
+#: the kernels each mesh query must launch (Q6's single aggregate needs
+#: only a gather; MESH_ORDER only a gather and the merge)
+MESH_MUST = {"q1": ("exchange_shuffle", "fragment"),
+             "q3": ("exchange_shuffle", "fragment"),
+             "q5": ("exchange_shuffle", "fragment"),
+             "q6": ("fragment",),
+             "q18": ("exchange_shuffle", "fragment"),
+             "q4": ("exchange_shuffle", "fragment"),
+             "collision": ("exchange_shuffle", "fragment"),
+             "mesh_order": ("merge_pair",)}
+
+
+def mesh_oracle(np, gen_module, schema):
+    """COLLISION and MESH_ORDER in numpy over the generated tables:
+    suppliers counted per nation; every order sorted by totalprice
+    descending, then orderkey."""
+    gen = gen_module.TpchGenerator(gen_module.TpchConnector.SCHEMAS[schema])
+    sup = table(np, gen, "supplier", ("suppkey", "nationkey"))
+    nation = table(np, gen, "nation", ("nationkey",))
+    keep = np.isin(sup["nationkey"], nation["nationkey"]) \
+        & (sup["suppkey"] >= 0)
+    counts = np.bincount(sup["nationkey"][keep])
+    collision = [(int(k), int(c)) for k, c in enumerate(counts) if c]
+    o = table(np, gen, "orders", ("orderkey", "custkey", "totalprice"))
+    order = np.lexsort((o["orderkey"], -o["totalprice"]))
+    return collision, {c: o[c][order]
+                       for c in ("orderkey", "custkey", "totalprice")}
+
+
+class ArgCapture:
+    """The arguments of the largest call (by `size(args)`) of one module
+    function while active, calling through."""
+
+    def __init__(self, module, name, size):
+        self.module, self.name, self.size = module, name, size
+        self.big = None
+        self.query = None
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.module, self.name)
+
+        def rec(*args):
+            n = self.size(args)
+            if self.big is None or n > self.big[0]:
+                self.big = (n, self.query, args)
+            return orig(*args)
+        setattr(self.module, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+        return False
+
+
+def _wave_rows(args):
+    return sum(p[1].shape[0] for p in args[0] if p is not None)
+
+
+def _same_tensor(torch, a, b) -> bool:
+    if a.is_floating_point():
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    return torch.equal(a, b)
+
+
+#: K18's kernels, in launch order (csrc/exchange_shuffle.cu)
+K18_LAUNCHES = ("wave_count", "wave_scan", "wave_scatter", "wave_pad")
+
+
+def measure_k18(torch, tsh, args):
+    """K18 at the largest wave against its plain version on the same
+    CUDA inputs (exactly: every consumer's columns, masks, row_valid and
+    count, in order), both timed. The byte bound: every producer slot's
+    row_valid read once, the hash, data and mask of each live producer
+    row read once (a dead row is never read), every consumer batch
+    written once."""
+    producers, w, shard_len, template = args
+    got, gcounts = tsh.wave_shuffle(*args)
+    want, wcounts = tsh.wave_shuffle_plain(*args)
+    torch.cuda.synchronize()
+    check(list(gcounts) == list(wcounts), "K18 exchange_shuffle: counts "
+          f"differ: {gcounts} vs {wcounts}")
+    moved = 0
+    for (gc, gv), (wc, wv) in zip(got, want):
+        check(torch.equal(gv, wv), "K18 exchange_shuffle: row_valid differs")
+        for (gd, gm), (wd, wm) in zip(gc, wc):
+            check(_same_tensor(torch, gd, wd) and torch.equal(gm, wm),
+                  "K18 exchange_shuffle: a consumer column differs")
+            moved += nbytes(gd, gm)
+        moved += nbytes(gv)
+    for p in producers:
+        if p is not None:
+            live = int(p[1].sum())
+            moved += nbytes(p[1]) + live * (
+                p[0].element_size()
+                + sum(d.element_size() + m.element_size() for d, m in p[2]))
+    ms = time_ms(lambda: tsh.wave_shuffle(*args), torch)
+    plain_ms = time_ms(lambda: tsh.wave_shuffle_plain(*args), torch)
+    # the device time of each of K18's launches (count, scan, scatter,
+    # pad); the rest of `ms` is the host's part of the call (the tables'
+    # copies, the read of the counts)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            tsh.wave_shuffle(*args)
+        torch.cuda.synchronize()
+    found = {e.key.split("(")[0]: getattr(
+        e, "self_device_time_total", 0.0) / e.count
+        for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    # None: the profiler recorded no launch of that kernel
+    launch_us = {k: found.get(k) for k in K18_LAUNCHES}
+    return {"workers": w, "producer_rows": _wave_rows(args),
+            "device_us_per_launch": launch_us,
+            "live_rows": int(sum(gcounts)), "columns": len(template),
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "bytes": moved}
+
+
+def measure_k19(torch, tm, args):
+    """K19 at the largest merge against its plain version on the same
+    CUDA runs (exactly: every column, mask and row_valid), both timed;
+    the library figure is one stable torch.sort of the two runs'
+    concatenated leading key, the re-sort the merge replaces. The byte
+    bound: both runs' row_valid read and the merged row_valid written
+    for every slot, the data and mask of each live row read once and
+    written once (a dead row's payload is no row)."""
+    a, b, keys, desc, nf = args
+    got = tm.merge_pair(*args)
+    want = tm.merge_pair_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got.row_valid, want.row_valid),
+          "K19 merge_pair: row_valid differs")
+    live = int(a.row_valid.sum()) + int(b.row_valid.sum())
+    moved = 0
+    for n in a.names:
+        g, w = got.columns[n], want.columns[n]
+        check(_same_tensor(torch, g.data, w.data)
+              and torch.equal(g.mask, w.mask),
+              f"K19 merge_pair: column {n} differs")
+        moved += 2 * live * (g.data.element_size() + g.mask.element_size())
+    moved += nbytes(got.row_valid, a.row_valid, b.row_valid)
+    lead = torch.cat([a.columns[keys[0]].data, b.columns[keys[0]].data])
+    ms = time_ms(lambda: tm.merge_pair(*args), torch)
+    plain_ms = time_ms(lambda: tm.merge_pair_plain(*args), torch)
+    library_ms = time_ms(lambda: torch.sort(lead, stable=True,
+                                            descending=bool(desc[0])), torch)
+    return {"rows": [a.capacity, b.capacity],
+            "live": [int(a.row_valid.sum()), int(b.row_valid.sum())],
+            "keys": len(keys), "columns": len(a.names), "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
+
+
+def check_mesh_result(np, torch, label, res, want, collision, order):
+    """The query's rows against its oracle; returns the row count."""
+    if label == "mesh_order":
+        cols = result_columns(torch, np, res)
+        for name in ("orderkey", "custkey", "totalprice"):
+            d, m = cols[name]
+            check(m.all() and len(d) == len(order[name])
+                  and np.array_equal(d, order[name]),
+                  f"mesh_order: {name} differs from the oracle")
+        return len(order["orderkey"])
+    rows = res.rows()
+    expect = collision if label == "collision" else want[label]
+    check(result_matches(label, rows, expect),
+          f"mesh {label} differs from the oracle: {rows[:10]} vs "
+          f"{expect[:10]}")
+    return len(rows)
+
+
+def run_mesh_phases(torch, np, mods, dev, schema):
+    """The distributed path: MESH_QUERIES at `schema` through
+    MeshRunner(n_workers=8) on one card, each against its numpy oracle,
+    with cold and warm walls, waves, rows and bytes across the
+    exchanges, K12 / K18 / K19 launches, the datagen share and the peak
+    device memory; one warm execution of Q18 and MESH_ORDER under
+    torch.profiler; K18 at the largest wave and K19 at the largest merge
+    against their plain versions. Returns ({kernel: measurement},
+    {kernel: launches on this path})."""
+    tk, tsh, tm = mods["tk"], mods["tsh"], mods["tm"]
+    t = time.perf_counter()
+    collision, order = mesh_oracle(np, mods["gen"], schema)
+    emit({"phase": "mesh_oracle", "seconds": time.perf_counter() - t,
+          "mesh_order_rows": len(order["orderkey"])})
+    runner = mods["MeshRunner"]("tpch", schema, properties=MESH_PROPS,
+                                n_workers=MESH_WORKERS, device=dev)
+    check(runner.n_workers == MESH_WORKERS
+          and all(d == runner.mesh.device for d in runner.mesh.devices),
+          "the mesh's workers are not all on one card")
+    counters = list(tk.COUNTERS.values())
+    launches = {}
+    for label, sql in MESH_QUERIES.items():
+        for c in counters:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res = runner.execute(sql)
+        nrows = check_mesh_result(np, torch, label, res, ORACLE_ROWS,
+                                  collision, order)
+        cold = time.perf_counter() - t
+        launches[label] = {c.name: c.launches for c in counters}
+        peak = torch.cuda.max_memory_allocated()
+        ex = list(runner.last_exchanges.values())
+        waves = sum(x.wave_count for x in ex)
+        for k in MESH_MUST[label]:
+            check(launches[label][k] > 0, f"{k} was not launched in mesh "
+                  f"{label}")
+        check(launches[label]["exchange_shuffle"] == waves,
+              f"mesh {label}: {waves} waves but "
+              f"{launches[label]['exchange_shuffle']} K18 launches")
+        with DatagenTimer(mods["gen"].TpchGenerator) as dg:
+            t = time.perf_counter()
+            r = runner.execute(sql)
+            if label == "mesh_order":
+                result_columns(torch, np, r)
+            else:
+                r.rows()
+            warm = time.perf_counter() - t
+        emit({"phase": "mesh", "query": label, "schema": schema,
+              "workers": MESH_WORKERS, "batch_rows": PROPS["batch_rows"],
+              "rows": nrows, "matches_oracle": True, "cold_s": cold,
+              "warm_s": warm, "warm_datagen_share": dg.seconds / warm,
+              "waves": waves,
+              "exchange_rows": sum(x.wave_rows for x in ex),
+              "exchange_bytes": sum(x.wave_bytes for x in ex),
+              "exchanges": {x.exchange_id: x.scheme for x in ex},
+              "k12_launches": launches[label]["fragment"],
+              "k18_launches": launches[label]["exchange_shuffle"],
+              "k19_launches": launches[label]["merge_pair"],
+              "peak_device_bytes": peak, "launches": launches[label]})
+    for label in ("q18", "mesh_order"):
+        emit({"phase": "profile", "path": "mesh", "query": label,
+              **profile_query(torch, mods["gen"], runner,
+                              MESH_QUERIES[label],
+                              read=(lambda r: result_columns(torch, np, r))
+                              if label == "mesh_order" else None)})
+    # K18 at the largest wave, K19 at the largest merge
+    with ArgCapture(tsh, "wave_shuffle", _wave_rows) as waves_cap, \
+            ArgCapture(tm, "merge_pair",
+                       lambda a: a[0].capacity + a[1].capacity) as merges:
+        for label in ("q18", "q3", "q1", "mesh_order"):
+            waves_cap.query = merges.query = label
+            runner.execute(MESH_QUERIES[label])
+    check(waves_cap.big is not None and merges.big is not None,
+          "the largest wave or merge was not captured")
+    k18 = measure_k18(torch, tsh, waves_cap.big[2])
+    emit({"phase": "kernels", "kernel": "exchange_shuffle",
+          "family": "spmd_shuffle", "shape_from": waves_cap.big[1], **k18,
+          "launches": {q: launches[q]["exchange_shuffle"]
+                       for q in MESH_QUERIES}})
+    k19 = measure_k19(torch, tm, merges.big[2])
+    emit({"phase": "kernels", "kernel": "merge_pair", "family": "merge",
+          "shape_from": merges.big[1], **k19,
+          "launches": {q: launches[q]["merge_pair"] for q in MESH_QUERIES}})
+    totals = {name: sum(launches[q][name] for q in MESH_QUERIES)
+              for name in tk.COUNTERS}
+    return {"exchange_shuffle": k18, "merge_pair": k19}, totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3347,8 +3674,10 @@ def main() -> int:
         from presto_tpu_torch.ops import hashagg as th
         from presto_tpu_torch.ops import join as tj
         from presto_tpu_torch.ops import sort as tsort
+        from presto_tpu_torch.ops import merge as tm
         from presto_tpu_torch.ops import window as tw
-        from presto_tpu_torch.runner import LocalRunner
+        from presto_tpu_torch.parallel import shuffle as tsh
+        from presto_tpu_torch.runner import LocalRunner, MeshRunner
         from presto_tpu_torch.telemetry import kernels as tk
     except ImportError as e:
         print(f"chip_smoke: the presto_tpu_torch package is not beside "
@@ -3359,7 +3688,8 @@ def main() -> int:
             "tj": tj, "df": tdf, "agg": tagg, "core": tcore, "sort": tsort,
             "misc": tmisc, "codegen": codegen, "ff": tff,
             "tk": tk, "tw": tw, "ds": ds_module, "taa": taa,
-            "LocalRunner": LocalRunner}
+            "tsh": tsh, "tm": tm, "LocalRunner": LocalRunner,
+            "MeshRunner": MeshRunner}
     check(set(KERNELS) == set(tk.COUNTERS)
           and {src for route, src, _ in KERNELS.values()
                if route == "cuda"}
@@ -3393,16 +3723,19 @@ def main() -> int:
     window, window_launches = run_window_phases(torch, np, mods, dev,
                                                 SCHEMA)
     k17, array_launches = run_array_phases(torch, np, mods, dev, SCHEMA)
+    mesh, mesh_launches = run_mesh_phases(torch, np, mods, dev, SCHEMA)
     for k in kernels:
         k["launches"] += window_launches[k["name"]] \
-            + array_launches[k["name"]]
+            + array_launches[k["name"]] + mesh_launches[k["name"]]
     for kname, m in [(n, window[n]) for n in WINDOW_KERNELS] \
-            + [(n, k17) for n in ARRAY_KERNELS]:
+            + [(n, k17) for n in ARRAY_KERNELS] \
+            + [(n, mesh[n]) for n in MESH_KERNELS]:
         route, src, replaces = KERNELS[kname]
         kernels.append({
             "name": kname, "route": route, "source": src,
             "replaces": replaces, "family": tk.COUNTERS[kname].family,
-            "launches": window_launches[kname] + array_launches[kname],
+            "launches": window_launches[kname] + array_launches[kname]
+            + mesh_launches[kname],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": "bytes", "library_ms": m["library_ms"]})

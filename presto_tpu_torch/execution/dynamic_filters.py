@@ -12,8 +12,15 @@ before probe, so the filter is published before the probe's scan
 yields its first batch.
 
 All three steps are composed torch (the `dynamic_filter` family); a
-hand-written kernel is queued in ROADMAP B9. The cross-fragment
-service of the mesh runner comes with the distributed slice.
+hand-written kernel is queued in ROADMAP B9.
+
+On the distributed path a join's build and the scan it prunes can lie
+in different fragments: `DynamicFilterService` is the query-wide
+meeting point (reference: :77, DynamicFilterService.java). The runner
+arms each filter with its publisher count (the build fragment's tasks);
+`get` returns the merged filter once every task published, and
+`pending` tells a scan to wait for it, so the pruning does not depend
+on which task the drive loop runs first.
 """
 
 from __future__ import annotations
@@ -47,6 +54,67 @@ class DynamicFilterRegistry:
 
     def get(self, df_id: int) -> Optional["DFilter"]:
         return self._filters.get(df_id)
+
+
+class DynamicFilterService:
+    """Cross-fragment filters of one query: `expect(df_id, n)` arms an
+    id with its publisher count; `get` merges the n partial filters
+    (bounds by min / max, sets by union while it fits DF_SET_MAX) once
+    all arrived. Publishers are keyed by token, so a task publishing
+    twice replaces its part instead of counting twice."""
+
+    def __init__(self):
+        self._expected: Dict[int, int] = {}
+        self._parts: Dict[int, Dict] = {}
+        self._merged: Dict[int, DFilter] = {}
+
+    def expect(self, df_id: int, publishers: int) -> None:
+        self._expected[df_id] = publishers
+
+    def publish(self, df_id: int, mn, mx, dset=None, token=None) -> None:
+        d = self._parts.setdefault(df_id, {})
+        d[("anon", len(d)) if token is None else token] = \
+            DFilter(mn, mx, dset)
+
+    def pending(self, df_id: int) -> bool:
+        """Armed and not every publisher has published yet."""
+        expected = self._expected.get(df_id)
+        return expected is not None and df_id not in self._merged \
+            and len(self._parts.get(df_id, {})) < expected
+
+    def get(self, df_id: int) -> Optional["DFilter"]:
+        hit = self._merged.get(df_id)
+        if hit is not None or self.pending(df_id) \
+                or df_id not in self._expected:
+            return hit
+        parts = list(self._parts.get(df_id, {}).values())
+        mn = torch.stack([p.mn for p in parts]).min()
+        mx = torch.stack([p.mx for p in parts]).max()
+        dset = None
+        if parts and all(p.dset is not None for p in parts):
+            vals = torch.cat([p.dset[0][:int(p.dset[1])] for p in parts])
+            u = torch.unique(vals)
+            if u.shape[0] <= DF_SET_MAX:
+                info = _ident(u.dtype)
+                padded = torch.full((DF_SET_MAX,), info.max, dtype=u.dtype,
+                                    device=u.device)
+                padded[:u.shape[0]] = u
+                dset = (padded, torch.tensor(u.shape[0], device=u.device))
+        merged = DFilter(mn, mx, dset)
+        self._merged[df_id] = merged
+        return merged
+
+
+class BoundPublisher:
+    """The service seen from one build task: its publications carry the
+    task's token."""
+
+    def __init__(self, svc: DynamicFilterService, token):
+        self._svc = svc
+        self._token = token
+
+    def publish(self, df_id: int, mn, mx, dset=None) -> None:
+        self._svc.publish(df_id, mn, mx, dset, token=self._token)
 
 
 class DFilter:

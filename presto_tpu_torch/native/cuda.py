@@ -49,6 +49,8 @@ SOURCES = {
     "window_frame_minmax": "window_frame_minmax.cu",
     "window_emit": "window_emit.cu",
     "array_collect": "array_collect.cu",
+    "exchange_shuffle": "exchange_shuffle.cu",
+    "merge_pair": "merge_pair.cu",
 }
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
@@ -143,6 +145,23 @@ SIGNATURES = {
         "presto_array_collect": (
             ctypes.c_int, [_P] * 13 + [_I32, _P, _P, _I64, _I64, _I64, _I64,
                                        _I32, _P, _P, _P, _P]),
+    },
+    "exchange_shuffle": {
+        "presto_wave_max_workers": (ctypes.c_int, []),
+        "presto_wave_max_cols": (ctypes.c_int, []),
+        "presto_wave_block_rows": (ctypes.c_int, []),
+        "presto_wave_count": (
+            ctypes.c_int, [_P, _I32, _I64, _P, _P, _P, _P]),
+        "presto_wave_scatter": (
+            ctypes.c_int, [_P, _P, _I32, _I32, _I64, _P, _P, _I32, _I32,
+                           _I32, _I64, _P]),
+    },
+    "merge_pair": {
+        "presto_merge_max_keys": (ctypes.c_int, []),
+        "presto_merge_max_cols": (ctypes.c_int, []),
+        "presto_merge_pair": (
+            ctypes.c_int, [_P] * 7 + [_I32, _P, _I64, _P, _I64] + [_P] * 7
+            + [_I32, _P, _I32, _P]),
     },
 }
 

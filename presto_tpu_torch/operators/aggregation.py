@@ -24,9 +24,15 @@ Two paths, chosen from the key expressions:
   host read at the end raises GroupLimitExceeded and the runner re-runs
   the query with four times the groups.
 
-Only the SINGLE step runs locally in this slice; the PARTIAL/FINAL
-split belongs to the distributed slice. Memory revocation (spilling
-partials to the host) comes with the memory slice (ROADMAP A10).
+Each path runs one of three steps (AggregationNode.Step): SINGLE;
+PARTIAL, which folds raw rows and emits its states as columns
+<out>__s{i} (`hashagg.direct_intermediate` / `intermediate_batch`) for
+the distributed path's exchange; FINAL, which folds those state columns
+with the same reductions (K1 on the direct path, K3 + sort + K6 on the
+sort path, through `_make_contribs`' merge rows) and finalizes. The
+streaming path runs SINGLE and PARTIAL steps (a FINAL step's shuffled
+input is not key-sorted). Memory revocation (spilling partials to the
+host) comes with the memory slice (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -115,7 +121,8 @@ def _direct_domains(key_exprs) -> Optional[Tuple[int, ...]]:
 def make_agg_step_kernel(key_exprs: Sequence[CompiledExpr],
                          specs: Sequence[AggSpec],
                          domains: Optional[Tuple[int, ...]],
-                         presorted: bool = False, pre=None, pre_key=None):
+                         presorted: bool = False, pre=None, pre_key=None,
+                         mode: str = "single"):
     """The fold step. Direct path: (state, batch) -> state. Sort path:
     (out_cap, batch) -> the batch's packed partial state. `presorted`
     (the streaming operator, rows arriving in key order) swaps the sort
@@ -127,10 +134,22 @@ def make_agg_step_kernel(key_exprs: Sequence[CompiledExpr],
     step's key, input and FILTER expressions then run as ONE K12
     launch, whose outputs K1, K3 + K6 or K8 read directly. `pre_key` is
     the chain's fingerprint (the kernel-cache key). A fused step counts
-    under `fragment` (the K12 launch) and `agg_step` (the fold)."""
+    under `fragment` (the K12 launch) and `agg_step` (the fold).
+
+    `mode` "final" folds each spec's partial state columns
+    (<out>__s{i}) instead of evaluating an input; a chain fused ahead of
+    a FINAL step runs on its own, and the keys are evaluated over its
+    output."""
     aggs = tuple(s.function for s in specs)
+    final = mode == "final"
+    merge = [final] * len(specs)
     body = None
-    if pre is not None:
+    if pre is not None and final:
+        from presto_tpu_torch.operators.fused_fragment import (
+            cached_chain_body,
+        )
+        body = cached_chain_body(list(pre), pre_key)
+    elif pre is not None:
         from presto_tpu_torch.operators.fused_fragment import (
             ChainStage, cached_chain_body,
         )
@@ -151,6 +170,20 @@ def make_agg_step_kernel(key_exprs: Sequence[CompiledExpr],
         body = cached_chain_body(stages, key)
 
     def batch_parts(batch: Batch):
+        if final:
+            if body is not None:
+                batch = body(batch)
+            env = {n: (c.data, c.mask) for n, c in batch.columns.items()}
+            cap = batch.capacity
+            key_cols = [(d.to(ke.type.torch_dtype).expand(cap),
+                         m.expand(cap))
+                        for ke in key_exprs for d, m in [ke.fn(env)]]
+            agg_inputs = [tuple(
+                batch.columns[f"{s.out_name}__s{i}"].data
+                for i in range(len(s.function.state_dtypes)))
+                for s in specs]
+            return (batch.row_valid, key_cols, agg_inputs,
+                    [batch.row_valid] * len(specs))
         if body is not None:
             # the chained batch: its row_valid holds the chain's
             # filters, so groups never form from rows they dropped
@@ -195,7 +228,7 @@ def make_agg_step_kernel(key_exprs: Sequence[CompiledExpr],
                 batch_parts(batch)
             return hashagg.direct_step(state, row_valid, key_cols,
                                        domains, agg_inputs, agg_weights,
-                                       aggs)
+                                       aggs, merge)
         kernel.body = body
         return kernel
 
@@ -214,23 +247,26 @@ def make_agg_step_kernel(key_exprs: Sequence[CompiledExpr],
         _tk.count("agg_step")
         row_valid, key_cols, agg_inputs, agg_weights = batch_parts(batch)
         return hashagg.batch_aggregate(row_valid, key_cols, agg_inputs,
-                                       agg_weights, aggs, out_cap)
+                                       agg_weights, aggs, out_cap, merge)
     #: the fused chain body (None when nothing is fused)
     sort_kernel.body = body
     return sort_kernel
 
 
 def make_agg_finalize_kernel(key_names, key_types, key_dicts, domains,
-                             out_names, aggs):
-    """state -> output batch (slot decode on the direct path)."""
+                             out_names, aggs, mode: str = "single"):
+    """state -> output batch (slot decode on the direct path); the
+    PARTIAL step emits its states as columns instead."""
     def fin(state) -> Batch:
         _tk.count("agg_finalize")
         if domains is not None:
-            return hashagg.direct_finalize(state, key_names, key_types,
-                                           key_dicts, domains, out_names,
-                                           aggs)
-        return hashagg.finalize(state, key_names, key_types, key_dicts,
-                                out_names, aggs)
+            f = hashagg.direct_intermediate if mode == "partial" \
+                else hashagg.direct_finalize
+            return f(state, key_names, key_types, key_dicts, domains,
+                     out_names, aggs)
+        f = hashagg.intermediate_batch if mode == "partial" \
+            else hashagg.finalize
+        return f(state, key_names, key_types, key_dicts, out_names, aggs)
     return fin
 
 
@@ -244,6 +280,8 @@ class AggregationOperator(Operator):
         self.key_exprs = list(key_exprs)
         self.specs = list(specs)
         self.max_groups = max_groups
+        #: "single" | "partial" | "final" (set with the factory's step)
+        self.mode = "single"
         self._domains = domains
         self._kernel = make_agg_step_kernel(key_exprs, specs, domains)
         self._device = ctx.driver_context.device
@@ -266,10 +304,11 @@ class AggregationOperator(Operator):
         self._finishing = False
         self._emitted = False
 
-    def use_kernel(self, step_kernel) -> None:
+    def use_kernel(self, step_kernel, mode: str = "single") -> None:
         """Install the factory's step (with a fused upstream chain when
-        the fusion pass folded one in)."""
+        the fusion pass folded one in) and the step's mode."""
         self._kernel = step_kernel
+        self.mode = mode
 
     def needs_input(self) -> bool:
         return not self._finishing
@@ -379,7 +418,7 @@ class AggregationOperator(Operator):
             tuple(self.key_names),
             tuple(k.type for k in self.key_exprs),
             tuple(k.dictionary for k in self.key_exprs), self._domains,
-            tuple(s.out_name for s in self.specs), self._aggs())
+            tuple(s.out_name for s in self.specs), self._aggs(), self.mode)
         # (a global aggregation over zero rows still yields one live
         #  row: _decode_slots pins it, so count(*) = 0 works)
         out = fin(self._state)
@@ -420,11 +459,12 @@ class StreamingAggregationOperator(Operator):
 
     def __init__(self, ctx: OperatorContext, key_names: Sequence[str],
                  key_exprs: Sequence[CompiledExpr],
-                 specs: Sequence[AggSpec]):
+                 specs: Sequence[AggSpec], mode: str = "single"):
         super().__init__(ctx)
         self.key_names = list(key_names)
         self.key_exprs = list(key_exprs)
         self.specs = list(specs)
+        self.mode = mode  # "single" | "partial"
         self._kernel = make_agg_step_kernel(key_exprs, specs, None,
                                             presorted=True)
         self._device = ctx.driver_context.device
@@ -441,7 +481,8 @@ class StreamingAggregationOperator(Operator):
         return make_agg_finalize_kernel(
             tuple(self.key_names), tuple(k.type for k in self.key_exprs),
             tuple(k.dictionary for k in self.key_exprs), None,
-            tuple(s.out_name for s in self.specs), self._aggs())(state)
+            tuple(s.out_name for s in self.specs), self._aggs(),
+            self.mode)(state)
 
     def use_kernel(self, step_kernel) -> None:
         """Install the factory's step (with a fused upstream chain when
@@ -490,11 +531,15 @@ class StreamingAggregationOperator(Operator):
 class StreamingAggregationOperatorFactory(OperatorFactory):
     def __init__(self, operator_id: int, key_names: Sequence[str],
                  key_exprs: Sequence[CompiledExpr],
-                 specs: Sequence[AggSpec]):
+                 specs: Sequence[AggSpec], mode: str = "single"):
         super().__init__(operator_id, "aggregation(streaming)")
+        if mode == "final":
+            raise ValueError("a FINAL aggregation step cannot stream: "
+                             "its shuffled input is not key-sorted")
         self.key_names = list(key_names)
         self.key_exprs = list(key_exprs)
         self.specs = list(specs)
+        self.mode = mode
         self._created = False
         self._step_kernel = make_agg_step_kernel(
             self.key_exprs, self.specs, None, presorted=True)
@@ -518,7 +563,7 @@ class StreamingAggregationOperatorFactory(OperatorFactory):
         self._created = True
         op = StreamingAggregationOperator(
             OperatorContext(self.operator_id, self.name, driver_context),
-            self.key_names, self.key_exprs, self.specs)
+            self.key_names, self.key_exprs, self.specs, self.mode)
         op.use_kernel(self._step_kernel)
         return op
 
@@ -529,10 +574,8 @@ class AggregationOperatorFactory(OperatorFactory):
                  specs: Sequence[AggSpec], mode: str,
                  max_groups: int = 4096):
         super().__init__(operator_id, f"aggregation({mode})")
-        if mode != "single":
-            raise ValueError(
-                f"{mode} aggregation step: the partial/final split is "
-                "a later slice of the port (ROADMAP A12)")
+        if mode not in ("single", "partial", "final"):
+            raise ValueError(f"unknown aggregation step {mode!r}")
         self.key_names = list(key_names)
         self.key_exprs = list(key_exprs)
         self.specs = list(specs)
@@ -541,7 +584,7 @@ class AggregationOperatorFactory(OperatorFactory):
         self._domains = _direct_domains(self.key_exprs)
         self._created = False
         self._step_kernel = make_agg_step_kernel(
-            self.key_exprs, self.specs, self._domains)
+            self.key_exprs, self.specs, self._domains, mode=mode)
 
     @property
     def args(self):
@@ -556,7 +599,7 @@ class AggregationOperatorFactory(OperatorFactory):
         assert not self._created, "fuse_pre() after create()"
         self._step_kernel = make_agg_step_kernel(
             self.key_exprs, self.specs, self._domains, pre=pre,
-            pre_key=pre_key)
+            pre_key=pre_key, mode=self.mode)
         self.name = name
 
     def create(self, driver_context: DriverContext) -> Operator:
@@ -564,5 +607,5 @@ class AggregationOperatorFactory(OperatorFactory):
         op = AggregationOperator(
             OperatorContext(self.operator_id, self.name, driver_context),
             *self.args)
-        op.use_kernel(self._step_kernel)
+        op.use_kernel(self._step_kernel, self.mode)
         return op

@@ -66,7 +66,9 @@ class TableScanOperator(SourceOperator):
 
     `df_specs` [(column, df_id, registry)] wires dynamic filtering:
     once the join build has published its key filter, every batch
-    narrows row_valid by it (execution/dynamic_filters.py)."""
+    narrows row_valid by it (execution/dynamic_filters.py). A
+    cross-fragment filter that is armed but incomplete holds the scan
+    back until every build task published it."""
 
     def __init__(self, ctx: OperatorContext,
                  batch_iter: Iterator[Batch], df_specs=None):
@@ -78,6 +80,9 @@ class TableScanOperator(SourceOperator):
     def get_output(self) -> Optional[Batch]:
         if self._finished:
             return None
+        if any(getattr(reg, "pending", None) and reg.pending(df_id)
+               for _, df_id, reg in self._df_specs):
+            return None  # a cross-fragment filter is still being built
         b = next(self._iter, None)
         if b is None:
             self._finished = True

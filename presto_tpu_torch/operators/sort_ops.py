@@ -1,6 +1,6 @@
 """Ordering and dedup operators (reference:
 presto_tpu/operators/sort_ops.py; OrderByOperator.java:44,
-TopNOperator.java:35, the DISTINCT fold)."""
+TopNOperator.java:35, MergeOperator.java:44, the DISTINCT fold)."""
 
 from __future__ import annotations
 
@@ -48,6 +48,50 @@ class OrderByOperator(Operator):
         self._batches = []
         out = sort_kernels.sort_batch(merged, self.key_names,
                                       self.descending, self.nulls_first)
+        return self._count_out(out)
+
+    def finish(self) -> None:
+        self._finishing = True
+
+    def is_finished(self) -> bool:
+        return self._finishing and self._emitted
+
+
+class MergeOperator(Operator):
+    """k-way merge of sorted runs (reference: MergeOperator.java:44):
+    each input batch is one task's sorted run arriving through a gather
+    exchange; at finish the runs fold through the pairwise rank-
+    arithmetic merge (ops/merge.py, K19), never a re-sort of the
+    union."""
+
+    def __init__(self, ctx: OperatorContext, key_names: Tuple[str, ...],
+                 descending: Tuple[bool, ...],
+                 nulls_first: Tuple[bool, ...]):
+        super().__init__(ctx)
+        self.key_names = key_names
+        self.descending = descending
+        self.nulls_first = nulls_first
+        self._runs: List[Batch] = []
+        self._finishing = False
+        self._emitted = False
+
+    def needs_input(self) -> bool:
+        return not self._finishing
+
+    def add_input(self, batch: Batch) -> None:
+        self._count_in(batch)
+        self._runs.append(batch)
+
+    def get_output(self) -> Optional[Batch]:
+        if not self._finishing or self._emitted:
+            return None
+        self._emitted = True
+        if not self._runs:
+            return None
+        from presto_tpu_torch.ops.merge import merge_runs
+        out = merge_runs(self._runs, self.key_names, self.descending,
+                         self.nulls_first)
+        self._runs = []
         return self._count_out(out)
 
     def finish(self) -> None:
@@ -165,6 +209,19 @@ class OrderByOperatorFactory(OperatorFactory):
 
     def create(self, driver_context: DriverContext) -> Operator:
         return OrderByOperator(
+            OperatorContext(self.operator_id, self.name, driver_context),
+            *self.args)
+
+
+class MergeOperatorFactory(OperatorFactory):
+    def __init__(self, operator_id: int, key_names: Sequence[str],
+                 descending: Sequence[bool], nulls_first: Sequence[bool]):
+        super().__init__(operator_id, "merge")
+        self.args = (tuple(key_names), tuple(descending),
+                     tuple(nulls_first))
+
+    def create(self, driver_context: DriverContext) -> Operator:
+        return MergeOperator(
             OperatorContext(self.operator_id, self.name, driver_context),
             *self.args)
 

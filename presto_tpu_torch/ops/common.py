@@ -344,6 +344,23 @@ def _negate_for_desc(key: torch.Tensor) -> torch.Tensor:
     return -key
 
 
+def key_sort_ops(data: torch.Tensor, mask: torch.Tensor, desc: bool,
+                 nulls_first: bool) -> List[torch.Tensor]:
+    """One key's two sort operands: its null rank (mask under NULLS
+    FIRST, ~mask otherwise) and its canonical value: negated under DESC,
+    0 for NULL, and for a float key every NaN as one NaN (sorting after
+    every number, under ASC and DESC alike) and -0.0 as +0.0. That is
+    the order torch.sort gives on the CPU, and the reference's on the
+    CPU; it is made explicit so that the card's sort keeps it, and the
+    merge of sorted runs (ops/merge.py, K19) compares by it."""
+    sv = _negate_for_desc(data) if desc else data
+    sv = torch.where(mask, sv, torch.zeros_like(sv))
+    if sv.is_floating_point():
+        sv = torch.where(torch.isnan(sv), torch.full_like(sv, torch.nan),
+                         sv + 0.0)
+    return [mask if nulls_first else ~mask, sv]
+
+
 def _stable_order(sort_ops: Sequence[torch.Tensor]) -> torch.Tensor:
     """Stable lexicographic permutation over `sort_ops` (most
     significant first): stable passes from the least significant key
@@ -374,9 +391,7 @@ def sort_rows(keys: Sequence[CVal],
     if valid is not None:
         sort_ops.append(~valid)
     for (data, mask), d, nfirst in zip(keys, desc, nf):
-        sort_ops.append(mask if nfirst else ~mask)
-        sv = _negate_for_desc(data) if d else data
-        sort_ops.append(torch.where(mask, sv, torch.zeros_like(sv)))
+        sort_ops.extend(key_sort_ops(data, mask, d, nfirst))
     if not sort_ops:
         return list(keys), valid, list(payloads)
     perm = _stable_order(sort_ops)

@@ -470,16 +470,20 @@ def direct_step(state: DirectState,
                 domains: Tuple[int, ...],
                 agg_inputs: Sequence,
                 agg_weights: Sequence[torch.Tensor],
-                aggs: Sequence[AggFunction]) -> DirectState:
+                aggs: Sequence[AggFunction],
+                merge: Optional[Sequence[bool]] = None) -> DirectState:
     """Accumulate one batch into the slot table (in place). NULL keys
     get their own slot (code == domain), mirroring SQL's
-    NULL-is-a-group semantics."""
+    NULL-is-a-group semantics. Where `merge[i]`, the FINAL step's
+    input i is a tuple of partial state columns, folded with the same
+    reductions (K1)."""
     keys = [(code.to(torch.int32).contiguous(), mask.contiguous())
             for code, mask in key_codes]
+    merge = merge or [False] * len(aggs)
+    contribs = _make_contribs(aggs, agg_inputs, agg_weights, merge)
     comps = []
-    for agg, st, inp, w in zip(aggs, state.states, agg_inputs,
-                               agg_weights):
-        for arr, c, r in zip(st, agg.init(inp, w), agg.reduces):
+    for agg, st, cb in zip(aggs, state.states, contribs):
+        for arr, c, r in zip(st, cb, agg.reduces):
             comps.append((c.to(arr.dtype).contiguous(), arr, r))
     direct_slot_reduce(row_valid.contiguous(), keys, domains, comps,
                        state.present)
@@ -523,6 +527,25 @@ def direct_finalize(state: DirectState, key_names: Sequence[str],
         cols[name] = Column(d.to(agg.output_type.torch_dtype), m & rv,
                             agg.output_type, None)
     # pad the slot table up to its power-of-two capacity bucket
+    out = Batch(cols, rv)
+    return pad_batch(out, bucket_capacity(out.capacity) - out.capacity)
+
+
+def direct_intermediate(state: DirectState, key_names: Sequence[str],
+                        key_types: Sequence[Type],
+                        key_dicts: Sequence[Optional[tuple]],
+                        domains: Tuple[int, ...],
+                        out_names: Sequence[str],
+                        aggs: Sequence[AggFunction]) -> Batch:
+    """The PARTIAL step's output on the direct path: keys decoded as in
+    direct_finalize, every state array as a column <out>__s{i}
+    (reference: presto_tpu/ops/hashagg.py:1021)."""
+    cols, rv = _decode_slots(state, key_names, key_types, key_dicts,
+                             domains)
+    for name, agg, st in zip(out_names, aggs, state.states):
+        for i, (arr, it) in enumerate(zip(st, agg.intermediate_types)):
+            cols[f"{name}__s{i}"] = Column(arr.to(it.torch_dtype), rv,
+                                           it, None)
     out = Batch(cols, rv)
     return pad_batch(out, bucket_capacity(out.capacity) - out.capacity)
 

@@ -33,8 +33,9 @@ session's `fragment_fusion_enabled` itself.
 
 The history-driven upgrade (the reference's `history_fusion`, which
 folds a measured selective chain with an in-kernel compaction) waits
-for a history store (ROADMAP A11), and the exchange-sink pass
-(`fuse_exchange_sinks`) comes with the mesh (A12).
+for a history store (ROADMAP A11). On the distributed path a second
+pass (`fuse_exchange_sinks`) absorbs a producer's tail chain into its
+exchange's wave.
 """
 
 from __future__ import annotations
@@ -334,3 +335,78 @@ def _apply(pipe: List, cand: _Candidate, terminal, end: int, record,
     record(cand, tname, None,
            R_NO_TERMINAL if terminal is None else f"barrier:{tname}")
     return end
+
+
+def fuse_exchange_sinks(pipelines: List[List], report: Dict,
+                        node_ops=None) -> int:
+    """Second fusion pass, after fuse_pipelines (reference:
+    presto_tpu/planner/fusion.py:424): absorb a producer pipeline's tail
+    chain into its collective exchange, so every wave runs the chain on
+    each producer batch (K12) and shuffles its output (K18) without the
+    chain's own operator and deferred compaction in between; dead rows
+    never cross the exchange.
+
+    Eligible tails look like `[..., <chain>, exchange_sink]` where the
+    sink feeds exactly one chain-eligible MeshExchange (a collective
+    hash repartition) and the chain is the FusedChainOperatorFactory the
+    first pass left behind `barrier:exchange_sink`, or a lone
+    FilterProject. A chain with no lowering stays where it is, as in
+    the first pass. Mutates pipelines, report and node_ops in place;
+    returns the number of chains absorbed."""
+    from presto_tpu_torch.operators.exchange_ops import (
+        ExchangeSinkOperatorFactory,
+    )
+    id_remap = report.setdefault("id_remap", {})
+    absorbed = 0
+    for pi, pipe in enumerate(pipelines):
+        if len(pipe) < 2:
+            continue
+        sink = pipe[-1]
+        if not isinstance(sink, ExchangeSinkOperatorFactory) \
+                or len(sink.exchanges) != 1 \
+                or not sink.exchanges[0].chain_eligible():
+            continue
+        f = pipe[-2]
+        if isinstance(f, ff.FusedChainOperatorFactory):
+            stages, chain_key = f.stages, f.chain_key
+        elif isinstance(f, FilterProjectOperatorFactory):
+            stages = ff.stages_from_factory(f)
+            chain_key = ff.chain_fingerprint(stages) \
+                if stages is not None else None
+        else:
+            continue
+        if stages is None or chain_key is None \
+                or ff.chain_not_lowered(stages) is not None:
+            continue
+        inner = f.name[len("fused["):-1] \
+            if f.name.startswith("fused[") else f.name
+        label = f"fused[{inner}+all_to_all]"
+        if not sink.exchanges[0].attach_chain(stages, chain_key, label):
+            continue
+        del pipe[-2]
+        id_remap[f.operator_id] = sink.operator_id
+        sink.name = label
+        report.setdefault("fragments", []).append({
+            "pipeline": pi,
+            "source": pipe[0].name if pipe else "?",
+            "chain": [inner],
+            "terminal": "all_to_all",
+            "fused": label,
+            "reason": None,
+            "selectivity": 1.0,
+            "sel_provenance": "static",
+        })
+        report["fused"] = report.get("fused", 0) + 1
+        _tk.FUSED_FRAGMENTS["fused", ""] += 1
+        absorbed += 1
+    if node_ops is not None and absorbed:
+        for nid, ids in node_ops.items():
+            seen = set()
+            out = []
+            for op_id in ids:
+                mapped = id_remap.get(op_id, op_id)
+                if mapped not in seen:
+                    seen.add(mapped)
+                    out.append(mapped)
+            node_ops[nid] = out
+    return absorbed

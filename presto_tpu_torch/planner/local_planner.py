@@ -10,8 +10,15 @@ TopNRowNumber (a window plus a `rank <= N` filter), GroupId (grouping
 sets), Sort, TopN, Limit, Distinct, Union (through a local queue),
 EnforceSingleRow, AssignUniqueId, Unnest, the array_agg / map_agg
 collection (operators/array_agg.py), TableWriter / TableFinish and
-Output. An array, map or row column travels as scalar slot columns
-(`Field.form`; `_schema_of`). A join spawns a build
+Output; and, on the distributed path, the PARTIAL and FINAL
+aggregation steps, RemoteSource (an exchange's consumer end), Merge
+(the k-way merge of sorted runs, K19) and one fragment per task
+(`plan_fragment`, whose pipelines end in the exchange sink). A task of
+a distributed fragment (`TaskContext`) scans every task.count-th split
+from its index and applies the cross-fragment dynamic filters of
+execution/dynamic_filters.py `DynamicFilterService`. An array, map or
+row column travels as scalar slot columns (`Field.form`;
+`_schema_of`). A join spawns a build
 pipeline that runs before the pipeline holding its probe, as in the reference; inner joins
 and IN/EXISTS semi joins also wire dynamic filters from the build keys
 to probe-side scans. A subtree with several plan parents is planned
@@ -31,7 +38,7 @@ plan nodes onto the operators that survived it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,12 +82,19 @@ class LocalPlanningError(Exception):
     pass
 
 
-#: plan nodes of later slices -> the ROADMAP item that ports them
-_LATER = {
-    "MergeNode": "A12 (merge, made by the exchange planner)",
-    "RemoteSourceNode": "A12 (distributed path)",
-    "ExchangeNode": "A12 (distributed path)",
-}
+@dataclasses.dataclass
+class TaskContext:
+    """Identity of one fragment task on the mesh (reference:
+    presto_tpu/planner/local_planner.py:55; TaskId and the split
+    assignment NodeScheduler hands each task). `exchanges` maps
+    exchange ids to their MeshExchange; `df_service` / `cross_df` carry
+    the query-wide cross-fragment dynamic-filter service and its wiring
+    (planner/exchanges.py `plan_cross_fragment_filters`)."""
+    index: int = 0
+    count: int = 1
+    exchanges: Dict[int, object] = dataclasses.field(default_factory=dict)
+    df_service: object = None
+    cross_df: object = None
 
 
 def _schema_dicts(schema: Dict[str, ColumnSchema]
@@ -116,10 +130,12 @@ def _schema_of(node: N.PlanNode) -> Dict[str, ColumnSchema]:
 
 
 class LocalExecutionPlanner:
-    def __init__(self, catalog_manager, session, device: torch.device):
+    def __init__(self, catalog_manager, session, device: torch.device,
+                 task: Optional[TaskContext] = None):
         self.catalogs = catalog_manager
         self.session = session
         self.device = device
+        self.task = task or TaskContext()
         self._pipelines: List[List] = []
         self._op_id = 0
         # dynamic filtering: per-plan registry + scan-node id ->
@@ -180,6 +196,33 @@ class LocalExecutionPlanner:
         return LocalExecutionPlan(self._pipelines, sink, root.names,
                                   root.output)
 
+    def plan_fragment(self, root: N.PlanNode,
+                      sink_exchanges: Sequence) -> List[List]:
+        """Plan a non-root fragment for one task (reference:
+        presto_tpu/planner/local_planner.py:219): pipelines whose tail
+        tees into the fragment's consumer exchanges. After the fusion
+        pass, `fuse_exchange_sinks` absorbs a tail chain into its
+        collective exchange's wave."""
+        from presto_tpu_torch.operators.exchange_ops import (
+            ExchangeSinkOperatorFactory,
+        )
+        if self.task.index == 0:
+            # every task of a fragment plans the same root
+            from presto_tpu_torch.planner.validation import validate
+            validate(root, "local_planner", session=self.session)
+        self._shared = _shared_nodes(root)
+        pipeline: List = []
+        self._visit(root, pipeline)
+        pipeline.append(ExchangeSinkOperatorFactory(
+            self._next_id(), list(sink_exchanges), self.task.index))
+        self._pipelines.append(pipeline)
+        self._fuse()
+        if self.fusion_report is not None:
+            from presto_tpu_torch.planner.fusion import fuse_exchange_sinks
+            fuse_exchange_sinks(self._pipelines, self.fusion_report,
+                                self.node_ops)
+        return self._pipelines
+
     def _fuse(self) -> None:
         """Whole-fragment fusion (planner/fusion.py): collapse adjacent
         FilterProject runs into their consumer. Runs LAST — after
@@ -232,11 +275,7 @@ class LocalExecutionPlanner:
         name = type(node).__name__
         m = getattr(self, f"_visit_{name}", None)
         if m is None:
-            later = _LATER.get(name)
-            raise LocalPlanningError(
-                f"no local planning for {name}"
-                + (f": later slice of the port (ROADMAP {later})"
-                   if later else ""))
+            raise LocalPlanningError(f"no local planning for {name}")
         # operator ids minted while this node is on top of the stack
         # belong to it (children push their own frame)
         self._node_stack.append(id(node))
@@ -257,17 +296,50 @@ class LocalExecutionPlanner:
         handle = node.handle
         constraint = node.constraint
         device = self.device
+        task = self.task
 
         def batch_iter():
             splits = conn.split_manager.get_splits(
-                handle, target_splits, constraint)
+                handle, max(target_splits, task.count), constraint)
+            if task.count > 1:
+                # round-robin split assignment to the fragment's tasks
+                # (reference: NodeScheduler.java:65 split placement)
+                splits = splits[task.index::task.count]
             for s in splits:
                 for b in conn.page_source.batches(
                         s, columns, batch_rows, constraint, device):
                     yield b.rename(rename)
+        df_specs = list(self._df_scans.get(id(node), []))
+        if self.task.df_service is not None \
+                and self.task.cross_df is not None:
+            df_specs += [(sym, df_id, self.task.df_service)
+                         for sym, df_id
+                         in self.task.cross_df.scans.get(id(node), [])]
         pipe.append(TableScanOperatorFactory(
             self._next_id(), f"scan:{handle.table}", batch_iter,
-            df_specs=list(self._df_scans.get(id(node), [])) or None))
+            df_specs=df_specs or None))
+
+    def _visit_RemoteSourceNode(self, node: N.RemoteSourceNode,
+                                pipe: List):
+        from presto_tpu_torch.operators.exchange_ops import (
+            ExchangeSourceOperatorFactory,
+        )
+        pipe.append(ExchangeSourceOperatorFactory(
+            self._next_id(), self.task.exchanges[node.exchange_id],
+            self.task.index))
+
+    def _visit_ExchangeNode(self, node: N.ExchangeNode, pipe: List):
+        # one task: an exchange moves nothing
+        self._visit(node.source, pipe)
+
+    def _visit_MergeNode(self, node: N.MergeNode, pipe: List):
+        from presto_tpu_torch.operators.sort_ops import (
+            MergeOperatorFactory,
+        )
+        self._visit(node.source, pipe)
+        pipe.append(MergeOperatorFactory(
+            self._next_id(), node.keys, node.descending,
+            node.nulls_first))
 
     def _visit_ValuesNode(self, node: N.ValuesNode, pipe: List):
         cap = bucket_capacity(max(len(node.rows), 1))
@@ -387,13 +459,12 @@ class LocalExecutionPlanner:
             t = a.input_type or (arg_ce.type if arg_ce else None)
             fn = agg_function_for(a.function, t, a.output_type, a.params)
             specs.append(AggSpec(a.out_symbol, fn, arg_ce, mask_ce))
-        if node.step != "single":
-            raise LocalPlanningError(
-                f"{node.step} aggregation step: later slice of the port "
-                "(ROADMAP A12)")
-        if self._streaming_agg_eligible(node, key_exprs):
+        if node.step != "final" \
+                and self._streaming_agg_eligible(node, key_exprs):
+            # SINGLE and PARTIAL steps stream over sorted input; a
+            # FINAL step's shuffled input is never key-sorted
             pipe.append(StreamingAggregationOperatorFactory(
-                self._next_id(), key_names, key_exprs, specs))
+                self._next_id(), key_names, key_exprs, specs, node.step))
             return
         # stats-driven sizing: a grouping estimated past the session
         # value starts big enough instead of paying x4 retries; never
@@ -419,8 +490,8 @@ class LocalExecutionPlanner:
                 "aggregates in one GROUP BY yet — split the query")
         if node.step != "single":
             raise LocalPlanningError(
-                f"{node.step} aggregation step: later slice of the port "
-                "(ROADMAP A12)")
+                f"{node.step} step of array_agg/map_agg: the exchange "
+                "planner never splits it (NO_SPLIT_AGGS)")
         from presto_tpu_torch.operators.array_agg import (
             ArrayAggOperatorFactory, CollectSpec,
         )
@@ -566,6 +637,9 @@ class LocalExecutionPlanner:
         key_dicts = _unified_key_dicts(probe, build, criteria)
         df_publish = self._plan_dynamic_filters(probe, build, criteria) \
             if jt == "inner" else None
+        if jt == "inner":
+            df_publish = (df_publish or []) + self._cross_df_publish(node) \
+                or None
         build_pipe: List = []
         self._visit(build, build_pipe)
         build_pipe.append(HashBuildOperatorFactory(
@@ -614,19 +688,37 @@ class LocalExecutionPlanner:
                 (scan_sym, df_id, self._df_registry))
         return publish or None
 
+    def _cross_df_publish(self, node) -> List[tuple]:
+        """Cross-fragment publications this join owes the query-wide
+        DynamicFilterService (wired by plan_cross_fragment_filters; node
+        identity survives fragmentation, since fragments hold subtrees
+        of the same plan objects)."""
+        svc, cdf = self.task.df_service, self.task.cross_df
+        if svc is None or cdf is None:
+            return []
+        from presto_tpu_torch.execution.dynamic_filters import (
+            BoundPublisher,
+        )
+        bound = BoundPublisher(svc, self.task.index)
+        return [(key, df_id, bound)
+                for key, df_id in cdf.joins.get(id(node), [])]
+
     def _visit_SemiJoinNode(self, node: N.SemiJoinNode, pipe: List):
         """The filtering side builds, the source side probes with K7's
         mark. IN/EXISTS keep only source rows whose key the build holds,
         the pruning contract of an inner join, so the build publishes
         dynamic filters too; NOT IN must not (pruning would drop exactly
-        the rows it keeps). The reference's cross-fragment filters
-        (`_cross_df_publish`) belong to the distributed path (A12)."""
+        the rows it keeps), and on the distributed path it publishes
+        the cross-fragment filters (`_cross_df_publish`) as well."""
         bridge = JoinBridge()
         criteria = [(node.source_key, node.filtering_key)]
         key_dicts = _unified_key_dicts(node.source, node.filtering_source,
                                        criteria)
         df_publish = None if node.negate else self._plan_dynamic_filters(
             node.source, node.filtering_source, criteria)
+        if not node.negate:
+            df_publish = (df_publish or []) + self._cross_df_publish(node) \
+                or None
         build_pipe: List = []
         self._visit(node.filtering_source, build_pipe)
         build_pipe.append(HashBuildOperatorFactory(
@@ -762,11 +854,13 @@ class LocalExecutionPlanner:
 
     def _visit_AssignUniqueIdNode(self, node: N.AssignUniqueIdNode,
                                   pipe: List):
-        # one local task: ids start at 0 with stride 1 (the reference
-        # strides them by task on the distributed path)
+        # ids strided by task so they are unique across a distributed
+        # fragment's tasks (reference: AssignUniqueIdOperator packs the
+        # driver instance into the high bits)
         self._visit(node.source, pipe)
         pipe.append(misc_ops.AssignUniqueIdOperatorFactory(
-            self._next_id(), node.symbol, start=0, stride=1))
+            self._next_id(), node.symbol, start=self.task.index,
+            stride=self.task.count))
 
     def _visit_UnionNode(self, node: N.UnionNode, pipe: List):
         """Each input is a producer pipeline whose tail renames its
@@ -791,8 +885,14 @@ class LocalExecutionPlanner:
 
 # ---------------------------------------------------------------------------
 
+#: aggregates whose state has no intermediate column form: the exchange
+#: planner co-locates whole groups instead of splitting PARTIAL/FINAL
+NO_SPLIT_AGGS = {"approx_percentile", "approx_distinct",
+                 "array_agg", "map_agg"}
+
 #: aggregates whose DECIMAL argument is pre-cast to DOUBLE (the kernel
-#: state is float64)
+#: state is float64); shared by local planning and the exchange planner
+#: so both sides of a PARTIAL/FINAL split agree on the input type
 DOUBLE_INPUT_AGGS = frozenset({
     "avg", "var_samp", "var_pop", "variance", "stddev", "stddev_samp",
     "stddev_pop", "geometric_mean",

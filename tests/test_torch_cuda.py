@@ -1561,3 +1561,163 @@ def test_array_agg_queries_match_cpu(hopper):
         got = sorted(gpu.execute(q).rows(), key=str)
         assert taa.ARRAY_COLLECT_KERNEL.launches > before
         assert got == sorted(cpu.execute(q).rows(), key=str)
+
+
+# -- K18 exchange_shuffle, K19 merge_pair, the mesh (distributed path) --
+
+_WAVE_DTYPES = [torch.int64, torch.int32, torch.int16, torch.int8,
+                torch.float64, torch.float32, torch.bool]
+
+
+def _wave_producers(rng, w, dev, nkeys, inject_min):
+    """W producers (one without a batch), every column dtype, NULLs,
+    dead rows, `nkeys` key columns hashed by K3 and, with `inject_min`,
+    some hashes replaced by INT64_MIN."""
+    from presto_tpu_torch.ops import common
+    out = []
+    for p in range(w):
+        if p == 1:
+            out.append(None)
+            continue
+        n = int(rng.integers(1000, 70000))
+        rv = torch.from_numpy(rng.random(n) > 0.2).to(dev)
+        keys = [(torch.from_numpy(rng.integers(-40, 40, n)).to(dev),
+                 torch.from_numpy(rng.random(n) > 0.1).to(dev))
+                for _ in range(nkeys)]
+        h, _ = common.row_hash_pair(keys, rv, False)
+        if inject_min:
+            h[::7] = np.iinfo(np.int64).min
+        cols = []
+        for dt in _WAVE_DTYPES:
+            if dt == torch.bool:
+                d = torch.from_numpy(rng.random(n) < 0.5)
+            elif dt.is_floating_point:
+                d = torch.from_numpy(rng.normal(size=n)).to(dt)
+            else:
+                d = torch.from_numpy(rng.integers(-100, 100, n)).to(dt)
+            cols.append((d.to(dev), torch.from_numpy(rng.random(n) > 0.1)
+                         .to(dev)))
+        out.append((h, rv, cols))
+    return out
+
+
+@pytest.mark.parametrize("w", [3, 8])
+@pytest.mark.parametrize("nkeys", [1, 9, 17])
+@pytest.mark.parametrize("inject_min", [False, True])
+def test_k18_exchange_shuffle_matches_plain(hopper, w, nkeys, inject_min):
+    """K18 against its plain version on the same CUDA inputs: every
+    consumer's count, row_valid, columns and masks exactly, in order."""
+    from presto_tpu_torch.parallel import shuffle as tsh
+    rng = np.random.default_rng(40 + w + nkeys + inject_min)
+    producers = _wave_producers(rng, w, hopper, nkeys, inject_min)
+    args = (producers, w, w * 65536, _WAVE_DTYPES)
+    before = tsh.WAVE_KERNEL.launches
+    got, gc = tsh.wave_shuffle(*args)
+    want, wc = tsh.wave_shuffle_plain(*args)
+    torch.cuda.synchronize()
+    assert tsh.WAVE_KERNEL.launches == before + 1
+    assert gc == wc
+    for (gcols, grv), (wcols, wrv) in zip(got, want):
+        assert torch.equal(grv, wrv)
+        for (gd, gm), (wd, wm) in zip(gcols, wcols):
+            assert torch.equal(gd, wd) and torch.equal(gm, wm)
+
+
+def test_k18_all_dead_wave(hopper):
+    from presto_tpu_torch.parallel import shuffle as tsh
+    h = torch.arange(5000, device=hopper, dtype=torch.int64)
+    rv = torch.zeros(5000, dtype=torch.bool, device=hopper)
+    d = torch.ones(5000, dtype=torch.int64, device=hopper)
+    args = ([(h, rv, [(d, rv.clone())])] * 3, 3, 3 * 16384, [torch.int64])
+    got, counts = tsh.wave_shuffle(*args)
+    want, _ = tsh.wave_shuffle_plain(*args)
+    assert counts == [0, 0, 0]
+    for (gc, grv), (wc, wrv) in zip(got, want):
+        assert torch.equal(grv, wrv) and torch.equal(gc[0][0], wc[0][0])
+
+
+def _merge_runs(rng, dev, kind, desc, nf):
+    from presto_tpu_torch.ops.sort import sort_batch
+    pools = {"double": np.array([np.nan, -0.0, 0.0, -np.inf, np.inf, 1.5,
+                                 -2.0]),
+             "bigint": np.array([np.iinfo(np.int64).min, -1, 0, 3,
+                                 np.iinfo(np.int64).max]),
+             "real": np.array([np.nan, -0.0, 0.0, 2.5], np.float32)}
+    runs = []
+    for n, cap in ((300000, 524288), (200000, 262144)):
+        vals = np.zeros(cap, pools[kind].dtype)
+        vals[:n] = rng.choice(pools[kind], n)
+        rv = np.zeros(cap, bool)
+        rv[:n] = rng.random(n) > 0.05
+        ids = np.arange(cap, dtype=np.int64) + (0 if cap == 524288
+                                                else 1 << 40)
+        b = tb.Batch({
+            "k": tb.Column(torch.from_numpy(vals).to(dev),
+                           torch.from_numpy(rng.random(cap) > 0.1).to(dev),
+                           tt.Type(kind)),
+            "k2": tb.Column(torch.from_numpy(rng.integers(0, 5, cap))
+                            .to(dev), torch.ones(cap, dtype=torch.bool,
+                                                 device=dev), tt.BIGINT),
+            "id": tb.Column(torch.from_numpy(ids).to(dev),
+                            torch.ones(cap, dtype=torch.bool, device=dev),
+                            tt.BIGINT)}, torch.from_numpy(rv).to(dev))
+        runs.append(sort_batch(b, ("k", "k2"), (desc, False), (nf, False)))
+    return runs
+
+
+@pytest.mark.parametrize("kind", ["double", "bigint", "real"])
+@pytest.mark.parametrize("desc,nf", [(False, False), (True, False),
+                                     (False, True), (True, True)])
+def test_k19_merge_pair_matches_plain(hopper, kind, desc, nf):
+    """K19 against its plain version on runs the card sorted (NaN,
+    -0.0 / +0.0, INT64_MIN, DESC and NULLS FIRST): every column exactly,
+    and the ids a permutation of the live input rows."""
+    from presto_tpu_torch.ops import merge as tm
+    rng = np.random.default_rng(7 + 2 * desc + nf)
+    a, b = _merge_runs(rng, hopper, kind, desc, nf)
+    args = (a, b, ("k", "k2"), (desc, False), (nf, False))
+    before = tm.MERGE_KERNEL.launches
+    got = tm.merge_pair(*args)
+    want = tm.merge_pair_plain(*args)
+    torch.cuda.synchronize()
+    assert tm.MERGE_KERNEL.launches == before + 1
+    assert torch.equal(got.row_valid, want.row_valid)
+    for n in a.names:
+        g, w = got.columns[n], want.columns[n]
+        assert torch.equal(g.mask, w.mask)
+        same = (g.data == w.data)
+        if g.data.is_floating_point():
+            same = same | (torch.isnan(g.data) & torch.isnan(w.data))
+        assert bool(same.all()), n
+    live = got.columns["id"].data[got.row_valid]
+    want_ids = torch.cat([a.columns["id"].data[a.row_valid],
+                          b.columns["id"].data[b.row_valid]])
+    assert torch.equal(torch.sort(live).values, torch.sort(want_ids).values)
+
+
+def test_mesh_queries_match_cpu(hopper):
+    """MeshRunner on the card (eight workers on one device) against the
+    CPU MeshRunner for the queries of the CPU tests."""
+    import math
+    from presto_tpu_torch.runner import MeshRunner
+    from tpch_queries import QUERIES
+    sqls = [QUERIES[3], QUERIES[6], QUERIES[13],
+            "SELECT n.nationkey, count(*) AS c FROM supplier s, nation n "
+            "WHERE s.nationkey = n.nationkey AND s.suppkey >= 0 "
+            "GROUP BY n.nationkey ORDER BY n.nationkey",
+            "select orderkey, custkey, totalprice from orders "
+            "order by totalprice desc, orderkey"]
+    for props in ({"broadcast_join_threshold_rows": 0},
+                  {"broadcast_join_threshold_rows": 500}):
+        gpu = MeshRunner("tpch", "tiny", props, n_workers=8)
+        cpu = MeshRunner("tpch", "tiny", props, n_workers=8, device="cpu")
+        for sql in sqls:
+            g, c = gpu.execute(sql).rows(), cpu.execute(sql).rows()
+            assert len(g) == len(c)
+            for rg, rc in zip(sorted(g, key=str), sorted(c, key=str)):
+                for x, y in zip(rg, rc):
+                    if isinstance(x, float):
+                        assert math.isclose(x, y, rel_tol=1e-6,
+                                            abs_tol=1e-6)
+                    else:
+                        assert x == y

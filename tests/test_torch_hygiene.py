@@ -195,18 +195,32 @@ def _k16(common, join, hashagg):
                        [window.Emit("row_number")])
 
 
+def _k18(common, join, hashagg):
+    from presto_tpu_torch.parallel import shuffle
+    cols = [(_meta(64, torch.int64), _meta(64, torch.bool))]
+    shuffle.wave_shuffle([(_meta(64, torch.int64), _meta(64, torch.bool),
+                           cols)] * 3, 3, 3 * 4096, [torch.int64])
+
+
+def _k19(common, join, hashagg):
+    from presto_tpu_torch.ops import merge
+    _, b = _meta_table(join)
+    merge.merge_pair(b, b, ("k",), (False,), (False,))
+
+
 @pytest.mark.parametrize("call", [_k3, _k4, _k5, _k6, _k7, _k8, _k9,
                                   _k9_full, _k10, _k11, _k13, _k14, _k15,
-                                  _k16],
+                                  _k16, _k18, _k19],
                          ids=["row_hash", "join_build", "join_probe",
                               "segment_reduce", "semi_join",
                               "stream_reduce", "join_expand",
                               "join_expand_full", "cross_product",
                               "join_outer", "window_segments",
                               "window_frame_sum", "window_frame_minmax",
-                              "window_emit"])
+                              "window_emit", "exchange_shuffle",
+                              "merge_pair"])
 def test_device_tensor_never_takes_the_plain_version(monkeypatch, call):
-    """K3-K11 and K13-K16 on tensors that are not on the CPU (meta
+    """K3-K11, K13-K16, K18 and K19 on tensors that are not on the CPU (meta
     tensors here) go to the kernel or raise: with the build made to
     fail, the error surfaces. The plain versions would compute meta
     results silently."""
@@ -233,6 +247,8 @@ def test_chip_smoke_checks_every_built_kernel():
     from presto_tpu_torch.operators import array_agg  # noqa: F401  (K17)
     from presto_tpu_torch.ops import common, hashagg, join  # noqa: F401
     from presto_tpu_torch.ops import window  # noqa: F401  (K13-K16)
+    from presto_tpu_torch.ops import merge  # noqa: F401  (K19)
+    from presto_tpu_torch.parallel import shuffle  # noqa: F401  (K18)
     from presto_tpu_torch.telemetry import kernels as tk
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", ROOT / "chip_smoke.py")
@@ -261,6 +277,16 @@ def test_chip_smoke_checks_every_built_kernel():
                for names in smoke.ARRAY_MUST.values())
     assert {k for k, c in tk.COUNTERS.items() if c.family == "array_agg"} \
         == {"array_collect"}
+    # the mesh path: K18 and K19 on the kernels line, each query's
+    # kernels named, and every wave and merge kernel measured there
+    assert {"exchange_shuffle", "merge_pair"} <= set(smoke.KERNELS)
+    assert set(smoke.MESH_KERNELS) == {"exchange_shuffle", "merge_pair"}
+    assert set(smoke.MESH_MUST) == set(smoke.MESH_QUERIES)
+    assert all(set(names) <= set(tk.COUNTERS)
+               for names in smoke.MESH_MUST.values())
+    assert {k for k, c in tk.COUNTERS.items()
+            if c.family in ("spmd_shuffle", "merge")} \
+        == set(smoke.MESH_KERNELS)
 
 
 def _case_sources():
