@@ -26,7 +26,21 @@ its waves, rows and bytes across the exchanges and its K12 / K18 / K19
 launches; K18 (exchange_shuffle) is held against its plain version at
 the largest wave and K19 (merge_pair) at the largest merge, with one
 stable torch.sort of the two runs' leading key as K19's library figure
-(`run_mesh_phases`).
+(`run_mesh_phases`). Last the control plane (`run_server_phases`): two
+worker processes (`python -m presto_tpu_torch.server.node`) on the card
+and a Coordinator in this process run Q1, Q3, Q5, Q6, Q18 and DF_JOIN
+at SF1 cold and warm, each against its numpy oracle, with the pages
+and bytes pushed over HTTP, the local deliveries and K20-K23's launches
+read from every worker's /v1/info around the cold run (each worker's
+K20 launches must equal its keyed pushes, and a query with a dynamic
+filter must launch K21, K22 and K23); then Q6 through StatementClient
+and a count through `python -m presto_tpu_torch.cli --server`; then
+Q18 and Q3 with the workers restarted at `--devices 4`; K20
+(exchange_partition) is held against its plain version at Q18's
+largest keyed push, captured in an in-process cluster, with one stable
+torch.sort of the destination vector as its library figure. K21-K23
+(the dynamic filter's bounds, set and apply) are held against their
+plain versions at their largest calls on the TPC-H path.
 
     python3 chip_smoke.py
 
@@ -887,11 +901,6 @@ def rows_of(*objs) -> int:
 #: kernel yet, each timed at its largest call: label -> (family, module
 #: key, function name)
 COMPOSED = {
-    "dynamic_filter bounds_step": ("dynamic_filter", "df", "bounds_step"),
-    "dynamic_filter distinct_set": ("dynamic_filter", "df",
-                                    "distinct_set"),
-    "dynamic_filter apply_filter": ("dynamic_filter", "df",
-                                    "apply_filter"),
     "hashagg_merge merge_states": ("hashagg_merge", "agg", "merge_states"),
     "agg_shrink _shrink_state": ("agg_shrink", "agg", "_shrink_state"),
     "agg_count _count_live": ("agg_count", "agg", "_count_live"),
@@ -930,6 +939,8 @@ class Capture:
         self.k11 = None
         #: the DISTINCT fold at its largest call: (rows, query, args)
         self.distinct = None
+        #: K22 at its largest call without overflow: (rows, query, args)
+        self.df_set_fits = None
         #: composed form -> (rows, query, function, args)
         self.composed = {}
         #: K12 kernel fingerprint -> the query of its largest call
@@ -1040,6 +1051,27 @@ class Capture:
         self._patch(th, "stream_step", keep(
             "stream_reduce", lambda carry, rv, *a: rv.shape[0]))
         self._patch(tj, "_expand_from_enc", expand)
+        # K21 and K22 at their largest key column; K23 at its largest
+        # probe batch, one with a set before any without
+        df = m["df"]
+        self._patch(df, "bounds_step", keep(
+            "df_bounds", lambda state, data, mask: data.shape[0]))
+        def distinct_set(orig):
+            def rec(data, mask):
+                self._keep("df_distinct_set", data.shape[0], (data, mask))
+                out = orig(data, mask)
+                # the largest call whose set fits (its values are
+                # compared too); one host read per call, capture only
+                if not bool(out[2]) and data.shape[0] > (
+                        self.df_set_fits or (0,))[0]:
+                    self.df_set_fits = (data.shape[0], self.query,
+                                        (data, mask))
+                return out
+            return rec
+        self._patch(df, "distinct_set", distinct_set)
+        self._patch(df, "apply_filter", keep(
+            "df_apply", lambda batch, col, mn, mx, has_set, *a:
+            batch.capacity * (2 if has_set else 1)))
 
         def cross(orig):
             def rec(probe, build, np_rows, nb, out_cap):
@@ -1569,18 +1601,30 @@ def measure_composed(torch, fn, args):
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
-def _unique_of_live(torch, data, mask):
-    live = data[mask]
-    return lambda: torch.unique(live)
+def _sort_leading(torch, batch, keys, desc, nf):
+    lead = batch.columns[keys[0]].data
+    return lambda: torch.sort(lead, stable=True, descending=bool(desc[0]))
+
+
+def _topk_leading(torch, state, batch, n, keys, desc, nf):
+    lead = torch.cat([state.columns[keys[0]].data,
+                      batch.columns[keys[0]].data.to(
+                          state.columns[keys[0]].data.dtype)])
+    k = min(int(n), lead.shape[0])
+    return lambda: torch.topk(lead, k, largest=bool(desc[0]))
 
 
 #: one PyTorch call that computes a composed form's function, where
-#: there is one: the distinct set as torch.unique of the live keys (the
-#: masked selection made beforehand), the live count as count_nonzero
+#: there is one: the live count as count_nonzero; a sort as one stable
+#: torch.sort of its leading key, a top-N as torch.topk of the leading
+#: key of state ++ batch (neither orders by the other keys or NULLs: a
+#: lower yardstick than the function). hashagg_merge and agg_finalize
+#: have none.
 COMPOSED_LIBRARY = {
-    "dynamic_filter distinct_set": _unique_of_live,
     "agg_count _count_live":
         lambda torch, valid: lambda: torch.count_nonzero(valid),
+    "sort sort_batch": _sort_leading,
+    "topn topn_step": _topk_leading,
 }
 
 
@@ -1840,9 +1884,23 @@ KERNELS = {
                          "presto_tpu/parallel/shuffle.py:233"),
     "merge_pair": ("cuda", "presto_tpu_torch/csrc/merge_pair.cu",
                    "presto_tpu/ops/merge.py:97"),
+    "exchange_partition": ("cuda",
+                           "presto_tpu_torch/csrc/exchange_partition.cu",
+                           "presto_tpu/operators/exchange_ops.py:79"),
+    "df_bounds": ("triton", "presto_tpu_torch/execution/dynamic_filters.py",
+                  "presto_tpu/execution/dynamic_filters.py:177"),
+    "df_distinct_set": ("cuda", "presto_tpu_torch/csrc/dynamic_filter.cu",
+                        "presto_tpu/execution/dynamic_filters.py:210"),
+    "df_apply": ("cuda", "presto_tpu_torch/csrc/dynamic_filter.cu",
+                 "presto_tpu/execution/dynamic_filters.py:242"),
 }
 #: the mesh path's kernels, measured there
 MESH_KERNELS = ("exchange_shuffle", "merge_pair")
+#: the kernels the server phase measures (K21-K23 are measured on the
+#: TPC-H path, where LocalRunner's joins publish the same filters)
+SERVER_KERNELS = ("exchange_partition",)
+#: query label -> the single-device warm wall of the TPC-H path
+SINGLE_WARM = {}
 #: the main path's oracle rows by query label (run_phases fills it)
 ORACLE_ROWS = {}
 #: the window kernels, measured on the window and TPC-DS path
@@ -1977,6 +2035,7 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
                 runner.execute(sql).rows()
                 warm.append(time.perf_counter() - t)
             walls[label] = (cold, statistics.median(warm))
+            SINGLE_WARM[label] = walls[label][1]
     finally:
         ff.compose_chain = compose
     check(not composed_on_card, "a filter/project chain ran its composed "
@@ -2076,7 +2135,8 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
     check({"q1", "q6"} <= set(cap.k1) and "q6" in cap.k2
           and set(cap.big) == {"row_hash", "join_build", "join_probe",
                                "segment_reduce", "semi_join",
-                               "stream_reduce"}
+                               "stream_reduce", "df_bounds",
+                               "df_distinct_set", "df_apply"}
           and set(cap.expand) == {"aligned", "general"}
           and set(K10_AT) <= set(cap.k10)
           and cap.expand_full is not None and cap.expand_full[1] == "full"
@@ -2095,7 +2155,14 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
         "join_probe": measure_k5(torch, tc, tj, big["join_probe"]),
         "segment_reduce": measure_k6(torch, tc, th, big["segment_reduce"]),
         "semi_join": measure_k7(torch, tj, big["semi_join"]),
-        "stream_reduce": measure_k8(torch, th, big["stream_reduce"])}
+        "stream_reduce": measure_k8(torch, th, big["stream_reduce"]),
+        "df_bounds": measure_k21(torch, mods["df"], big["df_bounds"]),
+        "df_distinct_set": measure_k22(torch, mods["df"],
+                                       big["df_distinct_set"]),
+        "df_apply": measure_k23(torch, mods["df"], big["df_apply"])}
+    set_fits = None if cap.df_set_fits is None else (
+        cap.df_set_fits[1],
+        measure_k22(torch, mods["df"], cap.df_set_fits[2]))
     expand = {layout: (q, measure_k9(
         torch, tj, args, {qq: n for (qq, lay), n in cap.expand_calls.items()
                           if lay == layout}))
@@ -2177,9 +2244,15 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
     for q, m in k2.items():
         emit({"phase": "kernels", "kernel": "compact", "shape_from": q,
               **m})
+    if set_fits is not None:
+        emit({"phase": "kernels", "kernel": "df_distinct_set",
+              "role": "largest call whose set fits",
+              "shape_from": set_fits[0], **set_fits[1]})
     for k, m in measured.items():
         emit({"phase": "kernels", "kernel": k, "shape_from": shape_from[k],
-              **m})
+              **m, **({"calls": {qq: c.get("dynamic_filter", 0)
+                                 for qq, c in calls.items()}}
+                      if k.startswith("df_") else {})})
     for layout, (q, m) in expand.items():
         emit({"phase": "kernels", "kernel": "join_expand",
               "shape_from": q, **m})
@@ -2203,6 +2276,11 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
 
     measured["direct_slot_reduce"] = k1["q1"]
     measured["compact"] = k2["q6_shrink"]
+    # K22's summary figures are those of its largest call whose set
+    # fits: on overflow the kernel stops early and builds no set, which
+    # is not the work torch.unique does (that call has its own line)
+    if set_fits is not None:
+        measured["df_distinct_set"] = set_fits[1]
     # the summary's K9 figures are those of its largest general call,
     # K10's those of its largest call (Q19 at tiny)
     measured["join_expand"] = expand["general"][1]
@@ -2219,7 +2297,8 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
                             for q, (n, sec) in compiles.items()}})
     kernels = []
     for k, (route, src, replaces) in KERNELS.items():
-        if k in WINDOW_KERNELS or k in ARRAY_KERNELS or k in MESH_KERNELS:
+        if k in WINDOW_KERNELS or k in ARRAY_KERNELS or k in MESH_KERNELS \
+                or k in SERVER_KERNELS:
             continue
         m = measured[k]
         kernels.append({
@@ -3488,18 +3567,8 @@ def measure_k18(torch, tsh, args):
     # the device time of each of K18's launches (count, scan, scatter,
     # pad); the rest of `ms` is the host's part of the call (the tables'
     # copies, the read of the counts)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            tsh.wave_shuffle(*args)
-        torch.cuda.synchronize()
-    found = {e.key.split("(")[0]: getattr(
-        e, "self_device_time_total", 0.0) / e.count
-        for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
-    # None: the profiler recorded no launch of that kernel
-    launch_us = {k: found.get(k) for k in K18_LAUNCHES}
+    launch_us = _profile_launch_us(torch, lambda: tsh.wave_shuffle(*args),
+                                   K18_LAUNCHES)
     return {"workers": w, "producer_rows": _wave_rows(args),
             "device_us_per_launch": launch_us,
             "live_rows": int(sum(gcounts)), "columns": len(template),
@@ -3540,6 +3609,183 @@ def measure_k19(torch, tm, args):
             "live": [int(a.row_valid.sum()), int(b.row_valid.sum())],
             "keys": len(keys), "columns": len(a.names), "max_abs_err": 0.0,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
+
+
+def _profile_launch_us(torch, fn, names, calls=5):
+    """Device microseconds per launch of each kernel in `names` over
+    `calls` calls of `fn` (None: the profiler saw no such launch). The
+    caching allocator's free blocks go back to the card first, and a
+    profile that misses a name is taken once more; a miss that stays
+    emits the device-side keys the profiler did record."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [(e.key, getattr(e, "self_device_time_total", 0.0),
+                   e.count) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        out = {}
+        for k in names:
+            # a kernel's key is its demangled signature ("void
+            # name<T>(...)" for a template instance)
+            hit = [(t, c) for key, t, c in events
+                   if re.search(rf"\b{k}\b", key)]
+            out[k] = sum(t for t, _ in hit) / sum(c for _, c in hit) \
+                if hit else None
+        if all(v is not None for v in out.values()):
+            return out
+    emit({"phase": "profiler_miss", "names": list(names),
+          "device_keys": [key[:120] for key, _, _ in events],
+          "all_keys": len(prof.key_averages())})
+    return out
+
+
+def measure_k21(torch, df, args):
+    """K21 (df_bounds, Triton) at its largest call against its plain
+    version (exactly: both bounds); library: torch.aminmax of the live,
+    non-NaN keys (selected beforehand). Bound: keys and mask read once."""
+    state, data, mask = args
+    got = df.bounds_step(state, data, mask)
+    want = df.bounds_step_plain(state, data, mask)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        check(_same_tensor(torch, g, w), "K21 df_bounds differs from its "
+              f"plain version: {got} vs {want}")
+    live = data[mask & ~torch.isnan(data)] if data.is_floating_point() \
+        else data[mask]
+    moved = nbytes(data, mask)
+    return {"rows": data.shape[0], "dtype": str(data.dtype),
+            "max_abs_err": 0.0,
+            "ms": time_ms(lambda: df.bounds_step(state, data, mask), torch),
+            "plain_ms": time_ms(
+                lambda: df.bounds_step_plain(state, data, mask), torch),
+            "library_ms": time_ms(lambda: torch.aminmax(live), torch),
+            "device_us_per_launch": _profile_launch_us(
+                torch, lambda: df.bounds_step(state, data, mask),
+                ("bounds_partial", "bounds_fold")),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
+
+
+def measure_k22(torch, df, args):
+    """K22 (df_distinct_set) at its largest call against its plain
+    version: the overflow flag always, the count and every value exactly
+    without overflow; library: torch.unique of the live keys (selected
+    beforehand). Bound: keys and mask read once."""
+    data, mask = args
+    gv, gn, go = df.distinct_set(data, mask)
+    wv, wn, wo = df.distinct_set_plain(data, mask)
+    torch.cuda.synchronize()
+    check(bool(go) == bool(wo), "K22 df_distinct_set: overflow differs")
+    if not bool(wo):
+        check(int(gn) == int(wn) and _same_tensor(torch, gv, wv),
+              "K22 df_distinct_set: the set differs from its plain version")
+    live = data[mask]
+    moved = nbytes(data, mask)
+    return {"rows": data.shape[0], "dtype": str(data.dtype),
+            "distinct": int(wn), "overflow": bool(wo), "max_abs_err": 0.0,
+            "ms": time_ms(lambda: df.distinct_set(data, mask), torch),
+            "plain_ms": time_ms(lambda: df.distinct_set_plain(data, mask),
+                                torch),
+            "library_ms": time_ms(lambda: torch.unique(live), torch),
+            "device_us_per_launch": _profile_launch_us(
+                torch, lambda: df.distinct_set(data, mask),
+                ("df_insert", "df_pack")),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
+
+
+def measure_k23(torch, df, args):
+    """K23 (df_apply) at its largest call (one with a set first) against
+    its plain version (row_valid exactly); library: torch.isin of the
+    keys in the set's values. Bound: keys, mask and row_valid read,
+    row_valid written."""
+    batch, col, mn, mx, has_set = args[:5]
+    rest = args[5:]
+    got = df.apply_filter(batch, col, mn, mx, has_set, *rest)
+    want = df.apply_filter_plain(batch, col, mn, mx, has_set, *rest)
+    torch.cuda.synchronize()
+    check(torch.equal(got.row_valid, want.row_valid),
+          "K23 df_apply: row_valid differs from its plain version")
+    c = batch.columns[col]
+    library_ms = None
+    if has_set:
+        vals = rest[0][:int(rest[1])]
+        library_ms = time_ms(lambda: torch.isin(c.data, vals), torch)
+    moved = nbytes(c.data, c.mask, batch.row_valid) + batch.capacity
+    return {"rows": batch.capacity, "dtype": str(c.data.dtype),
+            "with_set": bool(has_set),
+            "set_count": int(rest[1]) if has_set else None,
+            "max_abs_err": 0.0,
+            "ms": time_ms(lambda: df.apply_filter(batch, col, mn, mx,
+                                                  has_set, *rest), torch),
+            "plain_ms": time_ms(lambda: df.apply_filter_plain(
+                batch, col, mn, mx, has_set, *rest), torch),
+            "library_ms": library_ms,
+            "device_us_per_launch": _profile_launch_us(
+                torch, lambda: df.apply_filter(batch, col, mn, mx,
+                                               has_set, *rest),
+                ("df_apply",)),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
+
+
+#: K20's kernels, in launch order (csrc/exchange_partition.cu)
+K20_LAUNCHES = ("partition_count", "partition_scan", "partition_scatter")
+
+
+def measure_k20(torch, ex, tsh, args):
+    """K20 at the largest keyed push against its plain version on the
+    same CUDA inputs (exactly: the bounds, row_valid, and every column's
+    data and mask over the live prefix), both timed, and the pinned
+    read of the live prefix that the push makes next; library: one
+    stable torch.sort of the destination vector. Bound: row_valid of
+    every slot read and written, the hash of each live row read, the
+    data and mask of each live row read and written, the bounds."""
+    batch, h, w = args
+    from presto_tpu_torch.native.pages import read_to_host
+    gb, gbounds = ex.partition_sort(batch, h, w)
+    wb, wbounds = ex.partition_sort_plain(batch, h, w)
+    torch.cuda.synchronize()
+    check(torch.equal(gbounds, wbounds),
+          f"K20 exchange_partition: bounds differ: {gbounds} vs {wbounds}")
+    live = int(wbounds[-1])
+    check(torch.equal(gb.row_valid, wb.row_valid),
+          "K20 exchange_partition: row_valid differs")
+    for n in batch.names:
+        g, x = gb.columns[n], wb.columns[n]
+        check(_same_tensor(torch, g.data[:live], x.data[:live])
+              and torch.equal(g.mask[:live], x.mask[:live]),
+              f"K20 exchange_partition: column {n} differs")
+    moved = 2 * batch.capacity + live * h.element_size() \
+        + 2 * live * sum(c.data.element_size() + 1
+                         for c in batch.columns.values()) + 4 * (w + 1)
+    dest = torch.where(batch.row_valid, tsh.partition_dest(h, w),
+                       torch.full_like(h, w))
+    flat = [t[:live] for n in gb.names for t in gb.columns[n].astuple()]
+    reads = []
+    for _ in range(ITERS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        read_to_host(flat + [gb.row_valid[:live]])
+        reads.append((time.perf_counter() - t) * 1e3)
+    return {"rows": batch.capacity, "live_rows": live, "consumers": w,
+            "columns": len(batch.names), "max_abs_err": 0.0,
+            "ms": time_ms(lambda: ex.partition_sort(batch, h, w), torch),
+            "plain_ms": time_ms(lambda: ex.partition_sort_plain(
+                batch, h, w), torch),
+            "library_ms": time_ms(lambda: torch.sort(dest, stable=True),
+                                  torch),
+            "device_us_per_launch": _profile_launch_us(
+                torch, lambda: ex.partition_sort(batch, h, w),
+                K20_LAUNCHES),
+            "pinned_read_ms": statistics.median(reads),
+            "pinned_read_bytes": nbytes(*flat) + live,
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
 
 
@@ -3650,6 +3896,221 @@ def run_mesh_phases(torch, np, mods, dev, schema):
     return {"exchange_shuffle": k18, "merge_pair": k19}, totals
 
 
+# -- the control plane (A13): a coordinator and worker processes ----------
+
+#: a join whose build side (nation) is broadcast into the fragment that
+#: scans its probe side (customer): the worker plans a dynamic filter
+#: there (K21 at the build, K22 at its finish, K23 on every customer
+#: batch). The plans of Q1-Q18 repartition every probe side, so a
+#: co-fragment filter, the only kind the HTTP path plans (as in the
+#: reference), has no scan to prune in them.
+DF_JOIN = """select c.nationkey, count(*) c from customer c
+join nation n on c.nationkey = n.nationkey where n.regionkey = 1
+group by c.nationkey order by c.nationkey"""
+SERVER_QUERIES = {"q1": Q1, "q3": Q3, "q5": Q5, "q6": Q6, "q18": Q18,
+                  "df_join": DF_JOIN}
+SERVER_WORKERS = 2
+#: the second round: each worker runs its fragments as 4 logical devices
+#: of the card (8 global consumer tasks)
+SERVER_DEVICES = 4
+SERVER_MESH_QUERIES = ("q18", "q3")
+#: seconds a worker may take to start (imports, CUDA context)
+WORKER_START_S = 240
+#: where the workers' stderr goes (worker-<i>.log): the package's build
+#: directory, which git ignores
+WORKER_LOGS = __import__("pathlib").Path(__file__).resolve().parent \
+    / "presto_tpu_torch" / "_build" / "worker-logs"
+#: the queries whose fragments repartition on keys over HTTP (K20);
+#: Q6's single aggregate only gathers
+SERVER_KEYED = ("q1", "q3", "q5", "q18")
+DF_KERNELS = ("df_bounds", "df_distinct_set", "df_apply")
+
+
+def df_join_oracle(np, gen_module, schema):
+    """DF_JOIN in numpy: customers per nation of region 1."""
+    gen = gen_module.TpchGenerator(gen_module.TpchConnector.SCHEMAS[schema])
+    cust = table(np, gen, "customer", ("nationkey",))
+    nation = table(np, gen, "nation", ("nationkey", "regionkey"))
+    keep = nation["nationkey"][nation["regionkey"] == 1]
+    counts = np.bincount(cust["nationkey"][np.isin(cust["nationkey"],
+                                                   keep)])
+    return [(int(k), int(c)) for k, c in enumerate(counts) if c]
+
+
+def _worker_infos(urls):
+    from presto_tpu_torch.server.node import http_get
+    return [json.loads(http_get(f"{u}/v1/info", timeout=60)) for u in urls]
+
+
+def _delta(after, before, key):
+    return {k: v - before[key].get(k, 0) for k, v in after[key].items()
+            if v - before[key].get(k, 0)}
+
+
+def run_server_queries(torch, np, tk, coord, urls, labels, devices):
+    """Each query of `labels` cold (launch and traffic deltas read from
+    every worker's /v1/info around it; the coordinator's own counters
+    set to 0 before it), then warm; rows against the TPC-H path's
+    oracle. Returns {label: summed launches over every process}."""
+    from presto_tpu_torch.server import node as tnode
+    counters = list(tk.COUNTERS.values())
+    launches = {}
+    for label in labels:
+        sql = SERVER_QUERIES[label]
+        before = _worker_infos(urls)
+        for c in counters:
+            c.launches = 0
+        calls0 = dict(tk.CALLS)
+        traffic0 = dict(tnode.TRAFFIC)
+        t = time.perf_counter()
+        rows = coord.execute(sql).rows()
+        cold = time.perf_counter() - t
+        mine = {c.name: c.launches for c in counters}
+        after = _worker_infos(urls)
+        check(result_matches(label, rows, ORACLE_ROWS[label]),
+              f"server {label} differs from the oracle: {rows[:10]} vs "
+              f"{ORACLE_ROWS[label][:10]}")
+        per_worker = [_delta(a, b, "kernels") for a, b in zip(after, before)]
+        traffic = [_delta(a, b, "traffic") for a, b in zip(after, before)]
+        calls = collections.Counter({f: n - calls0.get(f, 0)
+                                     for f, n in tk.CALLS.items()})
+        for a, b in zip(after, before):
+            calls.update(_delta(a, b, "calls"))
+        total = collections.Counter(mine)
+        for w in per_worker:
+            total.update(w)
+        launches[label] = dict(total)
+        for i, (k, tr) in enumerate(zip(per_worker, traffic)):
+            check(k.get("exchange_partition", 0) == tr.get("keyed", 0),
+                  f"server {label}: worker {i} made {tr.get('keyed', 0)} "
+                  f"keyed pushes but {k.get('exchange_partition', 0)} K20 "
+                  "launches")
+        if label in SERVER_KEYED:
+            check(total["exchange_partition"] > 0,
+                  f"server {label}: no keyed push launched K20")
+        if label == "df_join":
+            check(calls["dynamic_filter"] > 0,
+                  "server df_join planned no dynamic filter")
+        if calls["dynamic_filter"]:
+            for k in DF_KERNELS:
+                check(total[k] > 0, f"server {label} has a dynamic filter "
+                      f"but launched no {k}")
+        t = time.perf_counter()
+        coord.execute(sql).rows()
+        warm = time.perf_counter() - t
+        coord_traffic = {k: v - traffic0.get(k, 0)
+                         for k, v in tnode.TRAFFIC.items()}
+        emit({"phase": "server", "query": label, "workers": len(urls),
+              "devices_per_worker": devices, "rows": len(rows),
+              "matches_oracle": True, "cold_s": cold, "warm_s": warm,
+              "single_device_warm_s": SINGLE_WARM.get(label),
+              "http_pages": sum(t.get("pages", 0) for t in traffic)
+              + coord_traffic.get("pages", 0),
+              "http_bytes": sum(t.get("bytes", 0) for t in traffic)
+              + coord_traffic.get("bytes", 0),
+              "local_deliveries": sum(t.get("local", 0) for t in traffic)
+              + coord_traffic.get("local", 0),
+              "keyed_pushes": [t.get("keyed", 0) for t in traffic],
+              "dynamic_filter_calls": calls["dynamic_filter"],
+              "k20_k23_per_worker": [
+                  {k: w.get(k, 0) for k in ("exchange_partition",)
+                   + DF_KERNELS} for w in per_worker],
+              "k20_k23_coordinator": {k: mine.get(k, 0) for k in
+                                      ("exchange_partition",) + DF_KERNELS},
+              "launches": launches[label]})
+    return launches
+
+
+def run_server_phases(torch, np, mods, dev, schema):
+    """The control plane: SERVER_WORKERS worker processes on the card and
+    a Coordinator in this process; SERVER_QUERIES (bench.py's five and
+    DF_JOIN) at `schema` cold and
+    warm through the coordinator, one query through StatementClient and
+    one through the CLI; then the workers again with SERVER_DEVICES
+    logical devices each for SERVER_MESH_QUERIES; K20 held against its
+    plain version at the largest keyed push of Q18 (captured in an
+    in-process cluster before the workers start). Returns ({kernel:
+    measurement}, {kernel: launches on this path})."""
+    tk = mods["tk"]
+    from presto_tpu_torch.native import codec
+    from presto_tpu_torch.operators import exchange_ops as tex
+    from presto_tpu_torch.server.coordinator import (
+        Coordinator, StatementClient,
+    )
+    from presto_tpu_torch.server.node import (
+        Node, spawn_workers, stop_workers,
+    )
+    check(codec.native_available(), "the native page codec did not load")
+    ORACLE_ROWS["df_join"] = df_join_oracle(np, mods["gen"], schema)
+    # K20 at the largest keyed push of Q18, captured in an in-process
+    # cluster (the pushes of the worker processes are out of reach), and
+    # measured first: after the worker processes' phases below this
+    # process's profiler recorded no device activity at all
+    nodes = [Node(device=dev) for _ in range(SERVER_WORKERS)]
+    for n in nodes:
+        n.start()
+    coord = Coordinator([n.url for n in nodes], "tpch", schema, PROPS,
+                        device=dev)
+    coord.start()
+    try:
+        with ArgCapture(tex, "partition_sort",
+                        lambda a: a[0].capacity) as pushes:
+            pushes.query = "q18"
+            coord.execute(Q18).rows()
+    finally:
+        coord.stop()
+        for n in nodes:
+            n.stop()
+    check(pushes.big is not None, "no keyed push was captured from Q18")
+    k20 = measure_k20(torch, tex, mods["tsh"], pushes.big[2])
+    totals = collections.Counter()
+    for devices, labels in ((1, tuple(SERVER_QUERIES)),
+                            (SERVER_DEVICES, SERVER_MESH_QUERIES)):
+        t = time.perf_counter()
+        procs, urls = spawn_workers(
+            SERVER_WORKERS, ["--devices", str(devices)]
+            + (["--device", "cpu"] if dev.type == "cpu" else []),
+            timeout_s=WORKER_START_S, log_dir=WORKER_LOGS)
+        coord = None
+        try:
+            coord = Coordinator(urls, "tpch", schema, PROPS, device=dev)
+            coord.start()
+            report = coord.check_workers(require_all=True)
+            check(coord._worker_devices(urls) == [devices] * len(urls),
+                  "the workers do not announce their devices")
+            emit({"phase": "server_start", "workers": report,
+                  "devices_per_worker": devices,
+                  "seconds": time.perf_counter() - t})
+            for label, n in run_server_queries(
+                    torch, np, tk, coord, urls, labels, devices).items():
+                totals.update(n)
+            if devices == 1:
+                cols, data = StatementClient(coord.url).execute(Q6)
+                check(result_matches("q6", [tuple(r) for r in data],
+                                     ORACLE_ROWS["q6"]),
+                      "q6 through StatementClient differs from the oracle")
+                sql = "select count(*) from orders"
+                want = coord.execute(sql).rows()[0][0]
+                out = subprocess.run(
+                    [sys.executable, "-m", "presto_tpu_torch.cli",
+                     "--server", coord.url, "-e", sql],
+                    capture_output=True, text=True, timeout=300)
+                check(out.returncode == 0 and str(want) in out.stdout,
+                      f"the CLI against the coordinator: {out.stderr}")
+                emit({"phase": "server_clients", "statement_client": "q6",
+                      "columns": [c["name"] for c in cols],
+                      "cli": out.stdout.strip().splitlines()[-1]})
+        finally:
+            if coord is not None:
+                coord.stop()
+            stop_workers(procs)
+    emit({"phase": "kernels", "kernel": "exchange_partition",
+          "family": "exchange_partition", "shape_from": "q18", **k20,
+          "launches": totals["exchange_partition"]})
+    return {"exchange_partition": k20}, \
+        {name: totals[name] for name in tk.COUNTERS}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3724,18 +4185,22 @@ def main() -> int:
                                                 SCHEMA)
     k17, array_launches = run_array_phases(torch, np, mods, dev, SCHEMA)
     mesh, mesh_launches = run_mesh_phases(torch, np, mods, dev, SCHEMA)
+    server, server_launches = run_server_phases(torch, np, mods, dev,
+                                                SCHEMA)
     for k in kernels:
         k["launches"] += window_launches[k["name"]] \
-            + array_launches[k["name"]] + mesh_launches[k["name"]]
+            + array_launches[k["name"]] + mesh_launches[k["name"]] \
+            + server_launches[k["name"]]
     for kname, m in [(n, window[n]) for n in WINDOW_KERNELS] \
             + [(n, k17) for n in ARRAY_KERNELS] \
-            + [(n, mesh[n]) for n in MESH_KERNELS]:
+            + [(n, mesh[n]) for n in MESH_KERNELS] \
+            + [(n, server[n]) for n in SERVER_KERNELS]:
         route, src, replaces = KERNELS[kname]
         kernels.append({
             "name": kname, "route": route, "source": src,
             "replaces": replaces, "family": tk.COUNTERS[kname].family,
             "launches": window_launches[kname] + array_launches[kname]
-            + mesh_launches[kname],
+            + mesh_launches[kname] + server_launches[kname],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": "bytes", "library_ms": m["library_ms"]})

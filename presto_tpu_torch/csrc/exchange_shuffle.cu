@@ -46,19 +46,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "partition.cuh"
+
 #define THREADS 256
 #define WARPS (THREADS / 32)
 #define MAX_W 64
 #define MAX_COLS 64
 #define SCAN_THREADS 1024
-
-__device__ __forceinline__ int wave_dest(int64_t h, int w) {
-  // abs through unsigned negation: |INT64_MIN| stays INT64_MIN
-  const int64_t a = h < 0 ? static_cast<int64_t>(0ULL - static_cast<uint64_t>(h)) : h;
-  int64_t r = a % w;
-  if (r < 0) r += w;
-  return static_cast<int>(r);
-}
 
 // tab: hash[W] | valid[W] | n[W] | block_base[W + 1] (int64 each)
 struct WaveTab {
@@ -81,7 +75,7 @@ __device__ __forceinline__ void block_home(const WaveTab& tab, int64_t b, int* p
 // destination of this thread's row, -1 when it is dead or past the end
 __device__ __forceinline__ int row_dest(const WaveTab& tab, int p, int64_t r) {
   if (r >= tab.n(p) || !tab.valid(p)[r]) return -1;
-  return wave_dest(tab.hash(p)[r], tab.w);
+  return hash_dest(tab.hash(p)[r], tab.w);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -169,16 +163,6 @@ struct ColTab {
   }
   __device__ int64_t cap(int c) const { return t[4LL * w * nc + nc + w + c]; }
 };
-
-__device__ __forceinline__ void copy_elem(const void* src, int64_t i, void* dst, int64_t j,
-                                          int size) {
-  switch (size) {
-    case 1: static_cast<uint8_t*>(dst)[j] = static_cast<const uint8_t*>(src)[i]; break;
-    case 2: static_cast<uint16_t*>(dst)[j] = static_cast<const uint16_t*>(src)[i]; break;
-    case 4: static_cast<uint32_t*>(dst)[j] = static_cast<const uint32_t*>(src)[i]; break;
-    default: static_cast<uint64_t*>(dst)[j] = static_cast<const uint64_t*>(src)[i]; break;
-  }
-}
 
 __device__ __forceinline__ void zero_elem(void* dst, int64_t j, int size) {
   switch (size) {

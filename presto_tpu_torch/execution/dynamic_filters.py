@@ -11,8 +11,11 @@ same plan consult the registry per batch and narrow `row_valid`
 before probe, so the filter is published before the probe's scan
 yields its first batch.
 
-All three steps are composed torch (the `dynamic_filter` family); a
-hand-written kernel is queued in ROADMAP B9.
+The three steps are the `dynamic_filter` family's kernels on a CUDA
+tensor: K21 `bounds_step` (a Triton min/max reduction, `BOUNDS_SOURCE`),
+K22 `distinct_set` and K23 `apply_filter` (csrc/dynamic_filter.cu). On
+a CPU tensor each runs its plain version (`*_plain`), the reference's
+arithmetic in torch.
 
 On the distributed path a join's build and the scan it prunes can lie
 in different fragments: `DynamicFilterService` is the query-wide
@@ -27,10 +30,17 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import ctypes
+
 import torch
 
 from presto_tpu_torch.batch import Batch
 from presto_tpu_torch.telemetry import kernels as _tk
+
+#: launches of K21 (two Triton launches per call), K22 and K23
+BOUNDS_KERNEL = _tk.LaunchCounter("df_bounds", "dynamic_filter")
+SET_KERNEL = _tk.LaunchCounter("df_distinct_set", "dynamic_filter")
+APPLY_KERNEL = _tk.LaunchCounter("df_apply", "dynamic_filter")
 
 #: Max distinct build keys carried as a set; more degrades to bounds
 #: only (reference: dynamic-filtering.max-distinct-values-per-driver).
@@ -140,10 +150,18 @@ def bounds_init(dtype: torch.dtype, device: torch.device):
 
 def bounds_step(state, data: torch.Tensor, mask: torch.Tensor):
     """Fold one batch's key column into running (min, max) in the key's
-    own dtype. NULL and dead rows contribute identity; NaN keys are
-    masked out (they never equi-match, and one would poison the
-    bounds)."""
+    own dtype (reference: presto_tpu/execution/dynamic_filters.py:177).
+    NULL and dead rows contribute identity; NaN keys are masked out
+    (they never equi-match, and one would poison the bounds). K21 on a
+    CUDA tensor: the new state stays on the device."""
     _tk.count("dynamic_filter")
+    if data.device.type == "cpu":
+        return bounds_step_plain(state, data, mask)
+    return _bounds_cuda(state, data, mask)
+
+
+def bounds_step_plain(state, data: torch.Tensor, mask: torch.Tensor):
+    """K21's plain version."""
     mn, mx = state
     if data.dtype.is_floating_point:
         mask = mask & ~torch.isnan(data)
@@ -153,12 +171,118 @@ def bounds_step(state, data: torch.Tensor, mask: torch.Tensor):
     return torch.minimum(mn, lo), torch.maximum(mx, hi)
 
 
+#: K21: per-program partial (min, max) of the live non-NaN keys, then
+#: one program folds the partials into the running state. Triton has
+#: no float atomic min, hence the two stages. `ident` holds the dtype's
+#: (max, min), the identities of a masked lane.
+BOUNDS_SOURCE = """\
+import triton
+import triton.language as tl
+
+
+@triton.jit
+def bounds_partial(data, mask, ident, part_mn, part_mx, n,
+                   BLOCK: tl.constexpr):
+    pid = tl.program_id(0).to(tl.int64)
+    offs = pid * BLOCK + tl.arange(0, BLOCK)
+    inb = offs < n
+    x = tl.load(data + offs, mask=inb, other=0)
+    live = (tl.load(mask + offs, mask=inb, other=0) != 0) & (x == x)
+    lo = tl.where(live, x, tl.load(ident))
+    hi = tl.where(live, x, tl.load(ident + 1))
+    tl.store(part_mn + pid, tl.min(lo, axis=0))
+    tl.store(part_mx + pid, tl.max(hi, axis=0))
+
+
+@triton.jit
+def bounds_fold(part_mn, part_mx, mn, mx, out_mn, out_mx, nparts,
+                BLOCK: tl.constexpr):
+    acc_mn = tl.load(mn)
+    acc_mx = tl.load(mx)
+    for start in range(0, nparts, BLOCK):
+        offs = start + tl.arange(0, BLOCK)
+        inb = offs < nparts
+        pmn = tl.load(part_mn + offs, mask=inb, other=0)
+        pmx = tl.load(part_mx + offs, mask=inb, other=0)
+        # a reduction widens int8 / int16 to int32: back to the key's
+        # type, which the loop-carried accumulators keep
+        acc_mn = tl.minimum(acc_mn, tl.min(tl.where(inb, pmn, acc_mn),
+                                           axis=0)).to(acc_mn.dtype)
+        acc_mx = tl.maximum(acc_mx, tl.max(tl.where(inb, pmx, acc_mx),
+                                           axis=0)).to(acc_mx.dtype)
+    tl.store(out_mn, acc_mn)
+    tl.store(out_mx, acc_mx)
+"""
+
+#: rows per K21 program, and partials per step of its fold
+BOUNDS_BLOCK = 1024
+#: every key dtype the planner gives a filter (INTEGER and DATE,
+#: BIGINT and the other int64 types, REAL, DOUBLE, SMALLINT, TINYINT),
+#: in the order of csrc/dynamic_filter.cu's dtype codes
+_KEY_DTYPES = (torch.int32, torch.int64, torch.float32, torch.float64,
+               torch.int16, torch.int8)
+_IDENTS: Dict[tuple, torch.Tensor] = {}
+
+
+def bounds_launch(partial, fold, state, data: torch.Tensor,
+                  mask: torch.Tensor):
+    """K21's two launches with the given @triton.jit functions (the
+    card's, or the CPU stand-in's in the tests). Returns the new
+    (min, max) as 0-d tensors on the data's device."""
+    mn, mx = state
+    key = (data.dtype, str(data.device))
+    ident = _IDENTS.get(key)
+    if ident is None:
+        info = _ident(data.dtype)
+        ident = torch.tensor([info.max, info.min], dtype=data.dtype) \
+            .to(data.device)
+        _IDENTS[key] = ident
+    n = data.shape[0]
+    nparts = max(-(-n // BOUNDS_BLOCK), 1)
+    part_mn = torch.empty(nparts, dtype=data.dtype, device=data.device)
+    part_mx = torch.empty_like(part_mn)
+    out_mn = torch.empty((), dtype=data.dtype, device=data.device)
+    out_mx = torch.empty_like(out_mn)
+    partial[(nparts,)](data, mask.view(torch.uint8), ident, part_mn,
+                       part_mx, n, BLOCK=BOUNDS_BLOCK, num_warps=4)
+    fold[(1,)](part_mn, part_mx, mn, mx, out_mn, out_mx, nparts,
+               BLOCK=BOUNDS_BLOCK, num_warps=4)
+    return out_mn, out_mx
+
+
+def _bounds_cuda(state, data: torch.Tensor, mask: torch.Tensor):
+    from presto_tpu_torch.expr import codegen
+    from presto_tpu_torch.ops.common import check_rows
+    n = data.shape[0]
+    check_rows(data, n, data.device, _KEY_DTYPES, "df_bounds: keys")
+    check_rows(mask, n, data.device, (torch.bool,), "df_bounds: mask")
+    for t in state:
+        if t.device != data.device or t.dtype != data.dtype or t.dim():
+            raise ValueError("df_bounds: the state must be two 0-d "
+                             f"{data.dtype} tensors on {data.device}")
+    out = bounds_launch(codegen.load(BOUNDS_SOURCE, "bounds_partial"),
+                        codegen.load(BOUNDS_SOURCE, "bounds_fold"),
+                        state, data, mask)
+    BOUNDS_KERNEL.launches += 1
+    return out
+
+
 def distinct_set(data: torch.Tensor, mask: torch.Tensor):
-    """Bounded distinct set of a (merged) build key column: one sort
-    (dead lanes after live ones) + boundary dedupe, packed into
-    DF_SET_MAX slots. Returns (sorted values [DF_SET_MAX], count,
-    overflow); unused slots hold the dtype max."""
+    """Bounded distinct set of a (merged) build key column (reference:
+    presto_tpu/execution/dynamic_filters.py:210). Returns (sorted values
+    [DF_SET_MAX], count, overflow); unused slots hold the dtype max.
+    K22 on a CUDA tensor (where on overflow the count saturates at
+    DF_SET_MAX + 1 and the values are unspecified: no caller reads
+    either then)."""
     _tk.count("dynamic_filter")
+    if data.device.type == "cpu":
+        return distinct_set_plain(data, mask)
+    return _distinct_set_cuda(data, mask)
+
+
+def distinct_set_plain(data: torch.Tensor, mask: torch.Tensor):
+    """K22's plain version: one sort (dead lanes after live ones) +
+    boundary dedupe, packed into DF_SET_MAX slots."""
     from presto_tpu_torch.ops.common import lex_perm, partition_perm
     info = _ident(data.dtype)
     if data.dtype.is_floating_point:
@@ -181,12 +305,56 @@ def distinct_set(data: torch.Tensor, mask: torch.Tensor):
     return out, n, n > DF_SET_MAX
 
 
+def _dtype_code(dtype: torch.dtype, what: str) -> int:
+    if dtype not in _KEY_DTYPES:
+        raise ValueError(f"{what}: key dtype {dtype} is not one of "
+                         f"{_KEY_DTYPES}")
+    return _KEY_DTYPES.index(dtype)
+
+
+def _distinct_set_cuda(data: torch.Tensor, mask: torch.Tensor):
+    from presto_tpu_torch.native import cuda
+    from presto_tpu_torch.ops.common import check_rows
+    lib = cuda.library("dynamic_filter")
+    dev, n = data.device, data.shape[0]
+    code = _dtype_code(data.dtype, "df_distinct_set")
+    check_rows(data, n, dev, _KEY_DTYPES, "df_distinct_set: keys")
+    check_rows(mask, n, dev, (torch.bool,), "df_distinct_set: mask")
+    table = torch.empty(lib.presto_df_table_slots(), dtype=torch.int64,
+                        device=dev)
+    st = torch.empty(3, dtype=torch.int64, device=dev)
+    vals = torch.empty(DF_SET_MAX, dtype=data.dtype, device=dev)
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    ovf = torch.empty((), dtype=torch.bool, device=dev)
+    status = lib.presto_distinct_set(
+        ctypes.c_void_p(data.data_ptr()), ctypes.c_void_p(mask.data_ptr()),
+        ctypes.c_int64(n), ctypes.c_int32(code),
+        ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(st.data_ptr()),
+        ctypes.c_void_p(vals.data_ptr()), ctypes.c_void_p(count.data_ptr()),
+        ctypes.c_void_p(ovf.data_ptr()),
+        ctypes.c_void_p(cuda.stream_ptr(dev)))
+    cuda.check(lib, status, "df_distinct_set")
+    SET_KERNEL.launches += 1
+    return vals, count, ovf
+
+
 def apply_filter(batch: Batch, col: str, mn, mx, has_set: bool,
                  dset_vals=None, dset_count=None) -> Batch:
     """Narrow row_valid to rows whose key can match the build side:
     bounds always, set membership when a set survived (inner-join
-    semantics: NULL keys never match, so they drop too)."""
+    semantics: NULL keys never match, so they drop too; reference:
+    presto_tpu/execution/dynamic_filters.py:242). K23 on a CUDA
+    batch."""
     _tk.count("dynamic_filter")
+    if batch.device.type == "cpu":
+        return apply_filter_plain(batch, col, mn, mx, has_set, dset_vals,
+                                  dset_count)
+    return _apply_cuda(batch, col, mn, mx, has_set, dset_vals, dset_count)
+
+
+def apply_filter_plain(batch: Batch, col: str, mn, mx, has_set: bool,
+                       dset_vals=None, dset_count=None) -> Batch:
+    """K23's plain version."""
     c = batch.columns[col]
     # compare in the wider of the two key types, so that a build bound
     # never wraps into the probe column's narrower type
@@ -199,6 +367,46 @@ def apply_filter(batch: Batch, col: str, mn, mx, has_set: bool,
                           vals.shape[0] - 1)
         keep = keep & (vals[idx] == d) & (idx < dset_count)
     return Batch(batch.columns, batch.row_valid & keep)
+
+
+def _apply_cuda(batch: Batch, col: str, mn, mx, has_set: bool,
+                dset_vals, dset_count) -> Batch:
+    from presto_tpu_torch.native import cuda
+    from presto_tpu_torch.ops.common import check_rows
+    lib = cuda.library("dynamic_filter")
+    c = batch.columns[col]
+    dev, n = batch.device, batch.capacity
+    pt = _dtype_code(c.data.dtype, "df_apply")
+    bt = _dtype_code(mn.dtype, "df_apply")
+    key, mask = c.data.contiguous(), c.mask.contiguous()
+    rv = batch.row_valid.contiguous()
+    check_rows(key, n, dev, _KEY_DTYPES, "df_apply: keys")
+    check_rows(mask, n, dev, (torch.bool,), "df_apply: mask")
+    check_rows(rv, n, dev, (torch.bool,), "df_apply: row_valid")
+    scalars = [mn, mx] + ([dset_count] if has_set else [])
+    if any(t.device != dev or t.dim() for t in scalars) \
+            or mx.dtype != mn.dtype \
+            or (has_set and dset_count.dtype != torch.int64):
+        raise ValueError("df_apply: mn, mx and the set count must be 0-d "
+                         f"tensors on {dev} (mn, mx of one dtype, the "
+                         "count int64)")
+    if has_set:
+        check_rows(dset_vals, DF_SET_MAX, dev, (mn.dtype,),
+                   "df_apply: set values")
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    status = lib.presto_apply_filter(
+        ctypes.c_void_p(key.data_ptr()), ctypes.c_void_p(mask.data_ptr()),
+        ctypes.c_void_p(rv.data_ptr()), ctypes.c_int64(n),
+        ctypes.c_int32(pt), ctypes.c_int32(bt),
+        ctypes.c_void_p(mn.data_ptr()), ctypes.c_void_p(mx.data_ptr()),
+        ctypes.c_void_p(dset_vals.data_ptr() if has_set else 0),
+        ctypes.c_void_p(dset_count.data_ptr() if has_set else 0),
+        ctypes.c_int32(int(has_set)), ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(cuda.stream_ptr(dev)))
+    cuda.check(lib, status, "df_apply")
+    if n > 0:
+        APPLY_KERNEL.launches += 1
+    return Batch(batch.columns, out)
 
 
 def apply(batch: Batch, col: str, f: DFilter) -> Batch:

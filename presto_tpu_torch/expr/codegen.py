@@ -483,28 +483,26 @@ def _import_triton():
     return _TRITON
 
 
-def load(source: str):
-    """The @triton.jit function of a generated source, written under
+def load(source: str, name: str = "fragment_kernel"):
+    """The @triton.jit function `name` of a source, written under
     _build/fragments/ and imported from there (once per process)."""
     fp = fingerprint(source)
     with _LOCK:
-        fn = _LOADED.get(fp)
-        if fn is not None:
-            return fn
-        _import_triton()
-        FRAGMENT_DIR.mkdir(parents=True, exist_ok=True)
-        path = FRAGMENT_DIR / f"{fp}.py"
-        if not path.exists() or path.read_text() != source:
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            tmp.write_text(source)
-            os.replace(tmp, path)
-        spec = importlib.util.spec_from_file_location(
-            f"presto_fragment_{fp}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        fn = mod.fragment_kernel
-        _LOADED[fp] = fn
-        return fn
+        mod = _LOADED.get(fp)
+        if mod is None:
+            _import_triton()
+            FRAGMENT_DIR.mkdir(parents=True, exist_ok=True)
+            path = FRAGMENT_DIR / f"{fp}.py"
+            if not path.exists() or path.read_text() != source:
+                tmp = path.with_suffix(f".{os.getpid()}.tmp")
+                tmp.write_text(source)
+                os.replace(tmp, path)
+            spec = importlib.util.spec_from_file_location(
+                f"presto_fragment_{fp}", path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            _LOADED[fp] = mod
+        return getattr(mod, name)
 
 
 # -- the kernel -----------------------------------------------------------

@@ -51,6 +51,8 @@ SOURCES = {
     "array_collect": "array_collect.cu",
     "exchange_shuffle": "exchange_shuffle.cu",
     "merge_pair": "merge_pair.cu",
+    "exchange_partition": "exchange_partition.cu",
+    "dynamic_filter": "dynamic_filter.cu",
 }
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
@@ -162,6 +164,22 @@ SIGNATURES = {
         "presto_merge_pair": (
             ctypes.c_int, [_P] * 7 + [_I32, _P, _I64, _P, _I64] + [_P] * 7
             + [_I32, _P, _I32, _P]),
+    },
+    "exchange_partition": {
+        "presto_partition_max_consumers": (ctypes.c_int, []),
+        "presto_partition_block_rows": (ctypes.c_int, []),
+        "presto_exchange_partition": (
+            ctypes.c_int, [_P, _P, _I64, _I32, _I64, _P, _P, _P, _P, _I32,
+                           _P, _P]),
+    },
+    "dynamic_filter": {
+        "presto_df_set_max": (ctypes.c_int, []),
+        "presto_df_table_slots": (ctypes.c_int, []),
+        "presto_distinct_set": (
+            ctypes.c_int, [_P, _P, _I64, _I32, _P, _P, _P, _P, _P, _P]),
+        "presto_apply_filter": (
+            ctypes.c_int, [_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P,
+                           _I32, _P, _P]),
     },
 }
 

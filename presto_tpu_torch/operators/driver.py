@@ -49,25 +49,12 @@ class Driver:
             moved = True
         return moved
 
-    def run_to_completion(self, max_idle_passes: int = 1000) -> None:
-        """Drive until the tail finishes. A run of passes in which no
-        batch moves is normal while finish() propagates down the chain;
-        one longer than `max_idle_passes` is a livelock."""
-        idle = 0
-        while not self.is_finished():
-            if self.process():
-                idle = 0
-                continue
-            idle += 1
-            if idle > max_idle_passes:
-                chain = " -> ".join(
-                    f"{op.ctx.name}[{op.ctx.stats.input_batches} in/"
-                    f"{op.ctx.stats.output_batches} out]"
-                    for op in self.operators)
-                raise RuntimeError(
-                    f"driver made no progress in {max_idle_passes} "
-                    f"passes: {chain}")
-        self.close()
+    def describe(self) -> str:
+        """The chain with each operator's batch counts (for a livelock
+        report)."""
+        return " -> ".join(
+            f"{op.ctx.name}[{op.ctx.stats.input_batches} in/"
+            f"{op.ctx.stats.output_batches} out]" for op in self.operators)
 
     def close(self) -> None:
         if not self._closed:

@@ -21,7 +21,11 @@ consumer task queues:
 
 All workers of the port's mesh share one card, so gather, broadcast and
 round-robin move no bytes: a consumer reads the producer's tensors.
-Grouped execution (lifespans > 1, host and disk spools, recoverable
+
+`partition_segments` is the HTTP data plane's split of one producer
+batch (server/node.py `HttpExchange.push`): kernel K20
+(csrc/exchange_partition.cu) on a CUDA batch, `partition_sort_plain` on
+a CPU batch. Grouped execution (lifespans > 1, host and disk spools, recoverable
 buckets) needs the memory pool of ROADMAP A10; an exchange asked for it
 raises.
 """
@@ -29,11 +33,14 @@ raises.
 from __future__ import annotations
 
 import collections
-from typing import List, Optional, Sequence
+import ctypes
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from presto_tpu_torch.batch import Batch
+from presto_tpu_torch.batch import (
+    Batch, Column, pad_batch, quantized_capacity,
+)
 from presto_tpu_torch.operators.base import (
     DriverContext, Operator, OperatorContext, OperatorFactory,
 )
@@ -41,6 +48,11 @@ from presto_tpu_torch.parallel.shuffle import (
     WaveChain, batch_row_bytes, partition_dest, partition_key_hash,
     wave_repartition,
 )
+from presto_tpu_torch.telemetry import kernels as _tk
+
+#: launches of K20 (csrc/exchange_partition.cu): one per keyed push
+PARTITION_KERNEL = _tk.LaunchCounter("exchange_partition",
+                                     "exchange_partition")
 
 
 class GroupedExecutionError(NotImplementedError):
@@ -62,6 +74,107 @@ def build_remap_tables(hash_dicts, key_dictionaries, device):
             remaps.append(torch.tensor([index[v] for v in dic] or [0],
                                        dtype=torch.int32, device=device))
     return remaps
+
+
+def partition_segments(batch: Batch, partition_keys: Sequence[str],
+                       remaps, n_consumers: int
+                       ) -> Tuple[Batch, torch.Tensor]:
+    """The batch's rows sorted by destination (floored `|row_hash(keys)|
+    mod n_consumers`, dead rows last) and the int32 segment bounds
+    [n_consumers + 1]: consumer c's rows are [bounds[c], bounds[c+1])
+    (reference: presto_tpu/operators/exchange_ops.py:79). The hash is
+    K3's on the card; K20 sorts on a CUDA batch, the plain version on a
+    CPU batch."""
+    _tk.count("exchange_partition")
+    h = partition_key_hash(batch, partition_keys, remaps)
+    return partition_sort(batch, h, n_consumers)
+
+
+def partition_sort(batch: Batch, h: torch.Tensor, w: int
+                   ) -> Tuple[Batch, torch.Tensor]:
+    """`partition_segments` from given row hashes `h` (int64)."""
+    if batch.device.type == "cpu":
+        return partition_sort_plain(batch, h, w)
+    return _partition_cuda(batch, h, w)
+
+
+def partition_sort_plain(batch: Batch, h: torch.Tensor, w: int
+                         ) -> Tuple[Batch, torch.Tensor]:
+    """K20's plain version, the reference's arithmetic: a stable argsort
+    by destination, every column permuted, then `searchsorted` of the
+    sorted destinations for the bounds."""
+    dest = torch.where(batch.row_valid, partition_dest(h, w),
+                       torch.full_like(h, w))
+    sd, perm = torch.sort(dest, stable=True)
+    cols = {n: Column(c.data[perm], c.mask[perm], c.type, c.dictionary)
+            for n, c in batch.columns.items()}
+    bounds = torch.searchsorted(
+        sd, torch.arange(w + 1, dtype=sd.dtype, device=sd.device),
+        side="left").to(torch.int32)
+    return Batch(cols, batch.row_valid[perm]), bounds
+
+
+def _partition_cuda(batch: Batch, h: torch.Tensor, w: int
+                    ) -> Tuple[Batch, torch.Tensor]:
+    from presto_tpu_torch.native import cuda
+    from presto_tpu_torch.ops import common
+    lib = cuda.library("exchange_partition")
+    if w < 1 or w > lib.presto_partition_max_consumers():
+        raise ValueError(f"exchange_partition: 1 to "
+                         f"{lib.presto_partition_max_consumers()} "
+                         f"consumers, got {w}")
+    dev = batch.device
+    n = batch.capacity
+    rv = batch.row_valid.contiguous()
+    common.check_rows(h, n, dev, (torch.int64,),
+                      "exchange_partition: hashes")
+    common.check_rows(rv, n, dev, (torch.bool,),
+                      "exchange_partition: row_valid")
+    bounds = torch.zeros(w + 1, dtype=torch.int32, device=dev)
+    out_rv = torch.empty(n, dtype=torch.bool, device=dev)
+    names = batch.names
+    srcs = [(batch.columns[k].data.contiguous(),
+             batch.columns[k].mask.contiguous()) for k in names]
+    outs = [(torch.empty_like(d), torch.empty_like(m)) for d, m in srcs]
+    if n > 0:
+        for d, m in srcs:
+            common.check_rows(d, n, dev, (d.dtype,),
+                              "exchange_partition: column data")
+            common.check_rows(m, n, dev, (torch.bool,),
+                              "exchange_partition: column mask")
+        block_rows = lib.presto_partition_block_rows()
+        blocks = -(-n // block_rows)
+        hist = torch.empty((w + 1) * blocks, dtype=torch.int32, device=dev)
+        offs = torch.empty_like(hist)
+        tab = [d.data_ptr() for d, _ in srcs] \
+            + [m.data_ptr() for _, m in srcs] \
+            + [d.data_ptr() for d, _ in outs] \
+            + [m.data_ptr() for _, m in outs] \
+            + [d.element_size() for d, _ in srcs]
+        ctab = torch.tensor(tab or [0], dtype=torch.int64).to(dev)
+        status = lib.presto_exchange_partition(
+            ctypes.c_void_p(h.data_ptr()), ctypes.c_void_p(rv.data_ptr()),
+            ctypes.c_int64(n), ctypes.c_int32(w), ctypes.c_int64(blocks),
+            ctypes.c_void_p(hist.data_ptr()),
+            ctypes.c_void_p(offs.data_ptr()),
+            ctypes.c_void_p(bounds.data_ptr()),
+            ctypes.c_void_p(ctab.data_ptr()), ctypes.c_int32(len(names)),
+            ctypes.c_void_p(out_rv.data_ptr()),
+            ctypes.c_void_p(cuda.stream_ptr(dev)))
+        cuda.check(lib, status, "exchange_partition")
+        PARTITION_KERNEL.launches += 1
+    cols = {k: Column(d, m, batch.columns[k].type,
+                      batch.columns[k].dictionary)
+            for k, (d, m) in zip(names, outs)}
+    return Batch(cols, out_rv), bounds
+
+
+def host_pad_quantized(batch: Batch) -> Batch:
+    """Pad a host (CPU) batch up to the quantized capacity ladder before
+    it goes to the device (reference:
+    presto_tpu/operators/exchange_ops.py:564 `_host_pad_quantized`)."""
+    return pad_batch(batch, quantized_capacity(batch.capacity)
+                     - batch.capacity)
 
 
 def edge_key_dicts(edge) -> List:

@@ -17,13 +17,18 @@ runner does; a collection past `array_agg_width`
 (ArrayAggWidthExceeded) re-plans the statement at four times the width,
 with the runner's own session left as it was. Array, map and row
 columns come back from `rows()` as Python lists, dicts and tuples.
-Caches, query history, resource groups, fault injection, sanitizers,
+`execute` takes a cooperative `cancel` callable and a monotonic
+`deadline`, polled before every driver pass (`check_lifecycle`); the
+coordinator and the worker of server/ drive their fragments with
+`drive_pipelines`. Caches, query history, fault injection, sanitizers,
 telemetry, EXPLAIN and the other statements come with later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
@@ -46,8 +51,127 @@ from presto_tpu_torch.planner.local_planner import (
 from presto_tpu_torch.schema import ColumnSchema, RelationSchema
 
 
+#: consecutive rounds without a moved batch after which a drive with
+#: every input in this process is a deadlock (finish() propagating
+#: down a chain moves no batch for a few)
+MAX_IDLE_ROUNDS = 10_000
+
+
 class QueryError(Exception):
-    """A query failed (analysis, planning or execution)."""
+    """A query failed (analysis, planning or execution). `kind` is the
+    structured failure taxonomy the control plane switches on
+    ("cancelled", "deadline_exceeded"), None for ordinary errors."""
+
+    def __init__(self, message: str, kind: Optional[str] = None):
+        super().__init__(message)
+        self.kind = kind
+
+
+def check_lifecycle(cancel, deadline: Optional[float]) -> None:
+    """The cooperative kill / deadline checkpoint of every drive loop
+    (reference: presto_tpu/runner/local.py:35): polls the `cancel`
+    callable, then the monotonic `deadline`, and raises QueryError with
+    the structured kind."""
+    if cancel is not None and cancel():
+        raise QueryError("query cancelled", kind="cancelled")
+    if deadline is not None and time.monotonic() > deadline:
+        raise QueryError("query exceeded query_max_run_time_ms",
+                         kind="deadline_exceeded")
+
+
+def drive_pipelines(tasks: List[List[List]], dctx: DriverContext,
+                    cancel=None, deadline: Optional[float] = None,
+                    abort_check=None, max_idle_s: float = 600.0,
+                    max_idle_rounds: Optional[int] = None
+                    ) -> List[Driver]:
+    """Drive the pipelines of several tasks to completion (reference:
+    presto_tpu/runner/local.py:1484): each task is a list of pipelines
+    (operator-factory lists) run in plan order, every join build before
+    its probe. `drive_drivers` is the loop; then the deferred checks
+    run. Returns every driver, closed."""
+    drivers = [[Driver([f.create(dctx) for f in pipe]) for pipe in task]
+               for task in tasks]
+
+    def check():
+        check_lifecycle(cancel, deadline)
+        if abort_check is not None:
+            exc = abort_check()
+            if exc is not None:
+                raise exc
+    try:
+        drive_drivers(drivers, check, max_idle_s=max_idle_s,
+                      max_idle_rounds=max_idle_rounds)
+        run_deferred_checks(dctx)
+    finally:
+        for task in drivers:
+            for d in task:
+                d.close()
+    return [d for task in drivers for d in task]
+
+
+def drive_drivers(tasks: List[List[Driver]], check=None, spawn=None,
+                  max_idle_s: float = 600.0,
+                  max_idle_rounds: Optional[int] = None) -> None:
+    """The round-robin drive of every runner: one round steps each
+    task's first unfinished driver once, and closes it once it
+    finished. `check()` runs before every round and raises to stop the
+    drive (cancel, deadline, a remote task's failure). `spawn()`, when
+    given, runs every round too and returns the driver lists that
+    became ready (appended to `tasks`), or None once nothing is left to
+    spawn (MeshRunner's phased fragments).
+
+    A stretch in which no batch moves is a deadlock: past
+    `max_idle_rounds` rounds when given (every input is in this
+    process), else past `max_idle_s` seconds of wall clock, with idle
+    rounds sleeping briefly, since input that arrives over the network
+    may take a while."""
+    idle_rounds, idle_since = 0, None
+    spawning = spawn is not None
+    while True:
+        if check is not None:
+            check()
+        progress = False
+        if spawning:
+            new = spawn()
+            if new is None:
+                spawning = False
+            elif new:
+                tasks.extend(new)
+                progress = True
+        busy = False
+        for task in tasks:
+            d = next((x for x in task if not x.is_finished()), None)
+            if d is None:
+                continue
+            busy = True
+            progress = d.process() or progress
+            if d.is_finished():
+                d.close()
+                progress = True
+        if not busy and not spawning:
+            return
+        if progress:
+            idle_rounds, idle_since = 0, None
+            continue
+        idle_rounds += 1
+        if max_idle_rounds is not None:
+            if idle_rounds > max_idle_rounds:
+                raise QueryError(
+                    f"drive made no progress in {max_idle_rounds} rounds: "
+                    + "; ".join(d.describe() for task in tasks
+                                for d in task if not d.is_finished()))
+            continue
+        # finish() propagating down a chain moves no batch for a few
+        # passes: spin a little before sleeping
+        if idle_rounds < 64:
+            continue
+        now = time.monotonic()
+        if idle_since is None:
+            idle_since = now
+        elif now - idle_since > max_idle_s:
+            raise QueryError(f"query made no progress for "
+                             f"{max_idle_s:.0f}s (hung worker?)")
+        time.sleep(0.001)
 
 
 @dataclasses.dataclass
@@ -244,6 +368,9 @@ class LocalRunner:
         #: the session of a statement re-planned at a larger
         #: array_agg_width (`_with_width_retry`); None otherwise
         self._override: Optional[Session] = None
+        #: the running statement's (cancel, deadline), per thread: a
+        #: single-node coordinator shares one runner between queries
+        self._lifecycle = threading.local()
 
     @property
     def session(self) -> Session:
@@ -256,7 +383,36 @@ class LocalRunner:
     def session(self, value: Session) -> None:
         self._session = value
 
-    def execute(self, sql: str) -> MaterializedResult:
+    def execute(self, sql: str, cancel=None,
+                deadline: Optional[float] = None) -> MaterializedResult:
+        """Run one statement. `cancel` (() -> bool) and `deadline` (a
+        time.monotonic() instant) are polled before every driver pass
+        (`check_lifecycle`)."""
+        self._lifecycle.value = (cancel, deadline)
+        try:
+            return self._execute(sql)
+        finally:
+            self._lifecycle.value = None
+
+    def execute_as(self, sql: str, user: str, cancel=None,
+                   deadline: Optional[float] = None) -> MaterializedResult:
+        """Execute for a client of a single-node coordinator
+        (reference: presto_tpu/runner/local.py:527). The port has no
+        access control yet (ROADMAP A10), so `user` changes nothing;
+        SET SESSION is refused, because a request's session change
+        would leak into every other client of the shared runner."""
+        if isinstance(parse_statement(sql), T.SetSession):
+            raise QueryError(
+                "SET SESSION is not supported over the single-node "
+                "coordinator: sessions are per request; configure "
+                "properties on the Coordinator instead")
+        return self.execute(sql, cancel=cancel, deadline=deadline)
+
+    def _lifecycle_args(self) -> Tuple[Any, Optional[float]]:
+        """The running statement's (cancel, deadline)."""
+        return getattr(self._lifecycle, "value", None) or (None, None)
+
+    def _execute(self, sql: str) -> MaterializedResult:
         stmt = parse_statement(sql)
         if isinstance(stmt, T.SetSession):
             return self._set_session(stmt)
@@ -332,12 +488,11 @@ class LocalRunner:
                 raise QueryError(str(e)) from e
             dctx = DriverContext(session=session, device=self.device)
             try:
-                # pipelines in list order: every join build before the
-                # pipeline holding its probe
-                for pipe in lplan.pipelines:
-                    Driver([f.create(dctx) for f in pipe]) \
-                        .run_to_completion()
-                run_deferred_checks(dctx)
+                # one task, pipelines in list order: every join build
+                # before the pipeline holding its probe
+                drive_pipelines([lplan.pipelines], dctx,
+                                *self._lifecycle_args(),
+                                max_idle_rounds=MAX_IDLE_ROUNDS)
             except GroupLimitExceeded as e:
                 if e.suggested > 1 << 26:
                     raise QueryError(

@@ -49,12 +49,10 @@ from presto_tpu_torch.planner.local_planner import (
     prune_unused_columns,
 )
 from presto_tpu_torch.runner.local import (
-    LocalRunner, MaterializedResult, QueryError,
+    MAX_IDLE_ROUNDS, LocalRunner, MaterializedResult, QueryError,
+    drive_drivers,
 )
 from presto_tpu_torch.session_properties import get_property
-
-#: consecutive rounds without a moved batch that mean a deadlock
-MAX_IDLE_ROUNDS = 10_000
 
 
 class MeshRunner(LocalRunner):
@@ -222,39 +220,26 @@ class MeshRunner(LocalRunner):
     @staticmethod
     def _drive(tasks_of: Dict[int, List[List[Driver]]],
                phase_deps: Dict[int, List[int]], spawn) -> None:
-        """Round-robin drive: every task steps its first unfinished
-        driver once per round; a deferred fragment spawns once the
-        fragments it waits for finished."""
+        """`drive_drivers` over every fragment's tasks; a deferred
+        fragment spawns once the fragments it waits for finished."""
         def complete(fid: int) -> bool:
             return fid in tasks_of and all(
                 d.is_finished() for drivers in tasks_of[fid]
                 for d in drivers)
 
-        idle = 0
-        while True:
-            progress = False
-            for fid in [f for f in phase_deps if f not in tasks_of]:
+        def spawn_ready():
+            waiting = [f for f in phase_deps if f not in tasks_of]
+            if not waiting:
+                return None
+            new = []
+            for fid in waiting:
                 if all(complete(b) for b in phase_deps[fid]):
                     tasks_of[fid] = spawn(fid)
-                    progress = True
-            busy = False
-            for tasks in list(tasks_of.values()):
-                for drivers in tasks:
-                    d = next((x for x in drivers if not x.is_finished()),
-                             None)
-                    if d is None:
-                        continue
-                    busy = True
-                    progress = d.process() or progress
-                    if d.is_finished():
-                        d.close()
-                        progress = True
-            if not busy and len(tasks_of) == len(phase_deps):
-                return
-            idle = 0 if progress else idle + 1
-            if idle > MAX_IDLE_ROUNDS:
-                raise QueryError("mesh drive made no progress (deadlock "
-                                 "between fragments?)")
+                    new.extend(tasks_of[fid])
+            return new
+
+        drive_drivers([t for tasks in tasks_of.values() for t in tasks],
+                      spawn=spawn_ready, max_idle_rounds=MAX_IDLE_ROUNDS)
 
     def explain_text(self, sql: str) -> str:
         """The fragmented plan (reference: the fragment view of

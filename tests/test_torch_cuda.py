@@ -1721,3 +1721,227 @@ def test_mesh_queries_match_cpu(hopper):
                                             abs_tol=1e-6)
                     else:
                         assert x == y
+
+
+# -- K20 exchange_partition, K21-K23 dynamic_filter (the control plane) ----
+
+def _k20_batch(dev, n, live, seed, dtypes=("int64", "float64", "int32",
+                                          "bool", "int16")):
+    rng = np.random.default_rng(seed)
+    cols = {}
+    for i, dt in enumerate(dtypes):
+        d = rng.integers(-1000, 1000, n).astype(dt)
+        cols[f"c{i}"] = tb.Column(torch.from_numpy(d).to(dev),
+                                  torch.from_numpy(rng.random(n) < 0.9)
+                                  .to(dev), tt.BIGINT)
+    rv = torch.from_numpy(rng.random(n) < live).to(dev)
+    return tb.Batch(cols, rv)
+
+
+def _k20_same(got, want):
+    from presto_tpu_torch.operators import exchange_ops as ex  # noqa: F401
+    (gb, gbounds), (wb, wbounds) = got, want
+    assert torch.equal(gbounds.cpu(), wbounds.cpu())
+    live = int(wbounds[-1])
+    assert torch.equal(gb.row_valid.cpu(), wb.row_valid.cpu())
+    for n in wb.names:
+        assert torch.equal(gb.columns[n].data[:live].cpu(),
+                           wb.columns[n].data[:live].cpu()), n
+        assert torch.equal(gb.columns[n].mask[:live].cpu(),
+                           wb.columns[n].mask[:live].cpu()), n
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 8, 64])
+@pytest.mark.parametrize("n", [1 << 20, 777])
+@pytest.mark.parametrize("inject_min", [False, True])
+def test_k20_exchange_partition_matches_plain(hopper, w, n, inject_min):
+    """K20 against its plain version on the same CUDA inputs, exactly:
+    bounds, row_valid, and every column over the live prefix."""
+    from presto_tpu_torch.operators import exchange_ops as ex
+    b = _k20_batch(hopper, n, 0.7, seed=w + n)
+    rng = np.random.default_rng(w)
+    h = torch.from_numpy(rng.integers(-2 ** 63, 2 ** 63 - 1, n,
+                                      dtype=np.int64)).to(hopper)
+    if inject_min:
+        h[::5] = -2 ** 63
+    _k20_same(ex.partition_sort(b, h, w), ex.partition_sort_plain(b, h, w))
+
+
+@pytest.mark.parametrize("keys", [("c0",), ("c0", "c2", "c1")])
+def test_k20_through_k3_and_edges(hopper, keys):
+    """The whole partition_segments (K3's hash first), an all-dead
+    batch, and the cap on consumers."""
+    from presto_tpu_torch.operators import exchange_ops as ex
+    b = _k20_batch(hopper, 1 << 16, 0.5, seed=len(keys))
+    cpu = tb.Batch({k: tb.Column(c.data.cpu(), c.mask.cpu(), c.type)
+                    for k, c in b.columns.items()}, b.row_valid.cpu())
+    _k20_same(ex.partition_segments(b, keys, None, 8),
+              ex.partition_segments(cpu, keys, None, 8))
+    dead = tb.Batch(b.columns, torch.zeros_like(b.row_valid))
+    sb, bounds = ex.partition_segments(dead, keys, None, 5)
+    assert bounds.tolist() == [0] * 6 and not sb.row_valid.any()
+    with pytest.raises(ValueError, match="consumers"):
+        ex.partition_sort(b, torch.zeros(b.capacity, dtype=torch.int64,
+                                         device=hopper), 65)
+
+
+_DF_DTYPES = [torch.int32, torch.int64, torch.float32, torch.float64,
+              torch.int16, torch.int8]
+
+
+def _df_keys(dt, n, distinct, seed):
+    rng = np.random.default_rng(seed)
+    pool = torch.from_numpy(rng.permutation(distinct) * 3 - 7).to(dt)
+    x = pool[torch.from_numpy(rng.integers(0, distinct, n))]
+    x[:distinct] = pool
+    m = torch.from_numpy(rng.random(n) < 0.9)
+    m[:distinct] = True
+    if dt.is_floating_point:
+        x[distinct:distinct + 3] = torch.tensor([float("nan"), -0.0, 0.0],
+                                                dtype=dt)
+    x[-1] = torch.finfo(dt).max if dt.is_floating_point \
+        else torch.iinfo(dt).max
+    return x, m
+
+
+@pytest.mark.parametrize("dt", _DF_DTYPES)
+def test_k21_bounds_matches_plain(hopper, dt):
+    from presto_tpu_torch.execution import dynamic_filters as df
+    x, m = _df_keys(dt, 1 << 20, 1000, seed=1)
+    st = df.bounds_init(dt, torch.device("cpu"))
+    want = df.bounds_step_plain(st, x, m)
+    got = df.bounds_step(df.bounds_init(dt, hopper), x.to(hopper),
+                         m.to(hopper))
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    # an all-NULL batch leaves the state as it was
+    got2 = df.bounds_step(got, x.to(hopper),
+                          torch.zeros_like(m).to(hopper))
+    assert all(torch.equal(a, b) for a, b in zip(got, got2))
+
+
+@pytest.mark.parametrize("dt", _DF_DTYPES)
+@pytest.mark.parametrize("distinct", [1, 25, 4095, 4096, 4097, 20000])
+def test_k22_distinct_set_matches_plain(hopper, dt, distinct):
+    """Without overflow the count and every value exactly (the dtype max
+    a real key, -0.0 and +0.0 one key); with overflow the flag, and the
+    count saturated at DF_SET_MAX + 1."""
+    from presto_tpu_torch.execution import dynamic_filters as df
+    x, m = _df_keys(dt, 1 << 19, distinct, seed=distinct)
+    wv, wn, wo = df.distinct_set_plain(x, m)
+    gv, gn, go = df.distinct_set(x.to(hopper), m.to(hopper))
+    assert bool(go) == bool(wo)
+    if bool(wo):
+        assert int(gn) == df.DF_SET_MAX + 1
+    else:
+        assert int(gn) == int(wn)
+        assert torch.equal(gv.cpu(), wv)
+
+
+@pytest.mark.parametrize("pt", _DF_DTYPES)
+@pytest.mark.parametrize("bt", _DF_DTYPES)
+@pytest.mark.parametrize("with_set", [False, True])
+def test_k23_apply_matches_plain(hopper, pt, bt, with_set):
+    """Every probe/build dtype pair, compared in the wider type."""
+    from presto_tpu_torch.execution import dynamic_filters as df
+    bx, bm = _df_keys(bt, 5000, 300, seed=3)
+    st = df.bounds_step_plain(df.bounds_init(bt, torch.device("cpu")),
+                              bx, bm)
+    vals, cnt, ovf = df.distinct_set_plain(bx, bm)
+    px, pm = _df_keys(pt, 1 << 18, 600, seed=4)
+    rv = torch.from_numpy(np.random.default_rng(5).random(1 << 18) < 0.8)
+    pb = tb.Batch({"k": tb.Column(px, pm, tt.BIGINT)}, rv)
+    gb = tb.Batch({"k": tb.Column(px.to(hopper), pm.to(hopper),
+                                  tt.BIGINT)}, rv.to(hopper))
+    extra = (vals, cnt) if with_set else ()
+    want = df.apply_filter_plain(pb, "k", *st, with_set, *extra)
+    got = df.apply_filter(gb, "k", *(s.to(hopper) for s in st), with_set,
+                          *(e.to(hopper) for e in extra))
+    assert torch.equal(got.row_valid.cpu(), want.row_valid)
+
+
+#: SMALLINT and TINYINT join keys over memory tables: the planner gives
+#: each inner join a dynamic filter on the probe table's scan (shared
+#: with tests/test_torch_dynamic_filters.py, which runs them on the CPU
+#: against the reference)
+NARROW_KEY_SETUP = [
+    "create table memory.default.dfb as select cast(nationkey as smallint)"
+    " k16, cast(regionkey as tinyint) k8, name from nation "
+    "where nationkey < 9",
+    "create table memory.default.dfp as select cast(custkey % 25 as "
+    "smallint) k16, cast(custkey % 7 as tinyint) k8, acctbal from customer",
+]
+NARROW_KEY_QUERIES = [
+    "select b.name, count(*), sum(p.acctbal) from memory.default.dfp p "
+    "join memory.default.dfb b on p.k16 = b.k16 group by b.name "
+    "order by b.name",
+    "select p.k8, count(*) from memory.default.dfp p join "
+    "memory.default.dfb b on p.k8 = b.k8 group by p.k8 order by p.k8",
+]
+
+
+def narrow_key_rows(runner):
+    """NARROW_KEY_QUERIES' results on a runner after NARROW_KEY_SETUP."""
+    for sql in NARROW_KEY_SETUP:
+        runner.execute(sql)
+    return [runner.execute(sql).rows() for sql in NARROW_KEY_QUERIES]
+
+
+def test_narrow_key_join_on_the_card_matches_cpu(hopper):
+    """Joins on SMALLINT and TINYINT keys of memory tables go through
+    K21-K23 on the card and return the CPU LocalRunner's rows (DOUBLE
+    to a relative 1e-6, everything else exactly)."""
+    import math
+    from presto_tpu_torch.execution import dynamic_filters as df
+    from presto_tpu_torch.runner import LocalRunner
+    counters = (df.BOUNDS_KERNEL, df.SET_KERNEL, df.APPLY_KERNEL)
+    before = [c.launches for c in counters]
+    got = narrow_key_rows(LocalRunner("tpch", "tiny", device=hopper))
+    assert all(c.launches > b for c, b in zip(counters, before))
+    want = narrow_key_rows(LocalRunner("tpch", "tiny", device="cpu"))
+    for sql, g, w in zip(NARROW_KEY_QUERIES, got, want):
+        assert g and len(g) == len(w), sql
+        for rg, rw in zip(g, w):
+            for x, y in zip(rg, rw):
+                assert x == y or (isinstance(x, float) and math.isclose(
+                    x, y, rel_tol=1e-6)), sql
+
+
+def test_cluster_on_the_card_matches_cpu(hopper):
+    """Two worker processes on the card and a coordinator on the card
+    return the CPU LocalRunner's rows, launching K20-K23."""
+    import json
+    from presto_tpu_torch.runner import LocalRunner
+    from presto_tpu_torch.server.coordinator import Coordinator
+    from presto_tpu_torch.server.node import http_get
+    from presto_tpu_torch.server.node import spawn_workers, stop_workers
+    procs, urls = spawn_workers(2, timeout_s=240)
+    try:
+        coord = Coordinator(urls, "tpch", "sf0_01",
+                            {"broadcast_join_threshold_rows": 2000},
+                            device=hopper)
+        coord.start()
+        try:
+            cpu = LocalRunner("tpch", "sf0_01", device="cpu")
+            for sql in (
+                    "select o.orderpriority, count(*) c, sum(l.quantity) q "
+                    "from orders o join lineitem l on l.orderkey = "
+                    "o.orderkey group by o.orderpriority "
+                    "order by o.orderpriority",
+                    "select n.name, count(*) c from customer c join nation "
+                    "n on c.nationkey = n.nationkey group by n.name "
+                    "order by c desc, n.name limit 5"):
+                got = coord.execute(sql).rows()
+                want = cpu.execute(sql).rows()
+                assert len(got) == len(want)
+                for g, w in zip(got, want):
+                    for a, b in zip(g, w):
+                        assert a == b or abs(a - b) <= 1e-6 * abs(b)
+            kernels = [json.loads(http_get(f"{u}/v1/info"))["kernels"]
+                       for u in urls]
+            for k in ("exchange_partition", "df_bounds", "df_distinct_set",
+                      "df_apply"):
+                assert sum(kk.get(k, 0) for kk in kernels) > 0, k
+        finally:
+            coord.stop()
+    finally:
+        stop_workers(procs)

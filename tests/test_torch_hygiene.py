@@ -249,6 +249,8 @@ def test_chip_smoke_checks_every_built_kernel():
     from presto_tpu_torch.ops import window  # noqa: F401  (K13-K16)
     from presto_tpu_torch.ops import merge  # noqa: F401  (K19)
     from presto_tpu_torch.parallel import shuffle  # noqa: F401  (K18)
+    from presto_tpu_torch.operators import exchange_ops  # noqa: F401  (K20)
+    from presto_tpu_torch.execution import dynamic_filters  # noqa: F401
     from presto_tpu_torch.telemetry import kernels as tk
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", ROOT / "chip_smoke.py")

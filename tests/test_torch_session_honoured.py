@@ -21,17 +21,15 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent / "presto_tpu_torch"
 #: that close them: caches A15, executor and memory A10, history A11,
 #: the distributed path A12, the fleet and telemetry A13 / A14)
 IGNORED = frozenset({
-    "admission_queue_timeout_ms",
     "cache_memory_bytes", "cluster_memory_bytes", "fault_injection",
-    "fleet_memory_bytes", "fragment_result_cache_enabled",
+    "fragment_result_cache_enabled",
     "hbm_budget_bytes", "history_based_optimization",
     "history_driven_fusion", "host_spool_bytes", "kernel_shape_buckets",
     "page_source_cache_enabled",
-    "plan_cache_enabled", "query_max_run_time_ms", "query_memory_bytes",
-    "query_retries", "query_trace_enabled",
+    "plan_cache_enabled", "query_trace_enabled",
     "recoverable_grouped_execution", "spill_enabled",
     "task_dispatch_stagger_ms", "task_executor_enabled",
-    "task_executor_quantum_ms", "task_partitions", "task_retries",
+    "task_executor_quantum_ms", "task_partitions",
 })
 
 
