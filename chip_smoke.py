@@ -8,7 +8,17 @@ product passes the reference's 2^24-slot guard, which the script checks
 is raised), through LocalRunner, and check the rows against a numpy
 oracle. Q22 keeps no row at SF1 and Q19 none at `tiny`, so Q22_EXISTS
 and Q19_LIVE, their plans with predicates that keep rows, are checked
-too. Then the window path: WIN_RUNNING, WIN_RANK, WIN_TOPN and
+too. Then the sort path (`run_sort_phases`): ORDER_LINES (every
+lineitem at SF1, 6,000,012 rows, ordered by extendedprice desc,
+orderkey, linenumber), TOPN_LINES (the same ORDER BY, LIMIT 100: one
+topn step per batch) and LIMIT_SCAN (a count over a 5,000,000-row LIMIT
+that spans five batches), each against a numpy oracle (np.lexsort; the
+count exactly), with K24-K27 held against their plain versions at their
+largest calls and sort_batch, topn_step and limit_batch timed beside the
+same functions through the plain versions; K25 is also held against its
+plain version and one stable torch.sort at Q21's lineitem build, its
+largest call of the TPC-H path. Then the window path: WIN_RUNNING,
+WIN_RANK, WIN_TOPN and
 WIN_FRAMES over lineitem and orders at SF1, and TPC-DS Q12, Q20, Q98,
 Q36 (a rollup: GroupId) and the q67-shape rank (Q104) at sf1, each
 against a numpy oracle, with K13-K16 held against their plain versions
@@ -67,19 +77,23 @@ wall. The kernels (KERNELS below): K1 direct_slot_reduce, K2
 compact, K3 row_hash, K4 join_build, K5 join_probe, K6 segment_reduce,
 K7 semi_join, K8 stream_reduce, K9 join_expand (with its full mode), K10
 cross_product, K11 join_outer, K13-K16 (window), K17 array_collect,
-K18 exchange_shuffle and K19 merge_pair (CUDA C++, built with nvcc),
+K18 exchange_shuffle, K19 merge_pair, K20 exchange_partition, K22-K23
+(the dynamic filter's set and apply), K24 sort_encode, K25 radix_sort,
+K26 gather_rows and K27 limit_rank (CUDA C++, built with nvcc), K21 (a
+Triton kernel),
 and K12 fragment (a Triton kernel generated per filter/project chain at
 its first launch). Q1, Q3, Q6 and Q18 also run with fusion off (their
 FilterProjects as one-stage K12 kernels), rows checked and walls beside
 the fused ones. The kernel measurements run on inputs captured from a
 separate run of the same queries (the largest call of each kernel; K9
 per layout and in full mode at the FULL join's largest call; K10 at
-the calls of K10_AT; the DISTINCT fold, K3 + sort + K6, at
+the calls of K10_AT; the DISTINCT fold, K3 + K25 + K26 + K6, at
 the DISTINCT query's largest call), so their shapes are the main path's;
 compact is also measured on a 1M-row lineitem batch at ~2% and ~98%
-live. Launches made while comparing or timing are not counted. K4 and
-K6 also report the time of the `torch.sort` that precedes them on the
-main path. K12 is held against its composed form at the largest call
+live. Launches made while comparing or timing are not counted. K4
+also reports one stable torch.sort of the build hashes, K6 the time of
+the K25 sort of (h1, h2) that precedes it on the main path. K12 is
+held against its composed form at the largest call
 of every distinct generated kernel, fused and fusion off (every kernel
 launched in the run is compared), and timed at the three largest by
 bytes and at Q1's chain fused into its aggregation, from a cold L2: each
@@ -92,9 +106,10 @@ per query and, where one PyTorch call computes the same function
 (COMPOSED_LIBRARY), that call's time. The profile phase counts the CUDA kernel launches of one
 warm execution of each query (and of Q1, Q3 and Q6 with fusion off).
 
-Tolerances: K2 (compact), K3, K4, K5 and K7 (semi_join) must match their
-plain versions exactly (row order, hashes, offsets, slots and keep masks
-are the result). K1 (direct_slot_reduce) integers must match exactly;
+Tolerances: K2 (compact), K3, K4, K5, K7 (semi_join) and K24-K27 must
+match their plain versions exactly (row order, hashes, offsets, slots,
+key words, permutations, moved rows and keep masks are the result). K1
+(direct_slot_reduce) integers must match exactly;
 float64 components to a relative 1e-9, because atomics add in a
 run-dependent order. K6 (segment_reduce) and K8 (stream_reduce) group
 counts, first rows, keys, carry flags, the overflow flag and integer
@@ -907,13 +922,29 @@ COMPOSED = {
     "agg_finalize finalize": ("agg_finalize", "th", "finalize"),
     "agg_finalize direct_finalize": ("agg_finalize", "th",
                                      "direct_finalize"),
-    "sort sort_batch": ("sort", "sort", "sort_batch"),
-    "topn topn_step": ("topn", "sort", "topn_step"),
-    "limit limit_batch": ("limit", "sort", "limit_batch"),
 }
 
 
-class Capture:
+class Patches:
+    """Wrappers set on module attributes for the length of a `with`
+    block, restored in reverse order on its exit."""
+
+    def __init__(self):
+        self._patches = []
+
+    def _patch(self, mod, attr, make):
+        orig = getattr(mod, attr)
+        self._patches.append((mod, attr, orig))
+        setattr(mod, attr, make(orig))
+
+    def __exit__(self, *exc):
+        for mod, attr, orig in reversed(self._patches):
+            setattr(mod, attr, orig)
+        self._patches = []
+        return False
+
+
+class Capture(Patches):
     """Wraps the kernel wrappers (and the composed torch forms of
     COMPOSED) during one run of the queries and keeps the inputs of each
     one's largest call: a copy for K1 and K2 (K1 updates its state in
@@ -922,6 +953,7 @@ class Capture:
     (`codegen.CAPTURE`), with the query that made it (`k12_query`)."""
 
     def __init__(self, mods):
+        super().__init__()
         self.m = mods
         self.k1 = {}   # query -> (rows, args)
         self.k2 = {}   # query -> (rows, batch, out_cap)
@@ -941,12 +973,13 @@ class Capture:
         self.distinct = None
         #: K22 at its largest call without overflow: (rows, query, args)
         self.df_set_fits = None
+        #: K25 at its largest join build: (rows, query, args, kwargs)
+        self.build_sort = None
         #: composed form -> (rows, query, function, args)
         self.composed = {}
         #: K12 kernel fingerprint -> the query of its largest call
         self.k12_query = {}
         self.query = None
-        self._patches = []
 
     def run(self, label, fn):
         """Run one query under capture as `label`."""
@@ -961,11 +994,6 @@ class Capture:
     def _keep(self, kernel, rows, args):
         if rows > self.big.get(kernel, (0,))[0]:
             self.big[kernel] = (rows, self.query, args)
-
-    def _patch(self, mod, attr, make):
-        orig = getattr(mod, attr)
-        self._patches.append((mod, attr, orig))
-        setattr(mod, attr, make(orig))
 
     def _record(self, label):
         def make(orig):
@@ -1096,6 +1124,17 @@ class Capture:
                     self.distinct = (rows, self.query, (state, batch))
                 return orig(state, batch)
             return rec
+        def radix(orig):
+            def rec(*args, **kw):
+                # the join build's sort is the one that returns the
+                # sorted hashes
+                rows = tc._word_list(args[0])[0].shape[0]
+                if kw.get("sorted_first") and rows > (
+                        self.build_sort or (0,))[0]:
+                    self.build_sort = (rows, self.query, args, kw)
+                return orig(*args, **kw)
+            return rec
+        self._patch(tc, "radix_sort", radix)
         self._patch(m["misc"], "cross_product", cross)
         self._patch(tj, "unmatched_build", outer)
         self._patch(m["sort"], "distinct_step", distinct)
@@ -1105,8 +1144,7 @@ class Capture:
         return self
 
     def __exit__(self, *exc):
-        for mod, attr, orig in reversed(self._patches):
-            setattr(mod, attr, orig)
+        super().__exit__(*exc)
         self.k12 = self.m["codegen"].CAPTURE
         self.m["codegen"].CAPTURE = None
         return False
@@ -1399,7 +1437,7 @@ def measure_k6(torch, tc, th, args):
     n = valid.shape[0]
     perm = torch.randperm(n, device=h1.device)
     s1, s2 = h1[perm], h2[perm]
-    sort_ms = time_ms(lambda: tc.lex_perm([s1, s2]), torch)
+    k25_ms = time_ms(lambda: tc.lex_perm([s1, s2]), torch)
     # sorted hashes, keys, row_valid and contributions read once; the
     # first rows and out_cap slots per component written once (the
     # caller reads no per-row group id)
@@ -1410,7 +1448,7 @@ def measure_k6(torch, tc, th, args):
             "out_cap": out_cap, "keys": len(keys),
             "components": len(comps), "max_abs_err": max_abs, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "torch_sort_ms": sort_ms,
+            "k25_sort_ms": k25_ms,
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
@@ -1615,16 +1653,11 @@ def _topk_leading(torch, state, batch, n, keys, desc, nf):
 
 
 #: one PyTorch call that computes a composed form's function, where
-#: there is one: the live count as count_nonzero; a sort as one stable
-#: torch.sort of its leading key, a top-N as torch.topk of the leading
-#: key of state ++ batch (neither orders by the other keys or NULLs: a
-#: lower yardstick than the function). hashagg_merge and agg_finalize
-#: have none.
+#: there is one: the live count as count_nonzero. hashagg_merge and
+#: agg_finalize have none.
 COMPOSED_LIBRARY = {
     "agg_count _count_live":
         lambda torch, valid: lambda: torch.count_nonzero(valid),
-    "sort sort_batch": _sort_leading,
-    "topn topn_step": _topk_leading,
 }
 
 
@@ -1697,8 +1730,9 @@ def measure_k11(torch, tj, args):
 
 
 def measure_distinct(torch, tsort, args):
-    """The DISTINCT fold (K3 + sort + K6) at its largest call against
-    the same fold through the plain versions of K3 and K6."""
+    """The DISTINCT fold (K3 + K25 + K26 + K6) at its largest call
+    against the same fold through the plain versions of K3, K25, K26 and
+    K6."""
     state, batch = args
     got = tsort.distinct_step(*args)
     want = tsort.distinct_step_plain(*args)
@@ -1893,6 +1927,14 @@ KERNELS = {
                         "presto_tpu/execution/dynamic_filters.py:210"),
     "df_apply": ("cuda", "presto_tpu_torch/csrc/dynamic_filter.cu",
                  "presto_tpu/execution/dynamic_filters.py:242"),
+    "sort_encode": ("cuda", "presto_tpu_torch/csrc/sort_encode.cu",
+                    "presto_tpu/ops/common.py:232"),
+    "radix_sort": ("cuda", "presto_tpu_torch/csrc/radix_sort.cu",
+                   "presto_tpu/ops/common.py:100"),
+    "gather_rows": ("cuda", "presto_tpu_torch/csrc/gather_rows.cu",
+                    "presto_tpu/ops/sort.py:22"),
+    "limit_rank": ("cuda", "presto_tpu_torch/csrc/limit_rank.cu",
+                   "presto_tpu/ops/sort.py:87"),
 }
 #: the mesh path's kernels, measured there
 MESH_KERNELS = ("exchange_shuffle", "merge_pair")
@@ -1908,6 +1950,9 @@ WINDOW_KERNELS = ("window_segments", "window_frame_sum",
                   "window_frame_minmax", "window_emit")
 #: the array path's kernel, measured there
 ARRAY_KERNELS = ("array_collect",)
+#: the sort family's kernels, measured on the sort path (K25 at Q21's
+#: build on the TPC-H path)
+SORT_KERNELS = ("sort_encode", "radix_sort", "gather_rows", "limit_rank")
 
 #: queries run again with fusion off (their walls beside the fused ones)
 FUSION_OFF = ("q1", "q3", "q6", "q18")
@@ -1924,15 +1969,18 @@ K10_AT = ("q19", "q11", "q22", "q22_exists")
 MUST = {"q1": ("direct_slot_reduce", "fragment"),
         "q6": ("direct_slot_reduce", "compact", "fragment"),
         "q3": ("row_hash", "join_build", "join_probe", "join_expand",
-               "segment_reduce", "fragment"),
+               "segment_reduce", "fragment", "sort_encode", "radix_sort",
+               "gather_rows"),
         "q5": ("row_hash", "join_build", "join_probe", "join_expand",
-               "direct_slot_reduce", "fragment"),
+               "direct_slot_reduce", "fragment", "radix_sort",
+               "gather_rows"),
         "q13": ("row_hash", "join_build", "join_probe", "join_expand",
                 "segment_reduce", "fragment"),
         "q4": ("row_hash", "join_build", "semi_join",
                "direct_slot_reduce", "fragment"),
         "q16": ("join_probe", "join_expand", "semi_join",
-                "segment_reduce", "fragment"),
+                "segment_reduce", "fragment", "sort_encode", "radix_sort",
+                "gather_rows"),
         "q18": ("stream_reduce", "semi_join", "join_probe", "join_expand",
                 "segment_reduce", "fragment"),
         "q20": ("semi_join", "join_probe", "join_expand",
@@ -1943,7 +1991,8 @@ MUST = {"q1": ("direct_slot_reduce", "fragment"),
         "q22": ("cross_product", "semi_join", "fragment"),
         "q22_exists": ("cross_product", "semi_join", "fragment"),
         "full": ("join_expand", "join_outer", "fragment"),
-        "distinct": ("row_hash", "segment_reduce", "fragment"),
+        "distinct": ("row_hash", "segment_reduce", "fragment",
+                     "radix_sort", "gather_rows"),
         "union": ("row_hash", "segment_reduce", "fragment"),
         "q19": ("cross_product", "fragment"),
         "q19_live": ("cross_product", "fragment")}
@@ -1951,7 +2000,9 @@ MUST = {"q1": ("direct_slot_reduce", "fragment"),
 
 def run_phases(torch, np, mods, dev, schema, profile=True):
     """The tpch, profile and kernels phases on `dev`; returns the
-    per-kernel summary. `mods` holds the port's modules by short name."""
+    per-kernel summary, the path's launches of every kernel, and K25's
+    figures at its largest join build. `mods` holds the port's modules by
+    short name."""
     tb, tt, gen_module = mods["tb"], mods["tt"], mods["gen"]
     th, tc, tj, tk = mods["th"], mods["tc"], mods["tj"], mods["tk"]
     cg, ff = mods["codegen"], mods["ff"]
@@ -2141,7 +2192,8 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
           and set(K10_AT) <= set(cap.k10)
           and cap.expand_full is not None and cap.expand_full[1] == "full"
           and cap.k11 is not None and cap.k11[1] == "full"
-          and cap.distinct is not None and cap.distinct[1] == "distinct",
+          and cap.distinct is not None and cap.distinct[1] == "distinct"
+          and cap.build_sort is not None,
           "kernel inputs were not captured from the main path")
     k1 = {q: measure_k1(torch, th, cap.k1[q][1], q) for q in ("q1", "q6")}
     _, q6_batch, q6_cap = cap.k2["q6"]
@@ -2173,6 +2225,9 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
            for q in K10_AT}
     k11 = measure_k11(torch, tj, cap.k11[2])
     distinct = measure_distinct(torch, mods["sort"], cap.distinct[2])
+    # K25 at the largest join build, beside one stable torch.sort
+    build_sort = {**measure_radix_sort(torch, tc, *cap.build_sort[2:]),
+                  "shape_from": cap.build_sort[1]}
     composed = {label: (q, {**measure_composed(torch, fn, args),
                             "library_ms": composed_library_ms(
                                 torch, label, args)})
@@ -2263,9 +2318,12 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
                         for qq, c in calls.items()}})
     emit({"phase": "kernels", "kernel": "join_outer", "shape_from": "full",
           **k11})
-    emit({"phase": "kernels", "kernel": "distinct (K3 + sort + K6)",
+    emit({"phase": "kernels", "kernel": "distinct (K3 + K25 + K26 + K6)",
           "family": "distinct", "shape_from": "distinct", **distinct,
           "calls": {qq: c.get("distinct", 0) for qq, c in calls.items()}})
+    emit({"phase": "kernels", "kernel": "radix_sort", "role": "join build",
+          "family": "join_build", **build_sort,
+          "calls": {qq: c.get("join_build", 0) for qq, c in calls.items()}})
     # the composed forms with no hand-written kernel yet: time at the
     # largest call, byte bound, calls of the family per query
     for label, (q, m) in sorted(composed.items()):
@@ -2295,20 +2353,22 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
           "seconds": cg.COMPILES["seconds"],
           "in_cold_walls": {q: {"count": n, "s": sec}
                             for q, (n, sec) in compiles.items()}})
+    tpch_launches = {k: sum(v[k] for v in launches.values())
+                     for k in KERNELS}
     kernels = []
     for k, (route, src, replaces) in KERNELS.items():
         if k in WINDOW_KERNELS or k in ARRAY_KERNELS or k in MESH_KERNELS \
-                or k in SERVER_KERNELS:
+                or k in SERVER_KERNELS or k in SORT_KERNELS:
             continue
         m = measured[k]
         kernels.append({
             "name": k, "route": route, "source": src, "replaces": replaces,
             "family": tk.COUNTERS[k].family,
-            "launches": sum(v[k] for v in launches.values()),
+            "launches": tpch_launches[k],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": "bytes", "library_ms": m["library_ms"]})
-    return kernels
+    return kernels, tpch_launches, build_sort
 
 
 # -- the window and TPC-DS path (K13-K16, GroupId) ------------------------
@@ -2989,8 +3049,9 @@ def run_window_phases(torch, np, mods, dev, schema):
 ARR_ORDERS = """select orderkey, array_agg(partkey) p,
     array_agg(quantity) filter (where returnflag = 'R') rq
 from lineitem group by orderkey"""
+#: ordered, so K24-K26 carry its arrays' slot columns
 ARR_CUST = """select custkey, array_agg(orderkey) o, array_agg(totalprice) t
-from orders group by custkey"""
+from orders group by custkey order by custkey"""
 MAP_LINES = """select orderkey, map_agg(linenumber, extendedprice) m
 from lineitem where shipdate >= date '1995-01-01' group by orderkey"""
 UNNEST_BACK = """select count(*), sum(x) from (select array_agg(partkey) p
@@ -3021,7 +3082,8 @@ ARRAY_QUERIES = {"arr_orders": ARR_ORDERS, "arr_cust": ARR_CUST,
                  "ctas_arr": CTAS_ARR, "c6_group9": C6_GROUP,
                  "c6_join9": C6_JOIN, "c7_round": C7_ROUND}
 ARRAY_MUST = {"arr_orders": ("array_collect", "window_segments", "fragment"),
-              "arr_cust": ("array_collect", "window_segments"),
+              "arr_cust": ("array_collect", "window_segments", "sort_encode",
+                           "radix_sort", "gather_rows"),
               "map_lines": ("array_collect", "fragment"),
               "unnest_back": ("array_collect",),
               "ctas_arr": ("array_collect",),
@@ -3233,6 +3295,8 @@ def check_array_result(np, torch, label, res, want):
         check_collected(np, label, got, "orderkey", keys, p, "p")
         check_collected(np, label, got, "orderkey", keys, rq, "rq")
     elif label == "arr_cust":
+        check(bool(np.all(np.diff(got["custkey"][0]) > 0)),
+              f"{label}: rows not in custkey order")
         keys, o, t = want[label]
         check_collected(np, label, got, "custkey", keys, o, "o")
         check_collected(np, label, got, "custkey", keys, t, "t")
@@ -3444,6 +3508,331 @@ def run_array_phases(torch, np, mods, dev, schema):
     totals = {name: sum(launches[label][name] for label in ARRAY_QUERIES)
               for name in tk.COUNTERS}
     return m, totals
+
+
+# -- the sort family: ORDER BY, TopN, LIMIT (K24-K27) ------------------------
+
+#: the sort family's largest call: every lineitem in three-key order
+ORDER_LINES = """select orderkey, linenumber, extendedprice from lineitem
+order by extendedprice desc, orderkey, linenumber"""
+#: the same ORDER BY as a TopN: one topn step per 1,048,576-row batch
+TOPN_LINES = ORDER_LINES + "\nlimit 100"
+#: a bare LIMIT over five batches: K27 carries the emitted count
+LIMIT_SCAN = """select count(*) from (select orderkey from lineitem
+limit 5000000)"""
+SORT_QUERIES = {"order_lines": ORDER_LINES, "topn_lines": TOPN_LINES,
+                "limit_scan": LIMIT_SCAN}
+SORT_MUST = {"order_lines": ("sort_encode", "radix_sort", "gather_rows"),
+             "topn_lines": ("sort_encode", "radix_sort", "gather_rows"),
+             "limit_scan": ("limit_rank",)}
+LIMIT_SCAN_ROWS = 5_000_000
+TOPN_ROWS = 100
+
+
+def _cumsum_mask(torch, batch, n, emitted):
+    valid = batch.row_valid
+    return lambda: torch.cumsum(valid, 0)
+
+
+#: the family-level forms timed on this path: label -> (family, the
+#: function in ops/sort.py, its library yardstick: one stable torch.sort
+#: of the leading key, torch.topk of the leading key of state ++ batch
+#: (neither orders by the other keys or NULLs), the mask's cumsum)
+SORT_FAMILIES = {"sort sort_batch": ("sort", "sort_batch", _sort_leading),
+                 "topn topn_step": ("topn", "topn_step", _topk_leading),
+                 "limit limit_batch": ("limit", "limit_batch", _cumsum_mask)}
+
+
+def sort_oracle(np, gen_module, schema):
+    """The lineitem columns ORDER_LINES reads and their order under its
+    ORDER BY (np.lexsort: extendedprice descending, then orderkey, then
+    linenumber, which leaves no ties)."""
+    gen = gen_module.TpchGenerator(gen_module.TpchConnector.SCHEMAS[schema])
+    li = lineitem_table(np, gen, ("orderkey", "linenumber", "extendedprice"))
+    order = np.lexsort((li["linenumber"], li["orderkey"],
+                        -li["extendedprice"]))
+    return li, order
+
+
+def check_sort_result(np, label, cols, li, order):
+    if label == "limit_scan":
+        data, mask = next(iter(cols.values()))
+        check(len(data) == 1 and bool(mask[0])
+              and int(data[0]) == LIMIT_SCAN_ROWS,
+              f"limit_scan counted {data.tolist()}, not {LIMIT_SCAN_ROWS}")
+        return
+    take = order if label == "order_lines" else order[:TOPN_ROWS]
+    for c in ("orderkey", "linenumber", "extendedprice"):
+        data, mask = cols[c]
+        want = li[c][take]
+        check(len(data) == len(want) and bool(mask.all()),
+              f"{label}: {len(data)} rows of {c}, {len(want)} expected")
+        same = np.allclose(data, want, rtol=1e-6, atol=0) \
+            if c == "extendedprice" else np.array_equal(
+                data.astype(np.int64), want.astype(np.int64))
+        if not same:
+            bad = int(np.argmax(data != want))
+            check(False, f"{label}: {c} differs from the oracle at row "
+                  f"{bad}: {data[bad]} vs {want[bad]}")
+
+
+class SortCapture(Patches):
+    """Keeps the inputs of the largest call of K24-K27 and of the sort
+    family's functions during one run of the sort queries (references:
+    their inputs are not written after the call)."""
+
+    def __init__(self, mods):
+        super().__init__()
+        self.m = mods
+        self.big = {}
+        self.query = None
+
+    def _wrap(self, mod, attr, rows_fn):
+        def make(orig):
+            def rec(*args, **kw):
+                rows = rows_fn(*args, **kw)
+                if rows > self.big.get(attr, (0,))[0]:
+                    self.big[attr] = (rows, self.query, args, kw)
+                return orig(*args, **kw)
+            return rec
+        self._patch(mod, attr, make)
+
+    def __enter__(self):
+        tc, tsort = self.m["tc"], self.m["sort"]
+        self._wrap(tc, "sort_encode", lambda parts, *a, **k: sum(
+            (v if v is not None else c[0][0]).shape[0] for c, v in parts))
+        self._wrap(tc, "radix_sort", lambda words, *a, **k:
+                   tc._word_list(words)[0].shape[0])
+        self._wrap(tc, "gather_rows", lambda parts, perm, *a, **k:
+                   perm.shape[0])
+        self._wrap(tsort, "limit_rank", lambda valid, *a: valid.shape[0])
+        self._wrap(tsort, "sort_batch", lambda b, *a: b.capacity)
+        self._wrap(tsort, "topn_step", lambda st, b, *a:
+                   st.capacity + b.capacity)
+        self._wrap(tsort, "limit_batch", lambda b, *a: b.capacity)
+        return self
+
+
+class PlainSort(Patches):
+    """Inside: K24-K27's wrappers are their plain versions (the yardstick
+    of a sort-family function: the same function, plain steps)."""
+
+    def __init__(self, mods):
+        super().__init__()
+        self.m = mods
+
+    def __enter__(self):
+        tc, tsort = self.m["tc"], self.m["sort"]
+        for mod, attr in ((tc, "sort_encode"), (tc, "radix_sort"),
+                          (tc, "gather_rows"), (tsort, "limit_rank")):
+            plain = getattr(mod, attr + "_plain")
+            self._patch(mod, attr, lambda orig, plain=plain: plain)
+        return self
+
+
+def _parts_bytes(parts) -> int:
+    return sum(nbytes(d) + (0 if m is None else nbytes(m))
+               for cols, _ in parts for d, m in cols) \
+        + sum(nbytes(v) for _, v in parts if v is not None)
+
+
+def measure_sort_encode(torch, tc, args, kw):
+    got = tc.sort_encode(*args, **kw)
+    want = tc.sort_encode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "K24 sort_encode: words or digit masks differ from its plain "
+          "version")
+    ms = time_ms(lambda: tc.sort_encode(*args, **kw), torch)
+    plain_ms = time_ms(lambda: tc.sort_encode_plain(*args, **kw), torch)
+    words, digits = got
+    # keys, masks and row_valid read once; the words and masks written
+    moved = _parts_bytes(args[0]) + nbytes(words, digits)
+    return {"rows": words.shape[1], "keys": len(args[0][0][0]),
+            "sources": len(args[0]), "words": words.shape[0],
+            "varying_digits": [int(x) for x in digits.tolist()],
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+def measure_radix_sort(torch, tc, args, kw):
+    got = tc.radix_sort(*args, **kw)
+    want = tc.radix_sort_plain(*args, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]) and (
+        got[1] is None) == (want[1] is None) and (
+            got[1] is None or torch.equal(got[1], want[1])),
+          "K25 radix_sort: the permutation or the sorted words differ from "
+          "its plain version")
+    ms = time_ms(lambda: tc.radix_sort(*args, **kw), torch)
+    plain_ms = time_ms(lambda: tc.radix_sort_plain(*args, **kw), torch)
+    wl = tc._word_list(args[0])
+    flip = kw.get("flip", False)
+    # one stable torch.sort of the leading word (signed order; the only
+    # word at a join build)
+    lead = wl[0] if flip else wl[0] ^ torch.iinfo(torch.int64).min
+    library_ms = time_ms(lambda: torch.sort(lead, stable=True), torch)
+    digits = args[1] if len(args) > 1 else kw.get("digits")
+    masks = [0xFF] * len(wl) if digits is None else digits.tolist()
+    n = wl[0].shape[0]
+    # every key word read once; the permutation (and the sorted word 0)
+    # written once
+    moved = 8 * n * len(wl) + 8 * n * (2 if kw.get("sorted_first") else 1)
+    return {"rows": n, "words": len(wl),
+            "passes": len(tc.radix_passes(masks)),
+            "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+def measure_gather_rows(torch, tc, args, kw):
+    parts, perm = args[0], args[1]
+    got = tc.gather_rows(*args, **kw)
+    want = tc.gather_rows_plain(*args, **kw)
+    torch.cuda.synchronize()
+    same = (got[1] is None) == (want[1] is None) and (
+        got[1] is None or torch.equal(got[1], want[1]))
+    for (gd, gm), (wd, wm) in zip(got[0], want[0]):
+        same = same and torch.equal(gd, wd) if not gd.is_floating_point() \
+            else same and torch.equal(gd.view(torch.uint8),
+                                      wd.view(torch.uint8))
+        same = same and ((gm is None and wm is None) or torch.equal(gm, wm))
+    check(same, "K26 gather_rows differs from its plain version")
+    ms = time_ms(lambda: tc.gather_rows(*args, **kw), torch)
+    plain_ms = time_ms(lambda: tc.gather_rows_plain(*args, **kw), torch)
+    rows = got[0][0][0].shape[0] if got[0] else perm.shape[0]
+    library_ms = None
+    if len(parts) == 1:
+        p = perm[:rows]
+        arrays = [t for d, m in parts[0][0] for t in (d, m) if t is not None]
+        if parts[0][1] is not None:
+            arrays.append(parts[0][1])
+        library_ms = time_ms(lambda: [t.index_select(0, p) for t in arrays],
+                             torch)
+    # the permutation's rows read once; every output element written
+    # once and its input element read once
+    out_bytes = sum(nbytes(d) + (0 if m is None else nbytes(m))
+                    for d, m in got[0]) + (0 if got[1] is None
+                                           else nbytes(got[1]))
+    moved = 8 * rows + 2 * out_bytes
+    return {"rows": rows, "arrays": sum(1 + (m is not None)
+                                        for d, m in got[0])
+            + (got[1] is not None), "sources": len(parts),
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+def measure_limit_rank(torch, tsort, args, kw):
+    valid, n, emitted = args
+    got = tsort.limit_rank(*args)
+    want = tsort.limit_rank_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]) and int(got[1]) == int(want[1]),
+          "K27 limit_rank differs from its plain version")
+    ms = time_ms(lambda: tsort.limit_rank(*args), torch)
+    plain_ms = time_ms(lambda: tsort.limit_rank_plain(*args), torch)
+    library_ms = time_ms(lambda: torch.cumsum(valid, 0), torch)
+    rows = valid.shape[0]
+    # row_valid read once, keep written once, the two counts
+    moved = 2 * rows + 16
+    return {"rows": rows, "live": int(valid.sum()), "limit": int(n),
+            "emitted_before": int(emitted), "kept": int(want[0].sum()),
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+def measure_sort_family(torch, mods, label, args):
+    """A sort-family function at its largest call: its time (K24-K27),
+    the same function with the kernels' plain versions, the library
+    yardstick, and the bytes its arguments and new outputs hold."""
+    _, fn_name, library = SORT_FAMILIES[label]
+    fn = getattr(mods["sort"], fn_name)
+    m = measure_composed(torch, fn, args)
+    with PlainSort(mods):
+        m["plain_ms"] = time_ms(lambda: fn(*args), torch)
+    m["library_ms"] = time_ms(library(torch, *args), torch)
+    return m
+
+
+def run_sort_phases(torch, np, mods, dev, schema):
+    """The sort path: SORT_QUERIES at `schema` through LocalRunner, each
+    against the numpy oracle, with cold and warm walls, every kernel's
+    launches and a profile of one warm execution; K24-K27 at their
+    largest calls against their plain
+    versions, and sort_batch, topn_step and limit_batch against the same
+    functions through the plain versions. Returns ({kernel:
+    measurement}, {kernel: launches on this path})."""
+    tk = mods["tk"]
+    t = time.perf_counter()
+    li, order = sort_oracle(np, mods["gen"], schema)
+    emit({"phase": "sort_oracle", "seconds": time.perf_counter() - t,
+          "lineitem_rows": len(order)})
+    runner = mods["LocalRunner"]("tpch", schema, properties=PROPS,
+                                 device=dev)
+    counters = list(tk.COUNTERS.values())
+    launches, calls = {}, {}
+    for label, sql in SORT_QUERIES.items():
+        for c in counters:
+            c.launches = 0
+        before = dict(tk.CALLS)
+        t = time.perf_counter()
+        cols = result_columns(torch, np, runner.execute(sql))
+        cold = time.perf_counter() - t
+        launches[label] = {c.name: c.launches for c in counters}
+        calls[label] = {f: n - before.get(f, 0) for f, n in tk.CALLS.items()
+                        if n - before.get(f, 0)}
+        check_sort_result(np, label, cols, li, order)
+        for k in SORT_MUST[label]:
+            check(launches[label][k] > 0, f"{k} was not launched in {label}")
+        t = time.perf_counter()
+        result_columns(torch, np, runner.execute(sql))
+        warm = time.perf_counter() - t
+        emit({"phase": "sort", "query": label, "schema": schema,
+              "batch_rows": PROPS["batch_rows"],
+              "rows": len(next(iter(cols.values()))[0]),
+              "matches_oracle": True, "launches": launches[label],
+              "family_calls": calls[label], "cold_s": cold,
+              "warm_s": warm,
+              "lineitem_rows": len(order)})
+    # where a warm query's time goes
+    for label, sql in SORT_QUERIES.items():
+        emit({"phase": "profile", "query": label,
+              **profile_query(torch, mods["gen"], runner, sql,
+                              read=lambda r: result_columns(torch, np, r))})
+    with SortCapture(mods) as cap:
+        for label, sql in SORT_QUERIES.items():
+            cap.query = label
+            result_columns(torch, np, runner.execute(sql))
+    check(set(cap.big) == {"sort_encode", "radix_sort", "gather_rows",
+                           "limit_rank", "sort_batch", "topn_step",
+                           "limit_batch"},
+          f"sort inputs were not captured: {sorted(cap.big)}")
+    measure = {"sort_encode": measure_sort_encode,
+               "radix_sort": measure_radix_sort,
+               "gather_rows": measure_gather_rows}
+    measured = {}
+    for name in SORT_KERNELS:
+        _, q, args, kw = cap.big[name]
+        m = measure_limit_rank(torch, mods["sort"], args, kw) \
+            if name == "limit_rank" else measure[name](torch, mods["tc"],
+                                                       args, kw)
+        measured[name] = m
+        emit({"phase": "kernels", "kernel": name, "shape_from": q, **m,
+              "launches": {label: launches[label][name]
+                           for label in SORT_QUERIES}})
+    for label, (family, fn_name, _) in SORT_FAMILIES.items():
+        _, q, args, _ = cap.big[fn_name]
+        emit({"phase": "kernels", "kernel": label, "family": family,
+              "shape_from": q, **measure_sort_family(torch, mods, label,
+                                                     args),
+              "calls": {lbl: calls[lbl].get(family, 0)
+                        for lbl in SORT_QUERIES}})
+    totals = {name: sum(launches[label].get(name, 0)
+                        for label in SORT_QUERIES)
+              for name in tk.COUNTERS}
+    return measured, totals
 
 
 # -- the mesh path (K18, K19) ----------------------------------------------
@@ -4180,27 +4569,34 @@ def main() -> int:
     check(torch.cuda.get_device_capability(0) >= (9, 0),
           "the kernels are built for sm_90a")
 
-    kernels = run_phases(torch, np, mods, dev, SCHEMA)
+    kernels, tpch_launches, build_sort = run_phases(torch, np, mods, dev,
+                                                    SCHEMA)
+    sort, sort_launches = run_sort_phases(torch, np, mods, dev, SCHEMA)
     window, window_launches = run_window_phases(torch, np, mods, dev,
                                                 SCHEMA)
     k17, array_launches = run_array_phases(torch, np, mods, dev, SCHEMA)
     mesh, mesh_launches = run_mesh_phases(torch, np, mods, dev, SCHEMA)
     server, server_launches = run_server_phases(torch, np, mods, dev,
                                                 SCHEMA)
+    # K25's figures are those of its largest call: Q21's lineitem build
+    sort["radix_sort"] = build_sort
     for k in kernels:
         k["launches"] += window_launches[k["name"]] \
             + array_launches[k["name"]] + mesh_launches[k["name"]] \
-            + server_launches[k["name"]]
+            + server_launches[k["name"]] + sort_launches[k["name"]]
     for kname, m in [(n, window[n]) for n in WINDOW_KERNELS] \
             + [(n, k17) for n in ARRAY_KERNELS] \
             + [(n, mesh[n]) for n in MESH_KERNELS] \
-            + [(n, server[n]) for n in SERVER_KERNELS]:
+            + [(n, server[n]) for n in SERVER_KERNELS] \
+            + [(n, sort[n]) for n in SORT_KERNELS]:
         route, src, replaces = KERNELS[kname]
         kernels.append({
             "name": kname, "route": route, "source": src,
             "replaces": replaces, "family": tk.COUNTERS[kname].family,
             "launches": window_launches[kname] + array_launches[kname]
-            + mesh_launches[kname] + server_launches[kname],
+            + mesh_launches[kname] + server_launches[kname]
+            + sort_launches[kname]
+            + (tpch_launches[kname] if kname in SORT_KERNELS else 0),
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": "bytes", "library_ms": m["library_ms"]})

@@ -347,15 +347,19 @@ def compact_shrink_plain(batch: Batch, capacity: int) -> Batch:
     return Batch(cols, live)
 
 
+#: most columns one K2 launch moves (csrc/compact.cu MAX_COLS)
+COMPACT_MAX_COLS = 64
+
+
 def _compact_cuda(batch: Batch, out_cap: int, shrink: bool) -> Batch:
     """Launch csrc/compact.cu. In-bounds, contiguous 1-D columns of
-    1/2/4/8-byte dtypes only; anything else raises."""
+    1/2/4/8-byte dtypes only; anything else raises. More than
+    COMPACT_MAX_COLS columns (an array's slot columns) take several
+    launches, each computing the same destinations."""
     from presto_tpu_torch.native import cuda
     n = batch.capacity
     dev = batch.device
     cols = list(batch.columns.items())
-    if len(cols) > 64:
-        raise ValueError(f"compact kernel: {len(cols)} columns > 64")
     tensors = [batch.row_valid] + [t for _, c in cols
                                    for t in (c.data, c.mask)]
     for t in tensors:
@@ -379,23 +383,26 @@ def _compact_cuda(batch: Batch, out_cap: int, shrink: bool) -> Batch:
     out_rv = torch.empty(out_cap, dtype=torch.bool, device=dev)
     ntiles = lib.presto_compact_tiles(ctypes.c_int64(n))
     scratch = torch.empty(2 * ntiles + 1, dtype=torch.int32, device=dev)
-    k = len(cols)
-    P = ctypes.c_int64 * max(k, 1)
-    data = P(*[c.data.data_ptr() for _, c in cols])
-    mask = P(*[c.mask.data_ptr() for _, c in cols])
-    odata = P(*[out_cols[nm].data.data_ptr() for nm, _ in cols])
-    omask = P(*[out_cols[nm].mask.data_ptr() for nm, _ in cols])
-    widths = (ctypes.c_int32 * max(k, 1))(
-        *[c.data.element_size() for _, c in cols])
-    status = lib.presto_compact(
-        data, mask, odata, omask, widths, ctypes.c_int32(k),
-        ctypes.c_void_p(batch.row_valid.data_ptr()),
-        ctypes.c_void_p(out_rv.data_ptr()), ctypes.c_int64(n),
-        ctypes.c_int64(out_cap), ctypes.c_int32(int(shrink)),
-        ctypes.c_void_p(scratch.data_ptr()),
-        ctypes.c_void_p(cuda.stream_ptr(dev)))
-    cuda.check(lib, status, "compact")
-    COMPACT_KERNEL.launches += 1
+    runs = [cols[lo:lo + COMPACT_MAX_COLS]
+            for lo in range(0, len(cols), COMPACT_MAX_COLS)] or [cols]
+    for run in runs:
+        k = len(run)
+        P = ctypes.c_int64 * max(k, 1)
+        data = P(*[c.data.data_ptr() for _, c in run])
+        mask = P(*[c.mask.data_ptr() for _, c in run])
+        odata = P(*[out_cols[nm].data.data_ptr() for nm, _ in run])
+        omask = P(*[out_cols[nm].mask.data_ptr() for nm, _ in run])
+        widths = (ctypes.c_int32 * max(k, 1))(
+            *[c.data.element_size() for _, c in run])
+        status = lib.presto_compact(
+            data, mask, odata, omask, widths, ctypes.c_int32(k),
+            ctypes.c_void_p(batch.row_valid.data_ptr()),
+            ctypes.c_void_p(out_rv.data_ptr()), ctypes.c_int64(n),
+            ctypes.c_int64(out_cap), ctypes.c_int32(int(shrink)),
+            ctypes.c_void_p(scratch.data_ptr()),
+            ctypes.c_void_p(cuda.stream_ptr(dev)))
+        cuda.check(lib, status, "compact")
+        COMPACT_KERNEL.launches += 1
     return Batch(out_cols, out_rv)
 
 

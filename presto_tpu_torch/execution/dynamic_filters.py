@@ -283,11 +283,11 @@ def distinct_set(data: torch.Tensor, mask: torch.Tensor):
 def distinct_set_plain(data: torch.Tensor, mask: torch.Tensor):
     """K22's plain version: one sort (dead lanes after live ones) +
     boundary dedupe, packed into DF_SET_MAX slots."""
-    from presto_tpu_torch.ops.common import lex_perm, partition_perm
+    from presto_tpu_torch.ops.common import lex_perm_plain, partition_perm
     info = _ident(data.dtype)
     if data.dtype.is_floating_point:
         mask = mask & ~torch.isnan(data)
-    perm = lex_perm([~mask, data])
+    perm = lex_perm_plain([~mask, data])
     sk, sv = data[perm], mask[perm]
     first = torch.ones_like(sv)
     first[1:] = (sk[1:] != sk[:-1]) | (sv[1:] != sv[:-1])

@@ -53,9 +53,14 @@ SOURCES = {
     "merge_pair": "merge_pair.cu",
     "exchange_partition": "exchange_partition.cu",
     "dynamic_filter": "dynamic_filter.cu",
+    "sort_encode": "sort_encode.cu",
+    "radix_sort": "radix_sort.cu",
+    "gather_rows": "gather_rows.cu",
+    "limit_rank": "limit_rank.cu",
 }
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+_U64 = ctypes.c_uint64
 #: C entry points per family: name -> (restype, argtypes). Pointer
 #: arrays (host arrays of device addresses) are passed as void*.
 SIGNATURES = {
@@ -180,6 +185,30 @@ SIGNATURES = {
         "presto_apply_filter": (
             ctypes.c_int, [_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P,
                            _I32, _P, _P]),
+    },
+    "sort_encode": {
+        "presto_sort_max_keys": (ctypes.c_int, []),
+        "presto_sort_max_words": (ctypes.c_int, []),
+        "presto_sort_encode": (
+            ctypes.c_int, [_P] * 10 + [_I32, _P, _P, _I32, _I32, _I64, _I64,
+                                       _P, _P, _P, _P]),
+    },
+    "radix_sort": {
+        "presto_radix_tile": (ctypes.c_int, []),
+        "presto_radix_sort": (
+            ctypes.c_int, [_P, _I32, _I64, _U64, _P, _I32, _P, _P, _P, _P,
+                           _P, _P, _P]),
+    },
+    "gather_rows": {
+        "presto_gather_max_arrays": (ctypes.c_int, []),
+        "presto_gather_rows": (
+            ctypes.c_int, [_P, _P, _P, _P, _P, _I32, _P, _I64, _I64, _P, _P,
+                           _P, _P, _P]),
+    },
+    "limit_rank": {
+        "presto_limit_tiles": (ctypes.c_int, [_I64]),
+        "presto_limit_rank": (
+            ctypes.c_int, [_P, _I64, _I64, _P, _P, _P, _P, _P, _P]),
     },
 }
 

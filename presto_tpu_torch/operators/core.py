@@ -245,8 +245,7 @@ class LimitOperator(Operator):
         compiler runs the upstream chain first
         (operators/fused_fragment.py); the early-termination protocol
         around it is shared."""
-        out = sort_ops.limit_batch(batch, self._n, self._emitted)
-        return out, self._emitted + out.row_valid.sum()
+        return sort_ops.limit_batch(batch, self._n, self._emitted)
 
     def add_input(self, batch: Batch) -> None:
         self._count_in(batch)

@@ -263,9 +263,8 @@ class FusedLimitOperator(LimitOperator):
         self._body = body
 
     def _step(self, batch: Batch):
-        out = sort_kernels.limit_batch(self._body(batch), self._n,
-                                       self._emitted)
-        return out, self._emitted + out.row_valid.sum()
+        return sort_kernels.limit_batch(self._body(batch), self._n,
+                                        self._emitted)
 
 
 class FusedLimitOperatorFactory(OperatorFactory):

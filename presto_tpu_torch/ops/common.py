@@ -318,8 +318,22 @@ def search_iters(max_span: int) -> int:
 
 
 def lex_perm(sort_ops: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Stable permutation ordering rows by `sort_ops` (most significant
-    first)."""
+    """Stable permutation ordering rows by int64 `sort_ops` (most
+    significant first; the (h1, h2) hashes of the sort-based grouping).
+    On CUDA tensors K25 sorts them as its words, signed; on CPU tensors
+    the plain version, `lex_perm_plain`. Keys of other types are
+    ordered through `sort_rows`."""
+    if any(op.dtype != torch.int64 for op in sort_ops):
+        raise ValueError("lex_perm sorts int64 words; got "
+                         f"{[str(op.dtype) for op in sort_ops]} (order "
+                         "other keys with sort_rows)")
+    if sort_ops[0].device.type == "cpu":
+        return lex_perm_plain(sort_ops)
+    return radix_sort([op.contiguous() for op in sort_ops], flip=True)[0]
+
+
+def lex_perm_plain(sort_ops: Sequence[torch.Tensor]) -> torch.Tensor:
+    """`lex_perm` by stable torch.sort passes, on any device."""
     return _stable_order(sort_ops)
 
 
@@ -376,6 +390,452 @@ def _stable_order(sort_ops: Sequence[torch.Tensor]) -> torch.Tensor:
     return perm
 
 
+# -- the sort: K24 sort_encode, K25 radix_sort, K26 gather_rows ----------
+#
+# The reference sorts with one variadic `lax.sort` that carries every
+# column (presto_tpu/ops/common.py:100, :232). On the card the same
+# result comes from three kernels in a fixed order: K24 turns a row's
+# sort operands into unsigned key words whose order is the operands'
+# lexicographic order, K25 sorts the words stably and returns the
+# permutation, K26 moves every column through it in one launch. On CPU
+# tensors each wrapper runs its plain version.
+
+#: launches of the CUDA key-encoding kernel (csrc/sort_encode.cu)
+SORT_ENCODE_KERNEL = _tk.LaunchCounter("sort_encode", "sort")
+#: launches of the CUDA radix sort (csrc/radix_sort.cu)
+RADIX_SORT_KERNEL = _tk.LaunchCounter("radix_sort", "sort")
+#: launches of the CUDA row gather (csrc/gather_rows.cu)
+GATHER_ROWS_KERNEL = _tk.LaunchCounter("gather_rows", "sort")
+
+#: key dtype -> (code of csrc/sort_encode.cu `SortDtype`, bits of its
+#: value code)
+SORT_DTYPES = {torch.bool: (0, 1), torch.int8: (1, 8), torch.int16: (2, 16),
+               torch.int32: (3, 32), torch.int64: (4, 64),
+               torch.float32: (5, 32), torch.float64: (6, 64)}
+#: most keys one K24 launch encodes, and most words it writes
+#: (csrc/sort_encode.cu MAX_SORT_KEYS, MAX_WORDS)
+SORT_MAX_KEYS = 32
+SORT_MAX_WORDS = 64
+#: most rows K25 sorts: it carries a 32-bit row index
+RADIX_MAX_ROWS = (1 << 31) - 1
+#: most arrays (a column's data, its mask) one K26 launch moves
+GATHER_MAX_ARRAYS = 64
+
+_I64_MIN = torch.iinfo(torch.int64).min
+_I64_MAX = torch.iinfo(torch.int64).max
+
+#: one source of rows for K24 and K26: (columns, row_valid or None), a
+#: column being (data, mask or None)
+SortPart = Tuple[Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]],
+                 Optional[torch.Tensor]]
+
+
+def sort_pack_plan(widths: Sequence[int]) -> Tuple[List[int], int]:
+    """The bit position of each operand, counted from the most
+    significant bit of word 0, with the operands back to back in order
+    (one may straddle two words), and the number of 64-bit words."""
+    pos, p = [], 0
+    for w in widths:
+        pos.append(p)
+        p += w
+    return pos, max(1, -(-p // 64))
+
+
+def radix_passes(digits: Sequence[int]) -> List[Tuple[int, int]]:
+    """K25's passes, least significant first: (word, shift) for each
+    8-bit digit, words from the last to the first and digits from the
+    low byte up. A digit whose bit is clear in its word's mask of
+    varying digits (`digits[w]`, bit d for byte d) is left out: it is
+    the same on every row."""
+    return [(w, 8 * d) for w in reversed(range(len(digits)))
+            for d in range(8) if (digits[w] >> d) & 1]
+
+
+def _sort_layout(has_valid: bool, keys_meta: Sequence[Tuple[torch.dtype,
+                                                             bool]]):
+    """(bit position of ~row_valid or -1, per key (position of its null
+    rank or -1, position of its value, value bits), words) for keys of
+    the given (dtype, has a mask)."""
+    widths = [1] if has_valid else []
+    for dt, has_mask in keys_meta:
+        if dt not in SORT_DTYPES:
+            raise ValueError(f"sort_encode: no sort code for a {dt} key "
+                             f"(codes exist for "
+                             f"{sorted(str(d) for d in SORT_DTYPES)})")
+        widths += ([1] if has_mask else []) + [SORT_DTYPES[dt][1]]
+    pos, nwords = sort_pack_plan(widths)
+    it = iter(pos)
+    pos_valid = next(it) if has_valid else -1
+    keys = []
+    for dt, has_mask in keys_meta:
+        rank = next(it) if has_mask else -1
+        keys.append((rank, next(it), SORT_DTYPES[dt][1]))
+    if nwords > SORT_MAX_WORDS:
+        raise ValueError(f"sort_encode: {nwords} key words, at most "
+                         f"{SORT_MAX_WORDS}")
+    return pos_valid, keys, nwords
+
+
+def _concat_parts(parts: Sequence[SortPart]):
+    """The columns and row_valid of one or two sources as one (the
+    second's data cast to the first's dtypes), for the plain versions."""
+    cols, valid = parts[0]
+    if len(parts) == 1:
+        return list(cols), valid
+    cols2, valid2 = parts[1]
+    out = [(torch.cat([d, d2.to(d.dtype)]),
+            None if m is None else torch.cat([m, m2]))
+           for (d, m), (d2, m2) in zip(cols, cols2)]
+    return out, None if valid is None else torch.cat([valid, valid2])
+
+
+def _value_code(data: torch.Tensor, mask: Optional[torch.Tensor],
+                desc: bool) -> torch.Tensor:
+    """The order-preserving unsigned code of a key's canonical value (see
+    `key_sort_ops`), as int64 bits: the value negated under DESC with the
+    reference's wrap, 0 for NULL, integers with the sign bit flipped in
+    their width, floats by the usual transform with every NaN coded
+    above +inf and -0.0 as +0.0 (float32 in 32 bits)."""
+    sv = _negate_for_desc(data) if desc else data
+    if data.dtype == torch.float32:
+        sv = sv.to(torch.float32)  # -x is exact in float32
+    if mask is not None:
+        sv = torch.where(mask, sv, torch.zeros_like(sv))
+    if sv.dtype == torch.bool:
+        return sv.to(torch.int64)
+    if sv.dtype == torch.float32:
+        b = sv.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        b = torch.where((b & 0x7FFFFFFF) == 0, torch.zeros_like(b), b)
+        code = torch.where((b & 0x80000000) != 0, ~b & 0xFFFFFFFF,
+                           b | 0x80000000)
+        return torch.where(torch.isnan(sv), torch.full_like(b, 0xFFFFFFFF),
+                           code)
+    if sv.dtype == torch.float64:
+        b = sv.contiguous().view(torch.int64)
+        b = torch.where((b & _I64_MAX) == 0, torch.zeros_like(b), b)
+        code = torch.where(b < 0, ~b, b ^ _I64_MIN)
+        return torch.where(torch.isnan(sv), torch.full_like(b, -1), code)
+    bits = SORT_DTYPES[sv.dtype][1]
+    if bits == 64:
+        return sv ^ _I64_MIN
+    return sv.to(torch.int64) + (1 << (bits - 1))
+
+
+def _place(words: torch.Tensor, code: torch.Tensor, width: int,
+           pos: int) -> None:
+    """OR a `width`-bit code into the words at bit `pos` (from the most
+    significant bit of word 0), split across two words where it
+    straddles them (csrc/sort_encode.cu `Packer::put`)."""
+    w, room = pos >> 6, 64 - (pos & 63)
+    if width <= room:
+        words[w] |= code << (room - width)
+    else:
+        words[w] |= _lshr(code, width - room)
+        words[w + 1] |= code << (64 - (width - room))
+
+
+def _vary_digits(words: torch.Tensor) -> torch.Tensor:
+    """Per word, an 8-bit mask of the bytes that are not the same on
+    every row."""
+    if words.shape[1] == 0:
+        return torch.zeros(words.shape[0], dtype=torch.int64,
+                           device=words.device)
+    x = words ^ words[:, :1]
+    vary = torch.stack([((x >> (8 * d)) & 0xFF).ne(0).any(dim=1)
+                        for d in range(8)], dim=1).to(torch.int64)
+    return (vary << torch.arange(8, device=words.device)).sum(dim=1)
+
+
+def sort_encode_plain(parts: Sequence[SortPart],
+                      descending: Sequence[bool],
+                      nulls_first: Sequence[bool]):
+    """Plain version of K24: (words [W, n] int64 holding the unsigned
+    key words bit for bit, per-word masks of varying digits [W])."""
+    keys, valid = _concat_parts(parts)
+    pos_valid, layout, nwords = _sort_layout(
+        valid is not None, [(d.dtype, m is not None) for d, m in keys])
+    n = (valid if valid is not None else keys[0][0]).shape[0]
+    dev = (valid if valid is not None else keys[0][0]).device
+    words = torch.zeros((nwords, n), dtype=torch.int64, device=dev)
+    if valid is not None:
+        _place(words, (~valid).to(torch.int64), 1, pos_valid)
+    for (data, mask), (rank, vpos, width), d, nf in zip(
+            keys, layout, descending, nulls_first):
+        if mask is not None:
+            _place(words, (mask if nf else ~mask).to(torch.int64), 1, rank)
+        _place(words, _value_code(data, mask, d), width, vpos)
+    return words, _vary_digits(words)
+
+
+def _ptrs(ts) -> "ctypes.Array":
+    return (ctypes.c_int64 * max(len(ts), 1))(
+        *[0 if t is None else t.data_ptr() for t in ts])
+
+
+def _i32s(xs) -> "ctypes.Array":
+    return (ctypes.c_int32 * max(len(xs), 1))(*xs)
+
+
+def _check_part_cols(parts: Sequence[SortPart], dev, what: str):
+    """Raise unless every column and row_valid of the sources is a 1-D
+    tensor on `dev` of its source's rows (made contiguous here); the
+    second source's data cast to the first's dtypes. Returns (columns
+    per source, row_valid per source, rows per source)."""
+    if not 1 <= len(parts) <= 2:
+        raise ValueError(f"{what}: one or two sources, got {len(parts)}")
+    out_cols, out_valid, rows = [], [], []
+    for i, (cols, valid) in enumerate(parts):
+        n = (valid if valid is not None else
+             cols[0][0] if cols else None)
+        if n is None:
+            raise ValueError(f"{what}: a source with no column and no "
+                             "row_valid")
+        n = n.shape[0]
+        if valid is not None:
+            valid = valid.contiguous()
+            check_rows(valid, n, dev, (torch.bool,), f"{what}: row_valid")
+        fixed = []
+        for j, (d, m) in enumerate(cols):
+            if i:
+                d = d.to(parts[0][0][j][0].dtype)
+            d = d.contiguous()
+            check_rows(d, n, dev, tuple(SORT_DTYPES), f"{what}: column {j}")
+            if m is not None:
+                m = m.contiguous()
+                check_rows(m, n, dev, (torch.bool,), f"{what}: mask {j}")
+            fixed.append((d, m))
+        out_cols.append(fixed)
+        out_valid.append(valid)
+        rows.append(n)
+    if len(parts) == 2 and (
+            len(out_cols[0]) != len(out_cols[1])
+            or (out_valid[0] is None) != (out_valid[1] is None)
+            or any((a[1] is None) != (b[1] is None)
+                   for a, b in zip(*out_cols))):
+        raise ValueError(f"{what}: the two sources differ in their "
+                         "columns, masks or row_valid")
+    return out_cols, out_valid, rows
+
+
+def _sort_encode_cuda(parts, descending, nulls_first):
+    from presto_tpu_torch.native import cuda
+    dev = (parts[0][1] if parts[0][1] is not None
+           else parts[0][0][0][0]).device
+    cols, valids, rows = _check_part_cols(parts, dev, "sort_encode")
+    keys = cols[0]
+    if len(keys) > SORT_MAX_KEYS:
+        raise ValueError(f"sort_encode: at most {SORT_MAX_KEYS} keys, got "
+                         f"{len(keys)}")
+    pos_valid, layout, nwords = _sort_layout(
+        valids[0] is not None, [(d.dtype, m is not None) for d, m in keys])
+    n = sum(rows)
+    words = torch.empty((nwords, n), dtype=torch.int64, device=dev)
+    digits = torch.zeros(nwords, dtype=torch.int64, device=dev)
+    if n == 0:
+        return words, digits
+    second = cols[-1]
+    acc = torch.empty(2 * nwords, dtype=torch.int64, device=dev)
+    lib = cuda.library("sort_encode")
+    status = lib.presto_sort_encode(
+        _ptrs([d for d, _ in keys]), _ptrs([d for d, _ in second]),
+        _ptrs([m for _, m in keys]), _ptrs([m for _, m in second]),
+        _i32s([SORT_DTYPES[d.dtype][0] for d, _ in keys]),
+        _i32s([int(bool(x)) for x in descending]),
+        _i32s([int(bool(x)) for x in nulls_first]),
+        _i32s([r for r, _, _ in layout]), _i32s([v for _, v, _ in layout]),
+        _i32s([w for _, _, w in layout]), ctypes.c_int32(len(keys)),
+        ctypes.c_void_p(0 if valids[0] is None else valids[0].data_ptr()),
+        ctypes.c_void_p(0 if valids[-1] is None else valids[-1].data_ptr()),
+        ctypes.c_int32(pos_valid), ctypes.c_int32(nwords),
+        ctypes.c_int64(rows[0]), ctypes.c_int64(n),
+        ctypes.c_void_p(words.data_ptr()), ctypes.c_void_p(acc.data_ptr()),
+        ctypes.c_void_p(digits.data_ptr()),
+        ctypes.c_void_p(cuda.stream_ptr(dev)))
+    cuda.check(lib, status, "sort_encode")
+    SORT_ENCODE_KERNEL.launches += 1
+    return words, digits
+
+
+def sort_encode(parts: Sequence[SortPart], descending: Sequence[bool],
+                nulls_first: Sequence[bool]):
+    """K24: the key words of the rows of one or two sources (rows of the
+    second after the first's) and, per word, the 8-bit mask of digits
+    that vary. A source is (keys, row_valid or None); a key is (data,
+    mask or None), its operands its null rank (when it has a mask) and
+    its canonical value under `descending` and `nulls_first`, after
+    ~row_valid. The CUDA kernel on CUDA tensors, `sort_encode_plain`
+    on CPU tensors."""
+    first = parts[0][1] if parts[0][1] is not None else parts[0][0][0][0]
+    if first.device.type == "cpu":
+        return sort_encode_plain(parts, descending, nulls_first)
+    return _sort_encode_cuda(parts, descending, nulls_first)
+
+
+def _word_list(words) -> List[torch.Tensor]:
+    return list(words.unbind(0)) if isinstance(words, torch.Tensor) \
+        else list(words)
+
+
+def radix_sort_plain(words, digits: Optional[torch.Tensor] = None,
+                     flip: bool = False, sorted_first: bool = False):
+    """Plain version of K25: (perm, sorted word 0 or None) by one stable
+    torch.sort per word, the last word first (the digit masks change
+    nothing in the result, so they are not read). Words are unsigned,
+    or signed int64 with `flip`."""
+    wl = _word_list(words)
+    n = wl[0].shape[0]
+    perm = torch.arange(n, device=wl[0].device)
+    for w in reversed(wl):
+        k = w[perm]
+        order = torch.sort(k if flip else k ^ _I64_MIN, stable=True).indices
+        perm = perm[order]
+    return perm, (wl[0][perm] if sorted_first else None)
+
+
+def _radix_sort_cuda(words, digits, flip, sorted_first):
+    from presto_tpu_torch.native import cuda
+    wl = _word_list(words)
+    dev = wl[0].device
+    n = wl[0].shape[0]
+    for i, w in enumerate(wl):
+        check_rows(w, n, dev, (torch.int64,), f"radix_sort: word {i}")
+    if not 1 <= len(wl) <= SORT_MAX_WORDS:
+        raise ValueError(f"radix_sort: 1 to {SORT_MAX_WORDS} key words, got "
+                         f"{len(wl)}")
+    if n > RADIX_MAX_ROWS:
+        raise ValueError(f"radix_sort: {n} rows; the 32-bit row index "
+                         f"holds at most {RADIX_MAX_ROWS}")
+    perm = torch.empty(n, dtype=torch.int64, device=dev)
+    sorted0 = torch.empty(n, dtype=torch.int64, device=dev) \
+        if sorted_first else None
+    if n == 0:
+        return perm, sorted0
+    # the one host read of a sort: which digits vary (K24's masks)
+    masks = [0xFF] * len(wl) if digits is None else digits.tolist()
+    passes = radix_passes(masks)
+    lib = cuda.library("radix_sort")
+    tile = lib.presto_radix_tile()
+    keys = torch.empty(2 * n, dtype=torch.int64, device=dev)
+    idx = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    hist = torch.empty(256 * (-(-n // tile)), dtype=torch.int32, device=dev)
+    tot = torch.empty(256, dtype=torch.int32, device=dev)
+    flat = [x for p in passes for x in p]
+    status = lib.presto_radix_sort(
+        _ptrs(wl), ctypes.c_int32(len(wl)), ctypes.c_int64(n),
+        ctypes.c_uint64(1 << 63 if flip else 0), _i32s(flat),
+        ctypes.c_int32(len(passes)), ctypes.c_void_p(perm.data_ptr()),
+        ctypes.c_void_p(0 if sorted0 is None else sorted0.data_ptr()),
+        ctypes.c_void_p(keys.data_ptr()), ctypes.c_void_p(idx.data_ptr()),
+        ctypes.c_void_p(hist.data_ptr()), ctypes.c_void_p(tot.data_ptr()),
+        ctypes.c_void_p(cuda.stream_ptr(dev)))
+    cuda.check(lib, status, "radix_sort")
+    RADIX_SORT_KERNEL.launches += 1
+    return perm, sorted0
+
+
+def radix_sort(words, digits: Optional[torch.Tensor] = None,
+               flip: bool = False, sorted_first: bool = False):
+    """K25: the stable permutation that orders rows by their key words
+    (a [W, n] tensor or a list of W tensors, word 0 most significant),
+    and with `sorted_first` word 0 in that order (the join build's
+    sorted hashes). Words are unsigned 64-bit codes held in int64, or
+    signed int64 with `flip`. `digits` (K24's masks) lets the sort skip
+    the digits that do not vary; without them every digit is sorted.
+    The CUDA kernel on CUDA tensors, `radix_sort_plain` on CPU
+    tensors."""
+    if _word_list(words)[0].device.type == "cpu":
+        return radix_sort_plain(words, digits, flip, sorted_first)
+    return _radix_sort_cuda(words, digits, flip, sorted_first)
+
+
+def gather_rows_plain(parts: Sequence[SortPart], perm: torch.Tensor,
+                      rows: Optional[int] = None, limit=None):
+    """Plain version of K26: (columns, row_valid or None) of the first
+    `rows` entries of `perm` over the sources' rows (the second's after
+    the first's). Output row j is live when its row is (or always,
+    without a row_valid) and, with `limit` (an int or a 0-d tensor),
+    j < limit; with a limit every mask is ANDed with that liveness."""
+    cols, valid = _concat_parts(parts)
+    p = perm if rows is None else perm[:rows]
+    live = None
+    if valid is not None or limit is not None:
+        live = valid[p] if valid is not None else torch.ones(
+            p.shape[0], dtype=torch.bool, device=p.device)
+        if limit is not None:
+            live = live & (torch.arange(p.shape[0], device=p.device) < limit)
+    out = []
+    for d, m in cols:
+        om = None if m is None else m[p]
+        if om is not None and limit is not None:
+            om = om & live
+        out.append((d[p], om))
+    return out, live
+
+
+def _gather_rows_cuda(parts, perm, rows, limit):
+    from presto_tpu_torch.native import cuda
+    dev = perm.device
+    cols, valids, nrows = _check_part_cols(parts, dev, "gather_rows")
+    rows = perm.shape[0] if rows is None else int(rows)
+    if not 0 <= rows <= perm.shape[0]:
+        raise ValueError(f"gather_rows: {rows} rows of a permutation of "
+                         f"{perm.shape[0]}")
+    check_rows(perm, perm.shape[0], dev, (torch.int64,),
+               "gather_rows: permutation")
+    first = cols[0]
+    out = [(torch.empty(rows, dtype=d.dtype, device=dev),
+            None if m is None else torch.empty(rows, dtype=torch.bool,
+                                               device=dev))
+           for d, m in first]
+    out_valid = torch.empty(rows, dtype=torch.bool, device=dev) \
+        if valids[0] is not None or limit is not None else None
+    if rows == 0:
+        return out, out_valid
+    if limit is not None:
+        limit = torch.full((), int(limit), dtype=torch.int64, device=dev) \
+            if not isinstance(limit, torch.Tensor) \
+            else limit.reshape(()).to(torch.int64).contiguous()
+    # arrays: (source 0, source 1, destination, bytes, AND with liveness)
+    arrays = []
+    for j, ((d, m), (od, om)) in enumerate(zip(first, out)):
+        d2, m2 = cols[-1][j]
+        arrays.append((d, d2, od, d.element_size(), 0))
+        if m is not None:
+            arrays.append((m, m2, om, 1, int(limit is not None)))
+    lib = cuda.library("gather_rows")
+    for lo in range(0, max(len(arrays), 1), GATHER_MAX_ARRAYS):
+        run = arrays[lo:lo + GATHER_MAX_ARRAYS]
+        head = lo == 0
+        status = lib.presto_gather_rows(
+            _ptrs([a[0] for a in run]), _ptrs([a[1] for a in run]),
+            _ptrs([a[2] for a in run]), _i32s([a[3] for a in run]),
+            _i32s([a[4] for a in run]), ctypes.c_int32(len(run)),
+            ctypes.c_void_p(perm.data_ptr()), ctypes.c_int64(rows),
+            ctypes.c_int64(nrows[0]),
+            ctypes.c_void_p(0 if valids[0] is None
+                            else valids[0].data_ptr()),
+            ctypes.c_void_p(0 if valids[-1] is None
+                            else valids[-1].data_ptr()),
+            ctypes.c_void_p(0 if out_valid is None or not head
+                            else out_valid.data_ptr()),
+            ctypes.c_void_p(0 if limit is None else limit.data_ptr()),
+            ctypes.c_void_p(cuda.stream_ptr(dev)))
+        cuda.check(lib, status, "gather_rows")
+        GATHER_ROWS_KERNEL.launches += 1
+    return out, out_valid
+
+
+def gather_rows(parts: Sequence[SortPart], perm: torch.Tensor,
+                rows: Optional[int] = None, limit=None):
+    """K26: every column (data and mask) and row_valid of one or two
+    sources moved through `perm` in one launch (see
+    `gather_rows_plain`); the second source needs no concatenation.
+    The CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
+    if perm.device.type == "cpu":
+        return gather_rows_plain(parts, perm, rows, limit)
+    return _gather_rows_cuda(parts, perm, rows, limit)
+
+
 def sort_rows(keys: Sequence[CVal],
               descending: Optional[Sequence[bool]] = None,
               nulls_first: Optional[Sequence[bool]] = None,
@@ -384,20 +844,40 @@ def sort_rows(keys: Sequence[CVal],
     """Lexicographic sort carrying payloads. Sort operands per key are
     (null_rank, canonical_value) so SQL null ordering and NULL==NULL
     grouping hold; `valid=False` rows sort to the end. Returns
-    (sorted_keys, sorted_valid, sorted_payloads)."""
+    (sorted_keys, sorted_valid, sorted_payloads). On CUDA tensors K24,
+    K25 and K26 (one launch each for up to 32 carried columns); on CPU
+    tensors stable torch.sort passes and indexing."""
     desc = descending or [False] * len(keys)
     nf = nulls_first or [False] * len(keys)
+    if not keys and valid is None:
+        return list(keys), valid, list(payloads)
+    on_cpu = (valid if valid is not None else keys[0][0]).device.type \
+        == "cpu"
+    return (_sort_rows_plain if on_cpu else _sort_rows_kernels)(
+        keys, desc, nf, valid, payloads)
+
+
+def _sort_rows_plain(keys, desc, nf, valid, payloads):
+    """`sort_rows` by stable torch.sort passes and indexing."""
     sort_ops: List[torch.Tensor] = []
     if valid is not None:
         sort_ops.append(~valid)
     for (data, mask), d, nfirst in zip(keys, desc, nf):
         sort_ops.extend(key_sort_ops(data, mask, d, nfirst))
-    if not sort_ops:
-        return list(keys), valid, list(payloads)
     perm = _stable_order(sort_ops)
     skeys = [(d[perm], m[perm]) for d, m in keys]
     svalid = None if valid is None else valid[perm]
     return skeys, svalid, [p[perm] for p in payloads]
+
+
+def _sort_rows_kernels(keys, desc, nf, valid, payloads):
+    """`sort_rows` as K24 (the operands above as key words), K25 (the
+    permutation) and K26 (every key and payload moved in one launch)."""
+    words, digits = sort_encode([(keys, valid)], desc, nf)
+    perm, _ = radix_sort(words, digits)
+    cols = list(keys) + [(p, None) for p in payloads]
+    out, svalid = gather_rows([(cols, valid)], perm)
+    return out[:len(keys)], svalid, [d for d, _ in out[len(keys):]]
 
 
 def boundaries(sorted_keys: Sequence[CVal],

@@ -14,8 +14,9 @@ what the kernel does.
 Sort-based, for every other key set (`batch_aggregate`,
 `merge_partials`, `_group_reduce`). Grouping needs equal keys adjacent,
 not a total key order, so rows are sorted by their two row hashes
-(h1, h2): K3 (csrc/row_hash.cu) hashes the keys, `torch.sort` orders
-the rows (two stable passes), and K6 (csrc/segment_reduce.cu) finds the
+(h1, h2): K3 (csrc/row_hash.cu) hashes the keys, K25
+(csrc/radix_sort.cu) orders the rows by the two hashes and K26
+(csrc/gather_rows.cu) moves them, and K6 (csrc/segment_reduce.cu) finds the
 group boundaries (hash or key change), assigns packed group ids and
 reduces every state component per group into `out_cap` slots, with an
 overflow flag when there are more groups. The reference takes this
@@ -747,9 +748,11 @@ def _group_reduce(keys: Sequence[CVal], valid: torch.Tensor,
                   contribs: Sequence[Tuple[torch.Tensor, ...]],
                   aggs: Sequence[AggFunction],
                   out_cap: int, plain: bool = False) -> GroupByState:
-    """The sort-based grouping core: K3 hashes, a two-operand (h1, h2)
-    stable sort, K6 (with `plain`, the plain versions of K3 and K6 on
-    any device: the card's yardstick for the composition). Boundaries
+    """The sort-based grouping core: K3 hashes, K25's stable sort of
+    (h1, h2), K26's move of the keys, contributions and hashes, K6, and
+    K26 again for each group's first row (with `plain`, the plain
+    versions of K3, K25, K26 and K6 on any device: the card's yardstick
+    for the composition). Boundaries
     compare the actual keys as well, so a double hash collision between
     distinct keys can only split a group (the next merge level rejoins
     it), never merge two keys. Groups
@@ -776,19 +779,26 @@ def _group_reduce(keys: Sequence[CVal], valid: torch.Tensor,
     keys = [(d.contiguous(), m.contiguous()) for d, m in keys]
     hash_pair = common.row_hash_pair_plain if plain \
         else common.row_hash_pair
+    lex_perm = common.lex_perm_plain if plain else common.lex_perm
+    gather = common.gather_rows_plain if plain else common.gather_rows
     h1, h2 = hash_pair(keys, valid.contiguous(), False)
-    perm = common.lex_perm([h1, h2])
-    skeys = [(d[perm], m[perm]) for d, m in keys]
-    comps = [(arr[perm], r) for st, agg in zip(contribs, aggs)
-             for arr, r in zip(st, agg.reduces)]
+    perm = lex_perm([h1, h2])
+    flat = [(arr, r) for st, agg in zip(contribs, aggs)
+            for arr, r in zip(st, agg.reduces)]
+    # one K26 launch moves the keys, contributions and hashes
+    moved, svalid = gather(
+        [(keys + [(arr, None) for arr, _ in flat] + [(h1, None),
+                                                      (h2, None)], valid)],
+        perm)
+    skeys = moved[:len(keys)]
+    comps = [(d, r) for (d, _), (_, r) in zip(moved[len(keys):-2], flat)]
     reduced, first_row, groups, overflow = \
         (segment_reduce_plain if plain else segment_reduce)(
-            h1[perm], h2[perm], skeys, valid[perm], comps, out_cap)
+            moved[-2][0], moved[-1][0], skeys, svalid, comps, out_cap)
     it = iter(reduced)
     states = [tuple(next(it) for _ in st) for st in contribs]
     new_valid = slots < groups
-    new_keys = [(d[first_row], m[first_row] & new_valid)
-                for d, m in skeys]
+    new_keys, _ = gather([(skeys, None)], first_row, limit=groups)
     return GroupByState(new_keys, states, new_valid, overflow)
 
 

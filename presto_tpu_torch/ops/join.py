@@ -15,10 +15,12 @@ every key column (verify="full").
 The hand-written CUDA kernels of this module:
 
 - K3 `common.row_hash_pair` (csrc/row_hash.cu) hashes the build keys;
+- K25 `common.radix_sort` (csrc/radix_sort.cu) sorts the build rows
+  by hash and K26 `common.gather_rows` (csrc/gather_rows.cu) moves
+  their columns in one launch (the reference sorts with `jax.lax.sort`
+  or a host `np.argsort`);
 - K4 `build_meta` (csrc/join_build.cu) derives part_starts, run_len
-  and the build's statistics from the hashes once `torch.sort` has
-  sorted them (the reference hands its sort to `jax.lax.sort` or a host
-  `np.argsort` the same way);
+  and the build's statistics from the sorted hashes;
 - K5 `probe_search` (csrc/join_probe.cu) hashes the probe keys with
   the same device code and searches the build.
 
@@ -202,21 +204,27 @@ def build_meta(sh: torch.Tensor, k: int):
 
 def build_for_backend(batch: Batch, key_names: Tuple[str, ...],
                       radix_bits: Optional[int] = None) -> BuildTable:
-    """Index the build side: hash (K3), stable sort by hash
-    (`torch.sort`), radix metadata (K4), then permute the columns. The
+    """Index the build side: hash (K3), stable sort by hash (K25, which
+    also returns the sorted hashes), radix metadata (K4), then permute
+    the columns, row_valid and the second hashes (K26, one launch). The
     statistics come back in the build's one host read, which picks the
     probe layout. `radix_bits` overrides the size-derived k."""
     _tk.count("join_build")
     k = choose_radix_bits(batch.capacity) if radix_bits is None \
         else max(0, min(int(radix_bits), MAX_RADIX_BITS))
     h, h2, _ = _hash_batch(batch, tuple(key_names))
-    sh, perm = torch.sort(h, stable=True)
+    perm, sh = common.radix_sort([h], flip=True, sorted_first=True)
     part_starts, run_len, stats = build_meta(sh, k)
-    cols = {n: Column(c.data[perm], c.mask[perm], c.type, c.dictionary)
-            for n, c in batch.columns.items()}
-    sbatch = Batch(cols, batch.row_valid[perm])
+    names = list(batch.columns)
+    moved, svalid = common.gather_rows(
+        [([batch.columns[n].astuple() for n in names] + [(h2, None)],
+          batch.row_valid)], perm)
+    cols = {n: Column(d, m, batch.columns[n].type,
+                      batch.columns[n].dictionary)
+            for n, (d, m) in zip(names, moved)}
+    sbatch = Batch(cols, svalid)
     fi, max_span, max_run = (int(x) for x in stats.tolist())
-    return BuildTable(sh, h2[perm], part_starts, run_len,
+    return BuildTable(sh, moved[-1][0], part_starts, run_len,
                       stats[0], sbatch, radix_bits=k,
                       search_depth=common.search_iters(max_span),
                       unique_runs=max_run <= 1)

@@ -9,9 +9,13 @@ reference's `presto_tpu_kernel_calls_total`. A `LaunchCounter` belongs
 to one hand-written CUDA kernel's wrapper and counts only the launches
 of that kernel, so a run can show that the main path went through it;
 it names the reference family the kernel computes, and `COUNTERS` holds
-every counter by kernel name. The `fragment` kernel (K12,
-`expr/codegen.py`) serves two reference families: `filter_project` (a
-lone FilterProject) and `fragment` (a fused chain).
+every counter by kernel name. K24-K26 (`sort_encode`, `radix_sort`,
+`gather_rows`) count under `sort`, though every sort of the port runs
+them (topn, distinct, join_build, agg_step by sort, hashagg_merge,
+window, array_agg: those families' calls count under their own names
+in `CALLS`); K27 (`limit_rank`) counts under `limit`. The `fragment`
+kernel (K12, `expr/codegen.py`) serves two reference families:
+`filter_project` (a lone FilterProject) and `fragment` (a fused chain).
 
 `FUSED_FRAGMENTS[(status, reason)]` counts the fusion pass's decisions
 (planner/fusion.py; the counterpart of

@@ -97,14 +97,15 @@ class DecimalType(Type):
 
 @dataclasses.dataclass(frozen=True, repr=False)
 class ArrayType(Type):
-    """ARRAY(element) stored FIXED-WIDTH on device: data [cap, W],
-    per-element mask [cap, W] (False past each row's length), where W
-    is a per-batch static width — the array analog of the power-of-two
-    capacity bucket. Dense 2-D blocks are the TPU-native layout (no
-    ragged offsets on device); W is chosen statically at construction
-    (constructor arity, dictionary-derived split width, or the bounded
-    array_agg cap). Reference: common/type/ArrayType.java (offsets +
-    child block) re-shaped for static-shape XLA."""
+    """ARRAY(element) stored FIXED-WIDTH: in a batch, W scalar slot
+    columns `<sym>__a0` .. `<sym>__a{W-1}` (each 1-D, its mask False
+    past the row's length) and a BIGINT `<sym>__len`, which the planner's
+    value forms read (nodes.Field.form); the array's own symbol has no
+    column. So every device column is 1-D, whatever its SQL type. W is
+    static per plan (constructor arity, dictionary-derived split width,
+    or the bounded array_agg width). Reference:
+    common/type/ArrayType.java (offsets + child block) re-shaped
+    static."""
 
     element: Type = None
 

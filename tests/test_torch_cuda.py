@@ -121,6 +121,35 @@ def test_k2_matches_plain(hopper, live_frac, cap):
                                want.columns[n].mask)
 
 
+@pytest.mark.parametrize("ncols", [64, 65, 131])
+def test_k2_takes_more_than_64_columns(hopper, ncols):
+    """A batch wider than one launch's 64 columns (an array's slot
+    columns) compacts over several launches, equal to the plain
+    version, full and shrunk."""
+    rng = np.random.default_rng(ncols)
+    cap = 5000
+    cols = {f"c{i}": (rng.integers(-99, 99, cap).astype(
+        (np.int64, np.int32, np.int16)[i % 3]), rng.random(cap) < 0.8,
+        ("bigint", "integer", "smallint")[i % 3], None)
+        for i in range(ncols)}
+    valid = rng.random(cap) < 0.3
+    gpu = interop.batch_from_numpy(cols, valid, hopper)
+    cpu = interop.batch_from_numpy(cols, valid, torch.device("cpu"))
+    out_cap = tb.operator_capacity(int(valid.sum()))
+    before = tb.COMPACT_KERNEL.launches
+    cases = [(tb.compact_full(gpu), tb.compact_full_plain(cpu)),
+             (tb.compact_shrink(gpu, out_cap),
+              tb.compact_shrink_plain(cpu, out_cap))]
+    assert tb.COMPACT_KERNEL.launches == before + 2 * -(-ncols // 64)
+    for got, want in cases:
+        assert torch.equal(got.row_valid.cpu(), want.row_valid)
+        for n in want.names:
+            assert torch.equal(got.columns[n].data.cpu(),
+                               want.columns[n].data)
+            assert torch.equal(got.columns[n].mask.cpu(),
+                               want.columns[n].mask)
+
+
 def test_kernels_count_their_launches(hopper):
     b = _batch(0.5, 4096, hopper)
     before = tb.COMPACT_KERNEL.launches
@@ -300,7 +329,7 @@ def test_k6_segment_reduce_matches_plain(hopper, ngroups, out_cap, live):
 
 
 def test_sort_aggregation_matches_cpu(hopper):
-    """batch_aggregate (K3 + sort + K6) on the card against the same
+    """batch_aggregate (K3 + K25 + K26 + K6) on the card against the same
     inputs on the CPU, as group multisets."""
     rng = np.random.default_rng(15)
     n = 1 << 18
@@ -685,7 +714,7 @@ def test_k6_with_no_aggregate_matches_plain(hopper, nkeys):
 
 
 def test_distinct_step_matches_plain(hopper):
-    """DISTINCT's fold on the card (K3 + sort + K6) against the same
+    """DISTINCT's fold on the card (K3 + K25 + K26 + K6) against the same
     fold on the CPU: the same set of kept rows."""
     from presto_tpu_torch.ops import sort as tsort
     rng = np.random.default_rng(53)
@@ -1945,3 +1974,227 @@ def test_cluster_on_the_card_matches_cpu(hopper):
             coord.stop()
     finally:
         stop_workers(procs)
+
+
+# -- K24 sort_encode, K25 radix_sort, K26 gather_rows, K27 limit_rank --------
+
+_SORT_DTYPES = [torch.bool, torch.int8, torch.int16, torch.int32, torch.int64,
+                torch.float32, torch.float64]
+
+
+def _sort_key(rng, dt, n):
+    """Values of one key with its type's edge cases (NaN, -0.0, +-inf,
+    the width's minimum and maximum)."""
+    if dt == torch.bool:
+        return torch.from_numpy(rng.random(n) < 0.5)
+    if dt.is_floating_point:
+        pool = np.array([np.nan, -0.0, 0.0, -np.inf, np.inf, -2.5, 1.0, 3.25])
+        return torch.from_numpy(rng.choice(pool, n)).to(dt)
+    ii = torch.iinfo(dt)
+    pool = np.array([ii.min, ii.min + 1, -3, -1, 0, 1, 4, ii.max])
+    return torch.from_numpy(rng.choice(pool, n)).to(dt)
+
+
+def _sort_parts(rng, n, dts, dev, split=None):
+    keys = [(_sort_key(rng, dt, n), torch.from_numpy(rng.random(n) < 0.8))
+            for dt in dts]
+    valid = torch.from_numpy(rng.random(n) < 0.9)
+    cuts = [(0, n)] if split is None else [(0, split), (split, n)]
+    return [([(d[a:b].to(dev), m[a:b].to(dev)) for d, m in keys],
+             valid[a:b].to(dev)) for a, b in cuts]
+
+
+@pytest.mark.parametrize("dt", _SORT_DTYPES, ids=str)
+@pytest.mark.parametrize("desc,nf", [(False, False), (True, True)])
+@pytest.mark.parametrize("split", [None, 700], ids=["one", "two_sources"])
+def test_k24_words_match_plain(hopper, dt, desc, nf, split):
+    """K24's words and digit masks equal the plain version's bit for bit
+    (a key of `dt`, then an INTEGER and a DOUBLE key; one source, or the
+    rows split over two as topn passes state and batch)."""
+    rng = np.random.default_rng(61)
+    parts = _sort_parts(rng, 2000, [dt, torch.int32, torch.float64], hopper,
+                        split)
+    desc_, nf_ = [desc, False, True], [nf, True, False]
+    before = tc.SORT_ENCODE_KERNEL.launches
+    got = tc.sort_encode(parts, desc_, nf_)
+    assert tc.SORT_ENCODE_KERNEL.launches == before + 1
+    cpu = [([(d.cpu(), m.cpu()) for d, m in k], v.cpu()) for k, v in parts]
+    want = tc.sort_encode_plain(cpu, desc_, nf_)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 1 << 20, 1 << 24])
+@pytest.mark.parametrize("skip", [True, False], ids=["skip", "every_digit"])
+def test_k25_perm_matches_plain(hopper, n, skip):
+    """K25's permutation of K24's words equals the plain version's, with
+    constant digits skipped (K24's digit masks passed) and with every
+    digit sorted (no masks)."""
+    rng = np.random.default_rng(n)
+    parts = _sort_parts(rng, n, [torch.float64, torch.int32], hopper)
+    words, digits = tc.sort_encode(parts, [True, False], [False, True])
+    before = tc.RADIX_SORT_KERNEL.launches
+    perm, _ = tc.radix_sort(words, digits if skip else None)
+    assert tc.RADIX_SORT_KERNEL.launches == before + 1
+    want, _ = tc.radix_sort_plain(words, digits)
+    torch.cuda.synchronize()
+    assert torch.equal(perm, want)
+
+
+def test_k25_build_hashes_equal_torch_sort(hopper):
+    """At a join build K25's sorted hashes equal torch.sort's, the dead
+    rows' sentinels included, and so does its permutation (stable)."""
+    rng = np.random.default_rng(62)
+    n = 1 << 22
+    b = _build_batch(rng, n, int(n * 0.4), hopper, 100_000)
+    h, h2, _ = tj._hash_batch(b, ("k0",))
+    before = tc.RADIX_SORT_KERNEL.launches
+    table = tj.build_for_backend(b, ("k0",))
+    assert tc.RADIX_SORT_KERNEL.launches == before + 1
+    sh, perm = torch.sort(h, stable=True)
+    assert torch.equal(table.sorted_hash, sh)
+    assert torch.equal(table.hash2, h2[perm])
+    assert torch.equal(table.batch.row_valid, b.row_valid[perm])
+    for name, c in b.columns.items():
+        assert torch.equal(table.batch.columns[name].data, c.data[perm])
+        assert torch.equal(table.batch.columns[name].mask, c.mask[perm])
+
+
+@pytest.mark.parametrize("rows,limit", [(None, None), (1000, 17),
+                                        (1000, "device")])
+@pytest.mark.parametrize("split", [None, 3000], ids=["one", "two_sources"])
+def test_k26_matches_indexing(hopper, rows, limit, split):
+    """K26 equals indexing every column (and row_valid) by the
+    permutation, the first `rows`, masks ANDed with the liveness under a
+    limit (an int or a device scalar)."""
+    rng = np.random.default_rng(63)
+    n = 5000
+    parts = _sort_parts(rng, n, _SORT_DTYPES, hopper, split)
+    parts = [(cols + [(torch.arange(len(v), device=hopper), None)], v)
+             for cols, v in parts]
+    perm = torch.from_numpy(rng.permutation(n)).to(hopper)
+    lim = torch.tensor(23, device=hopper) if limit == "device" else limit
+    before = tc.GATHER_ROWS_KERNEL.launches
+    got, gv = tc.gather_rows(parts, perm, rows, lim)
+    assert tc.GATHER_ROWS_KERNEL.launches == before + 1
+    want, wv = tc.gather_rows_plain(parts, perm, rows, lim)
+    torch.cuda.synchronize()
+    assert torch.equal(gv, wv)
+    for (gd, gm), (wd, wm) in zip(got, want):
+        assert torch.equal(gd.view(torch.uint8) if gd.is_floating_point()
+                           else gd, wd.view(torch.uint8)
+                           if wd.is_floating_point() else wd)
+        assert (gm is None and wm is None) or torch.equal(gm, wm)
+
+
+def test_k27_limit_over_batches_without_host_sync(hopper):
+    """K27 over a multi-batch LIMIT equals the plain version, batch by
+    batch, with no host synchronisation inside the calls."""
+    from presto_tpu_torch.ops import sort as tsort
+    rng = np.random.default_rng(64)
+    valids = [torch.from_numpy(rng.random(1 << 20) < 0.6).to(hopper)
+              for _ in range(5)]
+    tsort.limit_rank(valids[0], 1, torch.zeros((), dtype=torch.int64,
+                                                device=hopper))  # build
+    emitted = torch.zeros((), dtype=torch.int64, device=hopper)
+    outs = []
+    before = tsort.LIMIT_RANK_KERNEL.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for v in valids:
+            keep, emitted = tsort.limit_rank(v, 2_000_000, emitted)
+            outs.append((keep, emitted))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tsort.LIMIT_RANK_KERNEL.launches == before + 5
+    pe = torch.zeros((), dtype=torch.int64, device=hopper)
+    for v, (keep, em) in zip(valids, outs):
+        pk, pe = tsort.limit_rank_plain(v, 2_000_000, pe)
+        assert torch.equal(keep, pk) and int(em) == int(pe)
+    assert int(emitted) == 2_000_000
+
+
+def test_sort_family_runs_k24_to_k27_and_no_library_sort(hopper,
+                                                          monkeypatch):
+    """sort_batch, topn_step, limit_batch, distinct_step, the join build,
+    the sort-based grouping and lex_perm on the card launch K24-K27 and
+    never torch.sort, torch.argsort or torch.topk."""
+    from presto_tpu_torch.ops import sort as tsort
+
+    def refuse(*a, **k):
+        raise AssertionError("a library sort ran on the card path")
+    rng = np.random.default_rng(65)
+    b = _build_batch(rng, 1 << 16, 50_000, hopper, 3000, nkeys=2)
+    schema = [(k, c.type, None) for k, c in b.columns.items()]
+    counters = (tc.SORT_ENCODE_KERNEL, tc.RADIX_SORT_KERNEL,
+                tc.GATHER_ROWS_KERNEL, tsort.LIMIT_RANK_KERNEL)
+    before = [c.launches for c in counters]
+    for name in ("sort", "argsort", "topk"):
+        monkeypatch.setattr(torch, name, refuse)
+    s = tsort.sort_batch(b, ("k0", "k1"), (True, False), (False, True))
+    st = tsort.topn_step(tsort.topn_state(schema, 128, hopper), b, 100,
+                         ("k1",), (False,), (False,))
+    lim, _ = tsort.limit_batch(b, 10, torch.zeros((), dtype=torch.int64,
+                                                  device=hopper))
+    d = tsort.distinct_step(tsort.distinct_state(schema[:1], 1 << 16,
+                                                 hopper),
+                            tb.Batch({"k0": b.columns["k0"]}, b.row_valid))
+    tj.build_for_backend(b, ("k0",))
+    th.batch_aggregate(b.row_valid, [b.columns["k0"].astuple()],
+                       [None], [b.row_valid], [th.make_count(None)], 1 << 16)
+    h1, h2 = tc.row_hash_pair([b.columns["k1"].astuple()], b.row_valid,
+                              False)
+    tc.lex_perm([h1, h2])
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    grown = [c.launches - x for c, x in zip(counters, before)]
+    assert all(g > 0 for g in grown), grown
+    assert int(s.row_valid.sum()) == 50_000 and int(st.row_valid.sum()) == 100
+    assert int(lim.row_valid.sum()) == 10 and int(d.row_valid.sum()) > 0
+
+
+#: test_torch_array's queries with an ORDER BY over array_agg results
+ARRAY_ORDER_BY = [
+    "select regionkey, array_agg(nationkey) a from nation "
+    "group by regionkey order by regionkey",
+    "select regionkey, array_agg(name) nm from nation "
+    "where nationkey < 4 group by regionkey order by regionkey",
+    "select regionkey, map_agg(nationkey, name) m from nation "
+    "where nationkey < 6 group by regionkey order by regionkey",
+    "select regionkey, array_agg(nationkey) filter (where nationkey > 10)"
+    " a from nation group by regionkey order by regionkey",
+    "select g, array_agg(v) filter (where keep) a from (values "
+    "(1, 10, true), (1, 11, false), (1, 12, true), (1, 13, false), "
+    "(2, 20, false), (2, 21, true)) t(g, v, keep) group by g order by g",
+]
+
+
+def test_array_columns_sort_on_the_card_as_on_cpu(hopper):
+    """ORDER BY over array_agg / map_agg results on the card (K24-K26
+    carrying the arrays' slot columns) equals the CPU runner's rows, in
+    order."""
+    from presto_tpu_torch.runner import LocalRunner
+    gpu = LocalRunner("tpch", "tiny", device=hopper)
+    cpu = LocalRunner("tpch", "tiny", device="cpu")
+    for q in ARRAY_ORDER_BY:
+        before = tc.GATHER_ROWS_KERNEL.launches
+        got = gpu.execute(q).rows()
+        assert tc.GATHER_ROWS_KERNEL.launches > before
+        assert got == cpu.execute(q).rows(), q
+
+
+def test_array_carrying_join_matches_cpu(hopper):
+    """A join whose build side carries array_agg results (its slot
+    columns, through K25 and K26 at the build) on the card equals the
+    CPU runner's rows."""
+    from presto_tpu_torch.runner import LocalRunner
+    q = ("select n.name, a.ks from nation n join (select regionkey, "
+         "array_agg(nationkey) ks from nation group by regionkey) a "
+         "on n.regionkey = a.regionkey order by n.name")
+    gpu = LocalRunner("tpch", "tiny", device=hopper)
+    before = tc.RADIX_SORT_KERNEL.launches
+    got = gpu.execute(q).rows()
+    assert tc.RADIX_SORT_KERNEL.launches > before
+    assert got == LocalRunner("tpch", "tiny", device="cpu").execute(q).rows()
