@@ -79,8 +79,10 @@ K7 semi_join, K8 stream_reduce, K9 join_expand (with its full mode), K10
 cross_product, K11 join_outer, K13-K16 (window), K17 array_collect,
 K18 exchange_shuffle, K19 merge_pair, K20 exchange_partition, K22-K23
 (the dynamic filter's set and apply), K24 sort_encode, K25 radix_sort,
-K26 gather_rows and K27 limit_rank (CUDA C++, built with nvcc), K21 (a
-Triton kernel),
+K26 gather_rows and K27 limit_rank, K28 state_shrink, K29 agg_finalize
+and K30 vector_reduce (CUDA C++, built with nvcc; K3 and K26 reading a
+merge's partial states as sources count also as row_hash_sources and
+gather_rows_sources), K21 (a Triton kernel),
 and K12 fragment (a Triton kernel generated per filter/project chain at
 its first launch). Q1, Q3, Q6 and Q18 also run with fusion off (their
 FilterProjects as one-stage K12 kernels), rows checked and walls beside
@@ -99,12 +101,25 @@ launched in the run is compared), and timed at the three largest by
 bytes and at Q1's chain fused into its aggregation, from a cold L2: each
 timed call reads one of several copies of its batch, which together
 overflow the L2 (the warm device time, one batch again and again, is
-reported beside it). The composed torch
-forms that have no hand-written kernel yet (COMPOSED) are timed at
-their largest call too, with their byte bound, their family's calls
-per query and, where one PyTorch call computes the same function
-(COMPOSED_LIBRARY), that call's time. The profile phase counts the CUDA kernel launches of one
-warm execution of each query (and of Q1, Q3 and Q6 with fusion off).
+reported beside it). The aggregation state's calls (AGG_CALLS) are
+held against their plain versions at their largest call on the TPC-H
+path: merge_states (K3 and K26 reading the partial states as sources,
+K25, K6, K30) against the concatenating composition, and K3 and K26
+over those sources alone; _shrink_state (K28) against a plain copy,
+each shrunk array owning storage of its size; _count_live (the count
+K6 carried, no reduction) against a sum and its copy, and one
+count_nonzero; finalize and direct_finalize (K29, one launch per
+drain) against the composed drains. Then the aggregation path
+(`run_agg_phases`): APPROX_DIRECT, APPROX_GROUPED and APPROX_GLOBAL
+(approx_percentile, approx_distinct, checksum) at SF1, each against a
+numpy oracle that builds the same sketches (the reference's bucket
+function and hash, compared exactly) and against the exact answers
+within the sketches' errors, with cold and warm walls and peak device
+memory; K30 (vector_reduce) is held against its plain version at its
+largest call of each mode (direct, sparse, dense merge). The profile
+phase counts the CUDA kernel launches of one warm execution of each
+query (and of Q1, Q3 and Q6 with fusion off). Every kernel of the
+summary line must have been launched on some path.
 
 Tolerances: K2 (compact), K3, K4, K5, K7 (semi_join) and K24-K27 must
 match their plain versions exactly (row order, hashes, offsets, slots,
@@ -124,7 +139,12 @@ the same hashes). K12 (fragment): row_valid, masks and every value under
 a set mask exactly (FMA contraction off, IEEE division, floored integer
 division, as the composed form computes). K13 (window_segments), K15
 (window_frame_minmax) and K16 (window_emit): every position, value and
-mask exactly (NaN equal to NaN); K18 (exchange_shuffle) and K19
+mask exactly (NaN equal to NaN); K28 (state_shrink) and K30
+(vector_reduce): exactly (copies; integer sums and maxima); K29
+(agg_finalize): liveness, masks and integer values exactly, float values
+reported as max_abs_err (the same IEEE operations, each rounded on its
+own); merge_states: groups, keys, live count and integer states
+exactly, float states as max_abs_err; K18 (exchange_shuffle) and K19
 (merge_pair): every consumer's or the merged batch's row_valid, masks
 and values exactly, in order (NaN equal to NaN); K14 (window_frame_sum): masks, counts
 and integer sums exactly, float sums to a relative 1e-9 (both keep
@@ -150,6 +170,9 @@ PROPS = {"batch_rows": 1 << 20}
 #: H100 SXM HBM3 bandwidth (NVIDIA data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
 WARMUP, ITERS = 3, 25
+#: relative limit of merge_states' float components against the plain
+#: merge (two orders of the same few additions per group)
+MERGE_RTOL = 1e-12
 #: warm executions per query: the earlier slices' TPC-H path runs one
 #: (to keep the script inside its time), the window and TPC-DS path
 #: the median of three
@@ -912,10 +935,11 @@ def rows_of(*objs) -> int:
                 if t.dim()), default=0)
 
 
-#: the composed torch forms on the main path that have no hand-written
-#: kernel yet, each timed at its largest call: label -> (family, module
-#: key, function name)
-COMPOSED = {
+#: the aggregation state's calls on the main path (hashagg_merge,
+#: agg_shrink, agg_count, agg_finalize), each captured at its largest
+#: call and held against its plain version there: label -> (family,
+#: module key, function name)
+AGG_CALLS = {
     "hashagg_merge merge_states": ("hashagg_merge", "agg", "merge_states"),
     "agg_shrink _shrink_state": ("agg_shrink", "agg", "_shrink_state"),
     "agg_count _count_live": ("agg_count", "agg", "_count_live"),
@@ -945,8 +969,8 @@ class Patches:
 
 
 class Capture(Patches):
-    """Wraps the kernel wrappers (and the composed torch forms of
-    COMPOSED) during one run of the queries and keeps the inputs of each
+    """Wraps the kernel wrappers (and the aggregation state's calls of
+    AGG_CALLS) during one run of the queries and keeps the inputs of each
     one's largest call: a copy for K1 and K2 (K1 updates its state in
     place), references for the rest (their inputs are not written after
     the call). K12 records its own largest call per generated kernel
@@ -975,7 +999,7 @@ class Capture(Patches):
         self.df_set_fits = None
         #: K25 at its largest join build: (rows, query, args, kwargs)
         self.build_sort = None
-        #: composed form -> (rows, query, function, args)
+        #: AGG_CALLS label -> (rows, query, function, args)
         self.composed = {}
         #: K12 kernel fingerprint -> the query of its largest call
         self.k12_query = {}
@@ -998,7 +1022,9 @@ class Capture(Patches):
     def _record(self, label):
         def make(orig):
             def wrapper(*args):
-                rows = rows_of(*args)
+                # a merge by the rows of all its states
+                rows = sum(rows_of(st) for st in args[0]) \
+                    if label.startswith("hashagg_merge") else rows_of(*args)
                 if rows > self.composed.get(label, (0,))[0]:
                     self.composed[label] = (rows, self.query, orig, args)
                 return orig(*args)
@@ -1138,7 +1164,7 @@ class Capture(Patches):
         self._patch(m["misc"], "cross_product", cross)
         self._patch(tj, "unmatched_build", outer)
         self._patch(m["sort"], "distinct_step", distinct)
-        for label, (_, mod, fn) in COMPOSED.items():
+        for label, (_, mod, fn) in AGG_CALLS.items():
             self._patch(m[mod], fn, self._record(label))
         m["codegen"].CAPTURE = {}
         return self
@@ -1406,6 +1432,8 @@ def measure_k5(torch, tc, tj, args):
 
 
 def measure_k6(torch, tc, th, args):
+    # (the main path's call also passes the list K6's segments go to)
+    args = args[:6]
     h1, h2, keys, valid, comps, out_cap = args
     got = th.segment_reduce(*args)
     want = th.segment_reduce_plain(*args)
@@ -1620,23 +1648,238 @@ def measure_k9(torch, tj, args, calls, matched=None):
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
-def measure_composed(torch, fn, args):
-    """A composed torch form (no hand-written kernel yet) at its largest
-    call: its time and the bytes its arguments and new outputs hold
-    (every argument tensor read once, every output tensor that is not
-    an argument written once)."""
-    out = fn(*args)
-    ms = time_ms(lambda: fn(*args), torch)
-    seen = {}
-    for t in tensors_of(args):
-        seen[t.data_ptr()] = t.numel() * t.element_size()
+def state_arrays(st):
+    """Every array of a sort-path state, keys' data and masks first."""
+    return [a for d, m in st.keys for a in (d, m)] \
+        + [a for t in st.states for a in t] + [st.valid]
+
+
+def float_err(torch, got, want, rtol, what) -> float:
+    """The largest absolute difference of two float tensors (NaN equal to
+    NaN); fails unless every value is within `rtol` of the wanted one
+    (0: equal)."""
+    if not got.numel():
+        return 0.0
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    d = torch.where(both_nan, torch.zeros_like(got), (got - want).abs())
+    check(bool((d <= rtol * want.abs()).all()),
+          f"{what}: float values differ from the plain version beyond "
+          f"rel {rtol}")
+    return float(d.max())
+
+
+def state_err(torch, got, want, what, rtol) -> float:
+    """Check two sort-path states hold the same groups (valid, live
+    count, keys and integer components exactly, float components within
+    `rtol`); the largest absolute difference of their float components
+    over the live groups."""
+    live = want.valid
+    check(torch.equal(got.valid, live) and int(got.live) == int(want.live)
+          and bool(got.overflow) == bool(want.overflow),
+          f"{what}: groups or live count differ from the plain version")
+    err = 0.0
+    for g, w in zip(state_arrays(got)[:-1], state_arrays(want)[:-1]):
+        gl, wl = g[live], w[live]
+        if g.is_floating_point():
+            err = max(err, float_err(torch, gl, wl, rtol, what))
+        else:
+            check(torch.equal(gl, wl),
+                  f"{what}: an integer array differs from the plain version")
+    return err
+
+
+def batch_err(torch, got, want, what, rtol) -> float:
+    """Check two output batches have the same capacity, liveness, masks
+    and integer values under the masks, and float values within `rtol`;
+    the largest absolute difference of their float values under the
+    masks."""
+    check(got.capacity == want.capacity
+          and torch.equal(got.row_valid, want.row_valid)
+          and list(got.columns) == list(want.columns),
+          f"{what}: rows or columns differ from the plain version")
+    err = 0.0
+    for name, w in want.columns.items():
+        g = got.columns[name]
+        check(g.data.dtype == w.data.dtype and torch.equal(g.mask, w.mask),
+              f"{what}: column {name}'s type or mask differs")
+        gd, wd = g.data[w.mask], w.data[w.mask]
+        if gd.is_floating_point():
+            err = max(err, float_err(torch, gd, wd, rtol,
+                                     f"{what}: column {name}"))
+        else:
+            check(torch.equal(gd, wd),
+                  f"{what}: column {name} differs from the plain version")
+    return err
+
+
+def _moved(inputs, out) -> int:
+    """Bytes of every input tensor read once and every output tensor that
+    is not an input written once."""
+    seen = {t.data_ptr(): nbytes(t) for t in tensors_of(inputs)}
     moved = sum(seen.values())
     for t in tensors_of(out):
         if t.data_ptr() not in seen:
             seen[t.data_ptr()] = 0
-            moved += t.numel() * t.element_size()
+            moved += nbytes(t)
+    return moved
+
+
+def _bound(moved) -> float:
+    return moved / HBM_BYTES_PER_S * 1e3
+
+
+def measure_merge(torch, tc, th, args):
+    """hashagg_merge at its largest call: merge_partials (K3 and K26 over
+    the states as sources, K25, K6, K30) against the plain composition
+    (which concatenates), and K3 and K26 over the sources alone against
+    their plain versions. Returns (merge, K3, K26) measurements."""
+    states, aggs, out_cap = list(args[0]), args[1], args[2]
+    got = th.merge_partials(states, aggs, out_cap)
+    want = th.merge_partials(states, aggs, out_cap, plain=True)
+    torch.cuda.synchronize()
+    # K6 adds each group's floats in a tree, the plain version in row
+    # order: the sums may differ in the last bits
+    err = state_err(torch, got, want, "merge_states", MERGE_RTOL)
+    n = sum(st.valid.shape[0] for st in states)
+    merge = {"rows": n, "sources": len(states), "max_abs_err": err,
+             "ms": time_ms(lambda: th.merge_partials(states, aggs, out_cap),
+                           torch),
+             "plain_ms": time_ms(lambda: th.merge_partials(
+                 states, aggs, out_cap, plain=True), torch),
+             "library_ms": None, "bound_ms": _bound(_moved(states, got))}
+    parts = [([(d.contiguous(), m.contiguous()) for d, m in st.keys],
+              st.valid.contiguous()) for st in states]
+    h = tc.row_hash_sources(parts, False)
+    hp = tc.row_hash_sources_plain(parts, False)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(h, hp)),
+          "K3 over the merge's sources differs from its plain version")
+    keys_bytes = sum(key_bytes(k, v.shape[0]) + nbytes(v) for k, v in parts)
+    k3 = {"rows": n, "sources": len(states), "max_abs_err": 0.0,
+          "ms": time_ms(lambda: tc.row_hash_sources(parts, False), torch),
+          "plain_ms": time_ms(lambda: tc.row_hash_sources_plain(parts,
+                                                                False),
+                              torch),
+          "library_ms": None, "bound_ms": _bound(keys_bytes + 16 * n)}
+    perm = tc.lex_perm(list(h))
+    cols, lo = [], 0
+    for (keys, valid), st in zip(parts, states):
+        hi = lo + valid.shape[0]
+        flat = [a for t in st.states for a in t if a.dim() == 1]
+        cols.append((keys + [(a, None) for a in flat]
+                     + [(h[0][lo:hi], None), (h[1][lo:hi], None)], valid))
+        lo = hi
+    g26 = tc.gather_rows(cols, perm)
+    w26 = tc.gather_rows_plain(cols, perm)
+    torch.cuda.synchronize()
+    check(torch.equal(g26[1], w26[1])
+          and all(torch.equal(a, b) and (am is None or torch.equal(am, bm))
+                  for (a, am), (b, bm) in zip(g26[0], w26[0])),
+          "K26 over the merge's sources differs from its plain version")
+    # every array element read once and written once, the permutation
+    # and row_valid read once
+    elem = sum(nbytes(d) + (0 if m is None else nbytes(m))
+               for c, _ in cols for d, m in c)
+    k26 = {"rows": n, "sources": len(states), "arrays": len(cols[0][0]),
+           "max_abs_err": 0.0,
+           "ms": time_ms(lambda: tc.gather_rows(cols, perm), torch),
+           "plain_ms": time_ms(lambda: tc.gather_rows_plain(cols, perm),
+                               torch),
+           "library_ms": None,
+           "bound_ms": _bound(2 * elem + nbytes(perm) + 2 * n)}
+    return merge, k3, k26
+
+
+def measure_k28(torch, ak, tagg, args):
+    """K28 at the largest shrink: the copy into new storage against the
+    plain copy; each shrunk array owns storage of its size (C10)."""
+    st, cap = args
+    got = tagg._shrink_state(st, cap)
+    flat = state_arrays(st)
+    want = ak.shrink_arrays_plain(flat, cap)
+    torch.cuda.synchronize()
+    for g, w in zip(state_arrays(got), want):
+        check(torch.equal(g, w) and g.untyped_storage().nbytes() == nbytes(g),
+              "K28 state_shrink differs from its plain copy or keeps "
+              "storage beyond its rows")
+    prefix = sum(nbytes(w) for w in want)
+    return {"rows": st.valid.shape[0], "cap": cap, "arrays": len(flat),
+            "max_abs_err": 0.0,
+            "ms": time_ms(lambda: tagg._shrink_state(st, cap), torch),
+            "plain_ms": time_ms(lambda: ak.shrink_arrays_plain(flat, cap),
+                                torch),
+            "library_ms": None, "bound_ms": _bound(2 * prefix)}
+
+
+def measure_count(torch, tagg, pages, args):
+    """agg_count at its largest state: the carried count's copy to the
+    host (no reduction) against the plain sum and its copy, and one
+    count_nonzero."""
+    st, = args
+    got = tagg._count_live(st).get()
+    check(got == int(tagg.count_live_plain(st.valid)),
+          "agg_count: the carried count differs from the plain sum")
+    return {"rows": st.valid.shape[0], "live": got, "max_abs_err": 0.0,
+            "ms": time_ms(lambda: tagg._count_live(st), torch),
+            "plain_ms": time_ms(lambda: pages.PendingScalar(
+                tagg.count_live_plain(st.valid)), torch),
+            "library_ms": time_ms(lambda: torch.count_nonzero(st.valid),
+                                  torch),
+            "bound_ms": _bound(nbytes(st.valid))}
+
+
+def k29_moved(cols, rows, cap, rv) -> int:
+    """Bytes one K29 launch must move for its descriptor columns: the
+    first `rows` rows of every state array and auxiliary array a column
+    reads (each once, however many columns read it), the row validity,
+    and every output data and mask written at `cap` rows. A key or state
+    array that a column aliases is not in the table and moves nothing."""
+    read = {}
+    for c in cols:
+        for t in c.states + ([] if c.aux is None else [c.aux]):
+            n = min(t.shape[0], rows)
+            read[t.data_ptr()] = nbytes(t) // max(t.shape[0], 1) * n
+    written = sum(nbytes(c.out) + (0 if c.out_mask is None
+                                   else nbytes(c.out_mask)) for c in cols)
+    return sum(read.values()) + (0 if rv is None else rows) + written
+
+
+def measure_k29(torch, th, name, args):
+    """K29 at `name`'s largest drain against the composed drain; its
+    bound from the descriptor columns of that launch."""
+    fn, plain = getattr(th, name), getattr(th, name + "_plain")
+    launches = []
+    real = th.ak.finalize_columns
+
+    def record(cols, rows, cap, rv):
+        launches.append(k29_moved(cols, rows, cap, rv))
+        return real(cols, rows, cap, rv)
+    th.ak.finalize_columns = record
+    try:
+        got = fn(*args)
+    finally:
+        th.ak.finalize_columns = real
+    check(len(launches) == 1, f"{name}: {len(launches)} K29 launches "
+          "where one drains the state")
+    want = plain(*args)
+    torch.cuda.synchronize()
+    # the same IEEE operations in the same order (no contraction): equal
+    err = batch_err(torch, got, want, name, 0.0)
+    return {"rows": got.capacity, "columns": len(got.columns),
+            "max_abs_err": err,
+            "ms": time_ms(lambda: fn(*args), torch),
+            "plain_ms": time_ms(lambda: plain(*args), torch),
+            "library_ms": None, "bound_ms": _bound(launches[0])}
+
+
+def measure_composed(torch, fn, args):
+    """A composed torch function at its largest call: its time and the
+    bytes its arguments and new outputs hold (every argument tensor read
+    once, every output tensor that is not an argument written once)."""
+    out = fn(*args)
+    ms = time_ms(lambda: fn(*args), torch)
     return {"rows": rows_of(*args), "ms": ms,
-            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+            "bound_ms": _bound(_moved(args, out))}
 
 
 def _sort_leading(torch, batch, keys, desc, nf):
@@ -1650,20 +1893,6 @@ def _topk_leading(torch, state, batch, n, keys, desc, nf):
                           state.columns[keys[0]].data.dtype)])
     k = min(int(n), lead.shape[0])
     return lambda: torch.topk(lead, k, largest=bool(desc[0]))
-
-
-#: one PyTorch call that computes a composed form's function, where
-#: there is one: the live count as count_nonzero. hashagg_merge and
-#: agg_finalize have none.
-COMPOSED_LIBRARY = {
-    "agg_count _count_live":
-        lambda torch, valid: lambda: torch.count_nonzero(valid),
-}
-
-
-def composed_library_ms(torch, label, args):
-    make = COMPOSED_LIBRARY.get(label)
-    return None if make is None else time_ms(make(torch, *args), torch)
 
 
 def batch_bytes(batch, rows=None) -> int:
@@ -1935,6 +2164,16 @@ KERNELS = {
                     "presto_tpu/ops/sort.py:22"),
     "limit_rank": ("cuda", "presto_tpu_torch/csrc/limit_rank.cu",
                    "presto_tpu/ops/sort.py:87"),
+    "row_hash_sources": ("cuda", "presto_tpu_torch/csrc/row_hash.cu",
+                         "presto_tpu/ops/hashagg.py:818"),
+    "gather_rows_sources": ("cuda", "presto_tpu_torch/csrc/gather_rows.cu",
+                            "presto_tpu/ops/hashagg.py:818"),
+    "state_shrink": ("cuda", "presto_tpu_torch/csrc/state_shrink.cu",
+                     "presto_tpu/operators/aggregation.py:83"),
+    "agg_finalize": ("cuda", "presto_tpu_torch/csrc/agg_finalize.cu",
+                     "presto_tpu/operators/aggregation.py:254"),
+    "vector_reduce": ("cuda", "presto_tpu_torch/csrc/vector_reduce.cu",
+                      "presto_tpu/ops/hashagg.py:884"),
 }
 #: the mesh path's kernels, measured there
 MESH_KERNELS = ("exchange_shuffle", "merge_pair")
@@ -1953,6 +2192,9 @@ ARRAY_KERNELS = ("array_collect",)
 #: the sort family's kernels, measured on the sort path (K25 at Q21's
 #: build on the TPC-H path)
 SORT_KERNELS = ("sort_encode", "radix_sort", "gather_rows", "limit_rank")
+#: the aggregation path's kernel, measured there (K28, K29 and the
+#: N-source K3 / K26 are measured on the TPC-H path)
+AGG_KERNELS = ("vector_reduce",)
 
 #: queries run again with fusion off (their walls beside the fused ones)
 FUSION_OFF = ("q1", "q3", "q6", "q18")
@@ -2193,7 +2435,8 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
           and cap.expand_full is not None and cap.expand_full[1] == "full"
           and cap.k11 is not None and cap.k11[1] == "full"
           and cap.distinct is not None and cap.distinct[1] == "distinct"
-          and cap.build_sort is not None,
+          and cap.build_sort is not None
+          and set(cap.composed) == set(AGG_CALLS),
           "kernel inputs were not captured from the main path")
     k1 = {q: measure_k1(torch, th, cap.k1[q][1], q) for q in ("q1", "q6")}
     _, q6_batch, q6_cap = cap.k2["q6"]
@@ -2228,10 +2471,25 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
     # K25 at the largest join build, beside one stable torch.sort
     build_sort = {**measure_radix_sort(torch, tc, *cap.build_sort[2:]),
                   "shape_from": cap.build_sort[1]}
-    composed = {label: (q, {**measure_composed(torch, fn, args),
-                            "library_ms": composed_library_ms(
-                                torch, label, args)})
-                for label, (_, q, fn, args) in cap.composed.items()}
+    # the aggregation state's calls at their largest: K3 / K26 over a
+    # merge's sources, K28, the carried count, K29
+    agg_at = {label: v[1] for label, v in cap.composed.items()}
+    agg_args = {label: v[3] for label, v in cap.composed.items()}
+    merge, k3_sources, k26_sources = measure_merge(
+        torch, tc, th, agg_args["hashagg_merge merge_states"])
+    agg_state = {
+        "hashagg_merge merge_states": merge,
+        "agg_shrink _shrink_state": measure_k28(
+            torch, mods["ak"], mods["agg"],
+            agg_args["agg_shrink _shrink_state"]),
+        "agg_count _count_live": measure_count(
+            torch, mods["agg"], mods["pages"],
+            agg_args["agg_count _count_live"]),
+        "agg_finalize finalize": measure_k29(
+            torch, th, "finalize", agg_args["agg_finalize finalize"]),
+        "agg_finalize direct_finalize": measure_k29(
+            torch, th, "direct_finalize",
+            agg_args["agg_finalize direct_finalize"])}
     # K12: every distinct generated kernel at its largest call against
     # its composed form; timed at the three largest by bytes and at
     # Q1's chain fused into its aggregation
@@ -2324,13 +2582,22 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
     emit({"phase": "kernels", "kernel": "radix_sort", "role": "join build",
           "family": "join_build", **build_sort,
           "calls": {qq: c.get("join_build", 0) for qq, c in calls.items()}})
-    # the composed forms with no hand-written kernel yet: time at the
-    # largest call, byte bound, calls of the family per query
-    for label, (q, m) in sorted(composed.items()):
-        family = COMPOSED.get(label, ("filter_project",))[0]
-        emit({"phase": "kernels", "kernel": label + " (torch)",
-              "family": family, "shape_from": q, **m,
+    # the aggregation state's calls: time at the largest call against
+    # the plain version, byte bound, calls of the family per query
+    merge_q = agg_at["hashagg_merge merge_states"]
+    for label, m in agg_state.items():
+        family = AGG_CALLS[label][0]
+        emit({"phase": "kernels", "kernel": label, "family": family,
+              "shape_from": agg_at[label], **m,
               "calls": {qq: c.get(family, 0) for qq, c in calls.items()}})
+    for name, m in (("row_hash_sources", k3_sources),
+                    ("gather_rows_sources", k26_sources)):
+        emit({"phase": "kernels", "kernel": name, "family": "hashagg_merge",
+              "shape_from": merge_q, **m})
+    measured["row_hash_sources"] = k3_sources
+    measured["gather_rows_sources"] = k26_sources
+    measured["state_shrink"] = agg_state["agg_shrink _shrink_state"]
+    measured["agg_finalize"] = agg_state["agg_finalize finalize"]
 
     measured["direct_slot_reduce"] = k1["q1"]
     measured["compact"] = k2["q6_shrink"]
@@ -2358,7 +2625,8 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
     kernels = []
     for k, (route, src, replaces) in KERNELS.items():
         if k in WINDOW_KERNELS or k in ARRAY_KERNELS or k in MESH_KERNELS \
-                or k in SERVER_KERNELS or k in SORT_KERNELS:
+                or k in SERVER_KERNELS or k in SORT_KERNELS \
+                or k in AGG_KERNELS:
             continue
         m = measured[k]
         kernels.append({
@@ -3824,15 +4092,437 @@ def run_sort_phases(torch, np, mods, dev, schema):
                            for label in SORT_QUERIES}})
     for label, (family, fn_name, _) in SORT_FAMILIES.items():
         _, q, args, _ = cap.big[fn_name]
+        # topn's step: the state's slots beside the batch's
+        sizes = {"state_slots": args[0].capacity,
+                 "batch_slots": args[1].capacity} \
+            if fn_name == "topn_step" else {}
         emit({"phase": "kernels", "kernel": label, "family": family,
-              "shape_from": q, **measure_sort_family(torch, mods, label,
-                                                     args),
+              "shape_from": q, **sizes,
+              **measure_sort_family(torch, mods, label, args),
               "calls": {lbl: calls[lbl].get(family, 0)
                         for lbl in SORT_QUERIES}})
     totals = {name: sum(launches[label].get(name, 0)
                         for label in SORT_QUERIES)
               for name in tk.COUNTERS}
     return measured, totals
+
+
+# -- the aggregation path: approx_percentile, approx_distinct, checksum -----
+
+#: the direct path (dictionary keys: K1 + K30's direct mode, K29)
+APPROX_DIRECT = """select returnflag, linestatus,
+approx_percentile(extendedprice, 0.5), approx_distinct(partkey),
+checksum(orderkey) from lineitem group by 1, 2"""
+#: the sort path: 10,000 groups, per-batch partials shrunk (K28),
+#: counted (the carried count), merged (K3 / K26 over the sources, K30's
+#: dense mode) and drained (K29)
+APPROX_GROUPED = """select suppkey, approx_percentile(quantity, 0.9),
+approx_distinct(orderkey) from lineitem group by suppkey"""
+#: a global aggregation: one slot of the direct path
+APPROX_GLOBAL = "select approx_distinct(orderkey) from lineitem"
+#: the streaming path: lineitem arrives sorted by orderkey, so K8 groups
+#: each batch and K30 folds the vector states over K8's segments, the
+#: order carried across a batch border folded into the next batch's
+#: first group (1,500,000 groups)
+APPROX_STREAM = """select orderkey, approx_percentile(extendedprice, 0.5),
+approx_distinct(partkey), checksum(suppkey) from lineitem group by orderkey"""
+#: the streaming query's batches: 262,144 rows, so each batch's vector
+#: states ([out_cap, 1024] int32 and [out_cap, 2048] int8, every slot a
+#: possible order) stay near 3 GB on the card
+AGG_PROPS = {"approx_stream": {"batch_rows": 1 << 18}}
+AGG_QUERIES = {"approx_direct": APPROX_DIRECT,
+               "approx_grouped": APPROX_GROUPED,
+               "approx_global": APPROX_GLOBAL,
+               "approx_stream": APPROX_STREAM}
+#: the kernels each query must launch (no filter or projection: no K12)
+AGG_MUST = {"approx_direct": ("direct_slot_reduce", "vector_reduce",
+                              "agg_finalize"),
+            "approx_grouped": ("row_hash", "radix_sort", "gather_rows",
+                               "segment_reduce", "vector_reduce",
+                               "state_shrink", "row_hash_sources",
+                               "gather_rows_sources", "agg_finalize"),
+            "approx_global": ("direct_slot_reduce", "vector_reduce",
+                              "agg_finalize"),
+            "approx_stream": ("stream_reduce", "vector_reduce",
+                              "agg_finalize")}
+#: the sketches' geometry, as ops/hashagg.py (and the reference) has it
+PCTL_BUCKETS, PCTL_GAMMA = 1024, 1.06
+HLL_M = 2048  # hll_registers_for_error(0.023)
+
+
+def np_hash64(np, x):
+    """The reference's hash64 of present int64 values (splitmix64 in
+    uint64), in numpy."""
+    x = x.astype(np.int64).view(np.uint64)
+    with np.errstate(over="ignore"):
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return x ^ (x >> np.uint64(31))
+
+
+def np_pctl_values(np):
+    half, exp0 = PCTL_BUCKETS // 2, PCTL_BUCKETS // 4
+    mags = PCTL_GAMMA ** (np.arange(half - 1).astype(np.float64) - exp0)
+    out = np.zeros(PCTL_BUCKETS)
+    out[half:2 * half - 1] = mags
+    out[half - 2::-1] = -mags
+    return out
+
+
+def np_pctl(np, gid, groups, value, fraction):
+    """The reference's approx_percentile per group, in numpy: the first
+    bucket whose cumulative count reaches max(ceil(fraction * total),
+    1), which is the bucket of that rank among the group's rows sorted
+    by bucket (no [groups, buckets] histogram)."""
+    half, exp0 = PCTL_BUCKETS // 2, PCTL_BUCKETS // 4
+    mag = np.abs(value.astype(np.float64))
+    li = np.clip(np.round(np.log(np.maximum(mag, 1e-12))
+                          / float(np.log(PCTL_GAMMA))).astype(np.int32)
+                 + exp0, 0, half - 2)
+    b = np.where(value >= 0, half + li, half - 2 - li)
+    b = np.where(mag < 1e-12, half - 1, b).astype(np.int64)
+    total = np.bincount(gid, minlength=groups)
+    starts = np.r_[0, np.cumsum(total)[:-1]]
+    target = np.maximum(np.ceil(fraction * total.astype(np.float64)), 1.0)
+    at = np.minimum(starts + target.astype(np.int64) - 1, len(b) - 1)
+    return np_pctl_values(np)[b[np.lexsort((b, gid))][at]]
+
+
+def np_hll(np, gid, groups, value):
+    """The reference's approx_distinct per group (m = HLL_M), in numpy:
+    register = the hash's low bits, the leading zeros of the rest plus
+    one maxed into it (every register of a group with a row at least
+    0), then the estimate with the linear-counting correction; over the
+    touched registers only (no [groups, m] table)."""
+    m = HLL_M
+    b = int(np.log2(m))
+    h = np_hash64(np, value)
+    reg = (h & np.uint64(m - 1)).astype(np.int64)
+    x = (h >> np.uint64(b)).astype(np.int64)
+    bits = np.zeros_like(x)
+    for sh in (32, 16, 8, 4, 2, 1):
+        t = x >> sh
+        big = t != 0
+        bits += np.where(big, sh, 0)
+        x = np.where(big, t, x)
+    bits += (x != 0)
+    rho = (65 - b) - bits
+    key = (gid * m + reg) * 64 + rho
+    key.sort()
+    cell = key >> 6
+    last = np.r_[cell[1:] != cell[:-1], True]
+    # the touched registers only: an untouched one adds 2^0 and counts
+    # as a zero (the dyadic sums are exact in any order)
+    g = cell[last] // m
+    touched = np.bincount(g, minlength=groups)
+    alpha = 0.7213 / (1 + 1.079 / (1 << b))
+    est = alpha * m * m / (np.bincount(
+        g, weights=np.exp2(-(key[last] & 63).astype(np.float64)),
+        minlength=groups) + (m - touched))
+    zeros = (m - touched).astype(np.float64)
+    small = m * np.log(m / np.maximum(zeros, 1.0))
+    est = np.where((est <= 2.5 * m) & (zeros > 0), small, est)
+    return np.round(est).astype(np.int64)
+
+
+def np_checksum(np, gid, groups, value):
+    h = np_hash64(np, value)
+    out = np.zeros(groups, dtype=np.uint64)
+    np.add.at(out, gid, h)
+    return out.view(np.int64)
+
+
+def agg_oracle(np, gen_module, schema):
+    """The AGG_QUERIES in numpy: each sketch as the reference
+    builds it (exactly), and the exact answers it approximates (sorted
+    values' percentile, distinct counts)."""
+    gen = gen_module.TpchGenerator(gen_module.TpchConnector.SCHEMAS[schema])
+    li = lineitem_table(np, gen, ("returnflag", "linestatus",
+                                  "extendedprice", "partkey", "orderkey",
+                                  "suppkey", "quantity"))
+    sch = gen.schema("lineitem")
+    rf = sch.column("returnflag").dictionary
+    ls = sch.column("linestatus").dictionary
+    want, exact = {}, {}
+    gid = li["returnflag"].astype(np.int64) * len(ls) \
+        + li["linestatus"].astype(np.int64)
+    used = np.unique(gid)
+    ng = len(rf) * len(ls)
+    p = np_pctl(np, gid, ng, li["extendedprice"], 0.5)
+    d = np_hll(np, gid, ng, li["partkey"])
+    c = np_checksum(np, gid, ng, li["orderkey"])
+    want["approx_direct"] = sorted(
+        (rf[g // len(ls)], ls[g % len(ls)], float(p[g]), int(d[g]), int(c[g]))
+        for g in used)
+    exact["approx_direct"] = {
+        (rf[g // len(ls)], ls[g % len(ls)]): (
+            _exact_pctl(np, li["extendedprice"][gid == g], 0.5),
+            len(np.unique(li["partkey"][gid == g])))
+        for g in used}
+    supp, sgid = np.unique(li["suppkey"], return_inverse=True)
+    p = np_pctl(np, sgid, len(supp), li["quantity"], 0.9)
+    d = np_hll(np, sgid, len(supp), li["orderkey"])
+    want["approx_grouped"] = sorted(
+        (int(supp[g]), float(p[g]), int(d[g])) for g in range(len(supp)))
+    order = np.lexsort((li["orderkey"], sgid))
+    sg, so = sgid[order], li["orderkey"][order]
+    first = np.r_[True, (sg[1:] != sg[:-1]) | (so[1:] != so[:-1])]
+    distinct = np.bincount(sg[first], minlength=len(supp))
+    qty = li["quantity"][np.argsort(sgid, kind="stable")]
+    starts = np.r_[0, np.cumsum(np.bincount(sgid, minlength=len(supp)))]
+    exact["approx_grouped"] = {
+        int(supp[g]): (_exact_pctl(np, qty[starts[g]:starts[g + 1]], 0.9),
+                       int(distinct[g])) for g in range(len(supp))}
+    zero = np.zeros(len(li["orderkey"]), dtype=np.int64)
+    want["approx_global"] = [(int(np_hll(np, zero, 1, li["orderkey"])[0]),)]
+    exact["approx_global"] = {(): (None, len(np.unique(li["orderkey"])))}
+    okeys, ogid = np.unique(li["orderkey"], return_inverse=True)
+    ng = len(okeys)
+    p = np_pctl(np, ogid, ng, li["extendedprice"], 0.5)
+    d = np_hll(np, ogid, ng, li["partkey"])
+    c = np_checksum(np, ogid, ng, li["suppkey"])
+    want["approx_stream"] = sorted(zip(okeys.tolist(), p.tolist(),
+                                       d.tolist(), c.tolist()))
+    total = np.bincount(ogid, minlength=ng)
+    starts = np.r_[0, np.cumsum(total)[:-1]]
+    at = starts + np.maximum(np.ceil(0.5 * total), 1).astype(np.int64) - 1
+    price = li["extendedprice"][np.lexsort((li["extendedprice"], ogid))]
+    order = np.lexsort((li["partkey"], ogid))
+    og, op = ogid[order], li["partkey"][order]
+    first = np.r_[True, (og[1:] != og[:-1]) | (op[1:] != op[:-1])]
+    exact["approx_stream"] = dict(zip(okeys.tolist(), zip(
+        price[at].tolist(), np.bincount(og[first], minlength=ng).tolist())))
+    return want, exact, len(li["orderkey"])
+
+
+def _exact_pctl(np, values, fraction):
+    """The value of rank max(ceil(fraction * n), 1) among the sorted
+    values (what the sketch's bucket approximates)."""
+    v = np.sort(values)
+    return float(v[max(int(np.ceil(fraction * len(v))), 1) - 1])
+
+
+def check_agg_result(label, got, want, exact) -> dict:
+    """The rows equal the numpy sketch's exactly, and each estimate lies
+    within its sketch's error of the exact answer: a percentile within
+    one bucket's relative half-width (gamma^0.5 - 1), a distinct count
+    within five standard errors (1.04 / sqrt(m)). Returns the largest
+    relative errors seen."""
+    check(sorted(got) == want,
+          f"{label} differs from the numpy sketch: "
+          f"{first_difference(sorted(got), want)}")
+    pctl_tol = PCTL_GAMMA ** 0.5 - 1
+    hll_tol = 5 * 1.04 / HLL_M ** 0.5
+    worst = {"pctl_rel_err": 0.0, "distinct_rel_err": 0.0}
+    for row in got:
+        if label == "approx_global":
+            key, pctl, dist = (), None, row[0]
+        elif label == "approx_direct":
+            key, pctl, dist = (row[0], row[1]), row[2], row[3]
+        else:
+            key, pctl, dist = row[0], row[1], row[2]
+        ex_p, ex_d = exact[key]
+        if pctl is not None:
+            rel = abs(pctl / ex_p - 1)
+            worst["pctl_rel_err"] = max(worst["pctl_rel_err"], rel)
+        rel = abs(dist / ex_d - 1)
+        worst["distinct_rel_err"] = max(worst["distinct_rel_err"], rel)
+    check(worst["pctl_rel_err"] <= pctl_tol * (1 + 1e-9),
+          f"{label}: a percentile is {worst['pctl_rel_err']:.4f} off the "
+          f"exact one (tolerance {pctl_tol:.4f})")
+    # an order's distinct parts (at most seven) lie below the range the
+    # sketch's standard error describes: one register shared by two of
+    # them is a miss of one; those counts are held to the numpy sketch
+    # exactly (above) and their error reported
+    check(label == "approx_stream"
+          or worst["distinct_rel_err"] <= hll_tol,
+          f"{label}: a distinct count is {worst['distinct_rel_err']:.4f} off "
+          f"the exact one (tolerance {hll_tol:.4f})")
+    return worst
+
+
+class VectorCapture(Patches):
+    """K30's largest call per mode (direct, sparse, stream, dense) during
+    one run of the aggregation queries: the direct mode's table copied
+    (it is updated in place), the others' inputs by reference."""
+
+    def __init__(self, mods):
+        super().__init__()
+        self.m = mods
+        self.big = {}  # mode -> (rows, query, args, kwargs)
+        self.query = None
+
+    def __enter__(self):
+        ak = self.m["ak"]
+
+        def direct(orig):
+            def rec(row_valid, keys, domains, index, value, table, reduce,
+                    slot_ids):
+                n = row_valid.shape[0]
+                if n > self.big.get("direct", (0,))[0]:
+                    self.big["direct"] = (n, self.query, (
+                        row_valid, keys, domains, index, value,
+                        table.clone(), reduce, slot_ids), {})
+                return orig(row_valid, keys, domains, index, value, table,
+                            reduce, slot_ids)
+            return rec
+
+        def segments(orig):
+            def rec(*args, **kw):
+                mode = "dense" if kw.get("sparse") is None else \
+                    "sparse" if kw.get("carry") is None else "stream"
+                n = (sum(d.shape[0] for d in kw["dense"]) if mode == "dense"
+                     else kw["sparse"][0].shape[0])
+                if n > self.big.get(mode, (0,))[0]:
+                    self.big[mode] = (n, self.query, args, kw)
+                return orig(*args, **kw)
+            return rec
+        self._patch(ak, "vector_direct", direct)
+        self._patch(ak, "vector_segments", segments)
+        return self
+
+
+def measure_k30(torch, ak, mode, args, kw):
+    """K30 at its largest call of `mode` against its plain version:
+    integer folds, so exactly. Bytes: the pairs (or the dense rows of
+    the live positions, read through the permutation) read once, the
+    output written once."""
+    if mode == "direct":
+        row_valid, keys, domains, index, value, table, reduce, slot_ids = args
+        got, want = table.clone(), table.clone()
+        ak.vector_direct(row_valid, keys, domains, index, value, got, reduce,
+                         slot_ids)
+        gid = slot_ids(row_valid, keys, domains, table.shape[0])
+        ak.vector_direct_plain(gid, index, value, want, reduce)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), "K30 direct differs from its plain "
+              "version")
+        work = table.clone()
+        ms = time_ms(lambda: ak.vector_direct(
+            row_valid, keys, domains, index, value, work, reduce, slot_ids),
+            torch)
+
+        def plain():
+            ak.vector_direct_plain(slot_ids(row_valid, keys, domains,
+                                            table.shape[0]),
+                                   index, value, work, reduce)
+        plain_ms = time_ms(plain, torch)
+        moved = nbytes(row_valid, index, value) \
+            + sum(nbytes(c, m) for c, m in keys) + 2 * nbytes(table)
+        lib = None
+        if reduce == "sum":
+            flat = (gid * table.shape[1] + index.to(torch.int64))
+            tgt = torch.zeros(table.numel() + table.shape[1],
+                              dtype=table.dtype, device=table.device)
+            val = value.to(table.dtype)
+            lib = time_ms(lambda: tgt.index_add_(0, flat, val), torch)
+        return {"mode": mode, "rows": row_valid.shape[0],
+                "table": list(table.shape), "max_abs_err": 0.0, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": lib,
+                "bound_ms": _bound(moved)}
+    _, valid, out_cap, K, dtype, _ = args
+    cy = kw.get("carry")
+    pkw = kw
+    if cy is not None:
+        # the new carry of each in its own tensor
+        kw = {**kw, "carry": ak.Carry(cy.row, cy.same, torch.empty_like(
+            cy.out))}
+        pkw = {**kw, "carry": ak.Carry(cy.row, cy.same, torch.empty_like(
+            cy.out))}
+    got = ak.vector_segments(*args, **kw)
+    want = ak.vector_segments_plain(*args, **pkw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want) and (cy is None or torch.equal(
+        kw["carry"].out, pkw["carry"].out)),
+          f"K30 {mode} differs from its plain version")
+    ms = time_ms(lambda: ak.vector_segments(*args, **kw), torch)
+    plain_ms = time_ms(lambda: ak.vector_segments_plain(*args, **pkw),
+                       torch)
+    pairs = mode in ("sparse", "stream")
+    nlive = int(valid.sum()) if valid is not None else (
+        kw["sparse"][0].shape[0] if pairs
+        else sum(d.shape[0] for d in kw["dense"]))
+    elem = torch.empty((), dtype=dtype).element_size()
+    if pairs:
+        read = nlive * (4 + elem)
+    else:
+        read = nlive * K * elem + (nbytes(kw["perm"]) if kw.get("perm")
+                                   is not None else 0)
+    # the carried row read and the new one written
+    moved = read + (0 if valid is None else nbytes(valid)) \
+        + out_cap * K * elem + (0 if cy is None else 2 * K * elem)
+    return {"mode": mode, "rows": nlive, "out": [out_cap, K],
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": _bound(moved)}
+
+
+def run_agg_phases(torch, np, mods, dev, schema):
+    """The aggregation path: AGG_QUERIES at `schema` through LocalRunner,
+    each against the numpy sketches exactly and the exact answers within
+    the sketches' errors, with cold and warm walls, peak device memory
+    and every kernel's launches; K30 at its largest call of each mode
+    against its plain version. Returns ({kernel: measurement}, {kernel:
+    launches on this path})."""
+    tk = mods["tk"]
+    t = time.perf_counter()
+    want, exact, n_lineitem = agg_oracle(np, mods["gen"], schema)
+    emit({"phase": "agg_oracle", "seconds": time.perf_counter() - t,
+          "lineitem_rows": n_lineitem})
+    runners = {label: mods["LocalRunner"](
+        "tpch", schema, properties=AGG_PROPS.get(label, PROPS), device=dev)
+        for label in AGG_QUERIES}
+    counters = list(tk.COUNTERS.values())
+    launches = {}
+    for label, sql in AGG_QUERIES.items():
+        for c in counters:
+            c.launches = 0
+        before = dict(tk.CALLS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        runner = runners[label]
+        rows = runner.execute(sql).rows()
+        cold = time.perf_counter() - t
+        launches[label] = {c.name: c.launches for c in counters}
+        calls = {f: n - before.get(f, 0) for f, n in tk.CALLS.items()
+                 if n - before.get(f, 0)}
+        peak = torch.cuda.max_memory_allocated()
+        worst = check_agg_result(label, rows, want[label], exact[label])
+        for k in AGG_MUST[label]:
+            check(launches[label][k] > 0, f"{k} was not launched in {label}")
+        t = time.perf_counter()
+        again = runner.execute(sql).rows()
+        warm = time.perf_counter() - t
+        check(sorted(again) == want[label], f"{label}'s warm run differs")
+        emit({"phase": "agg", "query": label, "schema": schema,
+              "batch_rows": AGG_PROPS.get(label, PROPS)["batch_rows"],
+              "rows": rows if len(rows) <= 20 else len(rows),
+              "matches_sketch_oracle": True, **worst,
+              "launches": launches[label], "family_calls": calls,
+              "cold_s": cold, "warm_s": warm, "peak_device_bytes": peak,
+              "lineitem_rows": n_lineitem,
+              "warm_lineitem_rows_per_s": n_lineitem / warm})
+    for label, sql in AGG_QUERIES.items():
+        emit({"phase": "profile", "query": label,
+              **profile_query(torch, mods["gen"], runners[label], sql)})
+    with VectorCapture(mods) as cap:
+        for label, sql in AGG_QUERIES.items():
+            cap.query = label
+            runners[label].execute(sql).rows()
+    check(set(cap.big) == {"direct", "sparse", "stream", "dense"},
+          f"K30's inputs were not captured: {sorted(cap.big)}")
+    measured = {}
+    for mode in ("direct", "sparse", "stream", "dense"):
+        _, q, args, kw = cap.big[mode]
+        m = measure_k30(torch, mods["ak"], mode, args, kw)
+        emit({"phase": "kernels", "kernel": "vector_reduce",
+              "shape_from": q, **m})
+        measured[mode] = m
+    totals = {name: sum(launches[label].get(name, 0)
+                        for label in AGG_QUERIES)
+              for name in tk.COUNTERS}
+    # K30's summary figures: its largest merge (the dense mode)
+    return {"vector_reduce": measured["dense"]}, totals
 
 
 # -- the mesh path (K18, K19) ----------------------------------------------
@@ -4515,11 +5205,13 @@ def main() -> int:
         from presto_tpu_torch.execution import dynamic_filters as tdf
         from presto_tpu_torch.expr import codegen
         from presto_tpu_torch.native import cuda
+        from presto_tpu_torch.native import pages as tpages
         from presto_tpu_torch.operators import fused_fragment as tff
         from presto_tpu_torch.operators import aggregation as tagg
         from presto_tpu_torch.operators import array_agg as taa
         from presto_tpu_torch.operators import core as tcore
         from presto_tpu_torch.operators import misc_ops as tmisc
+        from presto_tpu_torch.ops import agg_kernels as tak
         from presto_tpu_torch.ops import common as tc
         from presto_tpu_torch.ops import hashagg as th
         from presto_tpu_torch.ops import join as tj
@@ -4538,8 +5230,8 @@ def main() -> int:
             "tj": tj, "df": tdf, "agg": tagg, "core": tcore, "sort": tsort,
             "misc": tmisc, "codegen": codegen, "ff": tff,
             "tk": tk, "tw": tw, "ds": ds_module, "taa": taa,
-            "tsh": tsh, "tm": tm, "LocalRunner": LocalRunner,
-            "MeshRunner": MeshRunner}
+            "tsh": tsh, "tm": tm, "ak": tak, "pages": tpages,
+            "LocalRunner": LocalRunner, "MeshRunner": MeshRunner}
     check(set(KERNELS) == set(tk.COUNTERS)
           and {src for route, src, _ in KERNELS.values()
                if route == "cuda"}
@@ -4572,6 +5264,7 @@ def main() -> int:
     kernels, tpch_launches, build_sort = run_phases(torch, np, mods, dev,
                                                     SCHEMA)
     sort, sort_launches = run_sort_phases(torch, np, mods, dev, SCHEMA)
+    agg, agg_launches = run_agg_phases(torch, np, mods, dev, SCHEMA)
     window, window_launches = run_window_phases(torch, np, mods, dev,
                                                 SCHEMA)
     k17, array_launches = run_array_phases(torch, np, mods, dev, SCHEMA)
@@ -4583,23 +5276,28 @@ def main() -> int:
     for k in kernels:
         k["launches"] += window_launches[k["name"]] \
             + array_launches[k["name"]] + mesh_launches[k["name"]] \
-            + server_launches[k["name"]] + sort_launches[k["name"]]
+            + server_launches[k["name"]] + sort_launches[k["name"]] \
+            + agg_launches[k["name"]]
     for kname, m in [(n, window[n]) for n in WINDOW_KERNELS] \
             + [(n, k17) for n in ARRAY_KERNELS] \
             + [(n, mesh[n]) for n in MESH_KERNELS] \
             + [(n, server[n]) for n in SERVER_KERNELS] \
-            + [(n, sort[n]) for n in SORT_KERNELS]:
+            + [(n, sort[n]) for n in SORT_KERNELS] \
+            + [(n, agg[n]) for n in AGG_KERNELS]:
         route, src, replaces = KERNELS[kname]
         kernels.append({
             "name": kname, "route": route, "source": src,
             "replaces": replaces, "family": tk.COUNTERS[kname].family,
             "launches": window_launches[kname] + array_launches[kname]
             + mesh_launches[kname] + server_launches[kname]
-            + sort_launches[kname]
+            + sort_launches[kname] + agg_launches[kname]
             + (tpch_launches[kname] if kname in SORT_KERNELS else 0),
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": "bytes", "library_ms": m["library_ms"]})
+    check(all(k["launches"] > 0 for k in kernels),
+          "kernels the paths never launched: "
+          f"{[k['name'] for k in kernels if not k['launches']]}")
     print(smi_line, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -12,8 +12,9 @@
 // and each group's first row).
 //
 // Output row j takes input row perm[j] for j < rows. The input may come
-// from two sources: index p < n0 is row p of the first, p >= n0 row
-// p - n0 of the second (topn's state ++ batch with no concatenation).
+// from up to MAX_SOURCES sources: index p with off[s] <= p < off[s + 1]
+// is row p - off[s] of source s (topn's state ++ batch, a merge's
+// partial states, with no concatenation).
 // live_j = row_valid[perm[j]] (true without a row_valid) and, with a
 // limit (a device int64 the kernel reads), j < *limit; row_valid's
 // output is live_j, and a mask array marked `and_live` is ANDed with it
@@ -33,34 +34,41 @@
 
 #define THREADS 256
 #define MAX_ARRAYS 64
+#define MAX_SOURCES 8
+// source addresses one launch takes: arrays x sources
+#define MAX_SLOTS 128
 
 struct Arrays {
-  const void* src[2][MAX_ARRAYS];
+  const void* src[MAX_SLOTS];  // array c of source s at c * nsrc + s
   void* dst[MAX_ARRAYS];
   int8_t size[MAX_ARRAYS];
   int8_t and_live[MAX_ARRAYS];
   int32_t count;
+  const bool* valid[MAX_SOURCES];
+  int64_t off[MAX_SOURCES + 1];
+  int32_t nsrc;
 };
 
 __global__ void __launch_bounds__(THREADS)
-gather_rows_kernel(const Arrays a, const int64_t* __restrict__ perm, int64_t rows, int64_t n0,
-                   const bool* valid0, const bool* valid1, bool* out_valid,
-                   const int64_t* limit) {
+gather_rows_kernel(const Arrays a, const int64_t* __restrict__ perm, int64_t rows,
+                   bool* out_valid, const int64_t* limit) {
   const int64_t lim = limit != nullptr ? *limit : rows;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; j < rows;
        j += stride) {
     const int64_t p = perm[j];
-    const int s = p < n0 ? 0 : 1;
-    const int64_t r = s ? p - n0 : p;
+    int s = 0;
+    while (s + 1 < a.nsrc && p >= a.off[s + 1]) ++s;
+    const int64_t r = p - a.off[s];
     bool live = j < lim;
-    if (valid0 != nullptr) live = live && (s ? valid1 : valid0)[r];
+    if (a.valid[s] != nullptr) live = live && a.valid[s][r];
     if (out_valid != nullptr) out_valid[j] = live;
     for (int c = 0; c < a.count; ++c) {
+      const void* src = a.src[c * a.nsrc + s];
       if (a.and_live[c]) {
-        static_cast<bool*>(a.dst[c])[j] = live && static_cast<const bool*>(a.src[s][c])[r];
+        static_cast<bool*>(a.dst[c])[j] = live && static_cast<const bool*>(src)[r];
       } else {
-        copy_elem(a.src[s][c], r, a.dst[c], j, a.size[c]);
+        copy_elem(src, r, a.dst[c], j, a.size[c]);
       }
     }
   }
@@ -74,33 +82,38 @@ const char* presto_error_string(int status) {
 
 int presto_gather_max_arrays() { return MAX_ARRAYS; }
 
-// src0/src1/dst: host arrays of count device addresses (src1 = src0
-// with one source); sizes: element bytes (1, 2, 4, 8); and_live: 1 for
-// a mask ANDed with the row's liveness. valid0/valid1/out_valid and
-// limit may be null.
-int presto_gather_rows(const int64_t* src0, const int64_t* src1, const int64_t* dst,
-                       const int32_t* sizes, const int32_t* and_live, int32_t count,
-                       const void* perm, int64_t rows, int64_t n0, const void* valid0,
-                       const void* valid1, void* out_valid, const void* limit, void* stream) {
-  if (count < 0 || count > MAX_ARRAYS || rows < 1 || n0 < 0)
+// src: count * nsrc device addresses (array c of source s at
+// c * nsrc + s); off: nsrc + 1 row offsets of the sources in the
+// concatenation perm indexes (off[0] = 0); valid: nsrc row_valid
+// addresses (all null when the sources have none); dst: count
+// addresses; sizes: element bytes (1, 2, 4, 8); and_live: 1 for a mask
+// ANDed with the row's liveness. out_valid and limit may be null.
+int presto_gather_rows(const int64_t* src, int32_t nsrc, const int64_t* off,
+                       const int64_t* valid, const int64_t* dst, const int32_t* sizes,
+                       const int32_t* and_live, int32_t count, const void* perm, int64_t rows,
+                       void* out_valid, const void* limit, void* stream) {
+  if (count < 0 || count > MAX_ARRAYS || nsrc < 1 || nsrc > MAX_SOURCES ||
+      count * nsrc > MAX_SLOTS || rows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Arrays a;
   for (int c = 0; c < count; ++c) {
     if (sizes[c] != 1 && sizes[c] != 2 && sizes[c] != 4 && sizes[c] != 8)
       return static_cast<int>(cudaErrorInvalidValue);
     if (and_live[c] && sizes[c] != 1) return static_cast<int>(cudaErrorInvalidValue);
-    a.src[0][c] = reinterpret_cast<const void*>(src0[c]);
-    a.src[1][c] = reinterpret_cast<const void*>(src1[c]);
+    for (int s = 0; s < nsrc; ++s)
+      a.src[c * nsrc + s] = reinterpret_cast<const void*>(src[c * nsrc + s]);
     a.dst[c] = reinterpret_cast<void*>(dst[c]);
     a.size[c] = static_cast<int8_t>(sizes[c]);
     a.and_live[c] = static_cast<int8_t>(and_live[c] != 0);
   }
   a.count = count;
+  for (int s = 0; s < nsrc; ++s) a.valid[s] = reinterpret_cast<const bool*>(valid[s]);
+  for (int s = 0; s <= nsrc; ++s) a.off[s] = off[s];
+  a.nsrc = nsrc;
   const int64_t want = (rows + THREADS - 1) / THREADS;
   const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
   gather_rows_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const int64_t*>(perm), rows, n0, static_cast<const bool*>(valid0),
-      static_cast<const bool*>(valid1), static_cast<bool*>(out_valid),
+      a, static_cast<const int64_t*>(perm), rows, static_cast<bool*>(out_valid),
       static_cast<const int64_t*>(limit));
   return static_cast<int>(cudaGetLastError());
 }

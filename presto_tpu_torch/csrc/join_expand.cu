@@ -218,8 +218,8 @@ int presto_expand_tile() { return TILE; }
 
 // lo_enc[n] from K5 and the probe's row_valid[n]; the build's run_len
 // and hash2[nbuild >= 1]; probe_h2[n] or null; probe and build key columns
-// (nkeys each, flat, up to PRESTO_MAX_KEYS * PRESTO_MAX_KEY_GROUPS; read
-// under verify_full only); ncols output columns
+// (nkeys each, flat, as presto_fill_key_groups takes them;
+// read under verify_full only); ncols output columns
 // (src data/mask, dst data/mask — dst data null for an aligned probe
 // column — element size and side); matched[nbuild] (full mode, which
 // needs left) or null. Writes live[out_cap], sets matched[brow] for every

@@ -58,8 +58,8 @@ const char* presto_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// Probe keys (flat, up to PRESTO_MAX_KEYS * PRESTO_MAX_KEY_GROUPS
-// columns, hashed over their groups in turn) against a build's sorted_hash[nbuild],
+// Probe keys (flat, as presto_fill_key_groups takes
+// them, hashed over their groups in turn) against a build's sorted_hash[nbuild],
 // hash2[nbuild] and part_starts[2^k + 1]; writes lo_enc[n] and, when
 // h2_out is not null, h2[n].
 int presto_join_probe(const int64_t* key_data, const int64_t* key_mask, const int32_t* dtypes,

@@ -3,7 +3,7 @@
 // (join_probe.cu) and K7 (semi_join.cu) search with the same function,
 // so a join and a semi join cannot disagree on a candidate; K7 and K9
 // (join_expand.cu) compare keys with the same function, over up to
-// PRESTO_MAX_KEY_GROUPS groups of key columns in turn.
+// groups of key columns in turn (presto_group).
 //
 // The search is the reference's presto_tpu/ops/join.py `_search_enc`
 // (:353-379) over `common.bounded_searchsorted`: the probe row's radix
@@ -78,14 +78,16 @@ __device__ __forceinline__ bool presto_key_group_match(const KeyCols& p, int64_t
 __device__ __forceinline__ bool presto_keys_match(const KeyGroups& p, int64_t i,
                                                   const KeyGroups& b, int64_t r) {
   for (int g = 0; g < p.ngroups; ++g)
-    if (!presto_key_group_match(p.g[g], i, b.g[g], r)) return false;
+    if (!presto_key_group_match(presto_group(p, g), i, presto_group(b, g), r)) return false;
   return true;
 }
 
 // No key of row i, in any group, is NULL.
 __device__ __forceinline__ bool presto_keys_present(const KeyGroups& k, int64_t i) {
-  for (int g = 0; g < k.ngroups; ++g)
-    for (int j = 0; j < k.g[g].nkeys; ++j)
-      if (!k.g[g].mask[j][i]) return false;
+  for (int g = 0; g < k.ngroups; ++g) {
+    const KeyCols& c = presto_group(k, g);
+    for (int j = 0; j < c.nkeys; ++j)
+      if (!c.mask[j][i]) return false;
+  }
   return true;
 }

@@ -17,22 +17,27 @@
 #include <stdint.h>
 
 #define PRESTO_MAX_KEYS 8
-// Most key groups one K5, K7, K8 or K9 launch compares (so at most
-// PRESTO_MAX_KEYS * PRESTO_MAX_KEY_GROUPS = 24 key columns; K3, K6 and
-// K13 take any number over several launches).
+// Key groups a K5, K7, K8 or K9 launch holds in its arguments; groups
+// past these (more than PRESTO_MAX_KEYS * PRESTO_MAX_KEY_GROUPS = 24
+// key columns) are read from a descriptor in device memory (`ext`), so
+// those kernels take any number of keys. K3, K6 and K13 take any
+// number over several launches.
 #define PRESTO_MAX_KEY_GROUPS 3
 #define PRESTO_H_INVALID INT64_MAX
 #define PRESTO_H2_INVALID INT64_MIN
 
 enum KeyDtype { KD_I8 = 0, KD_I16 = 1, KD_I32 = 2, KD_I64 = 3, KD_F32 = 4, KD_F64 = 5 };
 
-// Key columns of one call, passed to a kernel by value.
+// Key columns of one call, passed to a kernel by value. Its layout (168
+// bytes) is also the layout of the device descriptor ops/common.py
+// `key_group_args` builds for the groups past PRESTO_MAX_KEY_GROUPS.
 struct KeyCols {
   const void* data[PRESTO_MAX_KEYS];
   const bool* mask[PRESTO_MAX_KEYS];
   int32_t dtype[PRESTO_MAX_KEYS];
   int32_t nkeys;
 };
+static_assert(sizeof(KeyCols) == 168, "KeyCols is the 21-word descriptor layout");
 
 // Fill `k` from host arrays of device addresses; false when nkeys is
 // out of range.
@@ -48,20 +53,35 @@ static inline bool presto_fill_keys(KeyCols* k, const int64_t* data, const int64
   return true;
 }
 
-// Key columns past PRESTO_MAX_KEYS: successive groups of at most
-// PRESTO_MAX_KEYS columns, in key order, passed by value.
+// Key columns in successive groups of at most PRESTO_MAX_KEYS columns,
+// in key order: the first PRESTO_MAX_KEY_GROUPS by value, the rest in
+// device memory.
 struct KeyGroups {
   KeyCols g[PRESTO_MAX_KEY_GROUPS];
+  const KeyCols* ext;
   int32_t ngroups;
 };
 
+// Group i of `k`.
+__device__ __forceinline__ const KeyCols& presto_group(const KeyGroups& k, int i) {
+  return i < PRESTO_MAX_KEY_GROUPS ? k.g[i] : k.ext[i - PRESTO_MAX_KEY_GROUPS];
+}
+
 // Fill `k` from flat host arrays of nkeys entries (groups of
-// PRESTO_MAX_KEYS in order); false when nkeys is out of range.
+// PRESTO_MAX_KEYS in order). With more than PRESTO_MAX_KEYS *
+// PRESTO_MAX_KEY_GROUPS keys, data[nkeys] holds the device address of
+// the descriptor of the later groups (one KeyCols each); false when
+// nkeys is out of range or that address is missing.
 static inline bool presto_fill_key_groups(KeyGroups* k, const int64_t* data, const int64_t* mask,
                                           const int32_t* dtypes, int32_t nkeys) {
-  if (nkeys < 1 || nkeys > PRESTO_MAX_KEYS * PRESTO_MAX_KEY_GROUPS) return false;
+  if (nkeys < 1) return false;
   k->ngroups = (nkeys + PRESTO_MAX_KEYS - 1) / PRESTO_MAX_KEYS;
-  for (int g = 0; g < k->ngroups; ++g) {
+  k->ext = nullptr;
+  if (k->ngroups > PRESTO_MAX_KEY_GROUPS) {
+    k->ext = reinterpret_cast<const KeyCols*>(data[nkeys]);
+    if (k->ext == nullptr) return false;
+  }
+  for (int g = 0; g < k->ngroups && g < PRESTO_MAX_KEY_GROUPS; ++g) {
     const int lo = g * PRESTO_MAX_KEYS;
     const int m = nkeys - lo < PRESTO_MAX_KEYS ? nkeys - lo : PRESTO_MAX_KEYS;
     presto_fill_keys(&k->g[g], data + lo, mask + lo, dtypes + lo, m);
@@ -146,6 +166,7 @@ __device__ __forceinline__ void presto_row_hash_pair(const KeyGroups& k, int64_t
                                                      int64_t* h_out, int64_t* h2_out) {
   uint64_t h = 0, h2 = 0;
   bool first = true, all_present = true;
-  for (int g = 0; g < k.ngroups; ++g) presto_hash_group(k.g[g], i, &first, &h, &h2, &all_present);
+  for (int g = 0; g < k.ngroups; ++g)
+    presto_hash_group(presto_group(k, g), i, &first, &h, &h2, &all_present);
   presto_hash_finish(h, h2, row_valid, all_present, nulls_invalid, h_out, h2_out);
 }

@@ -114,7 +114,7 @@ __device__ __forceinline__ bool presto_keys_differ(const KeyCols& k, int64_t i, 
 
 __device__ __forceinline__ bool presto_keys_differ(const KeyGroups& k, int64_t i, int64_t p) {
   for (int g = 0; g < k.ngroups; ++g)
-    if (presto_keys_differ(k.g[g], i, p)) return true;
+    if (presto_keys_differ(presto_group(k, g), i, p)) return true;
   return false;
 }
 

@@ -104,6 +104,9 @@ seg_scan(int64_t* __restrict__ tile_counts, int64_t ntiles, int64_t out_cap, int
   if (threadIdx.x == 0) {
     stats[0] = total;
     stats[1] = total > out_cap ? 1 : 0;
+    // the live groups, min(groups, out_cap): the state's carried count
+    // (agg_count reads it with no reduction of its own)
+    stats[3] = total < out_cap ? total : out_cap;
   }
 }
 
@@ -151,8 +154,10 @@ int presto_segment_key_changes(const int64_t* data, const int64_t* mask, const i
 // Sorted h1[n], h2[n], keys (as in row_hash.cu: the first group),
 // key_changes[n] for the keys past it (or null) and valid[n]; ncomp
 // sorted contributions with their out[out_cap] slots, dtype and op
-// codes. Writes first_row[out_cap] and stats[3] = {groups,
-// overflow, last live row + 1}; stats must be zeroed by the caller.
+// codes. Writes first_row[out_cap] and stats[4] = {groups,
+// overflow, last live row + 1, live groups}; stats must be zeroed by
+// the caller. starts[g] is the first row of group g < groups (K30 reads
+// them).
 // Scratch: flags[n] bytes, tiles[ceil(n / TILE)] and starts[out_cap + 1]
 // int64s.
 int presto_segment_reduce(const void* h1, const void* h2, const int64_t* key_data,

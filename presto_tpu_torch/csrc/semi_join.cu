@@ -71,8 +71,8 @@ const char* presto_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// Probe keys (flat, up to PRESTO_MAX_KEYS * PRESTO_MAX_KEY_GROUPS
-// columns, compared over their groups in turn) against a build's sorted_hash, hash2,
+// Probe keys (flat, as presto_fill_key_groups takes
+// them, compared over their groups in turn) against a build's sorted_hash, hash2,
 // part_starts[2^k + 1] and run_len; build keys (same count) only for
 // mode SEMI_WALK_FULL. Writes keep[n].
 int presto_semi_join(const int64_t* key_data, const int64_t* key_mask, const int32_t* dtypes,

@@ -69,8 +69,7 @@ struct StreamArgs {
 
 // Where the new carry goes (carry mode only).
 struct CarryOut {
-  void* key_data[PRESTO_MAX_KEYS * PRESTO_MAX_KEY_GROUPS];
-  bool* key_mask[PRESTO_MAX_KEYS * PRESTO_MAX_KEY_GROUPS];
+  KeyGroups keys;  // one row per key, written here
   void* comp[PRESTO_MAX_COMPS];
   bool* valid;
   bool* emit_carry;
@@ -124,11 +123,13 @@ __device__ __forceinline__ bool carry_group_equals(const KeyCols& c, const KeyCo
 
 __device__ __forceinline__ bool carry_equals(const KeyGroups& c, const KeyGroups& k, int64_t r) {
   for (int g = 0; g < k.ngroups; ++g)
-    if (!carry_group_equals(c.g[g], k.g[g], r)) return false;
+    if (!carry_group_equals(presto_group(c, g), presto_group(k, g), r)) return false;
   return true;
 }
 
-// stats: [0] groups, [1] overflow, [2] last live row + 1, [3] same
+// stats: [0] groups, [1] overflow, [2] last live row + 1, [3] live
+// groups min(groups, out_cap), [4] same (K6's layout in [0, 4), so K30
+// folds vector states over these segments)
 __global__ void __launch_bounds__(TILE)
 sr_tiles(const StreamArgs a, uint8_t* __restrict__ flags, int64_t* __restrict__ tile_counts,
          int64_t* __restrict__ tile_first, int64_t* __restrict__ tile_last) {
@@ -175,7 +176,8 @@ sr_scan(const StreamArgs a, uint8_t* __restrict__ flags, int64_t* __restrict__ t
     stats[0] = total;
     stats[1] = total > a.out_cap ? 1 : 0;
     stats[2] = last_live + 1;
-    stats[3] = 0;
+    stats[3] = total < a.out_cap ? total : a.out_cap;
+    stats[4] = 0;
   }
 }
 
@@ -210,7 +212,7 @@ sr_reduce(const StreamArgs a, const int64_t* __restrict__ starts, int64_t* stats
     if (lane == 0) {
       first_row[g] = live ? start : a.n - 1;
       slot_valid[g] = g < emitted;
-      if (g == 0) stats[3] = same ? 1 : 0;
+      if (g == 0) stats[4] = same ? 1 : 0;
     }
   }
 }
@@ -229,24 +231,26 @@ __global__ void sr_carry(const StreamArgs a, const CarryOut o, const int64_t* __
     else copy_bytes(a.carry_comp[c], 0, o.comp[c], size);
   }
   for (int g = 0; g < a.keys.ngroups; ++g) {
-    const KeyCols& k = a.keys.g[g];
-    const KeyCols& c = a.carry_keys.g[g];
+    const KeyCols& k = presto_group(a.keys, g);
+    const KeyCols& c = presto_group(a.carry_keys, g);
+    const KeyCols& ok = presto_group(o.keys, g);
     for (int j = lane; j < k.nkeys; j += 32) {
       const int size = key_size(k.dtype[j]);
-      const int out = g * PRESTO_MAX_KEYS + j;
+      void* out_data = const_cast<void*>(ok.data[j]);
+      bool* out_mask = const_cast<bool*>(ok.mask[j]);
       if (has_groups) {
-        copy_bytes(k.data[j], row, o.key_data[out], size);
-        *o.key_mask[out] = k.mask[j][row];
+        copy_bytes(k.data[j], row, out_data, size);
+        *out_mask = k.mask[j][row];
       } else {
-        copy_bytes(c.data[j], 0, o.key_data[out], size);
-        *o.key_mask[out] = c.mask[j][0];
+        copy_bytes(c.data[j], 0, out_data, size);
+        *out_mask = c.mask[j][0];
       }
     }
   }
   if (lane == 0) {
     const bool carry_valid = a.carry_valid[0];
     *o.valid = has_groups ? true : carry_valid;
-    *o.emit_carry = carry_valid && has_groups && stats[3] == 0;
+    *o.emit_carry = carry_valid && has_groups && stats[4] == 0;
   }
 }
 
@@ -258,16 +262,17 @@ const char* presto_error_string(int status) {
 
 int presto_stream_tile() { return TILE; }
 
-// Keys (flat, up to PRESTO_MAX_KEYS * PRESTO_MAX_KEY_GROUPS columns,
-// compared over their groups in turn) and valid[n] in key order; ncomp
+// Keys (flat, as presto_fill_key_groups takes them, compared over their
+// groups in turn) and valid[n] in key order; ncomp
 // contributions with their out[out_cap] slots, dtype and op codes.
-// Writes first_row[out_cap], slot_valid[out_cap] and stats[4] = {groups,
-// overflow, last live row + 1, same}. With carry != 0 also reads the
+// Writes first_row[out_cap], slot_valid[out_cap], starts[out_cap + 1]
+// (each group's first row) and stats[5] = {groups, overflow, last live
+// row + 1, live groups, same}. With carry != 0 also reads the
 // carry (carry_key_data/mask: one row per key, carry_valid[1],
 // carry_comp: one value per component) and writes the new carry
-// (out_key_data/mask, out_comp, out_valid) and emit_carry[1].
-// Scratch: flags[n] bytes, tiles[3 * ceil(n / TILE)] and
-// starts[out_cap + 1] int64s.
+// (out_key_data/mask, laid out as the keys are; out_comp, out_valid)
+// and emit_carry[1].
+// Scratch: flags[n] bytes and tiles[3 * ceil(n / TILE)] int64s.
 int presto_stream_reduce(const int64_t* key_data, const int64_t* key_mask,
                          const int32_t* key_dtypes, int32_t nkeys, const void* valid, int64_t n,
                          const int64_t* contrib, const int64_t* out, const int32_t* dtypes,
@@ -288,15 +293,14 @@ int presto_stream_reduce(const int64_t* key_data, const int64_t* key_mask,
   a.carry = carry != 0;
   CarryOut o;
   if (a.carry) {
-    presto_fill_key_groups(&a.carry_keys, carry_key_data, carry_key_mask, key_dtypes, nkeys);
+    if (!presto_fill_key_groups(&a.carry_keys, carry_key_data, carry_key_mask, key_dtypes,
+                                nkeys) ||
+        !presto_fill_key_groups(&o.keys, out_key_data, out_key_mask, key_dtypes, nkeys))
+      return static_cast<int>(cudaErrorInvalidValue);
     a.carry_valid = static_cast<const bool*>(carry_valid);
     for (int c = 0; c < ncomp; ++c) {
       a.carry_comp[c] = reinterpret_cast<const void*>(carry_comp[c]);
       o.comp[c] = reinterpret_cast<void*>(out_comp[c]);
-    }
-    for (int j = 0; j < nkeys; ++j) {
-      o.key_data[j] = reinterpret_cast<void*>(out_key_data[j]);
-      o.key_mask[j] = reinterpret_cast<bool*>(out_key_mask[j]);
     }
     o.valid = static_cast<bool*>(out_valid);
     o.emit_carry = static_cast<bool*>(emit_carry);

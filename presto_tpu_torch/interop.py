@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch.batch import Batch, Column
-from presto_tpu_torch.ops.hashagg import DirectState
+from presto_tpu_torch.ops.hashagg import DirectState, GroupByState
 from presto_tpu_torch.types import parse_type
 
 
@@ -45,3 +45,21 @@ def direct_state_from_numpy(states: Sequence[Sequence[np.ndarray]],
         [tuple(torch.from_numpy(np.array(a)).to(device) for a in st)
          for st in states],
         torch.from_numpy(np.array(present, dtype=bool)).to(device))
+
+
+def group_state_from_numpy(keys: Sequence[Tuple[np.ndarray, np.ndarray]],
+                           states: Sequence[Sequence[np.ndarray]],
+                           valid: np.ndarray, overflow: bool,
+                           device: torch.device) -> GroupByState:
+    """A packed sort-path state: `keys` as (data, mask) per key column,
+    `states` per aggregate its state component arrays (a vector
+    component [slots, K]), `valid` bool per slot (live slots first).
+    The live count it carries is valid's count."""
+    def t(a, dtype=None):
+        return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+    v = np.array(valid, dtype=bool)
+    return GroupByState(
+        [(t(d), t(m, bool)) for d, m in keys],
+        [tuple(t(a) for a in st) for st in states], t(v),
+        torch.tensor(bool(overflow), device=device),
+        torch.tensor(int(v.sum()), dtype=torch.int64, device=device))

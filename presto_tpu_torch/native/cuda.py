@@ -57,6 +57,9 @@ SOURCES = {
     "radix_sort": "radix_sort.cu",
     "gather_rows": "gather_rows.cu",
     "limit_rank": "limit_rank.cu",
+    "state_shrink": "state_shrink.cu",
+    "agg_finalize": "agg_finalize.cu",
+    "vector_reduce": "vector_reduce.cu",
 }
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
@@ -77,7 +80,8 @@ SIGNATURES = {
     },
     "row_hash": {
         "presto_row_hash": (
-            ctypes.c_int, [_P, _P, _P, _I32, _P, _I64, _I32, _P, _P, _P]),
+            ctypes.c_int, [_P, _P, _P, _I32, _I32, _P, _P, _I32, _P, _P,
+                           _P]),
     },
     "join_build": {
         "presto_join_build": (
@@ -202,13 +206,29 @@ SIGNATURES = {
     "gather_rows": {
         "presto_gather_max_arrays": (ctypes.c_int, []),
         "presto_gather_rows": (
-            ctypes.c_int, [_P, _P, _P, _P, _P, _I32, _P, _I64, _I64, _P, _P,
-                           _P, _P, _P]),
+            ctypes.c_int, [_P, _I32, _P, _P, _P, _P, _P, _I32, _P, _I64, _P,
+                           _P, _P]),
     },
     "limit_rank": {
         "presto_limit_tiles": (ctypes.c_int, [_I64]),
         "presto_limit_rank": (
             ctypes.c_int, [_P, _I64, _I64, _P, _P, _P, _P, _P, _P]),
+    },
+    "state_shrink": {
+        "presto_state_shrink": (ctypes.c_int, [_P, _P, _P, _I32, _P]),
+    },
+    "agg_finalize": {
+        "presto_agg_finalize": (
+            ctypes.c_int, [_P, _I32, _I64, _I64, _P, _P]),
+    },
+    "vector_reduce": {
+        "presto_vector_direct": (
+            ctypes.c_int, [_P, _P, _P, _I32, _P, _I64, _P, _P, _P, _I32,
+                           _I32, _I32, _I32, _P, _P]),
+        "presto_vector_segments": (
+            ctypes.c_int, [_P, _P, _P, _P, _I32, _P, _P, _P, _P, _I64, _P,
+                           _I64, _I32, _I32, _I32, _I32, _I32, _P, _P, _P,
+                           _P]),
     },
 }
 

@@ -16,10 +16,11 @@ Two paths, chosen from the key expressions:
 - sort-based (any other key set): every batch is compacted to its
   distinct groups (`hashagg.batch_aggregate`: K3 + sort + K6) into a
   partial sized by the batch, and partials are tree-merged
-  (`merge_states`, FANIN at a time). A partial's live-group count is
-  copied to the host when it is made and read one driver round later
-  (`agg_count`), to shrink it to its live bucket (`agg_shrink`) and to
-  size the merges from observed counts. When the groups outgrow
+  (`merge_states`, FANIN at a time). A partial's live-group count (the
+  one K6 computed with it) is copied to the host when it is made and
+  read one driver round later (`agg_count`), to shrink it to its live
+  bucket (`agg_shrink`, a copy into new storage: K28) and to size the
+  merges from observed counts. When the groups outgrow
   `max_groups` the state's overflow flag is set on the device; the one
   host read at the end raises GroupLimitExceeded and the runner re-runs
   the query with four times the groups.
@@ -51,6 +52,7 @@ from presto_tpu_torch.native.pages import PendingScalar
 from presto_tpu_torch.operators.base import (
     DriverContext, Operator, OperatorContext, OperatorFactory,
 )
+from presto_tpu_torch.ops import agg_kernels as ak
 from presto_tpu_torch.ops import hashagg
 from presto_tpu_torch.telemetry import kernels as _tk
 
@@ -83,22 +85,37 @@ def merge_states(states, aggs, out_cap: int) -> hashagg.GroupByState:
     return hashagg.merge_partials(list(states), aggs, out_cap)
 
 
-def _count_live(valid: torch.Tensor) -> PendingScalar:
+def count_live_plain(valid: torch.Tensor) -> torch.Tensor:
+    """The plain version of `agg_count` (the reference's
+    `jnp.sum(valid)`)."""
+    return valid.sum()
+
+
+def _count_live(st: hashagg.GroupByState) -> PendingScalar:
     """A partial's live-group count, copied to the host now and read
-    one driver round later (`agg_count`)."""
+    one driver round later (`agg_count`). The count is the one K6
+    computed with the state (`GroupByState.live`): no reduction runs
+    here."""
     _tk.count("agg_count")
-    return PendingScalar(valid.sum())
+    if st.live is None:
+        raise ValueError("agg_count: the state carries no live count")
+    return PendingScalar(st.live)
 
 
 def _shrink_state(st: hashagg.GroupByState, cap: int
                   ) -> hashagg.GroupByState:
-    """Slice a PACKED sort-path state down to `cap` slots (live groups
-    sit at the front; callers guarantee cap >= live)."""
+    """A PACKED sort-path state cut to `cap` slots (live groups sit at
+    the front; callers guarantee cap >= live), in new storage of that
+    size (K28), as the reference's jitted slice returns new arrays: the
+    full-capacity arrays are freed with the old state."""
     _tk.count("agg_shrink")
-    return hashagg.GroupByState(
-        [(d[:cap], m[:cap]) for d, m in st.keys],
-        [tuple(a[:cap] for a in t) for t in st.states],
-        st.valid[:cap], st.overflow)
+    flat = [a for d, m in st.keys for a in (d, m)] \
+        + [a for t in st.states for a in t] + [st.valid]
+    out = iter(ak.shrink_arrays(flat, cap))
+    keys = [(next(out), next(out)) for _ in st.keys]
+    states = [tuple(next(out) for _ in t) for t in st.states]
+    return hashagg.GroupByState(keys, states, next(out), st.overflow,
+                                st.live)
 
 
 def _direct_domains(key_exprs) -> Optional[Tuple[int, ...]]:
@@ -334,7 +351,7 @@ class AggregationOperator(Operator):
         return min(self._cap, operator_capacity(lives))
 
     def _enqueue(self, st) -> None:
-        self._pending.append((st, _count_live(st.valid)))
+        self._pending.append((st, _count_live(st)))
 
     def _drain_pending(self, keep: int) -> None:
         while len(self._pending) > keep:
@@ -408,9 +425,10 @@ class AggregationOperator(Operator):
         if self._domains is None:
             self._state = self._final_state()
             # ONE host read serves the overflow check and the live count
+            # (the count the state carries)
             overflow, live = torch.stack([
                 self._state.overflow.to(torch.int64),
-                self._state.valid.sum()]).tolist()
+                self._state.live]).tolist()
             if overflow:
                 raise GroupLimitExceeded(self.max_groups * 4)
         self._emitted = True

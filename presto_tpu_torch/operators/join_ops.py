@@ -285,7 +285,12 @@ class LookupJoinOperator(Operator):
         if not self.pre_fused:
             batch = _remap_keys(batch, self.key_names, self.key_dicts)
         table = self.bridge.table
-        cap = bucket_capacity(batch.capacity * self.expansion_factor)
+        # the output capacity of the reference's probe, whose batch
+        # arrives padded to the kernel ladder (its pad_for_kernel):
+        # sized alike, a join overflows, and re-runs, when the
+        # reference's does (ROADMAP C5)
+        cap = bucket_capacity(operator_capacity(batch.capacity)
+                              * self.expansion_factor)
         if self.join_type == "full" and self._matched is None:
             self._matched = torch.zeros(table.sorted_hash.shape[0],
                                         dtype=torch.bool,

@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from presto_tpu_torch.telemetry import kernels as _tk
@@ -129,8 +130,9 @@ KEY_DTYPES = {torch.bool: 0, torch.int8: 0, torch.int16: 1,
               torch.float64: 5}
 #: most key columns of one KeyCols group (PRESTO_MAX_KEYS)
 MAX_KEYS = 8
-#: most key groups one K5, K7, K8 or K9 launch compares
-#: (PRESTO_MAX_KEY_GROUPS): those kernels take up to 24 key columns
+#: key groups a K5, K7, K8 or K9 launch takes in its arguments
+#: (PRESTO_MAX_KEY_GROUPS); the groups past them go to the kernel as a
+#: descriptor in device memory (`key_group_args`)
 MAX_KEY_GROUPS = 3
 #: most output columns one gathering kernel takes (csrc/gather.cuh
 #: PRESTO_MAX_COLS), and the element sizes it copies
@@ -201,20 +203,37 @@ def key_groups(keys: Sequence[CVal]) -> List[Sequence[CVal]]:
 
 def key_group_args(keys: Sequence[CVal], n: int, dev: torch.device,
                    what: str):
-    """`key_args` for a kernel that compares up to MAX_KEY_GROUPS groups
-    of key columns in turn (csrc/row_hash.cuh `KeyGroups`): each group
-    is checked as `key_args` checks it, and the tables are passed flat,
-    group after group, with the total key count."""
-    if not 1 <= len(keys) <= MAX_KEYS * MAX_KEY_GROUPS:
-        raise ValueError(f"{what}: 1 to {MAX_KEYS * MAX_KEY_GROUPS} key "
-                         f"columns, got {len(keys)}")
+    """`key_args` for a kernel that compares groups of key columns in
+    turn (csrc/row_hash.cuh `KeyGroups`): each group is checked as
+    `key_args` checks it, and the tables are passed flat, group after
+    group, with the total key count. Past MAX_KEY_GROUPS groups the later
+    groups also go to the device as a descriptor of one KeyCols (21
+    int64 words) each, whose address follows the last key's in the data
+    table. Returns (data, masks, dtypes, count, the descriptor tensor or
+    None): the caller holds the last until its launch is queued."""
+    if not keys:
+        raise ValueError(f"{what}: no key columns")
     groups = key_groups(keys)
     tables = [key_args(g, n, dev, what) for g in groups]
     flat = [[t[f][j] for t, g in zip(tables, groups) for j in range(len(g))]
             for f in range(3)]
     nk = len(keys)
-    return (*((ctypes.c_int64 * nk)(*f) for f in flat[:2]),
-            (ctypes.c_int32 * nk)(*flat[2]), ctypes.c_int32(nk))
+    desc = None
+    if len(groups) > MAX_KEY_GROUPS:
+        rows = np.zeros((len(groups) - MAX_KEY_GROUPS, 21), dtype=np.int64)
+        for r, (t, g) in enumerate(zip(tables[MAX_KEY_GROUPS:],
+                                       groups[MAX_KEY_GROUPS:])):
+            rows[r, 0:8] = list(t[0])
+            rows[r, 8:16] = list(t[1])
+            rows[r, 16:20] = np.array(list(t[2]), dtype=np.int32) \
+                .view(np.int64)
+            rows[r, 20] = len(g)
+        desc = torch.from_numpy(rows)
+        if dev.type == "cuda":
+            desc = desc.pin_memory().to(dev, non_blocking=True)
+        flat[0].append(desc.data_ptr())
+    return (*((ctypes.c_int64 * len(f))(*f) for f in flat[:2]),
+            (ctypes.c_int32 * nk)(*flat[2]), ctypes.c_int32(nk), desc)
 
 
 def check_rows(t: torch.Tensor, n: int, dev: torch.device, dtypes,
@@ -230,53 +249,87 @@ def check_rows(t: torch.Tensor, n: int, dev: torch.device, dtypes,
             f"on {t.device}")
 
 
-def _row_hash_cuda(keys: Sequence[CVal], row_valid: torch.Tensor,
+#: launches of K3 that hashed the rows of more than one source (a
+#: merge's partial states, hashagg_merge), counted beside ROW_HASH_KERNEL
+ROW_HASH_SOURCES_KERNEL = _tk.LaunchCounter("row_hash_sources",
+                                            "hashagg_merge")
+#: most sources one K3 or K26 launch reads (csrc/row_hash.cu,
+#: csrc/gather_rows.cu MAX_SOURCES)
+MAX_SOURCES = 8
+
+
+def _row_hash_cuda(parts: Sequence[Tuple[Sequence[CVal], torch.Tensor]],
                    nulls_invalid: bool):
-    """K3; more than MAX_KEYS keys are hashed MAX_KEYS at a time and
-    chained: row_hash is linear in its parts (h = h_a * 31^m + h_b, m
-    the keys of the later part, wrapping like the reference's uint64
-    arithmetic), and likewise row_hash2 with 37, so the chained result
-    equals the reference's bit for bit; the dead-row sentinels are
-    folded in at the end."""
-    if len(keys) <= MAX_KEYS:
-        return _row_hash_launch(keys, row_valid, nulls_invalid)
-    every = torch.ones_like(row_valid)
+    """K3 over one or more sources; more than MAX_KEYS keys are hashed
+    MAX_KEYS at a time and chained: row_hash is linear in its parts (h
+    = h_a * 31^m + h_b, m the keys of the later part, wrapping like the
+    reference's uint64 arithmetic), and likewise row_hash2 with 37, so
+    the chained result equals the reference's bit for bit; the dead-row
+    sentinels are folded in at the end."""
+    nkeys = len(parts[0][0])
+    if nkeys <= MAX_KEYS:
+        return _row_hash_launch(parts, nulls_invalid)
+    every = [(keys, torch.ones_like(valid)) for keys, valid in parts]
     h = h2 = None
-    for lo in range(0, len(keys), MAX_KEYS):
-        part = keys[lo:lo + MAX_KEYS]
-        ph, ph2 = _row_hash_launch(part, every, False)
+    for lo in range(0, nkeys, MAX_KEYS):
+        sub = [(keys[lo:lo + MAX_KEYS], valid) for keys, valid in every]
+        width = len(sub[0][0])
+        ph, ph2 = _row_hash_launch(sub, False)
         if h is None:
             h, h2 = ph, ph2
         else:
-            h = h * _s64(31 ** len(part)) + ph
-            h2 = h2 * _s64(37 ** len(part)) + ph2
-    live = row_valid
-    if nulls_invalid:
-        for _, m in keys:
-            live = live & m
-    h = torch.where(live, h, torch.full_like(h, H_INVALID))
-    if nulls_invalid:
-        h2 = torch.where(live, h2, torch.full_like(h2, H2_INVALID))
+            h = h * _s64(31 ** width) + ph
+            h2 = h2 * _s64(37 ** width) + ph2
+    lo = 0
+    for keys, valid in parts:
+        live = valid
+        if nulls_invalid:
+            for _, m in keys:
+                live = live & m
+        rows = slice(lo, lo + valid.shape[0])
+        h[rows] = torch.where(live, h[rows], H_INVALID)
+        if nulls_invalid:
+            h2[rows] = torch.where(live, h2[rows], H2_INVALID)
+        lo += valid.shape[0]
     return h, h2
 
 
-def _row_hash_launch(keys: Sequence[CVal], row_valid: torch.Tensor,
-                     nulls_invalid: bool):
+def _cat_parts(ts: Sequence[torch.Tensor]) -> torch.Tensor:
+    return ts[0] if len(ts) == 1 else torch.cat(list(ts))
+
+
+def _row_hash_launch(parts, nulls_invalid: bool):
     from presto_tpu_torch.native import cuda
-    dev = row_valid.device
-    n = row_valid.shape[0]
-    check_rows(row_valid, n, dev, (torch.bool,), "row_hash: row_valid")
-    kd, km, kt, nk = key_args(keys, n, dev, "row_hash")
-    h = torch.empty(n, dtype=torch.int64, device=dev)
-    h2 = torch.empty(n, dtype=torch.int64, device=dev)
+    if not 1 <= len(parts) <= MAX_SOURCES:
+        raise ValueError(f"row_hash: 1 to {MAX_SOURCES} sources, got "
+                         f"{len(parts)}")
+    dev = parts[0][1].device
+    tables, offs = [], [0]
+    for keys, valid in parts:
+        n = valid.shape[0]
+        check_rows(valid, n, dev, (torch.bool,), "row_hash: row_valid")
+        tables.append(key_args(keys, n, dev, "row_hash"))
+        offs.append(offs[-1] + n)
+    dtypes = [t[2][:t[3].value] for t in tables]
+    if any(d != dtypes[0] for d in dtypes):
+        raise ValueError("row_hash: the sources' key dtypes differ")
+    nk = tables[0][3].value
+    total = offs[-1]
+    h = torch.empty(total, dtype=torch.int64, device=dev)
+    h2 = torch.empty(total, dtype=torch.int64, device=dev)
     lib = cuda.library("row_hash")
+    flat = [[t[f][j] for t in tables for j in range(nk)] for f in range(2)]
     status = lib.presto_row_hash(
-        kd, km, kt, nk, ctypes.c_void_p(row_valid.data_ptr()),
-        ctypes.c_int64(n), ctypes.c_int32(int(nulls_invalid)),
+        _ptrs_raw(flat[0]), _ptrs_raw(flat[1]), tables[0][2],
+        ctypes.c_int32(nk), ctypes.c_int32(len(parts)),
+        _ptrs([v for _, v in parts]), _ptrs_raw(offs),
+        ctypes.c_int32(int(nulls_invalid)),
         ctypes.c_void_p(h.data_ptr()), ctypes.c_void_p(h2.data_ptr()),
         ctypes.c_void_p(cuda.stream_ptr(dev)))
     cuda.check(lib, status, "row_hash")
     ROW_HASH_KERNEL.launches += 1
+    if len(parts) > 1:
+        ROW_HASH_SOURCES_KERNEL.launches += 1
     return h, h2
 
 
@@ -286,9 +339,29 @@ def row_hash_pair(keys: Sequence[CVal], row_valid: torch.Tensor,
     """K3: both row hashes of every row, dead rows folded to their
     sentinels (see `row_hash_pair_plain`). The CUDA kernel on CUDA
     tensors, the plain version on CPU tensors."""
-    if row_valid.device.type == "cpu":
-        return row_hash_pair_plain(keys, row_valid, nulls_invalid)
-    return _row_hash_cuda(keys, row_valid, nulls_invalid)
+    return row_hash_sources([(keys, row_valid)], nulls_invalid)
+
+
+def row_hash_sources(parts: Sequence[Tuple[Sequence[CVal], torch.Tensor]],
+                     nulls_invalid: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 over the rows of up to MAX_SOURCES sources, each (keys,
+    row_valid) with the same key dtypes: the hashes of their
+    concatenation, with nothing concatenated on the card. On CPU tensors
+    the plain version over the concatenation."""
+    if parts[0][1].device.type == "cpu":
+        return row_hash_sources_plain(parts, nulls_invalid)
+    return _row_hash_cuda(parts, nulls_invalid)
+
+
+def row_hash_sources_plain(parts, nulls_invalid: bool):
+    """Plain version of K3 over several sources: `row_hash_pair_plain`
+    of their concatenation."""
+    nkeys = len(parts[0][0])
+    keys = [(_cat_parts([k[j][0] for k, _ in parts]),
+             _cat_parts([k[j][1] for k, _ in parts])) for j in range(nkeys)]
+    return row_hash_pair_plain(keys, _cat_parts([v for _, v in parts]),
+                               nulls_invalid)
 
 
 def bounded_searchsorted(a: torch.Tensor, v: torch.Tensor,
@@ -413,7 +486,8 @@ SORT_DTYPES = {torch.bool: (0, 1), torch.int8: (1, 8), torch.int16: (2, 16),
                torch.int32: (3, 32), torch.int64: (4, 64),
                torch.float32: (5, 32), torch.float64: (6, 64)}
 #: most keys one K24 launch encodes, and most words it writes
-#: (csrc/sort_encode.cu MAX_SORT_KEYS, MAX_WORDS)
+#: (csrc/sort_encode.cu MAX_SORT_KEYS, MAX_WORDS); more keys take one
+#: launch per run of SORT_MAX_KEYS (`_key_runs`)
 SORT_MAX_KEYS = 32
 SORT_MAX_WORDS = 64
 #: most rows K25 sorts: it carries a 32-bit row index
@@ -477,16 +551,18 @@ def _sort_layout(has_valid: bool, keys_meta: Sequence[Tuple[torch.dtype,
 
 
 def _concat_parts(parts: Sequence[SortPart]):
-    """The columns and row_valid of one or two sources as one (the
-    second's data cast to the first's dtypes), for the plain versions."""
+    """The columns and row_valid of several sources as one (the later
+    sources' data cast to the first's dtypes), for the plain versions."""
     cols, valid = parts[0]
     if len(parts) == 1:
         return list(cols), valid
-    cols2, valid2 = parts[1]
-    out = [(torch.cat([d, d2.to(d.dtype)]),
-            None if m is None else torch.cat([m, m2]))
-           for (d, m), (d2, m2) in zip(cols, cols2)]
-    return out, None if valid is None else torch.cat([valid, valid2])
+    out = []
+    for j, (d, m) in enumerate(cols):
+        out.append((torch.cat([d] + [c[j][0].to(d.dtype)
+                                     for c, _ in parts[1:]]),
+                    None if m is None
+                    else torch.cat([c[j][1] for c, _ in parts])))
+    return out, None if valid is None else torch.cat([v for _, v in parts])
 
 
 def _value_code(data: torch.Tensor, mask: Optional[torch.Tensor],
@@ -546,25 +622,45 @@ def _vary_digits(words: torch.Tensor) -> torch.Tensor:
     return (vary << torch.arange(8, device=words.device)).sum(dim=1)
 
 
+def _key_runs(nkeys: int) -> List[Tuple[int, int]]:
+    """[lo, hi) runs of at most SORT_MAX_KEYS keys, one K24 launch each
+    (one run when there are none): the first run's words hold ~row_valid
+    and its keys, each later run's words follow with its own keys, so
+    the words in order still order the rows by every key in turn."""
+    return [(lo, min(lo + SORT_MAX_KEYS, nkeys))
+            for lo in range(0, nkeys, SORT_MAX_KEYS)] or [(0, 0)]
+
+
 def sort_encode_plain(parts: Sequence[SortPart],
                       descending: Sequence[bool],
                       nulls_first: Sequence[bool]):
     """Plain version of K24: (words [W, n] int64 holding the unsigned
-    key words bit for bit, per-word masks of varying digits [W])."""
+    key words bit for bit, per-word masks of varying digits [W]), with
+    the keys in runs as `_key_runs` lays them out."""
     keys, valid = _concat_parts(parts)
-    pos_valid, layout, nwords = _sort_layout(
-        valid is not None, [(d.dtype, m is not None) for d, m in keys])
     n = (valid if valid is not None else keys[0][0]).shape[0]
     dev = (valid if valid is not None else keys[0][0]).device
-    words = torch.zeros((nwords, n), dtype=torch.int64, device=dev)
-    if valid is not None:
-        _place(words, (~valid).to(torch.int64), 1, pos_valid)
-    for (data, mask), (rank, vpos, width), d, nf in zip(
-            keys, layout, descending, nulls_first):
-        if mask is not None:
-            _place(words, (mask if nf else ~mask).to(torch.int64), 1, rank)
-        _place(words, _value_code(data, mask, d), width, vpos)
+    runs = []
+    for lo, hi in _key_runs(len(keys)):
+        rv = valid if lo == 0 else None
+        pos_valid, layout, nwords = _sort_layout(
+            rv is not None, [(d.dtype, m is not None) for d, m in keys[lo:hi]])
+        words = torch.zeros((nwords, n), dtype=torch.int64, device=dev)
+        if rv is not None:
+            _place(words, (~rv).to(torch.int64), 1, pos_valid)
+        for (data, mask), (rank, vpos, width), d, nf in zip(
+                keys[lo:hi], layout, descending[lo:hi], nulls_first[lo:hi]):
+            if mask is not None:
+                _place(words, (mask if nf else ~mask).to(torch.int64), 1,
+                       rank)
+            _place(words, _value_code(data, mask, d), width, vpos)
+        runs.append(words)
+    words = runs[0] if len(runs) == 1 else torch.cat(runs)
     return words, _vary_digits(words)
+
+
+def _ptrs_raw(xs) -> "ctypes.Array":
+    return (ctypes.c_int64 * max(len(xs), 1))(*xs)
 
 
 def _ptrs(ts) -> "ctypes.Array":
@@ -576,13 +672,15 @@ def _i32s(xs) -> "ctypes.Array":
     return (ctypes.c_int32 * max(len(xs), 1))(*xs)
 
 
-def _check_part_cols(parts: Sequence[SortPart], dev, what: str):
-    """Raise unless every column and row_valid of the sources is a 1-D
-    tensor on `dev` of its source's rows (made contiguous here); the
-    second source's data cast to the first's dtypes. Returns (columns
-    per source, row_valid per source, rows per source)."""
-    if not 1 <= len(parts) <= 2:
-        raise ValueError(f"{what}: one or two sources, got {len(parts)}")
+def _check_part_cols(parts: Sequence[SortPart], dev, what: str,
+                     most: int = 2):
+    """Raise unless there are 1 to `most` sources and every column and
+    row_valid of them is a 1-D tensor on `dev` of its source's rows
+    (made contiguous here); the later sources' data cast to the first's
+    dtypes. Returns (columns per source, row_valid per source, rows per
+    source)."""
+    if not 1 <= len(parts) <= most:
+        raise ValueError(f"{what}: 1 to {most} sources, got {len(parts)}")
     out_cols, out_valid, rows = [], [], []
     for i, (cols, valid) in enumerate(parts):
         n = (valid if valid is not None else
@@ -607,52 +705,59 @@ def _check_part_cols(parts: Sequence[SortPart], dev, what: str):
         out_cols.append(fixed)
         out_valid.append(valid)
         rows.append(n)
-    if len(parts) == 2 and (
-            len(out_cols[0]) != len(out_cols[1])
-            or (out_valid[0] is None) != (out_valid[1] is None)
-            or any((a[1] is None) != (b[1] is None)
-                   for a, b in zip(*out_cols))):
-        raise ValueError(f"{what}: the two sources differ in their "
-                         "columns, masks or row_valid")
+    for cols, valid in zip(out_cols[1:], out_valid[1:]):
+        if len(cols) != len(out_cols[0]) \
+                or (valid is None) != (out_valid[0] is None) \
+                or any((a[1] is None) != (b[1] is None)
+                       for a, b in zip(cols, out_cols[0])):
+            raise ValueError(f"{what}: the sources differ in their "
+                             "columns, masks or row_valid")
     return out_cols, out_valid, rows
 
 
 def _sort_encode_cuda(parts, descending, nulls_first):
+    """K24, one launch per run of keys (`_key_runs`), each writing its
+    own rows of the one words tensor."""
     from presto_tpu_torch.native import cuda
     dev = (parts[0][1] if parts[0][1] is not None
            else parts[0][0][0][0]).device
     cols, valids, rows = _check_part_cols(parts, dev, "sort_encode")
-    keys = cols[0]
-    if len(keys) > SORT_MAX_KEYS:
-        raise ValueError(f"sort_encode: at most {SORT_MAX_KEYS} keys, got "
-                         f"{len(keys)}")
-    pos_valid, layout, nwords = _sort_layout(
-        valids[0] is not None, [(d.dtype, m is not None) for d, m in keys])
     n = sum(rows)
-    words = torch.empty((nwords, n), dtype=torch.int64, device=dev)
-    digits = torch.zeros(nwords, dtype=torch.int64, device=dev)
+    plans = []
+    for lo, hi in _key_runs(len(cols[0])):
+        has_valid = lo == 0 and valids[0] is not None
+        plans.append((lo, hi, has_valid) + _sort_layout(
+            has_valid, [(d.dtype, m is not None) for d, m in cols[0][lo:hi]]))
+    total = sum(p[-1] for p in plans)
+    words = torch.empty((total, n), dtype=torch.int64, device=dev)
+    digits = torch.zeros(total, dtype=torch.int64, device=dev)
     if n == 0:
         return words, digits
-    second = cols[-1]
-    acc = torch.empty(2 * nwords, dtype=torch.int64, device=dev)
     lib = cuda.library("sort_encode")
-    status = lib.presto_sort_encode(
-        _ptrs([d for d, _ in keys]), _ptrs([d for d, _ in second]),
-        _ptrs([m for _, m in keys]), _ptrs([m for _, m in second]),
-        _i32s([SORT_DTYPES[d.dtype][0] for d, _ in keys]),
-        _i32s([int(bool(x)) for x in descending]),
-        _i32s([int(bool(x)) for x in nulls_first]),
-        _i32s([r for r, _, _ in layout]), _i32s([v for _, v, _ in layout]),
-        _i32s([w for _, _, w in layout]), ctypes.c_int32(len(keys)),
-        ctypes.c_void_p(0 if valids[0] is None else valids[0].data_ptr()),
-        ctypes.c_void_p(0 if valids[-1] is None else valids[-1].data_ptr()),
-        ctypes.c_int32(pos_valid), ctypes.c_int32(nwords),
-        ctypes.c_int64(rows[0]), ctypes.c_int64(n),
-        ctypes.c_void_p(words.data_ptr()), ctypes.c_void_p(acc.data_ptr()),
-        ctypes.c_void_p(digits.data_ptr()),
-        ctypes.c_void_p(cuda.stream_ptr(dev)))
-    cuda.check(lib, status, "sort_encode")
-    SORT_ENCODE_KERNEL.launches += 1
+    w0 = 0
+    for lo, hi, has_valid, pos_valid, layout, nwords in plans:
+        keys, second = cols[0][lo:hi], cols[-1][lo:hi]
+        acc = torch.empty(2 * nwords, dtype=torch.int64, device=dev)
+        status = lib.presto_sort_encode(
+            _ptrs([d for d, _ in keys]), _ptrs([d for d, _ in second]),
+            _ptrs([m for _, m in keys]), _ptrs([m for _, m in second]),
+            _i32s([SORT_DTYPES[d.dtype][0] for d, _ in keys]),
+            _i32s([int(bool(x)) for x in descending[lo:hi]]),
+            _i32s([int(bool(x)) for x in nulls_first[lo:hi]]),
+            _i32s([r for r, _, _ in layout]),
+            _i32s([v for _, v, _ in layout]),
+            _i32s([w for _, _, w in layout]), ctypes.c_int32(hi - lo),
+            ctypes.c_void_p(valids[0].data_ptr() if has_valid else 0),
+            ctypes.c_void_p(valids[-1].data_ptr() if has_valid else 0),
+            ctypes.c_int32(pos_valid), ctypes.c_int32(nwords),
+            ctypes.c_int64(rows[0]), ctypes.c_int64(n),
+            ctypes.c_void_p(words[w0].data_ptr()),
+            ctypes.c_void_p(acc.data_ptr()),
+            ctypes.c_void_p(digits[w0].data_ptr()),
+            ctypes.c_void_p(cuda.stream_ptr(dev)))
+        cuda.check(lib, status, "sort_encode")
+        SORT_ENCODE_KERNEL.launches += 1
+        w0 += nwords
     return words, digits
 
 
@@ -772,10 +877,19 @@ def gather_rows_plain(parts: Sequence[SortPart], perm: torch.Tensor,
     return out, live
 
 
+#: launches of K26 that read more than two sources (a merge's partial
+#: states, hashagg_merge), counted beside GATHER_ROWS_KERNEL
+GATHER_SOURCES_KERNEL = _tk.LaunchCounter("gather_rows_sources",
+                                          "hashagg_merge")
+#: most (array, source) addresses one K26 launch takes
+GATHER_MAX_SLOTS = 128
+
+
 def _gather_rows_cuda(parts, perm, rows, limit):
     from presto_tpu_torch.native import cuda
     dev = perm.device
-    cols, valids, nrows = _check_part_cols(parts, dev, "gather_rows")
+    cols, valids, nrows = _check_part_cols(parts, dev, "gather_rows",
+                                           MAX_SOURCES)
     rows = perm.shape[0] if rows is None else int(rows)
     if not 0 <= rows <= perm.shape[0]:
         raise ValueError(f"gather_rows: {rows} rows of a permutation of "
@@ -795,41 +909,46 @@ def _gather_rows_cuda(parts, perm, rows, limit):
         limit = torch.full((), int(limit), dtype=torch.int64, device=dev) \
             if not isinstance(limit, torch.Tensor) \
             else limit.reshape(()).to(torch.int64).contiguous()
-    # arrays: (source 0, source 1, destination, bytes, AND with liveness)
+    nsrc = len(parts)
+    offs = [0]
+    for n in nrows:
+        offs.append(offs[-1] + n)
+    # arrays: (one address per source, destination, bytes, AND with
+    # liveness)
     arrays = []
-    for j, ((d, m), (od, om)) in enumerate(zip(first, out)):
-        d2, m2 = cols[-1][j]
-        arrays.append((d, d2, od, d.element_size(), 0))
-        if m is not None:
-            arrays.append((m, m2, om, 1, int(limit is not None)))
+    for j, (od, om) in enumerate(out):
+        arrays.append(([c[j][0] for c in cols], od, first[j][0]
+                       .element_size(), 0))
+        if om is not None:
+            arrays.append(([c[j][1] for c in cols], om, 1,
+                           int(limit is not None)))
     lib = cuda.library("gather_rows")
-    for lo in range(0, max(len(arrays), 1), GATHER_MAX_ARRAYS):
-        run = arrays[lo:lo + GATHER_MAX_ARRAYS]
+    per = min(GATHER_MAX_ARRAYS, GATHER_MAX_SLOTS // nsrc)
+    for lo in range(0, max(len(arrays), 1), per):
+        run = arrays[lo:lo + per]
         head = lo == 0
         status = lib.presto_gather_rows(
-            _ptrs([a[0] for a in run]), _ptrs([a[1] for a in run]),
-            _ptrs([a[2] for a in run]), _i32s([a[3] for a in run]),
-            _i32s([a[4] for a in run]), ctypes.c_int32(len(run)),
-            ctypes.c_void_p(perm.data_ptr()), ctypes.c_int64(rows),
-            ctypes.c_int64(nrows[0]),
-            ctypes.c_void_p(0 if valids[0] is None
-                            else valids[0].data_ptr()),
-            ctypes.c_void_p(0 if valids[-1] is None
-                            else valids[-1].data_ptr()),
+            _ptrs([t for a in run for t in a[0]]), ctypes.c_int32(nsrc),
+            _ptrs_raw(offs), _ptrs(valids), _ptrs([a[1] for a in run]),
+            _i32s([a[2] for a in run]), _i32s([a[3] for a in run]),
+            ctypes.c_int32(len(run)), ctypes.c_void_p(perm.data_ptr()),
+            ctypes.c_int64(rows),
             ctypes.c_void_p(0 if out_valid is None or not head
                             else out_valid.data_ptr()),
             ctypes.c_void_p(0 if limit is None else limit.data_ptr()),
             ctypes.c_void_p(cuda.stream_ptr(dev)))
         cuda.check(lib, status, "gather_rows")
         GATHER_ROWS_KERNEL.launches += 1
+        if nsrc > 2:
+            GATHER_SOURCES_KERNEL.launches += 1
     return out, out_valid
 
 
 def gather_rows(parts: Sequence[SortPart], perm: torch.Tensor,
                 rows: Optional[int] = None, limit=None):
-    """K26: every column (data and mask) and row_valid of one or two
-    sources moved through `perm` in one launch (see
-    `gather_rows_plain`); the second source needs no concatenation.
+    """K26: every column (data and mask) and row_valid of up to
+    MAX_SOURCES sources moved through `perm` in one launch (see
+    `gather_rows_plain`); the later sources need no concatenation.
     The CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
     if perm.device.type == "cpu":
         return gather_rows_plain(parts, perm, rows, limit)

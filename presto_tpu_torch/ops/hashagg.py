@@ -23,7 +23,19 @@ overflow flag when there are more groups. The reference takes this
 hash-radix form on its CPU branch (:619-637); the port takes it on both
 devices. Groups land in hash order, which differs between devices and
 from the reference's TPU key order: no caller may rely on group order
-(the final ORDER BY or merge regroups by key).
+(the final ORDER BY or merge regroups by key). A merge of partial
+states (`merge_partials`) reads them where they lie: K3 and K26 take
+up to eight states as sources. A state carries its live group count
+(`GroupByState.live`, K6's), which agg_count reads.
+
+Vector state components (approx_percentile's bucket histogram,
+approx_distinct's HyperLogLog registers) hold K values per group. A row
+contributes one (index, value) pair (`Sparse`), the reference's one-hot
+row; K30 (csrc/vector_reduce.cu, ops/agg_kernels.py) folds the pairs
+into the slot table or the groups, and a merge's K-wide rows. Every
+drain (`direct_finalize`, `direct_intermediate`, `finalize`,
+`intermediate_batch`) is one K29 launch (csrc/agg_finalize.cu) on the
+card; the `*_plain` drains are its plain versions.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch.batch import Batch, Column, bucket_capacity, pad_batch
+from presto_tpu_torch.ops import agg_kernels as ak
 from presto_tpu_torch.ops import common
 from presto_tpu_torch.telemetry import kernels as _tk
 from presto_tpu_torch.types import BIGINT, BOOLEAN, DOUBLE, Type
@@ -49,21 +62,58 @@ class AggFunction:
     """One aggregate: state layout + per-row contribution + final.
 
     `init(value, weight)` maps a row's input to state contributions,
-    one tensor per state component, each reduced into the slot table
-    with its entry of `reduces` (sum/min/max)."""
+    one per state component, each reduced into the slot table with its
+    entry of `reduces` (sum/min/max). A VECTOR component is declared as
+    (np.dtype, K) in `state_dtypes`: its state is [groups, K] and its
+    contribution a `Sparse` pair per row (the reference's [rows, K]
+    one-hot row, presto_tpu/ops/hashagg.py:54-60, never materialised).
+    `fin` names the final function for K29 (csrc/agg_finalize.cu); the
+    `final` callable is its plain version."""
 
     name: str
-    state_dtypes: Tuple  # np.dtype per component
+    state_dtypes: Tuple  # np.dtype | (np.dtype, K) per component
     reduces: Tuple[str, ...]
     init: Callable[[Optional[torch.Tensor], torch.Tensor],
                    Tuple[torch.Tensor, ...]]
     final: Callable[[Tuple[torch.Tensor, ...]], CVal]
     output_type: Type = BIGINT
     intermediate_types: Tuple[Type, ...] = ()
+    fin: Tuple = ()
 
 
-def _torch_dtype(np_dtype) -> torch.dtype:
-    return torch.from_numpy(np.zeros(0, np_dtype)).dtype
+class Sparse:
+    """A vector component's contribution: row r stands for the dense
+    row holding value[r] at index[r] and 0 everywhere else (the
+    reference's one-hot row). Folded into a group, a dense row of
+    zeros still counts: under "max" every register of a group that
+    received any row is at least 0."""
+
+    def __init__(self, index: torch.Tensor, value: torch.Tensor):
+        self.index = index
+        self.value = value
+
+    def to(self, dtype: torch.dtype) -> "Sparse":
+        return Sparse(self.index, self.value.to(dtype))
+
+    def contiguous(self) -> "Sparse":
+        return Sparse(self.index.contiguous(), self.value.contiguous())
+
+
+def comp_spec(comp) -> Tuple[np.dtype, Optional[int]]:
+    """A `state_dtypes` entry as (dtype, K for a vector component or
+    None)."""
+    if isinstance(comp, tuple):
+        return np.dtype(comp[0]), int(comp[1])
+    return np.dtype(comp), None
+
+
+def has_vector_state(aggs: Sequence["AggFunction"]) -> bool:
+    return any(comp_spec(c)[1] is not None
+               for a in aggs for c in a.state_dtypes)
+
+
+def _torch_dtype(comp) -> torch.dtype:
+    return torch.from_numpy(np.zeros(0, comp_spec(comp)[0])).dtype
 
 
 def _ident_for(reduce: str, dtype: torch.dtype):
@@ -93,7 +143,7 @@ def make_sum(input_type: Type, output_type: Type) -> AggFunction:
         return total, cnt > 0  # SUM of an empty/all-null group is NULL
     return AggFunction("sum", (output_type.np_dtype, np.dtype(np.int64)),
                        ("sum", "sum"), init, final, output_type,
-                       (output_type, BIGINT))
+                       (output_type, BIGINT), ("value",))
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,7 +154,7 @@ def make_count(input_type: Optional[Type]) -> AggFunction:
     def final(state):
         return state[0], torch.ones_like(state[0], dtype=torch.bool)
     return AggFunction("count", (np.dtype(np.int64),), ("sum",),
-                       init, final, BIGINT, (BIGINT,))
+                       init, final, BIGINT, (BIGINT,), ("count",))
 
 
 @functools.lru_cache(maxsize=None)
@@ -118,7 +168,7 @@ def make_avg(input_type: Type) -> AggFunction:
         return total / torch.clamp(cnt, min=1), cnt > 0
     return AggFunction("avg", (np.dtype(np.float64), np.dtype(np.int64)),
                        ("sum", "sum"), init, final, DOUBLE,
-                       (DOUBLE, BIGINT))
+                       (DOUBLE, BIGINT), ("avg",))
 
 
 def _make_minmax(input_type: Type, reduce: str) -> AggFunction:
@@ -132,7 +182,7 @@ def _make_minmax(input_type: Type, reduce: str) -> AggFunction:
         return state[0], state[1] > 0
     return AggFunction(reduce, (input_type.np_dtype, np.dtype(np.int64)),
                        (reduce, "sum"), init, final, input_type,
-                       (input_type, BIGINT))
+                       (input_type, BIGINT), ("value",))
 
 
 @functools.lru_cache(maxsize=None)
@@ -168,7 +218,7 @@ def make_variance(kind: str) -> AggFunction:
     return AggFunction(kind, (np.dtype(np.int64), np.dtype(np.float64),
                               np.dtype(np.float64)),
                        ("sum", "sum", "sum"), init, final, DOUBLE,
-                       (BIGINT, DOUBLE, DOUBLE))
+                       (BIGINT, DOUBLE, DOUBLE), ("var", pop, sqrt))
 
 
 @functools.lru_cache(maxsize=None)
@@ -179,7 +229,7 @@ def make_count_if() -> AggFunction:
     def final(state):
         return state[0], torch.ones_like(state[0], dtype=torch.bool)
     return AggFunction("count_if", (np.dtype(np.int64),), ("sum",),
-                       init, final, BIGINT, (BIGINT,))
+                       init, final, BIGINT, (BIGINT,), ("count",))
 
 
 @functools.lru_cache(maxsize=None)
@@ -195,7 +245,8 @@ def make_bool_and(is_or: bool) -> AggFunction:
     return AggFunction("bool_or" if is_or else "bool_and",
                        (np.dtype(np.int64), np.dtype(np.int64)),
                        ("max" if is_or else "min", "sum"),
-                       init, final, BOOLEAN, (BOOLEAN, BIGINT))
+                       init, final, BOOLEAN, (BOOLEAN, BIGINT),
+                       ("bool",))
 
 
 @functools.lru_cache(maxsize=None)
@@ -210,7 +261,7 @@ def make_geometric_mean() -> AggFunction:
     return AggFunction("geometric_mean",
                        (np.dtype(np.float64), np.dtype(np.int64)),
                        ("sum", "sum"), init, final, DOUBLE,
-                       (DOUBLE, BIGINT))
+                       (DOUBLE, BIGINT), ("geomean",))
 
 
 @functools.lru_cache(maxsize=None)
@@ -236,7 +287,7 @@ def make_moments(kind: str) -> AggFunction:
         return v, n_i > 3
     return AggFunction(kind, (np.dtype(np.int64),) + (np.dtype(
         np.float64),) * 4, ("sum",) * 5, init, final, DOUBLE,
-        (BIGINT,) + (DOUBLE,) * 4)
+        (BIGINT,) + (DOUBLE,) * 4, (kind,))
 
 
 @functools.lru_cache(maxsize=None)
@@ -254,14 +305,154 @@ def make_entropy() -> AggFunction:
         return torch.clamp(ent, min=0.0), total > 0
     return AggFunction("entropy", (np.dtype(np.float64),) * 2,
                        ("sum", "sum"), init, final, DOUBLE,
-                       (DOUBLE, DOUBLE))
+                       (DOUBLE, DOUBLE), ("entropy", float(np.log(2.0))))
 
 
-#: approx_distinct's error bounds, kept here for the analyzer's checks;
-#: the HLL aggregate itself (a vector state) is a later slice.
+@functools.lru_cache(maxsize=None)
+def make_checksum(input_type: Type) -> AggFunction:
+    """Order-independent content hash (the reference's make_checksum):
+    a wrapping int64 sum of `hash64` over the non-NULL values."""
+    def init(value, w):
+        h = common.hash64(value, w)
+        return (torch.where(w, h, torch.zeros_like(h)),)
+
+    def final(state):
+        return state[0], torch.ones_like(state[0], dtype=torch.bool)
+    return AggFunction("checksum", (np.dtype(np.int64),), ("sum",),
+                       init, final, BIGINT, (BIGINT,), ("count",))
+
+
+#: approx_percentile's sketch (the reference's, presto_tpu/ops/
+#: hashagg.py:257-296): log-spaced buckets of ratio GAMMA; [0, HALF-2]
+#: negatives (most negative first), HALF-1 zero, [HALF, K-1] positives.
+PCTL_BUCKETS = 1024
+_PCTL_GAMMA = 1.06
+_PCTL_HALF = PCTL_BUCKETS // 2
+_PCTL_EXP0 = _PCTL_HALF // 2
+
+
+def _pctl_bucket(value: torch.Tensor) -> torch.Tensor:
+    """Bucket of each value (int32). A float's conversion to int32
+    saturates, NaN going to 0, as XLA's does."""
+    lng = float(np.log(_PCTL_GAMMA))
+    mag = torch.abs(value.to(torch.float64))
+    tiny = mag < 1e-12
+    r = torch.round(torch.log(torch.clamp(mag, min=1e-12)) / lng)
+    r = torch.clamp(torch.nan_to_num(r, nan=0.0), -2.0 ** 31,
+                    2.0 ** 31 - 1)
+    li = torch.clamp(r.to(torch.int32) + _PCTL_EXP0, 0, _PCTL_HALF - 2)
+    b = torch.where(value >= 0, _PCTL_HALF + li, _PCTL_HALF - 2 - li)
+    return torch.where(tiny, torch.full_like(b, _PCTL_HALF - 1),
+                       b).to(torch.int32)
+
+
+def _pctl_values() -> np.ndarray:
+    """Representative value per bucket (its geometric midpoint)."""
+    li = np.arange(_PCTL_HALF - 1)
+    mags = _PCTL_GAMMA ** (li.astype(np.float64) - _PCTL_EXP0)
+    out = np.zeros(PCTL_BUCKETS)
+    out[_PCTL_HALF:2 * _PCTL_HALF - 1] = mags
+    out[_PCTL_HALF - 2::-1] = -mags
+    return out
+
+
+_PCTL_VALUES: Dict[torch.device, torch.Tensor] = {}
+
+
+def pctl_values(device: torch.device) -> torch.Tensor:
+    """`_pctl_values()` as a float64 tensor on `device` (made once)."""
+    t = _PCTL_VALUES.get(device)
+    if t is None:
+        t = _PCTL_VALUES[device] = torch.from_numpy(
+            _pctl_values()).to(device)
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def make_approx_percentile(fraction: float) -> AggFunction:
+    """Mergeable log-histogram percentile sketch: an int32 count vector
+    of PCTL_BUCKETS per group; a row adds 1 to its value's bucket."""
+    K = PCTL_BUCKETS
+
+    def init(value, w):
+        return (Sparse(_pctl_bucket(value), w.to(torch.int32)),)
+
+    def final(state):
+        counts = state[0].to(torch.float64)
+        total = counts.sum(dim=1)
+        cdf = torch.cumsum(counts, dim=1)
+        target = torch.clamp(torch.ceil(fraction * total), min=1.0)
+        idx = torch.argmax((cdf >= target[:, None]).to(torch.uint8),
+                           dim=1)
+        return pctl_values(counts.device)[idx], total > 0
+    return AggFunction(f"approx_percentile[{fraction}]",
+                       ((np.int32, K),), ("sum",), init, final, DOUBLE,
+                       (), ("pctl", float(fraction)))
+
+
+#: approx_distinct's error bounds (the reference's): the default, the
+#: accepted range, and the tightest error the 2^14-register cap honours
 HLL_DEFAULT_ERROR = 0.023
 HLL_MIN_ERROR, HLL_MAX_ERROR = 0.0040625, 0.26
 HLL_HONORED_MIN_ERROR = 1.04 / (1 << 7)
+
+
+def hll_registers_for_error(e: float) -> int:
+    """Register count m (a power of two) with 1.04/sqrt(m) <= e, capped
+    at 2^14 (the reference's rule)."""
+    m = 16
+    while 1.04 / np.sqrt(m) > e and m < (1 << 14):
+        m *= 2
+    return m
+
+
+#: alpha_m bias constant per b = log2(m) (Flajolet et al. 2007)
+_HLL_ALPHA = {
+    4: 0.673, 5: 0.697, 6: 0.709,
+    **{bb: 0.7213 / (1 + 1.079 / (1 << bb)) for bb in range(7, 17)},
+}
+
+
+def _bit_length(x: torch.Tensor) -> torch.Tensor:
+    """Bit length of each non-negative int64 (0 for 0), by halving."""
+    n = torch.zeros_like(x)
+    for s in (32, 16, 8, 4, 2, 1):
+        t = x >> s
+        big = t != 0
+        n = n + torch.where(big, s, 0)
+        x = torch.where(big, t, x)
+    return n + (x != 0).to(torch.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def make_approx_distinct(input_type: Type,
+                         max_error: float = HLL_DEFAULT_ERROR
+                         ) -> AggFunction:
+    """Dense HyperLogLog (the reference's make_approx_distinct): m int8
+    registers per group, merged by max. A row's hash picks register
+    `h & (m - 1)` by its low bits and offers the leading-zero count of
+    the rest plus one."""
+    m = hll_registers_for_error(max_error)
+    b = int(np.log2(m))
+
+    def init(value, w):
+        h = common.hash64(value, w)
+        reg = (h & (m - 1)).to(torch.int32)
+        # clz(h >>> b) - (b - 1), with clz(x) = 64 - bit length
+        rho = (65 - b) - _bit_length(common._lshr(h, b))
+        return (Sparse(reg, torch.where(w, rho, 0).to(torch.int8)),)
+
+    def final(state):
+        regs = torch.clamp(state[0], min=0).to(torch.float64)
+        est = _HLL_ALPHA[b] * m * m / torch.sum(torch.exp2(-regs), dim=1)
+        zeros = torch.sum(state[0] <= 0, dim=1).to(torch.float64)
+        small = m * torch.log(m / torch.clamp(zeros, min=1.0))
+        est = torch.where((est <= 2.5 * m) & (zeros > 0), small, est)
+        return torch.round(est).to(torch.int64), \
+            torch.ones(est.shape[0], dtype=torch.bool, device=est.device)
+    return AggFunction(f"approx_distinct[{m}]", ((np.int8, m),),
+                       ("max",), init, final, BIGINT, (),
+                       ("hll", m, _HLL_ALPHA[b] * m * m))
 
 #: Max slot-table size for the direct-indexing (sort-free) path.
 DIRECT_SLOTS_MAX = 1 << 16
@@ -279,14 +470,9 @@ class DirectState:
 
 def direct_init(aggs: Sequence[AggFunction], num_slots: int,
                 device: torch.device) -> DirectState:
-    states = []
-    for a in aggs:
-        comps = []
-        for dt, r in zip(a.state_dtypes, a.reduces):
-            tdt = _torch_dtype(dt)
-            comps.append(torch.full((num_slots,), _ident_for(r, tdt),
-                                    dtype=tdt, device=device))
-        states.append(tuple(comps))
+    states = [tuple(_full_state(num_slots, dt, r, device)
+                    for dt, r in zip(a.state_dtypes, a.reduces))
+              for a in aggs]
     return DirectState(states, torch.zeros(num_slots, dtype=torch.bool,
                                            device=device))
 
@@ -482,12 +668,24 @@ def direct_step(state: DirectState,
             for code, mask in key_codes]
     merge = merge or [False] * len(aggs)
     contribs = _make_contribs(aggs, agg_inputs, agg_weights, merge)
-    comps = []
+    comps, vectors = [], []
     for agg, st, cb in zip(aggs, state.states, contribs):
         for arr, c, r in zip(st, cb, agg.reduces):
-            comps.append((c.to(arr.dtype).contiguous(), arr, r))
-    direct_slot_reduce(row_valid.contiguous(), keys, domains, comps,
-                       state.present)
+            if not isinstance(c, Sparse):
+                comps.append((c.to(arr.dtype).contiguous(), arr, r))
+            elif arr.dim() == 2:
+                vectors.append((c.to(arr.dtype).contiguous(), arr, r))
+            else:
+                raise ValueError(f"{agg.name}: a sparse contribution to a "
+                                 "scalar state component")
+    row_valid = row_valid.contiguous()
+    direct_slot_reduce(row_valid, keys, domains, comps, state.present)
+    if vectors:
+        # K30 (K1's vector mode) over the same slots
+        vkeys, vdoms = fold_key_codes(keys, domains)
+        for c, arr, r in vectors:
+            ak.vector_direct(row_valid, vkeys, vdoms, c.index, c.value, arr,
+                             r, slot_ids)
     return state
 
 
@@ -514,33 +712,34 @@ def _decode_slots(state: DirectState, key_names: Sequence[str],
     return cols, rv
 
 
-def direct_finalize(state: DirectState, key_names: Sequence[str],
-                    key_types: Sequence[Type],
-                    key_dicts: Sequence[Optional[tuple]],
-                    domains: Tuple[int, ...],
-                    out_names: Sequence[str],
-                    aggs: Sequence[AggFunction]) -> Batch:
-    """One output row per present slot."""
+def direct_finalize_plain(state: DirectState, key_names: Sequence[str],
+                          key_types: Sequence[Type],
+                          key_dicts: Sequence[Optional[tuple]],
+                          domains: Tuple[int, ...],
+                          out_names: Sequence[str],
+                          aggs: Sequence[AggFunction]) -> Batch:
+    """Plain version of K29 on the direct path: one output row per
+    present slot, padded up to the slot table's capacity bucket."""
     cols, rv = _decode_slots(state, key_names, key_types, key_dicts,
                              domains)
     for name, agg, st in zip(out_names, aggs, state.states):
         d, m = agg.final(st)
         cols[name] = Column(d.to(agg.output_type.torch_dtype), m & rv,
                             agg.output_type, None)
-    # pad the slot table up to its power-of-two capacity bucket
     out = Batch(cols, rv)
     return pad_batch(out, bucket_capacity(out.capacity) - out.capacity)
 
 
-def direct_intermediate(state: DirectState, key_names: Sequence[str],
-                        key_types: Sequence[Type],
-                        key_dicts: Sequence[Optional[tuple]],
-                        domains: Tuple[int, ...],
-                        out_names: Sequence[str],
-                        aggs: Sequence[AggFunction]) -> Batch:
-    """The PARTIAL step's output on the direct path: keys decoded as in
-    direct_finalize, every state array as a column <out>__s{i}
-    (reference: presto_tpu/ops/hashagg.py:1021)."""
+def direct_intermediate_plain(state: DirectState,
+                              key_names: Sequence[str],
+                              key_types: Sequence[Type],
+                              key_dicts: Sequence[Optional[tuple]],
+                              domains: Tuple[int, ...],
+                              out_names: Sequence[str],
+                              aggs: Sequence[AggFunction]) -> Batch:
+    """Plain version of K29 for the PARTIAL step on the direct path:
+    keys decoded as in direct_finalize, every state array as a column
+    <out>__s{i} (reference: presto_tpu/ops/hashagg.py:1021)."""
     cols, rv = _decode_slots(state, key_names, key_types, key_dicts,
                              domains)
     for name, agg, st in zip(out_names, aggs, state.states):
@@ -551,6 +750,128 @@ def direct_intermediate(state: DirectState, key_names: Sequence[str],
     return pad_batch(out, bucket_capacity(out.capacity) - out.capacity)
 
 
+def _fin_agg_column(agg: AggFunction, st, cap: int,
+                    dev: torch.device) -> Tuple[Column, ak.FinColumn]:
+    """The output column of one aggregate and its K29 descriptor: the
+    op of `agg.fin` (csrc/agg_finalize.cu) over the state `st`."""
+    typ = agg.output_type
+    data = torch.empty(cap, dtype=typ.torch_dtype, device=dev)
+    mask = torch.empty(cap, dtype=torch.bool, device=dev)
+    kind = agg.fin[0] if agg.fin else None
+    st = [a.contiguous() for a in st]
+    if kind == "value":  # sum, min, max: the value, NULL on no input
+        fc = ak.FinColumn("convert", data, mask, ak.MASK_CNT_GT, st[:1],
+                          aux=st[1], thr=0)
+    elif kind == "count":
+        fc = ak.FinColumn("convert", data, mask, ak.MASK_RV, st[:1])
+    elif kind in ("avg", "geomean"):
+        fc = ak.FinColumn(kind, data, mask, ak.MASK_CNT_GT, st,
+                          aux=st[1], thr=0)
+    elif kind == "bool":
+        fc = ak.FinColumn("bool", data, mask, ak.MASK_CNT_GT, st,
+                          aux=st[1], thr=0)
+    elif kind == "var":
+        _, pop, sqrt = agg.fin
+        fc = ak.FinColumn("var", data, mask, ak.MASK_CNT_GT, st,
+                          ia=int(pop), ib=int(sqrt), aux=st[0],
+                          thr=0 if pop else 1)
+    elif kind in ("skewness", "kurtosis"):
+        fc = ak.FinColumn(kind, data, mask, ak.MASK_CNT_GT, st, aux=st[0],
+                          thr=2 if kind == "skewness" else 3)
+    elif kind == "entropy":
+        fc = ak.FinColumn("entropy", data, mask, ak.MASK_F64_POS, st,
+                          f=agg.fin[1], aux=st[0])
+    elif kind == "pctl":
+        fc = ak.FinColumn("pctl", data, mask, ak.MASK_OP, st,
+                          ia=st[0].shape[1], f=agg.fin[1],
+                          aux=pctl_values(dev))
+    elif kind == "hll":
+        fc = ak.FinColumn("hll", data, mask, ak.MASK_RV, st,
+                          ia=agg.fin[1], f=agg.fin[2])
+    else:
+        raise ValueError(f"agg_finalize: no K29 final for {agg.name}")
+    return Column(data, mask, typ, None), fc
+
+
+def _fin_convert(arr: torch.Tensor, typ: Type, cap: int,
+                 mask_kind: int, mask: Optional[torch.Tensor] = None
+                 ) -> Tuple[Column, ak.FinColumn]:
+    """An array converted to `typ` as a K29 column (its mask the row's
+    liveness, or a key's own mask with MASK_PTR)."""
+    dev = arr.device
+    data = torch.empty(cap, dtype=typ.torch_dtype, device=dev)
+    om = torch.empty(cap, dtype=torch.bool, device=dev)
+    return Column(data, om, typ, None), ak.FinColumn(
+        "convert", data, om, mask_kind, [arr.contiguous()],
+        aux=None if mask is None else mask.contiguous())
+
+
+def _direct_k29(state: DirectState, key_names, key_types, key_dicts,
+                domains, out_names, aggs, partial: bool) -> Batch:
+    """K29 on the direct path: the decoded keys, every aggregate (or,
+    for the PARTIAL step, every state array) and row_valid, written
+    padded to the slot table's capacity bucket in one launch."""
+    slots = state.present.shape[0]
+    cap = bucket_capacity(slots)
+    dev = state.present.device
+    rv_src = state.present if key_names else None
+    cols: Dict[str, Column] = {}
+    fin: List[ak.FinColumn] = []
+    stride = slots
+    for name, typ, dic, dom in zip(key_names, key_types, key_dicts,
+                                   domains):
+        stride //= (dom + 1)
+        data = torch.empty(cap, dtype=typ.torch_dtype, device=dev)
+        mask = torch.empty(cap, dtype=torch.bool, device=dev)
+        cols[name] = Column(data, mask, typ, dic)
+        fin.append(ak.FinColumn("key", data, mask, ak.MASK_OP, ia=dom,
+                                ib=stride))
+    for name, agg, st in zip(out_names, aggs, state.states):
+        if partial:
+            for i, (arr, it) in enumerate(zip(st, agg.intermediate_types)):
+                cols[f"{name}__s{i}"], fc = _fin_convert(arr, it, cap,
+                                                         ak.MASK_RV)
+                fin.append(fc)
+        else:
+            cols[name], fc = _fin_agg_column(agg, st, cap, dev)
+            fin.append(fc)
+    rv = torch.empty(cap, dtype=torch.bool, device=dev)
+    fin.append(ak.FinColumn("rv", rv, None, ak.MASK_NONE))
+    ak.finalize_columns(fin, slots, cap, rv_src)
+    return Batch(cols, rv)
+
+
+def direct_finalize(state: DirectState, key_names: Sequence[str],
+                    key_types: Sequence[Type],
+                    key_dicts: Sequence[Optional[tuple]],
+                    domains: Tuple[int, ...],
+                    out_names: Sequence[str],
+                    aggs: Sequence[AggFunction]) -> Batch:
+    """One output row per present slot, padded to the capacity bucket:
+    K29 on CUDA tensors, `direct_finalize_plain` on CPU tensors."""
+    if state.present.device.type == "cpu":
+        return direct_finalize_plain(state, key_names, key_types,
+                                     key_dicts, domains, out_names, aggs)
+    return _direct_k29(state, key_names, key_types, key_dicts, domains,
+                       out_names, aggs, partial=False)
+
+
+def direct_intermediate(state: DirectState, key_names: Sequence[str],
+                        key_types: Sequence[Type],
+                        key_dicts: Sequence[Optional[tuple]],
+                        domains: Tuple[int, ...],
+                        out_names: Sequence[str],
+                        aggs: Sequence[AggFunction]) -> Batch:
+    """The PARTIAL step's output on the direct path: K29 on CUDA
+    tensors, `direct_intermediate_plain` on CPU tensors."""
+    if state.present.device.type == "cpu":
+        return direct_intermediate_plain(state, key_names, key_types,
+                                         key_dicts, domains, out_names,
+                                         aggs)
+    return _direct_k29(state, key_names, key_types, key_dicts, domains,
+                       out_names, aggs, partial=True)
+
+
 # -- the sort-based path -----------------------------------------------
 
 
@@ -558,21 +879,29 @@ def direct_intermediate(state: DirectState, key_names: Sequence[str],
 class GroupByState:
     """Running accumulator of the sort path: key columns + per-agg
     state arrays, packed: `valid[g]` is True for the first live groups
-    and False after them."""
+    and False after them. `live` is that count (a 0-d int64 tensor, the
+    count K6 computes; `agg_count` reads it with no reduction of its
+    own), or None for a state made elsewhere (a stream carry)."""
     keys: List[CVal]
     states: List[Tuple[torch.Tensor, ...]]
     valid: torch.Tensor
     overflow: torch.Tensor  # bool scalar
+    live: Optional[torch.Tensor] = None
 
 
-def _full_state(n: int, np_dtype, reduce: str,
+def _full_state(n: int, comp, reduce: str,
                 device: torch.device) -> torch.Tensor:
-    dt = _torch_dtype(np_dtype)
-    return torch.full((n,), _ident_for(reduce, dt), dtype=dt,
-                      device=device)
+    """n rows of a component's identity ([n, K] for a vector one)."""
+    dt = _torch_dtype(comp)
+    k = comp_spec(comp)[1]
+    return torch.full((n,) if k is None else (n, k), _ident_for(reduce, dt),
+                      dtype=dt, device=device)
 
 
 def _gate(w: torch.Tensor, contrib: torch.Tensor, ident) -> torch.Tensor:
+    """where(w, contrib, ident), broadcast over a vector component."""
+    if contrib.dim() == 2:
+        w = w[:, None]
     return torch.where(w, contrib, torch.full_like(contrib, ident))
 
 
@@ -587,7 +916,8 @@ def init_state(key_types: Sequence[Type], aggs: Sequence[AggFunction],
     return GroupByState(keys, states,
                         torch.zeros(max_groups, dtype=torch.bool,
                                     device=device),
-                        torch.zeros((), dtype=torch.bool, device=device))
+                        torch.zeros((), dtype=torch.bool, device=device),
+                        torch.zeros((), dtype=torch.int64, device=device))
 
 
 def _first_rows(bnd: torch.Tensor, gid: torch.Tensor,
@@ -621,15 +951,36 @@ def _sorted_reduce(sarr: torch.Tensor, gid: torch.Tensor, out_cap: int,
 def segment_reduce_plain(h1: torch.Tensor, h2: torch.Tensor,
                          keys: Sequence[CVal], valid: torch.Tensor,
                          comps: Sequence[Tuple[torch.Tensor, str]],
-                         out_cap: int):
+                         out_cap: int, seg_out: Optional[list] = None):
     """Plain version of K6, over rows sorted by (h1, h2): every
     (contribution, op) reduced into out_cap packed group slots, each
     group's first row, the group count and the overflow flag.
-    Returns (reduced, first_row, groups, overflow)."""
+    Returns (reduced, first_row, groups, overflow); with `seg_out`, also
+    appends the groups' `Segments` (each row's group id) to it."""
     bnd, gid, groups = segment_ids(h1, h2, keys, valid, out_cap)
     reduced = [_sorted_reduce(c, gid, out_cap, r) for c, r in comps]
+    if seg_out is not None:
+        seg_out.append(_segments_plain(bnd, valid, groups, out_cap))
     return (reduced, _first_rows(bnd, gid, out_cap), groups,
             groups > out_cap)
+
+
+def _segments_plain(bnd: torch.Tensor, valid: torch.Tensor,
+                    groups: torch.Tensor, out_cap: int) -> ak.Segments:
+    """K6's segments from the group boundaries: each group's first row
+    (groups past out_cap + 1 dropped) and the stats {groups, overflow,
+    end of the last live row, live}."""
+    n = bnd.shape[0]
+    pos = torch.arange(n, device=bnd.device)
+    g = torch.cumsum(bnd.to(torch.int64), 0) - 1
+    at = torch.where(bnd & (g <= out_cap), g,
+                     torch.full_like(g, out_cap + 1))
+    starts = torch.zeros(out_cap + 2, dtype=torch.int64, device=bnd.device)
+    starts.scatter_(0, at, pos)
+    live_end = torch.where(valid, pos + 1, torch.zeros_like(pos)).max()
+    stats = torch.stack([groups, (groups > out_cap).to(torch.int64),
+                         live_end, torch.clamp(groups, max=out_cap)])
+    return ak.Segments(starts[:out_cap + 1], stats)
 
 
 def segment_ids(h1: torch.Tensor, h2: torch.Tensor, keys: Sequence[CVal],
@@ -667,20 +1018,24 @@ def _segment_key_changes(keys, n, dev):
     return changes
 
 
-def _segment_reduce_cuda(h1, h2, keys, valid, comps, out_cap):
+def _segment_reduce_cuda(h1, h2, keys, valid, comps, out_cap,
+                         seg_out: Optional[list] = None):
     """K6 over any number of components (comp_chunks) and key columns
     (the first MAX_KEYS compared in the kernel, the rest folded into a
     per-row change flag first): every launch finds the same groups,
-    first rows and count."""
+    first rows and count (and, into `seg_out`, the same segments)."""
     reduced = []
     for lo, hi in comp_chunks(len(comps)):
         outs, first_row, groups, overflow = _segment_reduce_launch(
-            h1, h2, keys, valid, comps[lo:hi], out_cap)
+            h1, h2, keys, valid, comps[lo:hi], out_cap,
+            **({} if seg_out is None or hi < len(comps)
+               else {"seg_out": seg_out}))
         reduced.extend(outs)
     return reduced, first_row, groups, overflow
 
 
-def _segment_reduce_launch(h1, h2, keys, valid, comps, out_cap):
+def _segment_reduce_launch(h1, h2, keys, valid, comps, out_cap,
+                           seg_out: Optional[list] = None):
     from presto_tpu_torch.native import cuda
     dev = valid.device
     n = valid.shape[0]
@@ -705,7 +1060,7 @@ def _segment_reduce_launch(h1, h2, keys, valid, comps, out_cap):
     outs = [torch.empty(out_cap, dtype=c.dtype, device=dev)
             for c, _ in comps]
     first_row = torch.empty(out_cap, dtype=torch.int64, device=dev)
-    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
     flags = torch.empty(n, dtype=torch.uint8, device=dev)
     tiles = torch.empty((n + tile - 1) // tile, dtype=torch.int64,
                         device=dev)
@@ -730,76 +1085,162 @@ def _segment_reduce_launch(h1, h2, keys, valid, comps, out_cap):
         ctypes.c_void_p(cuda.stream_ptr(dev)))
     cuda.check(lib, status, "segment_reduce")
     SEGMENT_REDUCE_KERNEL.launches += 1
+    if seg_out is not None:
+        seg_out.append(ak.Segments(starts, stats))
     return outs, first_row, stats[0], stats[1] > 0
 
 
 def segment_reduce(h1: torch.Tensor, h2: torch.Tensor,
                    keys: Sequence[CVal], valid: torch.Tensor,
                    comps: Sequence[Tuple[torch.Tensor, str]],
-                   out_cap: int):
+                   out_cap: int, seg_out: Optional[list] = None):
     """K6 (see `segment_reduce_plain`). The CUDA kernel on CUDA
     tensors, the plain version on CPU tensors."""
     if valid.device.type == "cpu":
-        return segment_reduce_plain(h1, h2, keys, valid, comps, out_cap)
-    return _segment_reduce_cuda(h1, h2, keys, valid, comps, out_cap)
+        return segment_reduce_plain(h1, h2, keys, valid, comps, out_cap,
+                                    seg_out)
+    return _segment_reduce_cuda(h1, h2, keys, valid, comps, out_cap,
+                                seg_out)
 
 
 def _group_reduce(keys: Sequence[CVal], valid: torch.Tensor,
                   contribs: Sequence[Tuple[torch.Tensor, ...]],
                   aggs: Sequence[AggFunction],
                   out_cap: int, plain: bool = False) -> GroupByState:
-    """The sort-based grouping core: K3 hashes, K25's stable sort of
-    (h1, h2), K26's move of the keys, contributions and hashes, K6, and
-    K26 again for each group's first row (with `plain`, the plain
-    versions of K3, K25, K26 and K6 on any device: the card's yardstick
-    for the composition). Boundaries
-    compare the actual keys as well, so a double hash collision between
-    distinct keys can only split a group (the next merge level rejoins
-    it), never merge two keys. Groups
-    beyond out_cap are dropped and the overflow flag set (the caller's
-    retry protocol). Group order is backend-dependent: callers must
-    not rely on it."""
-    dev = valid.device
+    """`_group_reduce_parts` over one source of rows."""
+    return _group_reduce_parts([(keys, valid, contribs)], aggs, out_cap,
+                               plain)
+
+
+def _comp_kind(c) -> str:
+    if isinstance(c, Sparse):
+        return "sparse"
+    return "dense" if c.dim() == 2 else "scalar"
+
+
+def _group_reduce_parts(parts, aggs: Sequence[AggFunction], out_cap: int,
+                        plain: bool = False) -> GroupByState:
+    """The sort-based grouping core over the rows of up to MAX_SOURCES
+    sources, each (keys, valid, contributions) (one batch, or a merge's
+    partial states): K3 hashes them all, K25 sorts (h1, h2) stably, K26
+    moves the keys, the 1-D contributions and the hashes from every
+    source, K6 reduces the scalar components, K30 the vector ones (a
+    batch's sparse pairs in group order; a merge's K-wide partial rows
+    read through the permutation), and K26 again gathers each group's
+    first row. Nothing is concatenated on the card. With `plain`, the
+    plain versions on any device (the card's yardstick for the
+    composition, which concatenates). Boundaries compare the actual keys
+    as well, so a double hash collision between distinct keys can only
+    split a group (the next merge level rejoins it), never merge two
+    keys. Groups beyond out_cap are dropped and the overflow flag set
+    (the caller's retry protocol). Group order is backend-dependent:
+    callers must not rely on it."""
+    keys0, valid0, contribs0 = parts[0]
+    dev = valid0.device
     slots = torch.arange(out_cap, device=dev)
-    if not keys:
-        # global aggregation: one group, a straight reduction per
-        # component (non-contributing rows already hold the identity)
-        states = []
-        for st, agg in zip(contribs, aggs):
-            red = []
-            for arr, r, dt in zip(st, agg.reduces, agg.state_dtypes):
-                v = arr.sum() if r == "sum" else (
-                    arr.min() if r == "min" else arr.max())
-                full = _full_state(out_cap, dt, r, dev)
-                full[0] = v.to(full.dtype)
-                red.append(full)
-            states.append(tuple(red))
-        return GroupByState([], states, slots == 0,
-                            torch.zeros((), dtype=torch.bool, device=dev))
-    keys = [(d.contiguous(), m.contiguous()) for d, m in keys]
-    hash_pair = common.row_hash_pair_plain if plain \
-        else common.row_hash_pair
+    vseg = ak.vector_segments_plain if plain else ak.vector_segments
+    kinds = [[_comp_kind(c) for c in st] for st in contribs0]
+    if not keys0:
+        return _global_reduce(parts, aggs, out_cap, kinds, vseg)
+    parts = [([(d.contiguous(), m.contiguous()) for d, m in keys],
+              valid.contiguous(), contribs)
+             for keys, valid, contribs in parts]
+    hash_pair = common.row_hash_sources_plain if plain \
+        else common.row_hash_sources
     lex_perm = common.lex_perm_plain if plain else common.lex_perm
     gather = common.gather_rows_plain if plain else common.gather_rows
-    h1, h2 = hash_pair(keys, valid.contiguous(), False)
+    h1, h2 = hash_pair([(k, v) for k, v, _ in parts], False)
     perm = lex_perm([h1, h2])
-    flat = [(arr, r) for st, agg in zip(contribs, aggs)
-            for arr, r in zip(st, agg.reduces)]
-    # one K26 launch moves the keys, contributions and hashes
-    moved, svalid = gather(
-        [(keys + [(arr, None) for arr, _ in flat] + [(h1, None),
-                                                      (h2, None)], valid)],
-        perm)
-    skeys = moved[:len(keys)]
-    comps = [(d, r) for (d, _), (_, r) in zip(moved[len(keys):-2], flat)]
+    # per source: its keys, its 1-D contributions (a sparse pair as two
+    # arrays) and its rows of the hashes, all moved by K26
+    cols, lo = [], 0
+    for keys, valid, contribs in parts:
+        flat = []
+        for st, ks in zip(contribs, kinds):
+            for c, kind in zip(st, ks):
+                if kind == "scalar":
+                    flat.append(c)
+                elif kind == "sparse":
+                    flat += [c.index, c.value]
+        hi = lo + valid.shape[0]
+        cols.append((keys + [(a, None) for a in flat]
+                     + [(h1[lo:hi], None), (h2[lo:hi], None)], valid))
+        lo = hi
+    moved, svalid = gather(cols, perm)
+    nk = len(keys0)
+    skeys = moved[:nk]
+    it = iter(d for d, _ in moved[nk:-2])
+    comps, sparse = [], []
+    for st, ks, agg in zip(contribs0, kinds, aggs):
+        for c, kind, r in zip(st, ks, agg.reduces):
+            if kind == "scalar":
+                comps.append((next(it), r))
+            elif kind == "sparse":
+                sparse.append((next(it), next(it)))
+    seg_out: list = []
     reduced, first_row, groups, overflow = \
         (segment_reduce_plain if plain else segment_reduce)(
-            moved[-2][0], moved[-1][0], skeys, svalid, comps, out_cap)
-    it = iter(reduced)
-    states = [tuple(next(it) for _ in st) for st in contribs]
+            moved[-2][0], moved[-1][0], skeys, svalid, comps, out_cap,
+            seg_out)
+    seg = seg_out[0]
+    red, sp = iter(reduced), iter(sparse)
+    states = []
+    for ai, (st, ks, agg) in enumerate(zip(contribs0, kinds, aggs)):
+        out = []
+        for ci, (c, kind, r, comp) in enumerate(zip(
+                st, ks, agg.reduces, agg.state_dtypes)):
+            dt, K = _torch_dtype(comp), comp_spec(comp)[1]
+            if kind == "scalar":
+                out.append(next(red))
+            elif kind == "sparse":
+                out.append(vseg(seg, svalid, out_cap, K, dt, r,
+                                sparse=next(sp)))
+            else:
+                out.append(vseg(seg, svalid, out_cap, K, dt, r,
+                                dense=[p[2][ai][ci] for p in parts],
+                                perm=perm))
+        states.append(tuple(out))
     new_valid = slots < groups
     new_keys, _ = gather([(skeys, None)], first_row, limit=groups)
-    return GroupByState(new_keys, states, new_valid, overflow)
+    return GroupByState(new_keys, states, new_valid, overflow, seg.live)
+
+
+def _global_reduce(parts, aggs, out_cap: int, kinds, vseg) -> GroupByState:
+    """A global aggregation: one group, a straight reduction of every
+    component over all rows of every source (rows that contribute
+    nothing already hold the identity, or a zero sparse value)."""
+    dev = parts[0][1].device
+    states = []
+    for ai, (ks, agg) in enumerate(zip(kinds, aggs)):
+        red = []
+        for ci, (kind, r, comp) in enumerate(zip(ks, agg.reduces,
+                                                 agg.state_dtypes)):
+            arrs = [p[2][ai][ci] for p in parts]
+            dt, K = _torch_dtype(comp), comp_spec(comp)[1]
+            if kind == "sparse":
+                c = arrs[0]
+                red.append(vseg(None, None, out_cap, K, dt, r,
+                                sparse=(c.index, c.value)))
+                continue
+            if kind == "dense":
+                red.append(vseg(None, None, out_cap, K, dt, r, dense=arrs))
+                continue
+            v = None
+            for a in arrs:
+                x = a.sum() if r == "sum" else (
+                    a.min() if r == "min" else a.max())
+                v = x if v is None else (
+                    v + x if r == "sum" else
+                    torch.minimum(v, x) if r == "min" else
+                    torch.maximum(v, x))
+            full = _full_state(out_cap, comp, r, dev)
+            full[0] = v.to(full.dtype)
+            red.append(full)
+        states.append(tuple(red))
+    slots = torch.arange(out_cap, device=dev)
+    return GroupByState([], states, slots == 0,
+                        torch.zeros((), dtype=torch.bool, device=dev),
+                        torch.ones((), dtype=torch.int64, device=dev))
 
 
 def _make_contribs(aggs, agg_inputs, agg_weights, merge):
@@ -828,6 +1269,9 @@ def agg_step(state: GroupByState, row_valid: torch.Tensor,
     operator uses batch_aggregate + merge_partials instead (re-sorting
     a large state every batch is the slow way); agg_step stays the
     semantic reference and the path for small accumulators."""
+    if has_vector_state(aggs):
+        raise ValueError("agg_step folds scalar states; vector states go "
+                         "through batch_aggregate and merge_partials")
     max_groups = state.valid.shape[0]
     merge = merge or [False] * len(aggs)
     contribs = _make_contribs(aggs, agg_inputs, agg_weights, merge)
@@ -840,7 +1284,7 @@ def agg_step(state: GroupByState, row_valid: torch.Tensor,
                   for st, cb in zip(state.states, contribs)]
     out = _group_reduce(all_keys, all_valid, all_states, aggs, max_groups)
     return GroupByState(out.keys, out.states, out.valid,
-                        state.overflow | out.overflow)
+                        state.overflow | out.overflow, out.live)
 
 
 def batch_aggregate(row_valid: torch.Tensor, key_cols: Sequence[CVal],
@@ -859,21 +1303,21 @@ def batch_aggregate(row_valid: torch.Tensor, key_cols: Sequence[CVal],
 
 def merge_partials(states: Sequence[GroupByState],
                    aggs: Sequence[AggFunction],
-                   out_cap: int) -> GroupByState:
-    """Regroup several packed partial states into one of `out_cap`
-    slots; overflow flags OR through."""
-    keys = [(torch.cat([s.keys[i][0] for s in states]),
-             torch.cat([s.keys[i][1] for s in states]))
-            for i in range(len(states[0].keys))]
-    valid = torch.cat([s.valid for s in states])
-    contribs = [tuple(torch.cat([s.states[ai][ci] for s in states])
-                      for ci in range(len(states[0].states[ai])))
-                for ai in range(len(aggs))]
-    out = _group_reduce(keys, valid, contribs, aggs, out_cap)
+                   out_cap: int, plain: bool = False) -> GroupByState:
+    """Regroup up to MAX_SOURCES packed partial states into one of
+    `out_cap` slots (hashagg_merge), each read where it lies: K3 and K26
+    take the states as sources, K30 reads their vector rows through the
+    permutation; overflow flags OR through. With `plain`, the plain
+    versions, which concatenate (the card's yardstick)."""
+    if len(states) > common.MAX_SOURCES:
+        raise ValueError(f"merge_partials: at most {common.MAX_SOURCES} "
+                         f"states, got {len(states)}")
+    out = _group_reduce_parts([(s.keys, s.valid, s.states) for s in states],
+                              aggs, out_cap, plain)
     ovf = out.overflow
     for s in states:
         ovf = ovf | s.overflow
-    return GroupByState(out.keys, out.states, out.valid, ovf)
+    return GroupByState(out.keys, out.states, out.valid, ovf, out.live)
 
 
 # -- the presorted path: grouping without a sort (K8) ---------------------
@@ -919,8 +1363,16 @@ def presorted_reduce_plain(row_valid: torch.Tensor,
     if not key_cols:
         return _group_reduce([], row_valid, contribs, aggs, out_cap)
     bnd, gid, num_groups = presorted_ids(row_valid, key_cols, out_cap)
-    states = [tuple(_sorted_reduce(arr, gid, out_cap, r)
-                    for arr, r in zip(st, agg.reduces))
+    seg = _segments_plain(bnd, row_valid, num_groups, out_cap)
+
+    def reduce(arr, r, comp):
+        if not isinstance(arr, Sparse):
+            return _sorted_reduce(arr, gid, out_cap, r)
+        return ak.vector_segments_plain(
+            seg, row_valid, out_cap, comp_spec(comp)[1], _torch_dtype(comp),
+            r, sparse=(arr.index, arr.value))
+    states = [tuple(reduce(arr, r, comp) for arr, r, comp in zip(
+                  st, agg.reduces, agg.state_dtypes))
               for st, agg in zip(contribs, aggs)]
     slots = torch.arange(out_cap, device=row_valid.device)
     first_row = _first_rows(bnd, gid, out_cap)
@@ -1013,18 +1465,76 @@ STREAM_REDUCE_KERNEL = _tk.LaunchCounter("stream_reduce", "agg_stream")
 
 def _stream_reduce_cuda(row_valid, key_cols, contribs, aggs, out_cap,
                         carry: Optional[GroupByState]):
-    """K8 over any number of state components: whole aggregates in
-    runs that fit one launch (agg_chunks); every launch finds the same
-    groups, first rows, carry keys and counts, so only the states are
-    gathered from each."""
+    """K8 over the scalar state components, K30 over the vector ones
+    (approx_percentile's histogram, approx_distinct's registers) on
+    K8's segments, the carried group's rows folded as K8 folds its
+    scalars."""
+    vec = [[isinstance(c, Sparse) for c in st] for st in contribs]
+    if not any(v for vs in vec for v in vs):
+        return _stream_scalar_cuda(row_valid, key_cols, contribs, aggs,
+                                   out_cap, carry)
+
+    def scalars(st, vs):
+        return tuple(c for c, v in zip(st, vs) if not v)
+    s_aggs = [dataclasses.replace(a, reduces=scalars(a.reduces, vs),
+                                  state_dtypes=scalars(a.state_dtypes, vs))
+              for a, vs in zip(aggs, vec)]
+    s_carry = None if carry is None else dataclasses.replace(
+        carry, states=[scalars(st, vs) for st, vs in zip(carry.states, vec)])
+    seg_out: list = []
+    got = _stream_scalar_cuda(row_valid, key_cols,
+                              [scalars(st, vs) for st, vs in zip(contribs,
+                                                                 vec)],
+                              s_aggs, out_cap, s_carry, seg_out)
+    seg, same = seg_out[0]
+    states, new_carry = [], []
+    for ai, (st, vs, agg) in enumerate(zip(contribs, vec, aggs)):
+        it = iter((got if carry is None else got[1]).states[ai])
+        cit = iter([] if carry is None else got[2].states[ai])
+        out, cout = [], []
+        for ci, (c, v, r, comp) in enumerate(zip(st, vs, agg.reduces,
+                                                 agg.state_dtypes)):
+            if not v:
+                out.append(next(it))
+                cout.append(next(cit, None))
+                continue
+            K, dt = comp_spec(comp)[1], _torch_dtype(comp)
+            cy = None if carry is None else ak.Carry(
+                carry.states[ai][ci].contiguous(), same,
+                torch.empty((1, K), dtype=dt, device=row_valid.device))
+            out.append(ak.vector_segments(
+                seg, row_valid, out_cap, K, dt, r,
+                sparse=(c.index.contiguous(), c.value.contiguous()),
+                carry=cy))
+            cout.append(None if cy is None else cy.out)
+        states.append(tuple(out))
+        new_carry.append(tuple(cout))
+    if carry is None:
+        return dataclasses.replace(got, states=states)
+    carry_emit, emit, carry_out, count = got
+    return (dataclasses.replace(carry_emit, states=carry.states),
+            dataclasses.replace(emit, states=states),
+            dataclasses.replace(carry_out, states=new_carry), count)
+
+
+def _stream_scalar_cuda(row_valid, key_cols, contribs, aggs, out_cap,
+                        carry: Optional[GroupByState],
+                        seg_out: Optional[list] = None):
+    """K8 over any number of scalar state components: whole aggregates
+    in runs that fit one launch (agg_chunks); every launch finds the
+    same groups, first rows, carry keys and counts, so only the states
+    are gathered from each (and, into `seg_out`, the first launch's
+    segments)."""
     runs = agg_chunks(aggs)
+    seg_kw = {} if seg_out is None else {"seg_out": seg_out}
     if len(runs) == 1:
         return _stream_reduce_launch(row_valid, key_cols, contribs, aggs,
-                                     out_cap, carry)
+                                     out_cap, carry, **seg_kw)
     parts = [_stream_reduce_launch(
         row_valid, key_cols, contribs[lo:hi], aggs[lo:hi], out_cap,
         None if carry is None
-        else dataclasses.replace(carry, states=carry.states[lo:hi]))
+        else dataclasses.replace(carry, states=carry.states[lo:hi]),
+        **(seg_kw if lo == 0 else {}))
         for lo, hi in runs]
     if carry is None:
         return dataclasses.replace(
@@ -1038,15 +1548,16 @@ def _stream_reduce_cuda(row_valid, key_cols, contribs, aggs, out_cap,
 
 
 def _stream_reduce_launch(row_valid, key_cols, contribs, aggs, out_cap,
-                          carry: Optional[GroupByState]):
+                          carry: Optional[GroupByState],
+                          seg_out: Optional[list] = None):
     from presto_tpu_torch.native import cuda
     dev = row_valid.device
     n = row_valid.shape[0]
     common.check_rows(row_valid, n, dev, (torch.bool,),
                       "stream_reduce: row_valid")
     key_cols = [(d.contiguous(), m.contiguous()) for d, m in key_cols]
-    kd, km, kt, nk = common.key_group_args(key_cols, n, dev,
-                                           "stream_reduce")
+    kd, km, kt, nk, _desc = common.key_group_args(key_cols, n, dev,
+                                                  "stream_reduce")
     comps = [(arr.contiguous(), r) for st, agg in zip(contribs, aggs)
              for arr, r in zip(st, agg.reduces)]
     if len(comps) > KERNEL_MAX_COMPS or out_cap < 1:
@@ -1064,14 +1575,13 @@ def _stream_reduce_launch(row_valid, key_cols, contribs, aggs, out_cap,
             for c, _ in comps]
     first_row = torch.empty(out_cap, dtype=torch.int64, device=dev)
     slot_valid = torch.empty(out_cap, dtype=torch.bool, device=dev)
-    stats = torch.empty(4, dtype=torch.int64, device=dev)
+    stats = torch.empty(5, dtype=torch.int64, device=dev)
     flags = torch.empty(n, dtype=torch.uint8, device=dev)
     tiles = torch.empty(3 * ((n + tile - 1) // tile), dtype=torch.int64,
                         device=dev)
     starts = torch.empty(out_cap + 1, dtype=torch.int64, device=dev)
     C = max(len(comps), 1)
     P = ctypes.c_int64 * C
-    K = ctypes.c_int64 * (common.MAX_KEYS * common.MAX_KEY_GROUPS)
     if carry is not None:
         ckeys = [(d.contiguous(), m.contiguous()) for d, m in carry.keys]
         ccomps = [a.contiguous() for st in carry.states for a in st]
@@ -1092,13 +1602,16 @@ def _stream_reduce_launch(row_valid, key_cols, contribs, aggs, out_cap,
                   for a in ccomps]
         ovalid = torch.empty(1, dtype=torch.bool, device=dev)
         emit_carry = torch.empty(1, dtype=torch.bool, device=dev)
+        # the carry's keys and the new carry's, one row each, laid out
+        # as the batch's keys are (past 24 keys with their descriptors)
+        cd, cm, _, _, _cdesc = common.key_group_args(
+            ckeys, 1, dev, "stream_reduce: carry keys")
+        od, om, _, _, _odesc = common.key_group_args(
+            okeys, 1, dev, "stream_reduce: new carry keys")
         carry_args = (
-            ctypes.c_int32(1), K(*[d.data_ptr() for d, _ in ckeys]),
-            K(*[m.data_ptr() for _, m in ckeys]),
+            ctypes.c_int32(1), cd, cm,
             ctypes.c_void_p(carry.valid.data_ptr()),
-            P(*[a.data_ptr() for a in ccomps]),
-            K(*[d.data_ptr() for d, _ in okeys]),
-            K(*[m.data_ptr() for _, m in okeys]),
+            P(*[a.data_ptr() for a in ccomps]), od, om,
             P(*[a.data_ptr() for a in ocomps]),
             ctypes.c_void_p(ovalid.data_ptr()),
             ctypes.c_void_p(emit_carry.data_ptr()))
@@ -1121,6 +1634,9 @@ def _stream_reduce_launch(row_valid, key_cols, contribs, aggs, out_cap,
         ctypes.c_void_p(cuda.stream_ptr(dev)))
     cuda.check(lib, status, "stream_reduce")
     STREAM_REDUCE_KERNEL.launches += 1
+    if seg_out is not None:
+        # K6's layout in stats[:4]; stats[4] the carry's `same`
+        seg_out.append((ak.Segments(starts, stats[:4]), stats[4:]))
     it = iter(outs)
     states = [tuple(next(it) for _ in st) for st in contribs]
     keys = [(d[first_row], m[first_row] & slot_valid) for d, m in key_cols]
@@ -1168,12 +1684,13 @@ def stream_step(carry: GroupByState, row_valid: torch.Tensor,
                                out_cap, carry)
 
 
-def finalize(state: GroupByState, key_names: Sequence[str],
-             key_types: Sequence[Type],
-             key_dicts: Sequence[Optional[tuple]],
-             out_names: Sequence[str],
-             aggs: Sequence[AggFunction]) -> Batch:
-    """The output batch: one group per row."""
+def finalize_plain(state: GroupByState, key_names: Sequence[str],
+                   key_types: Sequence[Type],
+                   key_dicts: Sequence[Optional[tuple]],
+                   out_names: Sequence[str],
+                   aggs: Sequence[AggFunction]) -> Batch:
+    """Plain version of K29 on the sort path: the output batch, one
+    group per row."""
     cols: Dict[str, Column] = {}
     for name, typ, dic, (d, m) in zip(key_names, key_types, key_dicts,
                                       state.keys):
@@ -1185,11 +1702,12 @@ def finalize(state: GroupByState, key_names: Sequence[str],
     return Batch(cols, state.valid)
 
 
-def intermediate_batch(state: GroupByState, key_names: Sequence[str],
-                       key_types: Sequence[Type],
-                       key_dicts: Sequence[Optional[tuple]],
-                       out_names: Sequence[str],
-                       aggs: Sequence[AggFunction]) -> Batch:
+def intermediate_batch_plain(state: GroupByState,
+                             key_names: Sequence[str],
+                             key_types: Sequence[Type],
+                             key_dicts: Sequence[Optional[tuple]],
+                             out_names: Sequence[str],
+                             aggs: Sequence[AggFunction]) -> Batch:
     """Partial states as columns (<out>__s0, <out>__s1, ...), the shape
     of the partial/final shuffle of the distributed slice."""
     cols: Dict[str, Column] = {}
@@ -1201,3 +1719,66 @@ def intermediate_batch(state: GroupByState, key_names: Sequence[str],
             cols[f"{name}__s{i}"] = Column(arr.to(it.torch_dtype),
                                            state.valid, it, None)
     return Batch(cols, state.valid)
+
+
+def _sorted_k29(state: GroupByState, key_names, key_types, key_dicts,
+                out_names, aggs, partial: bool) -> Batch:
+    """K29 on the sort path: every column that needs work (an aggregate's
+    final, a cast) in one launch over the state's rows; a key or state
+    array already of its column's type is the column itself, as in the
+    plain version, and a drain with nothing to compute launches
+    nothing."""
+    cap = state.valid.shape[0]
+    dev = state.valid.device
+    cols: Dict[str, Column] = {}
+    fin: List[ak.FinColumn] = []
+    for name, typ, dic, (d, m) in zip(key_names, key_types, key_dicts,
+                                      state.keys):
+        if d.dtype == typ.torch_dtype:
+            cols[name] = Column(d, m, typ, dic)
+        else:
+            col, fc = _fin_convert(d, typ, cap, ak.MASK_PTR, m)
+            cols[name] = Column(col.data, col.mask, typ, dic)
+            fin.append(fc)
+    for name, agg, st in zip(out_names, aggs, state.states):
+        if not partial:
+            cols[name], fc = _fin_agg_column(agg, st, cap, dev)
+            fin.append(fc)
+            continue
+        for i, (arr, it) in enumerate(zip(st, agg.intermediate_types)):
+            if arr.dtype == it.torch_dtype:
+                cols[f"{name}__s{i}"] = Column(arr, state.valid, it, None)
+            else:
+                cols[f"{name}__s{i}"], fc = _fin_convert(arr, it, cap,
+                                                         ak.MASK_RV)
+                fin.append(fc)
+    ak.finalize_columns(fin, cap, cap, state.valid.contiguous())
+    return Batch(cols, state.valid)
+
+
+def finalize(state: GroupByState, key_names: Sequence[str],
+             key_types: Sequence[Type],
+             key_dicts: Sequence[Optional[tuple]],
+             out_names: Sequence[str],
+             aggs: Sequence[AggFunction]) -> Batch:
+    """The output batch, one group per row: K29 on CUDA tensors,
+    `finalize_plain` on CPU tensors."""
+    if state.valid.device.type == "cpu":
+        return finalize_plain(state, key_names, key_types, key_dicts,
+                              out_names, aggs)
+    return _sorted_k29(state, key_names, key_types, key_dicts, out_names,
+                       aggs, partial=False)
+
+
+def intermediate_batch(state: GroupByState, key_names: Sequence[str],
+                       key_types: Sequence[Type],
+                       key_dicts: Sequence[Optional[tuple]],
+                       out_names: Sequence[str],
+                       aggs: Sequence[AggFunction]) -> Batch:
+    """Partial states as columns: K29 for the columns that need a cast
+    on CUDA tensors, `intermediate_batch_plain` on CPU tensors."""
+    if state.valid.device.type == "cpu":
+        return intermediate_batch_plain(state, key_names, key_types,
+                                        key_dicts, out_names, aggs)
+    return _sorted_k29(state, key_names, key_types, key_dicts, out_names,
+                       aggs, partial=True)

@@ -296,7 +296,7 @@ def _probe_search_cuda(table: BuildTable, probe: Batch,
                            table.part_starts.shape[0], "part_starts")):
         common.check_rows(t, rows, dev, (torch.int64,),
                           f"join_probe: {what}")
-    kd, km, kt, nk = common.key_group_args(
+    kd, km, kt, nk, _desc = common.key_group_args(
         [probe.columns[k].astuple() for k in key_names], n, dev,
         "join_probe")
     lo_enc = torch.empty(n, dtype=torch.int64, device=dev)
@@ -426,11 +426,11 @@ def _semi_mark_cuda(table: BuildTable, probe: Batch,
         common.check_rows(t, rows, dev, (torch.int64,),
                           f"semi_join: {what}")
     mode = _semi_mode(table, verify)
-    kd, km, kt, nk = common.key_group_args(
+    kd, km, kt, nk, _desc = common.key_group_args(
         [probe.columns[k].astuple() for k in key_names], n, dev,
         "semi_join")
     if mode == _SEMI_WALK_FULL:
-        bd, bm, bt, _ = common.key_group_args(
+        bd, bm, bt, _, _bdesc = common.key_group_args(
             [table.batch.columns[k].astuple() for k in build_keys], nb,
             dev, "semi_join: build keys")
     else:
@@ -578,7 +578,7 @@ def _expand_cuda(table, probe, key_names, lo_enc, out_capacity, join_type,
             [table.batch.columns[k].astuple() for k in build_keys], nb,
             dev, "join_expand: build keys")
     else:
-        pk = bk = (None, None, None, ctypes.c_int32(0))
+        pk = bk = (None, None, None, ctypes.c_int32(0), None)
     cols: Dict[str, Column] = {}
     spec = []
     keep_alive = []

@@ -170,10 +170,9 @@ def distinct_step(state: Batch, batch: Batch) -> Batch:
     state ++ batch by all columns and keep one representative per group
     (the reference's `_distinct_step_impl`, presto_tpu/ops/sort.py:106:
     `hashagg._group_reduce` with zero aggregates, here K3 + K25 + K26 +
-    K6). Groups beyond the state's capacity are dropped; the operator
-    grows the state before that can happen. The concat stays
-    `torch.cat`, as in the grouping's partial merge (K3 hashes one
-    source)."""
+    K6, which read the state and the batch as two sources: nothing is
+    concatenated on the card). Groups beyond the state's capacity are
+    dropped; the operator grows the state before that can happen."""
     _tk.count("distinct")
     return _distinct_fold(state, batch, plain=False)
 
@@ -187,15 +186,13 @@ def distinct_step_plain(state: Batch, batch: Batch) -> Batch:
 
 def _distinct_fold(state: Batch, batch: Batch, plain: bool) -> Batch:
     from presto_tpu_torch.ops import hashagg
-    merged = {}
-    for name, sc in state.columns.items():
-        bc = batch.columns[name]
-        merged[name] = Column(torch.cat([sc.data, bc.data.to(sc.data.dtype)]),
-                              torch.cat([sc.mask, bc.mask]), sc.type,
-                              sc.dictionary)
-    valid = torch.cat([state.row_valid, batch.row_valid])
-    gr = hashagg._group_reduce([merged[n].astuple() for n in state.names],
-                               valid, [], [], state.capacity, plain)
-    cols = {name: Column(d, m, merged[name].type, merged[name].dictionary)
+    keys = [state.columns[n].astuple() for n in state.names]
+    batch_keys = [(batch.columns[n].data.to(d.dtype), batch.columns[n].mask)
+                  for n, (d, _) in zip(state.names, keys)]
+    gr = hashagg._group_reduce_parts(
+        [(keys, state.row_valid, []), (batch_keys, batch.row_valid, [])],
+        [], state.capacity, plain)
+    cols = {name: Column(d, m, state.columns[name].type,
+                         state.columns[name].dictionary)
             for name, (d, m) in zip(state.names, gr.keys)}
     return Batch(cols, gr.valid)

@@ -927,9 +927,13 @@ def agg_function_for(name: str, input_type: Optional[Type],
         return hashagg.make_moments(name)
     if name == "entropy":
         return hashagg.make_entropy()
-    if name in ("approx_percentile", "approx_distinct", "checksum"):
-        raise LocalPlanningError(
-            f"aggregate {name}: later slice of the port (ROADMAP A5)")
+    if name == "approx_percentile":
+        return hashagg.make_approx_percentile(params[0])
+    if name == "approx_distinct":
+        return hashagg.make_approx_distinct(
+            input_type, params[0] if params else hashagg.HLL_DEFAULT_ERROR)
+    if name == "checksum":
+        return hashagg.make_checksum(input_type)
     raise LocalPlanningError(f"unknown aggregate {name}")
 
 

@@ -328,6 +328,31 @@ def test_k6_segment_reduce_matches_plain(hopper, ngroups, out_cap, live):
     assert bool(got[3]) == (int(want[2]) > out_cap)
 
 
+@pytest.mark.parametrize("ngroups,out_cap,live", [(150_000, 1 << 18, 0.8),
+                                                  (5000, 1024, 0.8),
+                                                  (100, 128, 0.0)],
+                         ids=["q13_like", "overflow", "all_dead"])
+def test_k6_segments_match_plain(hopper, ngroups, out_cap, live):
+    """K6's segments (each group's first row, the stats) equal those of
+    its plain version, which K30's plain version reads."""
+    rng = np.random.default_rng(16)
+    n = 1 << 20
+    keys = [(torch.from_numpy(rng.integers(0, ngroups, n)).to(hopper),
+             torch.from_numpy(rng.random(n) < 0.95).to(hopper))]
+    valid = torch.from_numpy(rng.random(n) < live).to(hopper)
+    h1, h2 = tc.row_hash_pair(keys, valid, False)
+    perm = tc.lex_perm([h1, h2])
+    args = (h1[perm], h2[perm], [(d[perm], m[perm]) for d, m in keys],
+            valid[perm], [], out_cap)
+    got, want = [], []
+    th.segment_reduce(*args, seg_out=got)
+    th.segment_reduce_plain(*args, seg_out=want)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].stats, want[0].stats)
+    known = min(int(want[0].groups), out_cap + 1)
+    assert torch.equal(got[0].starts[:known], want[0].starts[:known])
+
+
 def test_sort_aggregation_matches_cpu(hopper):
     """batch_aggregate (K3 + K25 + K26 + K6) on the card against the same
     inputs on the CPU, as group multisets."""
@@ -1274,7 +1299,7 @@ def _wide_join(rng, nkeys, dev, nb=1 << 16, npr=1 << 18, dup=None):
     return build, probe, names, tj.build_for_backend(build, names)
 
 
-@pytest.mark.parametrize("nkeys", [9, 17])
+@pytest.mark.parametrize("nkeys", [9, 17, 25])
 @pytest.mark.parametrize("verify", ["hash", "full"])
 @pytest.mark.parametrize("dup", [None, 3000], ids=["unique", "dup"])
 def test_k5_past_eight_keys(hopper, nkeys, verify, dup):
@@ -1291,7 +1316,7 @@ def test_k5_past_eight_keys(hopper, nkeys, verify, dup):
     assert int((lo >= 0).sum()) > probe.capacity // 8
 
 
-@pytest.mark.parametrize("nkeys", [9, 17])
+@pytest.mark.parametrize("nkeys", [9, 17, 25])
 @pytest.mark.parametrize("verify", ["hash", "full"])
 @pytest.mark.parametrize("negate", [False, True], ids=["in", "not_in"])
 def test_k7_past_eight_keys(hopper, nkeys, verify, negate):
@@ -1306,7 +1331,7 @@ def test_k7_past_eight_keys(hopper, nkeys, verify, negate):
     assert 0 < int(want.sum()) < probe.capacity
 
 
-@pytest.mark.parametrize("nkeys", [9, 17])
+@pytest.mark.parametrize("nkeys", [9, 17, 25])
 @pytest.mark.parametrize("join_type", ["inner", "left"])
 def test_k9_full_verify_past_eight_keys(hopper, nkeys, join_type):
     rng = np.random.default_rng(90 + nkeys)
@@ -1337,7 +1362,7 @@ def _wide_group_keys(rng, n, nkeys, ngroups, dev):
     return [b.columns[f"k{j}"].astuple() for j in range(nkeys)], base
 
 
-@pytest.mark.parametrize("nkeys", [9, 17])
+@pytest.mark.parametrize("nkeys", [9, 17, 25])
 def test_k6_past_eight_keys(hopper, nkeys):
     """Groups split by a key past the eighth only (the first eight
     agree) still split: K6's change flags of the later groups."""
@@ -1367,7 +1392,7 @@ def test_k6_past_eight_keys(hopper, nkeys):
     assert int(want[2]) > 5000
 
 
-@pytest.mark.parametrize("nkeys", [9, 17])
+@pytest.mark.parametrize("nkeys", [9, 17, 25])
 @pytest.mark.parametrize("carry_kind", ["none", "same", "differs"])
 def test_k8_past_eight_keys(hopper, nkeys, carry_kind):
     rng = np.random.default_rng(110 + nkeys)
@@ -2198,3 +2223,409 @@ def test_array_carrying_join_matches_cpu(hopper):
     got = gpu.execute(q).rows()
     assert tc.RADIX_SORT_KERNEL.launches > before
     assert got == LocalRunner("tpch", "tiny", device="cpu").execute(q).rows()
+
+
+# -- ROADMAP C6r: K5, K7, K8 and K9 past 24 key columns; K24 past 32 keys ----
+
+
+def test_wide_join_and_order_by_on_the_card_match_cpu(hopper):
+    """A 25-key join (K3-K5, K9 with the key groups past the third in a
+    device descriptor) and a 33-key ORDER BY (K24 in two runs of keys)
+    through the runner on the card give the CPU runner's rows."""
+    from presto_tpu_torch.runner import LocalRunner
+    cols = ["orderkey", "partkey", "suppkey", "linenumber", "quantity",
+            "returnflag", "linestatus", "shipdate", "shipmode"]
+    keys = cols + [f"linenumber + {i}" for i in range(16)] \
+        + [f"partkey * {i + 2}" for i in range(8)]
+    sel = ", ".join(f"{k} k{i}" for i, k in enumerate(keys))
+    on = " and ".join(f"a.k{i} = b.k{i}" for i in range(25))
+    q_join = (f"select count(*), sum(a.k0) from (select {sel} from lineitem)"
+              f" a join (select {sel} from lineitem) b on {on}")
+    order = ", ".join(f"k{i}" + (" desc" if i % 3 == 1 else "")
+                      for i in range(33))
+    q_order = (f"select k0, k3, k30 from (select {sel} from lineitem) "
+               f"order by {order}")
+    gpu = LocalRunner("tpch", "tiny", device=hopper)
+    cpu = LocalRunner("tpch", "tiny", device="cpu")
+    before = tj.JOIN_PROBE_KERNEL.launches
+    assert gpu.execute(q_join).rows() == cpu.execute(q_join).rows()
+    assert tj.JOIN_PROBE_KERNEL.launches > before
+    before = tc.SORT_ENCODE_KERNEL.launches
+    assert gpu.execute(q_order).rows() == cpu.execute(q_order).rows()
+    assert tc.SORT_ENCODE_KERNEL.launches >= before + 2
+
+
+@pytest.mark.parametrize("nkeys", [33, 40])
+def test_k24_past_32_keys_matches_plain(hopper, nkeys):
+    rng = np.random.default_rng(62)
+    dts = [torch.int64, torch.int32, torch.float64, torch.int16] * 10
+    parts = _sort_parts(rng, 3000, dts[:nkeys], hopper, None)
+    desc = [bool(i % 3 == 1) for i in range(nkeys)]
+    nf = [bool(i % 2) for i in range(nkeys)]
+    before = tc.SORT_ENCODE_KERNEL.launches
+    got = tc.sort_encode(parts, desc, nf)
+    assert tc.SORT_ENCODE_KERNEL.launches == before + 2
+    cpu = [([(d.cpu(), m.cpu()) for d, m in k], v.cpu()) for k, v in parts]
+    want = tc.sort_encode_plain(cpu, desc, nf)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+# -- ROADMAP B4: hashagg_merge, agg_shrink, agg_count, agg_finalize; A5 -----
+
+from presto_tpu_torch.ops import agg_kernels as tak  # noqa: E402
+from presto_tpu_torch.operators import aggregation as tagg  # noqa: E402
+
+
+def _approx_aggs():
+    return [th.make_approx_percentile(0.5), th.make_approx_distinct(
+        tt.BIGINT), th.make_checksum(tt.BIGINT), th.make_sum(tt.DOUBLE,
+                                                              tt.DOUBLE),
+            th.make_count(None), th.make_approx_distinct(tt.DOUBLE, 0.01)]
+
+
+def _approx_batch(rng, n, dev, groups=5000):
+    rv = rng.random(n) < 0.9
+    keys = [(rng.integers(0, groups, n).astype(np.int64),
+             rng.random(n) < 0.98)]
+    x = rng.lognormal(3.0, 2.0, n) * np.where(rng.random(n) < 0.2, -1, 1)
+    inputs = [x, rng.integers(0, 1 << 40, n), rng.integers(-1 << 40, 1 << 40,
+                                                           n),
+              x, None, x]
+    w = [rv & (rng.random(n) < 0.95) for _ in inputs]
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+    return (t(rv), [(t(d), t(m)) for d, m in keys],
+            [None if a is None else t(a) for a in inputs], [t(a) for a in w])
+
+
+def _assert_group_states_equal(got, want):
+    live = want.valid
+    assert torch.equal(got.valid, live)
+    assert int(got.live) == int(want.live) == int(live.sum())
+    for (gd, gm), (wd, wm) in zip(got.keys, want.keys):
+        assert torch.equal(gm[live], wm[live])
+        assert torch.equal(gd[live], wd[live])
+    _assert_states_close(got.states, want.states, live)
+
+
+def test_batch_aggregate_with_vector_states_matches_plain(hopper):
+    """K3 + K25 + K26 + K6 + K30's sparse mode against the plain
+    composition: vector states exact, the live count K6's."""
+    rng = np.random.default_rng(201)
+    aggs = _approx_aggs()
+    rv, keys, inputs, w = _approx_batch(rng, 1 << 20, hopper)
+    contribs = th._make_contribs(aggs, inputs, w, [False] * len(aggs))
+    before = tak.VECTOR_REDUCE_KERNEL.launches
+    got = th._group_reduce(keys, rv, contribs, aggs, 1 << 13)
+    assert tak.VECTOR_REDUCE_KERNEL.launches == before + 3
+    want = th._group_reduce(keys, rv, contribs, aggs, 1 << 13, plain=True)
+    torch.cuda.synchronize()
+    _assert_group_states_equal(got, want)
+
+
+def _sorted_approx_batch(rng, n, dev, groups=5000):
+    """A batch in key order (ascending, the NULL keys last) for the
+    streaming aggregation, with _approx_aggs' inputs."""
+    rv, keys, inputs, w = _approx_batch(rng, n, dev, groups)
+    d = np.sort(rng.integers(0, groups, n).astype(np.int64))
+    m = np.arange(n) < n - 100
+    return rv, [(torch.from_numpy(d).to(dev), torch.from_numpy(m).to(dev))], \
+        inputs, w
+
+
+@pytest.mark.parametrize("carry_kind", ["same", "differs", "none"])
+def test_k8_k30_stream_step_with_vector_states_matches_plain(hopper,
+                                                            carry_kind):
+    """A streaming round with vector states: K8 over the scalar
+    components, K30 over the vector ones on K8's segments, the carried
+    group's rows folded into group 0 when K8 finds the same keys;
+    vector states exact against the plain fold."""
+    rng = np.random.default_rng(206)
+    n = 1 << 18
+    aggs = _approx_aggs()
+    rv, keys, inputs, w = _sorted_approx_batch(rng, n, hopper)
+    contribs = th._make_contribs(aggs, inputs, w, [False] * len(aggs))
+    carry = th.init_state([tt.BIGINT], aggs, 1, hopper)
+    if carry_kind != "none":
+        first = int(torch.nonzero(rv)[0])
+        carry.keys[0][0][0] = keys[0][0][first] \
+            - (1 if carry_kind == "differs" else 0)
+        carry.keys[0][1][0] = True
+        for st in carry.states:
+            for a in st:
+                a[0] = 2.5 if a.is_floating_point() else torch.from_numpy(
+                    rng.integers(0, 9, a[0].shape)).to(a.dtype)
+        carry.valid[0] = True
+    before = (th.STREAM_REDUCE_KERNEL.launches,
+              tak.VECTOR_REDUCE_KERNEL.launches)
+    got = th.stream_step(carry, rv, keys, contribs, aggs, n)
+    assert th.STREAM_REDUCE_KERNEL.launches == before[0] + 1
+    assert tak.VECTOR_REDUCE_KERNEL.launches == before[1] + 3
+    want = th.stream_fold_plain(
+        carry, th.presorted_reduce_plain(rv, keys, contribs, aggs, n), aggs)
+    torch.cuda.synchronize()
+    (g_ce, g_em, g_co, g_last), (w_ce, w_em, w_co, w_last) = got, want
+    assert torch.equal(g_ce.valid, w_ce.valid)
+    assert int(g_last) == int(w_last)
+    assert torch.equal(g_em.valid, w_em.valid)
+    _assert_states_close(g_em.states, w_em.states, w_em.valid)
+    assert torch.equal(g_co.valid, w_co.valid)
+    _assert_states_close(g_co.states, w_co.states,
+                         torch.ones(1, dtype=torch.bool, device=hopper))
+    if carry_kind != "none":
+        assert bool(w_ce.valid[0]) == (carry_kind != "same")
+
+
+@pytest.mark.parametrize("nstates", [2, 5, 8])
+def test_merge_partials_reads_its_sources_without_a_concat(hopper,
+                                                           nstates,
+                                                           monkeypatch):
+    """hashagg_merge on the card: K3 and K26 read the states as sources
+    and K30 their vector rows through the permutation; no torch.cat."""
+    rng = np.random.default_rng(202 + nstates)
+    aggs = _approx_aggs()
+    states = []
+    for i in range(nstates):
+        rv, keys, inputs, w = _approx_batch(rng, 1 << 16, hopper)
+        contribs = th._make_contribs(aggs, inputs, w, [False] * len(aggs))
+        states.append(th._group_reduce(keys, rv, contribs, aggs, 1 << 13))
+    want = th.merge_partials(states, aggs, 1 << 13, plain=True)
+    torch.cuda.synchronize()
+    before = (tc.ROW_HASH_SOURCES_KERNEL.launches,
+              tc.GATHER_ROWS_KERNEL.launches,
+              tc.GATHER_SOURCES_KERNEL.launches)
+
+    def no_cat(*a, **k):
+        raise AssertionError("torch.cat in merge_partials on the card")
+    monkeypatch.setattr(torch, "cat", no_cat)
+    got = th.merge_partials(states, aggs, 1 << 13)
+    monkeypatch.undo()
+    assert tc.ROW_HASH_SOURCES_KERNEL.launches == before[0] + 1
+    assert tc.GATHER_ROWS_KERNEL.launches > before[1]
+    assert tc.GATHER_SOURCES_KERNEL.launches > before[2] or nstates <= 2
+    torch.cuda.synchronize()
+    _assert_group_states_equal(got, want)
+
+
+@pytest.mark.parametrize("domains", [(), (3, 2), (255, 255)],
+                         ids=["global", "q1_keys", "global_atomics"])
+def test_k30_direct_matches_plain(hopper, domains):
+    rng = np.random.default_rng(203)
+    n = 1 << 20
+    aggs = _approx_aggs()
+    slots = int(np.prod([d + 1 for d in domains])) if domains else 1
+    rv, _, inputs, w = _approx_batch(rng, n, hopper)
+    keys = [(torch.from_numpy(rng.integers(0, d, n).astype(np.int32)).to(
+        hopper), torch.from_numpy(rng.random(n) < 0.9).to(hopper))
+        for d in domains]
+    got = th.direct_init(aggs, slots, hopper)
+    before = tak.VECTOR_REDUCE_KERNEL.launches
+    th.direct_step(got, rv, keys, domains, inputs, w, aggs)
+    th.direct_step(got, rv, keys, domains, inputs, w, aggs)
+    assert tak.VECTOR_REDUCE_KERNEL.launches == before + 6
+    cpu = th.direct_init(aggs, slots, torch.device("cpu"))
+    for _ in range(2):
+        th.direct_step(cpu, rv.cpu(), [(c.cpu(), m.cpu()) for c, m in keys],
+                       domains, [None if x is None else x.cpu()
+                                 for x in inputs], [x.cpu() for x in w],
+                       aggs)
+    torch.cuda.synchronize()
+    assert torch.equal(got.present.cpu(), cpu.present)
+    for gs, cs in zip(got.states, cpu.states):
+        for g, c in zip(gs, cs):
+            if g.is_floating_point():
+                torch.testing.assert_close(g.cpu(), c, rtol=1e-9, atol=1e-6)
+            else:
+                assert torch.equal(g.cpu(), c)
+
+
+def _fin_aggs():
+    return [th.make_sum(tt.DOUBLE, tt.DOUBLE), th.make_sum(tt.BIGINT,
+                                                           tt.BIGINT),
+            th.make_count(None), th.make_avg(tt.DOUBLE),
+            th.make_min(tt.INTEGER), th.make_max(tt.DOUBLE)] + [
+        th.make_variance(k) for k in ("var_samp", "var_pop", "stddev",
+                                      "stddev_pop")] + [
+        th.make_count_if(), th.make_bool_and(False), th.make_bool_and(True),
+        th.make_geometric_mean(), th.make_moments("skewness"),
+        th.make_moments("kurtosis"), th.make_entropy(),
+        th.make_checksum(tt.BIGINT), th.make_approx_percentile(0.9),
+        th.make_approx_distinct(tt.BIGINT)]
+
+
+def _fin_inputs(rng, n, aggs, dev):
+    out = []
+    for a in aggs:
+        if a.name == "count":
+            out.append(None)
+        elif a.name in ("count_if", "bool_and", "bool_or"):
+            out.append(torch.from_numpy(rng.random(n) < 0.7).to(dev))
+        elif a.name in ("min",):
+            out.append(torch.from_numpy(rng.integers(-1000, 1000, n).astype(
+                np.int32)).to(dev))
+        elif a.name in ("sum",) and a.output_type == tt.BIGINT:
+            out.append(torch.from_numpy(rng.integers(-1000, 1000, n)).to(dev))
+        elif a.name.startswith("approx_distinct") or a.name == "checksum":
+            out.append(torch.from_numpy(rng.integers(0, 1 << 30, n)).to(dev))
+        else:
+            out.append(torch.from_numpy(rng.lognormal(2.0, 1.0, n)).to(dev))
+    return out
+
+
+def _assert_batches_equal(got, want, float_rtol=1e-12):
+    assert got.capacity == want.capacity
+    assert torch.equal(got.row_valid.cpu(), want.row_valid.cpu())
+    assert list(got.columns) == list(want.columns)
+    for name in want.columns:
+        g, w = got.columns[name], want.columns[name]
+        assert g.data.dtype == w.data.dtype, name
+        gm, wm = g.mask.cpu(), w.mask.cpu()
+        assert torch.equal(gm, wm), name
+        gd, wd = g.data.cpu()[wm], w.data.cpu()[wm]
+        if gd.is_floating_point():
+            torch.testing.assert_close(gd, wd, rtol=float_rtol, atol=0,
+                                       equal_nan=True, msg=name)
+        else:
+            assert torch.equal(gd, wd), name
+
+
+@pytest.mark.parametrize("domains", [(), (3, 2)], ids=["global", "keys"])
+@pytest.mark.parametrize("partial", [False, True],
+                         ids=["final", "intermediate"])
+def test_k29_direct_matches_plain(hopper, domains, partial):
+    """One K29 launch per drain of the direct path against the composed
+    drain on the same (card) state, every final op: integers exactly,
+    floats to 1e-12 relative (the same IEEE operations, in one kernel)."""
+    rng = np.random.default_rng(204)
+    n = 1 << 18
+    aggs = _fin_aggs()
+    if partial:
+        aggs = [a for a in aggs if a.intermediate_types]
+    slots = int(np.prod([d + 1 for d in domains])) if domains else 1
+    rv = torch.from_numpy(rng.random(n) < 0.9).to(hopper)
+    keys = [(torch.from_numpy(rng.integers(0, d, n).astype(np.int32)).to(
+        hopper), torch.from_numpy(rng.random(n) < 0.9).to(hopper))
+        for d in domains]
+    inputs = _fin_inputs(rng, n, aggs, hopper)
+    w = [rv & torch.from_numpy(rng.random(n) < 0.9).to(hopper)
+         for _ in aggs]
+    st = th.direct_init(aggs, slots, hopper)
+    th.direct_step(st, rv, keys, domains, inputs, w, aggs)
+    names = [f"k{i}" for i in range(len(domains))]
+    ktypes = [tt.INTEGER] * len(domains)
+    dicts = [None] * len(domains)
+    outs = [f"a{i}" for i in range(len(aggs))]
+    fn = th.direct_intermediate if partial else th.direct_finalize
+    plain = th.direct_intermediate_plain if partial \
+        else th.direct_finalize_plain
+    before = tak.AGG_FINALIZE_KERNEL.launches
+    got = fn(st, names, ktypes, dicts, domains, outs, aggs)
+    assert tak.AGG_FINALIZE_KERNEL.launches == before + 1
+    want = plain(st, names, ktypes, dicts, domains, outs, aggs)
+    torch.cuda.synchronize()
+    _assert_batches_equal(got, want)
+
+
+@pytest.mark.parametrize("partial", [False, True],
+                         ids=["final", "intermediate"])
+def test_k29_sorted_matches_plain(hopper, partial):
+    rng = np.random.default_rng(205)
+    n = 1 << 18
+    aggs = _fin_aggs()
+    if partial:
+        aggs = [a for a in aggs if a.intermediate_types]
+    rv = torch.from_numpy(rng.random(n) < 0.9).to(hopper)
+    keys = [(torch.from_numpy(rng.integers(0, 3000, n)).to(hopper),
+             torch.from_numpy(rng.random(n) < 0.95).to(hopper))]
+    inputs = _fin_inputs(rng, n, aggs, hopper)
+    w = [rv & torch.from_numpy(rng.random(n) < 0.9).to(hopper)
+         for _ in aggs]
+    st = th.batch_aggregate(rv, keys, inputs, w, aggs, 4096)
+    outs = [f"a{i}" for i in range(len(aggs))]
+    fn = th.intermediate_batch if partial else th.finalize
+    plain = th.intermediate_batch_plain if partial else th.finalize_plain
+    before = tak.AGG_FINALIZE_KERNEL.launches
+    got = fn(st, ["k"], [tt.BIGINT], [None], outs, aggs)
+    # an intermediate drain whose arrays are already of their columns'
+    # types aliases them and launches nothing (bool_and's BOOLEAN
+    # intermediate needs a cast: one launch)
+    assert tak.AGG_FINALIZE_KERNEL.launches == before + 1
+    want = plain(st, ["k"], [tt.BIGINT], [None], outs, aggs)
+    torch.cuda.synchronize()
+    _assert_batches_equal(got, want)
+
+
+def test_k28_shrink_copies_into_new_storage(hopper):
+    """K28 against the plain copy; every shrunk array owns storage of its
+    own size (ROADMAP C10), vector components included."""
+    rng = np.random.default_rng(206)
+    aggs = _approx_aggs()
+    rv, keys, inputs, w = _approx_batch(rng, 1 << 18, hopper, groups=3000)
+    contribs = th._make_contribs(aggs, inputs, w, [False] * len(aggs))
+    st = th._group_reduce(keys, rv, contribs, aggs, 1 << 16)
+    cap = 4096
+    before = tak.STATE_SHRINK_KERNEL.launches
+    got = tagg._shrink_state(st, cap)
+    assert tak.STATE_SHRINK_KERNEL.launches == before + 1
+    torch.cuda.synchronize()
+    arrays = [a for d, m in got.keys for a in (d, m)] \
+        + [a for t in got.states for a in t] + [got.valid]
+    olds = [a for d, m in st.keys for a in (d, m)] \
+        + [a for t in st.states for a in t] + [st.valid]
+    for a, o in zip(arrays, olds):
+        assert a.shape[0] == cap
+        assert a.untyped_storage().nbytes() == a.numel() * a.element_size()
+        assert torch.equal(a, o[:cap])
+    assert got.live is st.live
+
+
+def test_agg_count_reads_the_carried_count(hopper):
+    """agg_count launches no reduction: the count is K6's."""
+    rng = np.random.default_rng(207)
+    aggs = _approx_aggs()[:3]
+    rv, keys, inputs, w = _approx_batch(rng, 1 << 18, hopper)
+    st = th.batch_aggregate(rv, keys, inputs[:3], w[:3], aggs, 1 << 13)
+    torch.cuda.synchronize()
+    seen = []
+    real_sum = torch.Tensor.sum
+
+    def counting_sum(self, *a, **k):
+        seen.append(self.shape)
+        return real_sum(self, *a, **k)
+    torch.Tensor.sum = counting_sum
+    try:
+        pending = tagg._count_live(st)
+    finally:
+        torch.Tensor.sum = real_sum
+    assert not seen
+    assert pending.get() == int(tagg.count_live_plain(st.valid))
+
+
+_APPROX_QUERIES = [
+    "select returnflag, linestatus, approx_percentile(extendedprice, 0.5), "
+    "approx_distinct(partkey), checksum(orderkey) from lineitem group by 1, 2",
+    "select suppkey, approx_percentile(quantity, 0.9), "
+    "approx_distinct(orderkey) from lineitem group by suppkey",
+    "select approx_distinct(orderkey) from lineitem",
+    "select custkey, approx_percentile(totalprice, 0.25), "
+    "approx_distinct(orderdate, 0.01), checksum(comment) from orders "
+    "group by custkey",
+]
+
+
+@pytest.mark.parametrize("q", range(len(_APPROX_QUERIES)))
+def test_approx_queries_on_the_card_match_cpu(hopper, q):
+    from presto_tpu_torch.runner import LocalRunner
+    sql = _APPROX_QUERIES[q]
+    before = (tak.VECTOR_REDUCE_KERNEL.launches,
+              tak.AGG_FINALIZE_KERNEL.launches)
+    got = sorted(LocalRunner("tpch", "sf0_01", device=hopper).execute(sql)
+                 .rows(), key=repr)
+    assert tak.VECTOR_REDUCE_KERNEL.launches > before[0]
+    assert tak.AGG_FINALIZE_KERNEL.launches > before[1]
+    want = sorted(LocalRunner("tpch", "sf0_01", device="cpu").execute(sql)
+                  .rows(), key=repr)
+    assert got == want

@@ -208,9 +208,51 @@ def _k19(common, join, hashagg):
     merge.merge_pair(b, b, ("k",), (False,), (False,))
 
 
+def _k3_sources(common, join, hashagg):
+    keys = [(_meta(64, torch.int64), _meta(64, torch.bool))]
+    common.row_hash_sources([(keys, _meta(64, torch.bool))] * 3, False)
+
+
+def _k26_sources(common, join, hashagg):
+    part = ([(_meta(64, torch.int64), _meta(64, torch.bool))],
+            _meta(64, torch.bool))
+    common.gather_rows([part] * 3, _meta(192, torch.int64))
+
+
+def _k28(common, join, hashagg):
+    from presto_tpu_torch.ops import agg_kernels
+    agg_kernels.shrink_arrays([_meta(64, torch.int64),
+                               torch.zeros((64, 8), device="meta")], 16)
+
+
+def _k29(common, join, hashagg):
+    from presto_tpu_torch.types import BIGINT
+    st = hashagg.GroupByState([], [(_meta(64, torch.int64),)],
+                              _meta(64, torch.bool), _meta(1, torch.bool))
+    hashagg.finalize(st, [], [], [], ["c"], [hashagg.make_count(BIGINT)])
+
+
+def _k30_direct(common, join, hashagg):
+    from presto_tpu_torch.ops import agg_kernels
+    agg_kernels.vector_direct(
+        _meta(64, torch.bool), [], (), _meta(64, torch.int32),
+        _meta(64, torch.int32), torch.zeros((1, 1024), dtype=torch.int32,
+                                            device="meta"), "sum",
+        hashagg.slot_ids)
+
+
+def _k30_segments(common, join, hashagg):
+    from presto_tpu_torch.ops import agg_kernels
+    agg_kernels.vector_segments(
+        None, None, 4, 1024, torch.int32, "sum",
+        sparse=(_meta(64, torch.int32), _meta(64, torch.int32)))
+
+
 @pytest.mark.parametrize("call", [_k3, _k4, _k5, _k6, _k7, _k8, _k9,
                                   _k9_full, _k10, _k11, _k13, _k14, _k15,
-                                  _k16, _k18, _k19],
+                                  _k16, _k18, _k19, _k3_sources,
+                                  _k26_sources, _k28, _k29, _k30_direct,
+                                  _k30_segments],
                          ids=["row_hash", "join_build", "join_probe",
                               "segment_reduce", "semi_join",
                               "stream_reduce", "join_expand",
@@ -218,9 +260,13 @@ def _k19(common, join, hashagg):
                               "join_outer", "window_segments",
                               "window_frame_sum", "window_frame_minmax",
                               "window_emit", "exchange_shuffle",
-                              "merge_pair"])
+                              "merge_pair", "row_hash_sources",
+                              "gather_rows_sources", "state_shrink",
+                              "agg_finalize", "vector_reduce_direct",
+                              "vector_reduce_segments"])
 def test_device_tensor_never_takes_the_plain_version(monkeypatch, call):
-    """K3-K11, K13-K16, K18 and K19 on tensors that are not on the CPU (meta
+    """K3-K11, K13-K16, K18, K19 and K28-K30 on tensors that are not on
+    the CPU (meta
     tensors here) go to the kernel or raise: with the build made to
     fail, the error surfaces. The plain versions would compute meta
     results silently."""

@@ -218,13 +218,14 @@ def test_k3_chained_hash_over_eleven_keys_equals_reference(monkeypatch):
     rv = torch.from_numpy(rng.random(n) < 0.9)
     launches = []
 
-    def one_launch(k, row_valid, nulls_invalid):
+    def one_launch(parts, nulls_invalid):
+        (k, row_valid), = parts
         assert len(k) <= common.MAX_KEYS
         launches.append(len(k))
         return common.row_hash_pair_plain(k, row_valid, nulls_invalid)
     monkeypatch.setattr(common, "_row_hash_launch", one_launch)
     for ni in (False, True):
-        got = common._row_hash_cuda(keys, rv, ni)
+        got = common._row_hash_cuda([(keys, rv)], ni)
         want = common.row_hash_pair_plain(keys, rv, ni)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert launches == [8, 3, 8, 3]
@@ -340,21 +341,35 @@ def test_real_math_lowers_and_matches_composed(label):
 
 
 def test_key_group_args_pass_groups_of_eight_flat():
-    """K5, K7, K8 and K9 take up to 24 key columns as successive groups
-    of 8 (csrc/row_hash.cuh KeyGroups); the tables are passed flat,
-    every column checked as key_args checks it."""
+    """K5, K7, K8 and K9 take key columns as successive groups of 8
+    (csrc/row_hash.cuh KeyGroups); the tables are passed flat, every
+    column checked as key_args checks it. Past 24 keys (ROADMAP C6r)
+    the groups after the third also go as a descriptor of one KeyCols
+    (21 int64 words: 8 data and 8 mask addresses, 8 int32 dtype codes,
+    the count) each, whose address follows the last key's."""
     n = 7
     keys = [(torch.arange(n, dtype=dt), torch.ones(n, dtype=torch.bool))
             for dt in [torch.int64, torch.int32, torch.float64,
                        torch.int16] * 5][:17]
     dev = torch.device("cpu")
-    kd, km, kt, nk = common.key_group_args(keys, n, dev, "probe")
+    kd, km, kt, nk, desc = common.key_group_args(keys, n, dev, "probe")
     assert nk.value == 17 and len(kd) == len(km) == len(kt) == 17
+    assert desc is None
     assert list(kd) == [d.data_ptr() for d, _ in keys]
     assert list(kt) == [common.KEY_DTYPES[d.dtype] for d, _ in keys]
     assert [len(g) for g in common.key_groups(keys)] == [8, 8, 1]
-    with pytest.raises(ValueError, match="1 to 24"):
-        common.key_group_args(keys * 2, n, dev, "probe")
+    wide = keys * 2
+    kd, km, kt, nk, desc = common.key_group_args(wide, n, dev, "probe")
+    assert nk.value == 34 and len(kd) == 35 and len(km) == len(kt) == 34
+    assert list(kd)[:34] == [d.data_ptr() for d, _ in wide]
+    assert kd[34] == desc.data_ptr() and desc.shape == (2, 21)
+    assert desc[0, :8].tolist() == [d.data_ptr() for d, _ in wide[24:32]]
+    assert desc[0, 8:16].tolist() == [m.data_ptr() for _, m in wide[24:32]]
+    assert desc[0, 16:20].numpy().view(np.int32).tolist() == [
+        common.KEY_DTYPES[d.dtype] for d, _ in wide[24:32]]
+    assert desc[0, 20] == 8 and desc[1, 20] == 2
+    assert desc[1, :2].tolist() == [d.data_ptr() for d, _ in wide[32:]]
+    assert desc[1, 2:8].tolist() == [0] * 6
     with pytest.raises(ValueError, match="contiguous"):
         common.key_group_args(keys[:8] + [(keys[8][0][::2], keys[8][1])],
                               n, dev, "probe")

@@ -32,12 +32,11 @@ from presto_tpu_torch.telemetry import kernels as tk
 # one intra-op thread: see tests/test_torch_tpch.py
 torch.set_num_threads(1)
 
-#: the battery's set-operation and DISTINCT cases (approx_distinct is
-#: an aggregate of ROADMAP A5, not a DISTINCT)
+#: the battery's set-operation and DISTINCT cases (with
+#: approx_distinct, whose name says distinct)
 SET_CASES = sorted(n for n in BATTERY
                    if any(w in n for w in ("union", "intersect", "except",
-                                           "distinct"))
-                   and n != "approx_distinct")
+                                           "distinct")))
 
 _PORT = {}
 

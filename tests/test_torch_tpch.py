@@ -120,14 +120,12 @@ def test_set_session_batch_rows():
 
 #: shapes the port does not plan yet -> the ROADMAP item their error
 #: names (every TPC-H query plans since the fourth slice)
-LATER_SHAPES = {
-    "approx_distinct": ("select approx_distinct(nationkey) from customer",
-                        "A5"),
-}
+LATER_SHAPES = {}
 #: shapes that named their item here until the slice that planned them
-#: (windows and grouping sets: the sixth; unnest: the seventh); they now
-#: match the reference
+#: (windows and grouping sets: the sixth; unnest: the seventh); they
+#: now match the reference
 PLANNED_SINCE = {
+    "approx_distinct": "select approx_distinct(nationkey) from customer",
     "unnest": "select x from unnest(array[1, 2]) t(x)",
     "window": "select name, rank() over (order by acctbal) "
               "from customer",
