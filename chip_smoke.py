@@ -11,11 +11,16 @@ and Q19_LIVE, their plans with predicates that keep rows, are checked
 too. Then the sort path (`run_sort_phases`): ORDER_LINES (every
 lineitem at SF1, 6,000,012 rows, ordered by extendedprice desc,
 orderkey, linenumber), TOPN_LINES (the same ORDER BY, LIMIT 100: one
-topn step per batch) and LIMIT_SCAN (a count over a 5,000,000-row LIMIT
-that spans five batches), each against a numpy oracle (np.lexsort; the
-count exactly), with K24-K27 held against their plain versions at their
-largest calls and sort_batch, topn_step and limit_batch timed beside the
-same functions through the plain versions; K25 is also held against its
+topn step per batch, K24 -> K31 -> K32 -> K26), TOPN_TIES (LIMIT 100 by
+returnflag alone: its three values tie across more rows than the select
+keeps, so K31's digits run out and the earliest rows in the scan's
+order win) and LIMIT_SCAN (a count over a 5,000,000-row LIMIT that
+spans five batches), each against a numpy oracle (np.lexsort, a stable
+argsort; the count exactly), with K24-K27, K31 and K32 held against
+their plain versions at their largest calls and sort_batch,
+topn_step and limit_batch timed beside the same functions through the
+plain versions, topn_step also beside topn_step_full_sort (K25 over
+every row), equal in every slot; K25 is also held against its
 plain version and one stable torch.sort at Q21's lineitem build, its
 largest call of the TPC-H path. Then the window path: WIN_RUNNING,
 WIN_RANK, WIN_TOPN and
@@ -77,14 +82,14 @@ wall. The kernels (KERNELS below): K1 direct_slot_reduce, K2
 compact, K3 row_hash, K4 join_build, K5 join_probe, K6 segment_reduce,
 K7 semi_join, K8 stream_reduce, K9 join_expand (with its full mode), K10
 cross_product, K11 join_outer, K13-K16 (window), K17 array_collect,
-K18 exchange_shuffle, K19 merge_pair, K20 exchange_partition, K22-K23
-(the dynamic filter's set and apply), K24 sort_encode, K25 radix_sort,
-K26 gather_rows and K27 limit_rank, K28 state_shrink, K29 agg_finalize
-and K30 vector_reduce (CUDA C++, built with nvcc; K3 and K26 reading a
-merge's partial states as sources count also as row_hash_sources and
-gather_rows_sources), K21 (a Triton kernel),
-and K12 fragment (a Triton kernel generated per filter/project chain at
-its first launch). Q1, Q3, Q6 and Q18 also run with fusion off (their
+K18 exchange_shuffle, K19 merge_pair, K20 exchange_partition, K21-K23
+(the dynamic filter's bounds, set and apply), K24 sort_encode, K25
+radix_sort, K26 gather_rows and K27 limit_rank, K28 state_shrink, K29
+agg_finalize, K30 vector_reduce, K31 topn_select and K32 topn_sort
+(CUDA C++, built with nvcc; K3 and K26 reading a merge's partial states
+as sources count also as row_hash_sources and gather_rows_sources), and
+K12 fragment (a Triton kernel generated per filter/project chain at its
+first launch). Q1, Q3, Q6 and Q18 also run with fusion off (their
 FilterProjects as one-stage K12 kernels), rows checked and walls beside
 the fused ones. The kernel measurements run on inputs captured from a
 separate run of the same queries (the largest call of each kernel; K9
@@ -121,8 +126,8 @@ phase counts the CUDA kernel launches of one warm execution of each
 query (and of Q1, Q3 and Q6 with fusion off). Every kernel of the
 summary line must have been launched on some path.
 
-Tolerances: K2 (compact), K3, K4, K5, K7 (semi_join) and K24-K27 must
-match their plain versions exactly (row order, hashes, offsets, slots,
+Tolerances: K2 (compact), K3, K4, K5, K7 (semi_join), K21 (bitwise),
+K24-K27, K31 and K32 must match their plain versions exactly (row order, hashes, offsets, slots,
 key words, permutations, moved rows and keep masks are the result). K1
 (direct_slot_reduce) integers must match exactly;
 float64 components to a relative 1e-9, because atomics add in a
@@ -477,6 +482,19 @@ def time_ms(fn, torch) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_ms(torch, fn, calls=20) -> float:
+    """Host time of one call: the wall of `calls` calls issued back to
+    back, before synchronizing, over `calls` (after one warm call)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    out = (time.perf_counter() - t) / calls * 1e3
+    torch.cuda.synchronize()
+    return out
 
 
 def nbytes(*tensors) -> int:
@@ -1477,6 +1495,9 @@ def measure_k6(torch, tc, th, args):
             "components": len(comps), "max_abs_err": max_abs, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "k25_sort_ms": k25_ms,
+            # the sort's own bound: both hash words read once, the
+            # permutation written once
+            "k25_sort_bound_ms": 24 * n / HBM_BYTES_PER_S * 1e3,
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
@@ -2150,7 +2171,7 @@ KERNELS = {
     "exchange_partition": ("cuda",
                            "presto_tpu_torch/csrc/exchange_partition.cu",
                            "presto_tpu/operators/exchange_ops.py:79"),
-    "df_bounds": ("triton", "presto_tpu_torch/execution/dynamic_filters.py",
+    "df_bounds": ("cuda", "presto_tpu_torch/csrc/dynamic_filter.cu",
                   "presto_tpu/execution/dynamic_filters.py:177"),
     "df_distinct_set": ("cuda", "presto_tpu_torch/csrc/dynamic_filter.cu",
                         "presto_tpu/execution/dynamic_filters.py:210"),
@@ -2174,6 +2195,10 @@ KERNELS = {
                      "presto_tpu/operators/aggregation.py:254"),
     "vector_reduce": ("cuda", "presto_tpu_torch/csrc/vector_reduce.cu",
                       "presto_tpu/ops/hashagg.py:884"),
+    "topn_select": ("cuda", "presto_tpu_torch/csrc/topn_select.cu",
+                    "presto_tpu/ops/sort.py:54"),
+    "topn_sort": ("cuda", "presto_tpu_torch/csrc/topn_select.cu",
+                  "presto_tpu/ops/sort.py:54"),
 }
 #: the mesh path's kernels, measured there
 MESH_KERNELS = ("exchange_shuffle", "merge_pair")
@@ -2191,7 +2216,8 @@ WINDOW_KERNELS = ("window_segments", "window_frame_sum",
 ARRAY_KERNELS = ("array_collect",)
 #: the sort family's kernels, measured on the sort path (K25 at Q21's
 #: build on the TPC-H path)
-SORT_KERNELS = ("sort_encode", "radix_sort", "gather_rows", "limit_rank")
+SORT_KERNELS = ("sort_encode", "radix_sort", "gather_rows", "limit_rank",
+                "topn_select", "topn_sort")
 #: the aggregation path's kernel, measured there (K28, K29 and the
 #: N-source K3 / K26 are measured on the TPC-H path)
 AGG_KERNELS = ("vector_reduce",)
@@ -3785,13 +3811,23 @@ ORDER_LINES = """select orderkey, linenumber, extendedprice from lineitem
 order by extendedprice desc, orderkey, linenumber"""
 #: the same ORDER BY as a TopN: one topn step per 1,048,576-row batch
 TOPN_LINES = ORDER_LINES + "\nlimit 100"
+#: a TopN whose one key (three values) ties across more rows than the
+#: select keeps: K31's digits run out and the earliest tied rows win
+TOPN_TIES = """select orderkey, linenumber, returnflag from lineitem
+order by returnflag limit 100"""
 #: a bare LIMIT over five batches: K27 carries the emitted count
 LIMIT_SCAN = """select count(*) from (select orderkey from lineitem
 limit 5000000)"""
 SORT_QUERIES = {"order_lines": ORDER_LINES, "topn_lines": TOPN_LINES,
-                "limit_scan": LIMIT_SCAN}
+                "topn_ties": TOPN_TIES, "limit_scan": LIMIT_SCAN}
+#: the kernels each query must launch; a tuple inside names
+#: alternatives (topn's candidates are sorted by K32 or, where they do
+#: not fit its shared memory, by K25)
 SORT_MUST = {"order_lines": ("sort_encode", "radix_sort", "gather_rows"),
-             "topn_lines": ("sort_encode", "radix_sort", "gather_rows"),
+             "topn_lines": ("sort_encode", "topn_select",
+                            ("topn_sort", "radix_sort"), "gather_rows"),
+             "topn_ties": ("sort_encode", "topn_select",
+                           ("topn_sort", "radix_sort"), "gather_rows"),
              "limit_scan": ("limit_rank",)}
 LIMIT_SCAN_ROWS = 5_000_000
 TOPN_ROWS = 100
@@ -3812,13 +3848,19 @@ SORT_FAMILIES = {"sort sort_batch": ("sort", "sort_batch", _sort_leading),
 
 
 def sort_oracle(np, gen_module, schema):
-    """The lineitem columns ORDER_LINES reads and their order under its
-    ORDER BY (np.lexsort: extendedprice descending, then orderkey, then
-    linenumber, which leaves no ties)."""
+    """The lineitem columns the sort queries read, in the scan's order
+    (the connector generates lineitem by order index and LocalRunner
+    scans its splits in that order: lineitem_table's order), their order
+    under ORDER_LINES' ORDER BY (np.lexsort: extendedprice descending,
+    then orderkey, then linenumber, which leaves no ties) and under
+    TOPN_TIES' (a stable argsort of the returnflag codes, whose
+    dictionary is sorted: tied rows keep the scan's order)."""
     gen = gen_module.TpchGenerator(gen_module.TpchConnector.SCHEMAS[schema])
-    li = lineitem_table(np, gen, ("orderkey", "linenumber", "extendedprice"))
+    li = lineitem_table(np, gen, ("orderkey", "linenumber", "extendedprice",
+                                  "returnflag"))
     order = np.lexsort((li["linenumber"], li["orderkey"],
                         -li["extendedprice"]))
+    li["ties_order"] = np.argsort(li["returnflag"], kind="stable")
     return li, order
 
 
@@ -3830,7 +3872,11 @@ def check_sort_result(np, label, cols, li, order):
               f"limit_scan counted {data.tolist()}, not {LIMIT_SCAN_ROWS}")
         return
     take = order if label == "order_lines" else order[:TOPN_ROWS]
-    for c in ("orderkey", "linenumber", "extendedprice"):
+    names = ("orderkey", "linenumber", "extendedprice")
+    if label == "topn_ties":
+        take = li["ties_order"][:TOPN_ROWS]
+        names = ("orderkey", "linenumber", "returnflag")
+    for c in names:
         data, mask = cols[c]
         want = li[c][take]
         check(len(data) == len(want) and bool(mask.all()),
@@ -3874,6 +3920,10 @@ class SortCapture(Patches):
         self._wrap(tc, "gather_rows", lambda parts, perm, *a, **k:
                    perm.shape[0])
         self._wrap(tsort, "limit_rank", lambda valid, *a: valid.shape[0])
+        self._wrap(tc, "topn_select", lambda words, *a, **k: words.shape[1])
+        # K32's work: its candidates' words (TOPN_LINES' three words
+        # outweigh TOPN_TIES' one)
+        self._wrap(tc, "topn_sort", lambda keys, *a, **k: keys.numel())
         self._wrap(tsort, "sort_batch", lambda b, *a: b.capacity)
         self._wrap(tsort, "topn_step", lambda st, b, *a:
                    st.capacity + b.capacity)
@@ -3882,7 +3932,8 @@ class SortCapture(Patches):
 
 
 class PlainSort(Patches):
-    """Inside: K24-K27's wrappers are their plain versions (the yardstick
+    """Inside: K24-K27's, K31's and K32's wrappers are their plain
+    versions (the yardstick
     of a sort-family function: the same function, plain steps)."""
 
     def __init__(self, mods):
@@ -3892,7 +3943,8 @@ class PlainSort(Patches):
     def __enter__(self):
         tc, tsort = self.m["tc"], self.m["sort"]
         for mod, attr in ((tc, "sort_encode"), (tc, "radix_sort"),
-                          (tc, "gather_rows"), (tsort, "limit_rank")):
+                          (tc, "gather_rows"), (tsort, "limit_rank"),
+                          (tc, "topn_select"), (tc, "topn_sort")):
             plain = getattr(mod, attr + "_plain")
             self._patch(mod, attr, lambda orig, plain=plain: plain)
         return self
@@ -4011,6 +4063,79 @@ def measure_limit_rank(torch, tsort, args, kw):
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
+def measure_topn_select(torch, tc, args, kw):
+    """K31 at its largest call against its plain version on the same
+    CUDA inputs (the candidates, their words where asked and info
+    exactly). Bound: one word of every row for each word a pass
+    read, the digit masks, the candidates, their words and info
+    written. No single PyTorch call selects them."""
+    words, digits, cap, most = args[:4]
+    got = tc.topn_select(*args, **kw)
+    want = tc.topn_select_plain(*args, **kw)
+    torch.cuda.synchronize()
+    check(all((g is None and w is None) or torch.equal(g, w)
+              for g, w in zip(got, want)),
+          "K31 topn_select: candidates or info differ from its plain "
+          f"version: {got[1].tolist()} vs {want[1].tolist()}")
+    count, passes, ran_out, below = (int(x) for x in want[1].tolist())
+    masks = [int(x) for x in digits.tolist()]
+    read = [w for w, sh in tc._digit_order(words.shape[0])
+            if (masks[w] >> (sh // 8)) & 1][:max(passes, 1)]
+    n = words.shape[1]
+    moved = 8 * n * len(set(read)) + nbytes(digits) + 8 * most + 32 \
+        + nbytes(got[2])
+    return {"rows": n, "cap": int(cap), "most": int(most),
+            "words": words.shape[0], "candidates": count, "passes": passes,
+            "digits_ran_out": bool(ran_out), "below": below,
+            "max_abs_err": 0.0,
+            "ms": time_ms(lambda: tc.topn_select(*args, **kw), torch),
+            "plain_ms": time_ms(lambda: tc.topn_select_plain(*args, **kw),
+                                torch),
+            "library_ms": None,
+            "device_us_per_launch": _profile_launch_us(
+                torch, lambda: tc.topn_select(*args, **kw),
+                ("topn_select_kernel",)),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
+
+
+def measure_topn_sort(torch, tc, args, kw):
+    """K32 at its largest call against its plain version (the C rows
+    exactly); library: one stable torch.sort of the candidates' leading
+    word (it orders by one word only). Bound: the candidates' words (and
+    indices) read once, C indices written."""
+    keys, cand, info, cap, most = args[:5]
+    got = tc.topn_sort(*args, **kw)
+    want = tc.topn_sort_plain(*args, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "K32 topn_sort differs from its plain "
+          "version")
+    count = keys.shape[1] if cand is None else int(info[0])
+    lead = keys[0][:count] ^ torch.iinfo(torch.int64).min
+    moved = count * (8 * keys.shape[0] + (8 if cand is not None else 0)) \
+        + 8 * int(cap)
+    return {"candidates": count, "cap": int(cap), "most": int(most),
+            "words": keys.shape[0], "max_abs_err": 0.0,
+            "ms": time_ms(lambda: tc.topn_sort(*args, **kw), torch),
+            "plain_ms": time_ms(lambda: tc.topn_sort_plain(*args, **kw),
+                                torch),
+            "library_ms": time_ms(lambda: torch.sort(lead, stable=True),
+                                  torch),
+            "device_us_per_launch": _profile_launch_us(
+                torch, lambda: tc.topn_sort(*args, **kw),
+                ("topn_sort_kernel",)),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
+
+
+def _same_batch(torch, a, b) -> bool:
+    """Two batches equal in every slot: row_valid, masks, data bitwise."""
+    def bits(t):
+        return t.view(torch.uint8) if t.is_floating_point() else t
+    return torch.equal(a.row_valid, b.row_valid) and all(
+        torch.equal(a.columns[n].mask, b.columns[n].mask)
+        and torch.equal(bits(a.columns[n].data), bits(b.columns[n].data))
+        for n in a.names)
+
+
 def measure_sort_family(torch, mods, label, args):
     """A sort-family function at its largest call: its time (K24-K27),
     the same function with the kernels' plain versions, the library
@@ -4021,6 +4146,21 @@ def measure_sort_family(torch, mods, label, args):
     with PlainSort(mods):
         m["plain_ms"] = time_ms(lambda: fn(*args), torch)
     m["library_ms"] = time_ms(library(torch, *args), torch)
+    if fn_name == "topn_step":
+        # the select-then-sort against ordering every row (K24, K25, K26)
+        full = mods["sort"].topn_step_full_sort
+        got, want = fn(*args), full(*args)
+        torch.cuda.synchronize()
+        check(_same_batch(torch, got, want), "topn_step differs from "
+              "topn_step_full_sort in some slot")
+        m["full_sort_ms"] = time_ms(lambda: full(*args), torch)
+        m["ms_again"] = time_ms(lambda: fn(*args), torch)
+        m["same_as_full_sort"] = True
+        # the host's share: the wrappers' time per call when the device
+        # never holds the host back (20 calls queue far fewer launches
+        # than the stream takes)
+        m["host_ms"] = host_ms(torch, lambda: fn(*args))
+        m["full_sort_host_ms"] = host_ms(torch, lambda: full(*args))
     return m
 
 
@@ -4041,19 +4181,38 @@ def run_sort_phases(torch, np, mods, dev, schema):
                                  device=dev)
     counters = list(tk.COUNTERS.values())
     launches, calls = {}, {}
+    tc = mods["tc"]
     for label, sql in SORT_QUERIES.items():
+        selects = []
+        select = tc.topn_select
+
+        def recording(*a, **k):
+            out = select(*a, **k)
+            selects.append(out[1])
+            return out
+        tc.topn_select = recording
         for c in counters:
             c.launches = 0
         before = dict(tk.CALLS)
-        t = time.perf_counter()
-        cols = result_columns(torch, np, runner.execute(sql))
-        cold = time.perf_counter() - t
+        try:
+            t = time.perf_counter()
+            cols = result_columns(torch, np, runner.execute(sql))
+            cold = time.perf_counter() - t
+        finally:
+            tc.topn_select = select
         launches[label] = {c.name: c.launches for c in counters}
         calls[label] = {f: n - before.get(f, 0) for f, n in tk.CALLS.items()
                         if n - before.get(f, 0)}
         check_sort_result(np, label, cols, li, order)
         for k in SORT_MUST[label]:
-            check(launches[label][k] > 0, f"{k} was not launched in {label}")
+            alts = k if isinstance(k, tuple) else (k,)
+            check(any(launches[label][a] > 0 for a in alts),
+                  f"none of {alts} was launched in {label}")
+        # K31's steps: (candidates, passes, digits ran out, rows below)
+        steps = [[int(x) for x in info.tolist()] for info in selects]
+        if label == "topn_ties":
+            check(any(st[2] for st in steps), "topn_ties: K31's digits "
+                  f"never ran out: {steps}")
         t = time.perf_counter()
         result_columns(torch, np, runner.execute(sql))
         warm = time.perf_counter() - t
@@ -4062,8 +4221,10 @@ def run_sort_phases(torch, np, mods, dev, schema):
               "rows": len(next(iter(cols.values()))[0]),
               "matches_oracle": True, "launches": launches[label],
               "family_calls": calls[label], "cold_s": cold,
-              "warm_s": warm,
-              "lineitem_rows": len(order)})
+              "warm_s": warm, "lineitem_rows": len(order),
+              **({"topn_route": "K32" if launches[label]["topn_sort"]
+                  else "K25",
+                  "select_steps": steps} if steps else {})})
     # where a warm query's time goes
     for label, sql in SORT_QUERIES.items():
         emit({"phase": "profile", "query": label,
@@ -4075,11 +4236,13 @@ def run_sort_phases(torch, np, mods, dev, schema):
             result_columns(torch, np, runner.execute(sql))
     check(set(cap.big) == {"sort_encode", "radix_sort", "gather_rows",
                            "limit_rank", "sort_batch", "topn_step",
-                           "limit_batch"},
+                           "limit_batch", "topn_select", "topn_sort"},
           f"sort inputs were not captured: {sorted(cap.big)}")
     measure = {"sort_encode": measure_sort_encode,
                "radix_sort": measure_radix_sort,
-               "gather_rows": measure_gather_rows}
+               "gather_rows": measure_gather_rows,
+               "topn_select": measure_topn_select,
+               "topn_sort": measure_topn_sort}
     measured = {}
     for name in SORT_KERNELS:
         _, q, args, kw = cap.big[name]
@@ -4728,16 +4891,19 @@ def _profile_launch_us(torch, fn, names, calls=5):
 
 
 def measure_k21(torch, df, args):
-    """K21 (df_bounds, Triton) at its largest call against its plain
-    version (exactly: both bounds); library: torch.aminmax of the live,
-    non-NaN keys (selected beforehand). Bound: keys and mask read once."""
+    """K21 (df_bounds, one CUDA launch) at its largest call against its
+    plain version (exactly: both bounds, bitwise); library: torch.aminmax
+    of the live, non-NaN keys (selected beforehand). Bound: keys and
+    mask read once."""
     state, data, mask = args
     got = df.bounds_step(state, data, mask)
     want = df.bounds_step_plain(state, data, mask)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
-        check(_same_tensor(torch, g, w), "K21 df_bounds differs from its "
-              f"plain version: {got} vs {want}")
+        check(torch.equal(g.reshape(1).view(torch.uint8),
+                          w.reshape(1).view(torch.uint8)),
+              f"K21 df_bounds differs from its plain version: {got} vs "
+              f"{want}")
     live = data[mask & ~torch.isnan(data)] if data.is_floating_point() \
         else data[mask]
     moved = nbytes(data, mask)
@@ -4749,7 +4915,7 @@ def measure_k21(torch, df, args):
             "library_ms": time_ms(lambda: torch.aminmax(live), torch),
             "device_us_per_launch": _profile_launch_us(
                 torch, lambda: df.bounds_step(state, data, mask),
-                ("bounds_partial", "bounds_fold")),
+                ("df_bounds",)),
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
 
 

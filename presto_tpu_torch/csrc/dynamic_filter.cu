@@ -1,11 +1,25 @@
-// dynamic_filter (K22 distinct_set, K23 apply_filter): the build side's
-// bounded distinct key set, and the probe-side scan's narrowing of
-// row_valid by a published filter.
+// dynamic_filter (K21 df_bounds, K22 distinct_set, K23 apply_filter):
+// the build side's running key bounds and bounded distinct key set, and
+// the probe-side scan's narrowing of row_valid by a published filter.
 //
-// Replaces presto_tpu/execution/dynamic_filters.py `distinct_set`
-// (:210) and `apply_filter` (:242), family dynamic_filter. (The running
-// bounds, `bounds_step` :177, are K21, a Triton reduction in
-// execution/dynamic_filters.py.)
+// Replaces presto_tpu/execution/dynamic_filters.py `bounds_step`
+// (:177), `distinct_set` (:210) and `apply_filter` (:242), family
+// dynamic_filter.
+//
+// K21 df_bounds. One launch folds a batch's live, non-NaN keys into the
+// running (min, max). Blocks grid-stride over the keys with 16-byte
+// loads of the keys (and the matching bytes of the mask); a masked row,
+// a NULL and a NaN contribute the dtype's identities (its max to the
+// min, its lowest to the max), taken in the kernel. Each block reduces
+// with warp shuffles and writes its partial; the last block to finish
+// (__threadfence, then an atomic ticket) folds the partials and the
+// running state into the 2-element output and resets the ticket, so
+// the partials and ticket are scratch the wrapper allocates once per
+// device and stream. Every zero comes out as +0.0 (keys and the
+// running state alike), as the plain version has it, so a zero bound
+// has one sign. One launch and one call from the host: the reduction
+// takes a few microseconds on the device, less than a launch costs on
+// the host.
 //
 // K22 distinct_set. The reference sorts the merged build column twice
 // (dead lanes last, then the distinct values to the front) to keep at
@@ -45,7 +59,7 @@
 // search over the staged values finds the key). `count`, `mn` and `mx`
 // are device scalars, never read on the host.
 //
-// What bounds them: bytes. K22 reads each key and mask once; K23
+// What bounds them: bytes. K21 and K22 read each key and mask once; K23
 // reads key, mask and row_valid and writes row_valid. K22's hash
 // probes are shared-memory atomics; K23 does log2(count) shared loads
 // per row.
@@ -128,6 +142,155 @@ __device__ __forceinline__ uint32_t slot_of(u64 c) {
   c *= 0xc4ceb9fe1a85ec53ULL;
   c ^= c >> 33;
   return static_cast<uint32_t>(c);
+}
+
+// -- K21 --------------------------------------------------------------------
+
+#define BOUNDS_THREADS 256
+#define BOUNDS_WARPS (BOUNDS_THREADS / 32)
+#define BOUNDS_MAX_GRID 1024
+
+template <typename T> __device__ __forceinline__ T dtype_lowest();
+template <> __device__ __forceinline__ int64_t dtype_lowest<int64_t>() {
+  return static_cast<int64_t>(0x8000000000000000ULL);
+}
+template <> __device__ __forceinline__ int32_t dtype_lowest<int32_t>() {
+  return static_cast<int32_t>(0x80000000u);
+}
+template <> __device__ __forceinline__ int16_t dtype_lowest<int16_t>() { return -0x8000; }
+template <> __device__ __forceinline__ int8_t dtype_lowest<int8_t>() { return -0x80; }
+template <> __device__ __forceinline__ float dtype_lowest<float>() { return -3.402823466e+38f; }
+template <> __device__ __forceinline__ double dtype_lowest<double>() {
+  return -1.7976931348623157e+308;
+}
+
+// -0.0 as +0.0 (integers unchanged)
+template <typename T> __device__ __forceinline__ T canon(T v) {
+  return v == T(0) ? T(0) : v;
+}
+
+// a warp shuffle of any key type (8- and 16-bit keys through int)
+template <typename T> __device__ __forceinline__ T shfl_xor(T v, int o) {
+  return __shfl_xor_sync(0xffffffffu, v, o);
+}
+template <> __device__ __forceinline__ int8_t shfl_xor<int8_t>(int8_t v, int o) {
+  return static_cast<int8_t>(__shfl_xor_sync(0xffffffffu, static_cast<int>(v), o));
+}
+template <> __device__ __forceinline__ int16_t shfl_xor<int16_t>(int16_t v, int o) {
+  return static_cast<int16_t>(__shfl_xor_sync(0xffffffffu, static_cast<int>(v), o));
+}
+
+template <typename T> __device__ __forceinline__ void fold(T v, T& lo, T& hi) {
+  lo = v < lo ? v : lo;
+  hi = v > hi ? v : hi;
+}
+
+// V keys of 16 bytes, and their V mask bytes, in one load each
+template <typename T, int V> struct alignas(sizeof(T) * V) KeyPack { T v[V]; };
+template <int V> struct alignas(V) MaskPack { uint8_t m[V]; };
+
+// (lo, hi) of every thread folded into thread 0's
+template <typename T> __device__ void block_minmax(T& lo, T& hi) {
+  __shared__ T slo[BOUNDS_WARPS], shi[BOUNDS_WARPS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) {
+    const T a = shfl_xor(lo, o), b = shfl_xor(hi, o);
+    lo = a < lo ? a : lo;
+    hi = b > hi ? b : hi;
+  }
+  if (lane == 0) {
+    slo[warp] = lo;
+    shi[warp] = hi;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int w = 1; w < BOUNDS_WARPS; ++w) {
+      lo = slo[w] < lo ? slo[w] : lo;
+      hi = shi[w] > hi ? shi[w] : hi;
+    }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(BOUNDS_THREADS)
+df_bounds(const T* __restrict__ data, const bool* __restrict__ mask, int64_t n,
+          const T* __restrict__ mn, const T* __restrict__ mx, T* __restrict__ out, T* part,
+          unsigned* ticket) {
+  __shared__ bool last;
+  T lo = dtype_max<T>(), hi = dtype_lowest<T>();
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * BOUNDS_THREADS;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * BOUNDS_THREADS + threadIdx.x;
+  const int64_t packs = n / V;
+  const KeyPack<T, V>* kp = reinterpret_cast<const KeyPack<T, V>*>(data);
+  const MaskPack<V>* mp = reinterpret_cast<const MaskPack<V>*>(mask);
+  for (int64_t i = first; i < packs; i += stride) {
+    const KeyPack<T, V> k = kp[i];
+    const MaskPack<V> m = mp[i];
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (m.m[j] && !is_nan(k.v[j])) fold(canon(k.v[j]), lo, hi);
+  }
+  for (int64_t r = packs * V + first; r < n; r += stride)
+    if (mask[r] && !is_nan(data[r])) fold(canon(data[r]), lo, hi);
+  block_minmax(lo, hi);
+  if (threadIdx.x == 0) {
+    part[2 * blockIdx.x] = lo;
+    part[2 * blockIdx.x + 1] = hi;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  lo = canon(*mn);
+  hi = canon(*mx);
+  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += BOUNDS_THREADS) {
+    const T a = __ldcg(part + 2 * b), c = __ldcg(part + 2 * b + 1);
+    lo = a < lo ? a : lo;
+    hi = c > hi ? c : hi;
+  }
+  __syncthreads();  // block_minmax's shared arrays are reused
+  block_minmax(lo, hi);
+  if (threadIdx.x == 0) {
+    out[0] = lo;
+    out[1] = hi;
+    *ticket = 0;
+  }
+}
+
+static int g_bounds_grid[16];
+
+template <typename T>
+int bounds(const void* data, const void* mask, int64_t n, const void* mn, const void* mx,
+           void* out, void* scratch, cudaStream_t stream) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 16) return static_cast<int>(cudaErrorInvalidDevice);
+  if (g_bounds_grid[dev] == 0) {
+    int sms = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    g_bounds_grid[dev] = sms * 4 < BOUNDS_MAX_GRID ? sms * 4 : BOUNDS_MAX_GRID;
+  }
+  const int v = static_cast<int>(16 / sizeof(T));
+  const bool wide = (reinterpret_cast<uintptr_t>(data) % 16 == 0) &&
+                    (reinterpret_cast<uintptr_t>(mask) % v == 0);
+  const int64_t work = (wide ? n / v : n) + BOUNDS_THREADS - 1;
+  int64_t grid = work / BOUNDS_THREADS;
+  if (grid > g_bounds_grid[dev]) grid = g_bounds_grid[dev];
+  if (grid < 1) grid = 1;
+  T* part = static_cast<T*>(scratch);
+  unsigned* ticket = reinterpret_cast<unsigned*>(static_cast<char*>(scratch) +
+                                                 2 * BOUNDS_MAX_GRID * sizeof(int64_t));
+  const T* d = static_cast<const T*>(data);
+  const bool* m = static_cast<const bool*>(mask);
+  const T* a = static_cast<const T*>(mn);
+  const T* b = static_cast<const T*>(mx);
+  T* o = static_cast<T*>(out);
+  const unsigned g = static_cast<unsigned>(grid);
+  if (wide)
+    df_bounds<T, 16 / sizeof(T)><<<g, BOUNDS_THREADS, 0, stream>>>(d, m, n, a, b, o, part, ticket);
+  else
+    df_bounds<T, 1><<<g, BOUNDS_THREADS, 0, stream>>>(d, m, n, a, b, o, part, ticket);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // -- K22 --------------------------------------------------------------------
@@ -358,6 +521,29 @@ const char* presto_error_string(int status) {
 }
 
 int presto_df_set_max() { return DF_SET_MAX; }
+
+int presto_df_bounds_scratch() {
+  return static_cast<int>(2 * BOUNDS_MAX_GRID * sizeof(int64_t) + sizeof(int64_t));
+}
+
+// K21: out[0], out[1] = min(mn, live non-NaN keys), max(mx, ...) for n
+// keys of dtype code `dt` under `mask` (mn, mx and out on the device;
+// out holds two keys). scratch: presto_df_bounds_scratch() bytes,
+// zeroed once; the kernel leaves its ticket at 0.
+int presto_df_bounds(const void* data, const void* mask, int64_t n, int32_t dt, const void* mn,
+                     const void* mx, void* out, void* scratch, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dt) {
+    case 0: return bounds<int32_t>(data, mask, n, mn, mx, out, scratch, s);
+    case 1: return bounds<int64_t>(data, mask, n, mn, mx, out, scratch, s);
+    case 2: return bounds<float>(data, mask, n, mn, mx, out, scratch, s);
+    case 3: return bounds<double>(data, mask, n, mn, mx, out, scratch, s);
+    case 4: return bounds<int16_t>(data, mask, n, mn, mx, out, scratch, s);
+    case 5: return bounds<int8_t>(data, mask, n, mn, mx, out, scratch, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 int presto_df_table_slots() { return GLOBAL_SLOTS; }
 
 // K22: the distinct set of `n` keys of dtype code `dt` under `mask`.

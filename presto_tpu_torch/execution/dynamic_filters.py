@@ -12,8 +12,8 @@ before probe, so the filter is published before the probe's scan
 yields its first batch.
 
 The three steps are the `dynamic_filter` family's kernels on a CUDA
-tensor: K21 `bounds_step` (a Triton min/max reduction, `BOUNDS_SOURCE`),
-K22 `distinct_set` and K23 `apply_filter` (csrc/dynamic_filter.cu). On
+tensor: K21 `bounds_step` (one min/max launch), K22 `distinct_set`
+and K23 `apply_filter`, all in csrc/dynamic_filter.cu. On
 a CPU tensor each runs its plain version (`*_plain`), the reference's
 arithmetic in torch.
 
@@ -37,7 +37,7 @@ import torch
 from presto_tpu_torch.batch import Batch
 from presto_tpu_torch.telemetry import kernels as _tk
 
-#: launches of K21 (two Triton launches per call), K22 and K23
+#: launches of K21, K22 and K23
 BOUNDS_KERNEL = _tk.LaunchCounter("df_bounds", "dynamic_filter")
 SET_KERNEL = _tk.LaunchCounter("df_distinct_set", "dynamic_filter")
 APPLY_KERNEL = _tk.LaunchCounter("df_apply", "dynamic_filter")
@@ -161,110 +161,66 @@ def bounds_step(state, data: torch.Tensor, mask: torch.Tensor):
 
 
 def bounds_step_plain(state, data: torch.Tensor, mask: torch.Tensor):
-    """K21's plain version."""
+    """K21's plain version. Here it departs from the reference's
+    arithmetic on one point: every zero comes out as +0.0 (a float
+    key's -0.0 and the running bounds' alike), as K21 has it. The
+    reference's min / max reductions leave the sign of a zero bound to
+    the order in which they meet -0.0 and +0.0, which no kernel can
+    reproduce; with one sign, K21 and this version agree bit for bit.
+    A bound filter compares by value (-0.0 == +0.0), so no row
+    changes."""
     mn, mx = state
     if data.dtype.is_floating_point:
         mask = mask & ~torch.isnan(data)
+        data, mn, mx = (torch.where(t == 0, torch.zeros_like(t), t)
+                        for t in (data, mn, mx))
     info = _ident(data.dtype)
+    if data.shape[0] == 0:
+        return mn, mx
     lo = torch.where(mask, data, torch.full_like(data, info.max)).min()
     hi = torch.where(mask, data, torch.full_like(data, info.min)).max()
     return torch.minimum(mn, lo), torch.maximum(mx, hi)
 
 
-#: K21: per-program partial (min, max) of the live non-NaN keys, then
-#: one program folds the partials into the running state. Triton has
-#: no float atomic min, hence the two stages. `ident` holds the dtype's
-#: (max, min), the identities of a masked lane.
-BOUNDS_SOURCE = """\
-import triton
-import triton.language as tl
-
-
-@triton.jit
-def bounds_partial(data, mask, ident, part_mn, part_mx, n,
-                   BLOCK: tl.constexpr):
-    pid = tl.program_id(0).to(tl.int64)
-    offs = pid * BLOCK + tl.arange(0, BLOCK)
-    inb = offs < n
-    x = tl.load(data + offs, mask=inb, other=0)
-    live = (tl.load(mask + offs, mask=inb, other=0) != 0) & (x == x)
-    lo = tl.where(live, x, tl.load(ident))
-    hi = tl.where(live, x, tl.load(ident + 1))
-    tl.store(part_mn + pid, tl.min(lo, axis=0))
-    tl.store(part_mx + pid, tl.max(hi, axis=0))
-
-
-@triton.jit
-def bounds_fold(part_mn, part_mx, mn, mx, out_mn, out_mx, nparts,
-                BLOCK: tl.constexpr):
-    acc_mn = tl.load(mn)
-    acc_mx = tl.load(mx)
-    for start in range(0, nparts, BLOCK):
-        offs = start + tl.arange(0, BLOCK)
-        inb = offs < nparts
-        pmn = tl.load(part_mn + offs, mask=inb, other=0)
-        pmx = tl.load(part_mx + offs, mask=inb, other=0)
-        # a reduction widens int8 / int16 to int32: back to the key's
-        # type, which the loop-carried accumulators keep
-        acc_mn = tl.minimum(acc_mn, tl.min(tl.where(inb, pmn, acc_mn),
-                                           axis=0)).to(acc_mn.dtype)
-        acc_mx = tl.maximum(acc_mx, tl.max(tl.where(inb, pmx, acc_mx),
-                                           axis=0)).to(acc_mx.dtype)
-    tl.store(out_mn, acc_mn)
-    tl.store(out_mx, acc_mx)
-"""
-
-#: rows per K21 program, and partials per step of its fold
-BOUNDS_BLOCK = 1024
 #: every key dtype the planner gives a filter (INTEGER and DATE,
 #: BIGINT and the other int64 types, REAL, DOUBLE, SMALLINT, TINYINT),
 #: in the order of csrc/dynamic_filter.cu's dtype codes
 _KEY_DTYPES = (torch.int32, torch.int64, torch.float32, torch.float64,
                torch.int16, torch.int8)
-_IDENTS: Dict[tuple, torch.Tensor] = {}
-
-
-def bounds_launch(partial, fold, state, data: torch.Tensor,
-                  mask: torch.Tensor):
-    """K21's two launches with the given @triton.jit functions (the
-    card's, or the CPU stand-in's in the tests). Returns the new
-    (min, max) as 0-d tensors on the data's device."""
-    mn, mx = state
-    key = (data.dtype, str(data.device))
-    ident = _IDENTS.get(key)
-    if ident is None:
-        info = _ident(data.dtype)
-        ident = torch.tensor([info.max, info.min], dtype=data.dtype) \
-            .to(data.device)
-        _IDENTS[key] = ident
-    n = data.shape[0]
-    nparts = max(-(-n // BOUNDS_BLOCK), 1)
-    part_mn = torch.empty(nparts, dtype=data.dtype, device=data.device)
-    part_mx = torch.empty_like(part_mn)
-    out_mn = torch.empty((), dtype=data.dtype, device=data.device)
-    out_mx = torch.empty_like(out_mn)
-    partial[(nparts,)](data, mask.view(torch.uint8), ident, part_mn,
-                       part_mx, n, BLOCK=BOUNDS_BLOCK, num_warps=4)
-    fold[(1,)](part_mn, part_mx, mn, mx, out_mn, out_mx, nparts,
-               BLOCK=BOUNDS_BLOCK, num_warps=4)
-    return out_mn, out_mx
+#: K21's partials and ticket per (device, stream), zeroed once (the
+#: kernel leaves the ticket at 0)
+_BOUNDS_SCRATCH: Dict[tuple, torch.Tensor] = {}
 
 
 def _bounds_cuda(state, data: torch.Tensor, mask: torch.Tensor):
-    from presto_tpu_torch.expr import codegen
+    from presto_tpu_torch.native import cuda
     from presto_tpu_torch.ops.common import check_rows
-    n = data.shape[0]
-    check_rows(data, n, data.device, _KEY_DTYPES, "df_bounds: keys")
-    check_rows(mask, n, data.device, (torch.bool,), "df_bounds: mask")
+    dev, n = data.device, data.shape[0]
+    code = _dtype_code(data.dtype, "df_bounds")
+    check_rows(data, n, dev, _KEY_DTYPES, "df_bounds: keys")
+    check_rows(mask, n, dev, (torch.bool,), "df_bounds: mask")
+    mn, mx = state
     for t in state:
-        if t.device != data.device or t.dtype != data.dtype or t.dim():
+        if t.device != dev or t.dtype != data.dtype or t.dim():
             raise ValueError("df_bounds: the state must be two 0-d "
-                             f"{data.dtype} tensors on {data.device}")
-    out = bounds_launch(codegen.load(BOUNDS_SOURCE, "bounds_partial"),
-                        codegen.load(BOUNDS_SOURCE, "bounds_fold"),
-                        state, data, mask)
+                             f"{data.dtype} tensors on {dev}")
+    lib = cuda.library("dynamic_filter")
+    stream = cuda.stream_ptr(dev)
+    scratch = _BOUNDS_SCRATCH.get((dev, stream))
+    if scratch is None:
+        scratch = torch.zeros(lib.presto_df_bounds_scratch(),
+                              dtype=torch.uint8, device=dev)
+        _BOUNDS_SCRATCH[(dev, stream)] = scratch
+    out = torch.empty(2, dtype=data.dtype, device=dev)
+    status = lib.presto_df_bounds(
+        ctypes.c_void_p(data.data_ptr()), ctypes.c_void_p(mask.data_ptr()),
+        ctypes.c_int64(n), ctypes.c_int32(code),
+        ctypes.c_void_p(mn.data_ptr()), ctypes.c_void_p(mx.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(scratch.data_ptr()),
+        ctypes.c_void_p(stream))
+    cuda.check(lib, status, "df_bounds")
     BOUNDS_KERNEL.launches += 1
-    return out
+    return out[0], out[1]
 
 
 def distinct_set(data: torch.Tensor, mask: torch.Tensor):

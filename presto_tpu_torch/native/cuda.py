@@ -60,6 +60,7 @@ SOURCES = {
     "state_shrink": "state_shrink.cu",
     "agg_finalize": "agg_finalize.cu",
     "vector_reduce": "vector_reduce.cu",
+    "topn_select": "topn_select.cu",
 }
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
@@ -189,6 +190,9 @@ SIGNATURES = {
         "presto_apply_filter": (
             ctypes.c_int, [_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P,
                            _I32, _P, _P]),
+        "presto_df_bounds_scratch": (ctypes.c_int, []),
+        "presto_df_bounds": (
+            ctypes.c_int, [_P, _P, _I64, _I32, _P, _P, _P, _P, _P]),
     },
     "sort_encode": {
         "presto_sort_max_keys": (ctypes.c_int, []),
@@ -229,6 +233,16 @@ SIGNATURES = {
             ctypes.c_int, [_P, _P, _P, _P, _I32, _P, _P, _P, _P, _I64, _P,
                            _I64, _I32, _I32, _I32, _I32, _I32, _P, _P, _P,
                            _P]),
+    },
+    "topn_select": {
+        "presto_topn_sort_scratch": (ctypes.c_int, []),
+        "presto_topn_sort_max_rows": (ctypes.c_int, []),
+        "presto_topn_select_scratch": (ctypes.c_int64, [_I64, _I32]),
+        "presto_topn_select": (
+            ctypes.c_int, [_P, _I32, _I64, _I64, _I64, _P, _P, _P, _P, _P,
+                           _P]),
+        "presto_topn_sort": (
+            ctypes.c_int, [_P, _I32, _I64, _P, _P, _I64, _I64, _P, _P]),
     },
 }
 

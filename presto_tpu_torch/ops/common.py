@@ -694,7 +694,7 @@ def _check_part_cols(parts: Sequence[SortPart], dev, what: str,
             check_rows(valid, n, dev, (torch.bool,), f"{what}: row_valid")
         fixed = []
         for j, (d, m) in enumerate(cols):
-            if i:
+            if i and d.dtype != parts[0][0][j][0].dtype:
                 d = d.to(parts[0][0][j][0].dtype)
             d = d.contiguous()
             check_rows(d, n, dev, tuple(SORT_DTYPES), f"{what}: column {j}")
@@ -885,6 +885,20 @@ GATHER_SOURCES_KERNEL = _tk.LaunchCounter("gather_rows_sources",
 GATHER_MAX_SLOTS = 128
 
 
+#: K26's limit given as an int: the last value per device and its
+#: device scalar (the kernel only reads it; a topn step passes the same
+#: n every batch)
+_LIMITS: dict = {}
+
+
+def _limit_scalar(n: int, dev) -> torch.Tensor:
+    hit = _LIMITS.get(dev)
+    if hit is None or hit[0] != n:
+        hit = (n, torch.full((), n, dtype=torch.int64, device=dev))
+        _LIMITS[dev] = hit
+    return hit[1]
+
+
 def _gather_rows_cuda(parts, perm, rows, limit):
     from presto_tpu_torch.native import cuda
     dev = perm.device
@@ -906,7 +920,7 @@ def _gather_rows_cuda(parts, perm, rows, limit):
     if rows == 0:
         return out, out_valid
     if limit is not None:
-        limit = torch.full((), int(limit), dtype=torch.int64, device=dev) \
+        limit = _limit_scalar(int(limit), dev) \
             if not isinstance(limit, torch.Tensor) \
             else limit.reshape(()).to(torch.int64).contiguous()
     nsrc = len(parts)
@@ -953,6 +967,226 @@ def gather_rows(parts: Sequence[SortPart], perm: torch.Tensor,
     if perm.device.type == "cpu":
         return gather_rows_plain(parts, perm, rows, limit)
     return _gather_rows_cuda(parts, perm, rows, limit)
+
+
+# -- topn's order: K31 topn_select, K32 topn_sort ----------------------------
+#
+# A topn step keeps the first C = state.capacity entries of the stable
+# order of state ++ batch by K24's words. K31 narrows the N rows to at
+# most M candidates that hold those C (a radix select, most significant
+# digit first), K32 sorts the candidates in one block's shared memory,
+# and K26 moves the C rows: the order of all N rows is never built.
+
+#: launches of the radix select (csrc/topn_select.cu)
+TOPN_SELECT_KERNEL = _tk.LaunchCounter("topn_select", "topn")
+#: launches of the one-block candidate sort (csrc/topn_select.cu)
+TOPN_SORT_KERNEL = _tk.LaunchCounter("topn_sort", "topn")
+#: shared memory one block may opt into on the H100 (227 KB)
+TOPN_SMEM_BYTES = 232_448
+#: K32's shared memory besides M x (8W + 4) bytes of words and indices
+#: (csrc/topn_select.cu SORT_SCRATCH)
+TOPN_SORT_SCRATCH = 22_016
+#: most candidates K32 sorts (csrc/topn_select.cu SORT_MAX_ROWS)
+TOPN_SORT_MAX_ROWS = 8_192
+#: K31's row states (csrc/topn_select.cu RowState)
+_ST_OUT, _ST_BELOW, _ST_EQ = 0, 1, 2
+
+
+def topn_plan(cap: int, nwords: int) -> Tuple[int, bool]:
+    """(M, shared) of a topn step that keeps `cap` rows ordered by
+    `nwords` key words: the candidate cap M (>= cap) and whether K32
+    sorts the candidates in shared memory, which it does where M x
+    (8 nwords + 4) bytes fit beside its scratch with M >= cap; M is then
+    2 cap or the most that fits. Otherwise M = 2 cap and K25 sorts the
+    candidates' words."""
+    fit = min((TOPN_SMEM_BYTES - TOPN_SORT_SCRATCH) // (8 * nwords + 4),
+              TOPN_SORT_MAX_ROWS)
+    if fit >= cap:
+        return min(fit, 2 * cap), True
+    return 2 * cap, False
+
+
+def _digit_order(nwords: int) -> List[Tuple[int, int]]:
+    """(word, shift) of every 8-bit digit, most significant first."""
+    return [(w, 8 * b) for w in range(nwords) for b in range(7, -1, -1)]
+
+
+def topn_select_plain(words: torch.Tensor, digits: torch.Tensor, cap: int,
+                      most: int):
+    """Plain version of K31 over words [W, N] (N > most >= cap): (cand
+    [most] int64: the candidates' row indices in index order, then -1;
+    info [4] int64: candidates, passes, digits ran out, rows below;
+    their words [W, most], padded with all-ones words). The same passes
+    as the kernel: per varying digit, most significant first, a
+    bincount of the EQUAL rows and the bucket holding rank cap - below,
+    until below + equal <= most."""
+    nwords, n = words.shape
+    dev = words.device
+    status = torch.full((n,), _ST_EQ, dtype=torch.int8, device=dev)
+    below, eq, passes = 0, n, 0
+    masks = [int(x) for x in digits.tolist()]
+    for w, shift in _digit_order(nwords):
+        if not (masks[w] >> (shift // 8)) & 1 or below + eq <= most:
+            continue
+        d = (words[w] >> shift) & 0xFF
+        live = status == _ST_EQ
+        hist = torch.bincount(d[live], minlength=256)
+        incl = torch.cumsum(hist, 0)
+        b = int(torch.searchsorted(incl, cap - below))
+        below += int(incl[b] - hist[b])
+        eq = int(hist[b])
+        passes += 1
+        status = torch.where(live & (d < b), _ST_BELOW, torch.where(
+            live & (d > b), _ST_OUT, status)).to(torch.int8)
+    ran_out = below + eq > most
+    limit = cap - below if ran_out else eq
+    is_eq = status == _ST_EQ
+    eq_rank = torch.cumsum(is_eq.to(torch.int64), 0) - 1
+    keep = (status == _ST_BELOW) | (is_eq & (eq_rank < limit))
+    rows = torch.nonzero(keep).flatten()
+    count = rows.shape[0]
+    cand = torch.full((most,), -1, dtype=torch.int64, device=dev)
+    cand[:count] = rows
+    info = torch.tensor([count, passes, int(ran_out), below],
+                        dtype=torch.int64, device=dev)
+    cwords = torch.full((nwords, most), -1, dtype=torch.int64, device=dev)
+    cwords[:, :count] = words[:, rows]
+    return cand, info, cwords
+
+
+def _topn_select_cuda(words, digits, cap, most):
+    from presto_tpu_torch.native import cuda
+    dev = words.device
+    nwords, n = words.shape
+    if words.dim() != 2 or words.dtype != torch.int64 \
+            or not words.is_contiguous():
+        raise ValueError("topn_select: the words must be one contiguous "
+                         f"[W, N] int64 tensor; got {words.dtype} "
+                         f"{tuple(words.shape)}")
+    check_rows(digits, nwords, dev, (torch.int64,), "topn_select: digits")
+    if not 1 <= cap <= most < n or n > RADIX_MAX_ROWS \
+            or not 1 <= nwords <= SORT_MAX_WORDS:
+        raise ValueError(f"topn_select: needs 1 <= C <= M < N and N <= "
+                         f"{RADIX_MAX_ROWS}; got C={cap} M={most} N={n}, "
+                         f"{nwords} words")
+    lib = cuda.library("topn_select")
+    size = -(-lib.presto_topn_select_scratch(n, nwords) // 8)
+    # one allocation: the scratch first (its row states are read 16
+    # bytes at a time, from the allocation's aligned start), then the
+    # candidates, info and their words
+    buf = torch.empty(size + most * (nwords + 1) + 4, dtype=torch.int64,
+                      device=dev)
+    scratch, out = buf[:size], buf[size:]
+    cand, info = out[:most], out[most:most + 4]
+    cwords = out[most + 4:].view(nwords, most)
+    status = lib.presto_topn_select(
+        ctypes.c_void_p(words.data_ptr()), ctypes.c_int32(nwords),
+        ctypes.c_int64(n), ctypes.c_int64(cap), ctypes.c_int64(most),
+        ctypes.c_void_p(digits.data_ptr()),
+        ctypes.c_void_p(scratch.data_ptr()), ctypes.c_void_p(cand.data_ptr()),
+        ctypes.c_void_p(cwords.data_ptr()),
+        ctypes.c_void_p(info.data_ptr()),
+        ctypes.c_void_p(cuda.stream_ptr(dev)))
+    cuda.check(lib, status, "topn_select")
+    TOPN_SELECT_KERNEL.launches += 1
+    return cand, info, cwords
+
+
+def topn_select(words: torch.Tensor, digits: torch.Tensor, cap: int,
+                most: int):
+    """K31: the radix select of the candidates that hold the first `cap`
+    rows of the stable order of words [W, N] (K24's, with its digit
+    masks), at most `most` of them, and their words compacted (see
+    `topn_select_plain`); no host read. The CUDA kernel on CUDA tensors,
+    the plain version on CPU tensors."""
+    if words.device.type == "cpu":
+        return topn_select_plain(words, digits, cap, most)
+    return _topn_select_cuda(words, digits, cap, most)
+
+
+def topn_sort_plain(keys: torch.Tensor, cand: Optional[torch.Tensor],
+                    info: Optional[torch.Tensor], cap: int,
+                    most: Optional[int] = None) -> torch.Tensor:
+    """Plain version of K32: the first `cap` row indices (int64) of the
+    stable order of the candidates by their words: K31's candidates'
+    words keys [W, most] with `cand` and its count info[0], or, without
+    them, the words [W, N] of every row. By stable torch.sort passes;
+    `most` (the kernel's shared-memory size) is not read."""
+    if cand is None:
+        local, _ = radix_sort_plain(keys)
+        return local[:cap]
+    count = int(info[0])
+    local, _ = radix_sort_plain(keys[:, :count])
+    return cand[local[:cap]]
+
+
+def _topn_sort_cuda(keys, cand, info, cap, most):
+    from presto_tpu_torch.native import cuda
+    dev = keys.device
+    nwords, stride = keys.shape
+    if keys.dtype != torch.int64 or not keys.is_contiguous():
+        raise ValueError("topn_sort: the words must be one contiguous "
+                         f"[W, rows] int64 tensor; got {keys.dtype}")
+    if cand is not None:
+        check_rows(cand, most, dev, (torch.int64,), "topn_sort: candidates")
+        check_rows(info, 4, dev, (torch.int64,), "topn_sort: info")
+        if stride != most:
+            raise ValueError(f"topn_sort: the candidates' words hold "
+                             f"{stride} rows, not M={most}")
+    elif stride > most:
+        raise ValueError(f"topn_sort: {stride} rows without a select, at "
+                         f"most M={most}")
+    if not 1 <= cap <= most <= TOPN_SORT_MAX_ROWS or most * (
+            8 * nwords + 4) + TOPN_SORT_SCRATCH > TOPN_SMEM_BYTES:
+        raise ValueError(f"topn_sort: M={most} candidates of {nwords} words "
+                         "do not fit one block's shared memory")
+    perm = torch.empty(cap, dtype=torch.int64, device=dev)
+    lib = cuda.library("topn_select")
+    status = lib.presto_topn_sort(
+        ctypes.c_void_p(keys.data_ptr()), ctypes.c_int32(nwords),
+        ctypes.c_int64(stride),
+        ctypes.c_void_p(0 if cand is None else cand.data_ptr()),
+        ctypes.c_void_p(0 if cand is None else info.data_ptr()),
+        ctypes.c_int64(most), ctypes.c_int64(cap),
+        ctypes.c_void_p(perm.data_ptr()),
+        ctypes.c_void_p(cuda.stream_ptr(dev)))
+    cuda.check(lib, status, "topn_sort")
+    TOPN_SORT_KERNEL.launches += 1
+    return perm
+
+
+def topn_sort(keys: torch.Tensor, cand: Optional[torch.Tensor],
+              info: Optional[torch.Tensor], cap: int,
+              most: int) -> torch.Tensor:
+    """K32: the first `cap` row indices of the stable order of K31's
+    candidates by their words (`keys`, K31's compacted copy), or of all
+    N <= `most` rows when `cand` is None (`keys` the words themselves),
+    sorted in one block's shared memory. The CUDA kernel on CUDA
+    tensors, `topn_sort_plain` on CPU tensors."""
+    if keys.device.type == "cpu":
+        return topn_sort_plain(keys, cand, info, cap, most)
+    return _topn_sort_cuda(keys, cand, info, cap, most)
+
+
+def topn_order(words: torch.Tensor, digits: torch.Tensor,
+               cap: int) -> torch.Tensor:
+    """The first `cap` entries of the stable order of words [W, N]
+    (N >= cap): K31 selects at most M candidates (skipped when N <= M)
+    and K32 sorts them; where K32's shared memory cannot hold M >= cap
+    candidates (`topn_plan`), K25 sorts the candidates' words and K26
+    maps the order back to rows. On CPU tensors the plain versions."""
+    nwords, n = words.shape
+    most, shared = topn_plan(cap, nwords)
+    if n <= most:
+        if shared or words.device.type == "cpu":
+            return topn_sort(words, None, None, cap, most)
+        return radix_sort(words, digits)[0][:cap]
+    cand, info, cwords = topn_select(words, digits, cap, most)
+    if shared or words.device.type == "cpu":
+        return topn_sort(cwords, cand, info, cap, most)
+    local, _ = radix_sort(cwords)
+    out, _ = gather_rows([([(cand, None)], None)], local, rows=cap)
+    return out[0][0]
 
 
 def sort_rows(keys: Sequence[CVal],

@@ -7,9 +7,10 @@ LIMIT keeps the first rows of each batch against a running count that
 stays on the device. On CUDA tensors a sort is K24 (csrc/sort_encode.cu:
 the operands as key words), K25 (csrc/radix_sort.cu: the stable
 permutation) and K26 (csrc/gather_rows.cu: every column moved in one
-launch), through `common.sort_rows`; topn runs the same three kernels
-over state and batch as two sources, with no concatenation, and keeps
-the first `cap` rows (on CPU tensors through their plain versions);
+launch), through `common.sort_rows`; topn codes state and batch as two
+sources with K24 (no concatenation), selects the candidates for its
+first `cap` rows with K31 and sorts only those with K32
+(csrc/topn_select.cu) before K26 (on CPU tensors the plain versions);
 LIMIT is K27 (csrc/limit_rank.cu), which also carries the emitted count
 on the device. DISTINCT folds state ++ batch
 through the sort-based grouping with no aggregates: K3's row hashes,
@@ -66,16 +67,10 @@ def topn_state(schema_cols: Sequence[tuple], capacity: int,
                                    device=device))
 
 
-def topn_step(state: Batch, batch: Batch, n: int,
-              key_names: Tuple[str, ...], descending: Tuple[bool, ...],
-              nulls_first: Tuple[bool, ...]) -> Batch:
-    """Fold step: keep the N smallest (per ordering) of state ++ batch
-    (the reference's `_topn_step_impl`). `state` has capacity >= n; the
-    output reuses that capacity, rows past `n` dead with their masks
-    cleared. `n` is a runtime value. K24, K25 and K26 read state and
-    batch as two sources, so nothing is concatenated; on CPU tensors
-    their plain versions."""
-    _tk.count("topn")
+def _topn_parts(state: Batch, batch: Batch, key_names, descending,
+                nulls_first):
+    """state and batch as two sources of K24 / K26, and their key
+    words and digit masks."""
     parts = [([state.columns[nm].astuple() for nm in state.names],
               state.row_valid),
              ([batch.columns[nm].astuple() for nm in state.names],
@@ -84,12 +79,47 @@ def topn_step(state: Batch, batch: Batch, n: int,
     words, digits = common.sort_encode(
         [([cols[i] for i in kidx], valid) for cols, valid in parts],
         descending, nulls_first)
-    perm, _ = common.radix_sort(words, digits)
+    return parts, words, digits
+
+
+def _topn_batch(state: Batch, parts, perm, n) -> Batch:
     out, live = common.gather_rows(parts, perm, rows=state.capacity,
                                    limit=n)
     return Batch({nm: Column(d, m, state.columns[nm].type,
                              state.columns[nm].dictionary)
                   for nm, (d, m) in zip(state.names, out)}, live)
+
+
+def topn_step(state: Batch, batch: Batch, n: int,
+              key_names: Tuple[str, ...], descending: Tuple[bool, ...],
+              nulls_first: Tuple[bool, ...]) -> Batch:
+    """Fold step: keep the N smallest (per ordering) of state ++ batch
+    (the reference's `_topn_step_impl`). `state` has capacity >= n; the
+    output reuses that capacity, rows past `n` dead with their masks
+    cleared. `n` is a runtime value. Its slots are the first
+    `state.capacity` entries of the stable order of state ++ batch: K24
+    codes the keys of both sources (nothing is concatenated), K31
+    selects the candidates that hold those entries and K32 sorts only
+    them (`common.topn_order`), K26 moves the rows; on CPU tensors the
+    plain versions."""
+    _tk.count("topn")
+    parts, words, digits = _topn_parts(state, batch, key_names, descending,
+                                       nulls_first)
+    perm = common.topn_order(words, digits, state.capacity)
+    return _topn_batch(state, parts, perm, n)
+
+
+def topn_step_full_sort(state: Batch, batch: Batch, n: int,
+                        key_names: Tuple[str, ...],
+                        descending: Tuple[bool, ...],
+                        nulls_first: Tuple[bool, ...]) -> Batch:
+    """`topn_step` by ordering every row of state ++ batch: K24, K25 over
+    all N rows, K26. The same slots; no caller on the main path (the
+    yardstick the select is timed against)."""
+    parts, words, digits = _topn_parts(state, batch, key_names, descending,
+                                       nulls_first)
+    perm, _ = common.radix_sort(words, digits)
+    return _topn_batch(state, parts, perm, n)
 
 
 #: launches of the CUDA LIMIT kernel (csrc/limit_rank.cu)

@@ -1858,19 +1858,51 @@ def _df_keys(dt, n, distinct, seed):
     return x, m
 
 
+def _df_bits(t):
+    return t.reshape(1).view(torch.uint8).cpu().tolist()
+
+
 @pytest.mark.parametrize("dt", _DF_DTYPES)
 def test_k21_bounds_matches_plain(hopper, dt):
+    """K21 over three calls that reuse its scratch (the ticket the last
+    block resets), an all-NULL batch, an empty batch and, for floats, an
+    all-NaN batch and zero bounds: bitwise the plain version's (every
+    zero +0.0), on keys whose pointer is 16-byte aligned and on an
+    offset view (the scalar path)."""
     from presto_tpu_torch.execution import dynamic_filters as df
-    x, m = _df_keys(dt, 1 << 20, 1000, seed=1)
-    st = df.bounds_init(dt, torch.device("cpu"))
-    want = df.bounds_step_plain(st, x, m)
-    got = df.bounds_step(df.bounds_init(dt, hopper), x.to(hopper),
-                         m.to(hopper))
-    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
-    # an all-NULL batch leaves the state as it was
-    got2 = df.bounds_step(got, x.to(hopper),
-                          torch.zeros_like(m).to(hopper))
-    assert all(torch.equal(a, b) for a, b in zip(got, got2))
+    cpu = torch.device("cpu")
+    want = df.bounds_init(dt, cpu)
+    got = df.bounds_init(dt, hopper)
+    before = df.BOUNDS_KERNEL.launches
+    batches = []
+    for seed, n in ((1, 1 << 20), (2, 70_001), (3, 1 << 20)):
+        x, m = _df_keys(dt, n, 1000, seed)
+        if seed == 2:
+            x, m = x[3:], m[3:]  # an offset view: the scalar path
+        batches.append((x, m))
+    batches.append((batches[0][0], torch.zeros_like(batches[0][1])))
+    batches.append((torch.zeros(0, dtype=dt), torch.zeros(0, dtype=bool)))
+    if dt.is_floating_point:
+        batches.append((torch.full((999,), float("nan"), dtype=dt),
+                        torch.ones(999, dtype=torch.bool)))
+        batches.append((torch.tensor([-0.0, 0.0, -0.0], dtype=dt),
+                        torch.ones(3, dtype=torch.bool)))
+    for x, m in batches:
+        xd, md = x.to(hopper), m.to(hopper)
+        if x.shape[0] and x.data_ptr() % 16 == 0:
+            assert xd.data_ptr() % 16 == 0
+        got = df.bounds_step(got, xd, md)
+        want = df.bounds_step_plain(want, x.contiguous(), m.contiguous())
+        torch.cuda.synchronize()
+        assert [_df_bits(g) for g in got] == [_df_bits(w) for w in want]
+    assert df.BOUNDS_KERNEL.launches == before + len(batches)
+    if dt.is_floating_point:
+        # zero bounds from fresh state: +0.0 both
+        z = df.bounds_step(df.bounds_init(dt, hopper),
+                           torch.tensor([-0.0, -0.0], dtype=dt,
+                                        device=hopper),
+                           torch.ones(2, dtype=torch.bool, device=hopper))
+        assert all(_df_bits(t) == [0] * t.element_size() for t in z)
 
 
 @pytest.mark.parametrize("dt", _DF_DTYPES)
@@ -2139,6 +2171,140 @@ def test_k27_limit_over_batches_without_host_sync(hopper):
         pk, pe = tsort.limit_rank_plain(v, 2_000_000, pe)
         assert torch.equal(keep, pk) and int(em) == int(pe)
     assert int(emitted) == 2_000_000
+
+
+def test_topn_constants_match_the_library(hopper):
+    """The Python planner's view of K32's shared memory is the source's."""
+    from presto_tpu_torch.native import cuda
+    lib = cuda.library("topn_select")
+    assert lib.presto_topn_sort_scratch() == tc.TOPN_SORT_SCRATCH
+    assert lib.presto_topn_sort_max_rows() == tc.TOPN_SORT_MAX_ROWS
+    assert torch.cuda.get_device_properties(0) \
+        .shared_memory_per_block_optin >= tc.TOPN_SMEM_BYTES
+
+
+def _topn_words(rng, n, split, kind, dev):
+    """K24's words of (n - split) batch rows after `split` state rows:
+    a DOUBLE key DESC, a BIGINT and an INTEGER (TOPN_LINES' shape), or
+    one key of three values (every key tied), or random 64-bit words."""
+    if kind == "lines":
+        parts = _sort_parts(rng, n, [torch.float64, torch.int64,
+                                     torch.int32], dev, split)
+        return tc.sort_encode(parts, [True, False, False],
+                              [False, False, False])
+    if kind == "ties":
+        keys = [(torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)),
+                 torch.ones(n, dtype=torch.bool))]
+        valid = torch.from_numpy(rng.random(n) < 0.6)
+        parts = [([(d[a:b].to(dev), m[a:b].to(dev)) for d, m in keys],
+                  valid[a:b].to(dev)) for a, b in ((0, split), (split, n))]
+        return tc.sort_encode(parts, [False], [False])
+    w = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, (2, n),
+                                      dtype=np.int64)).to(dev)
+    return w, tc._vary_digits(w.cpu()).to(dev)
+
+
+@pytest.mark.parametrize("kind", ["lines", "ties", "random"])
+@pytest.mark.parametrize("n,cap", [(4096 + (1 << 21), 4096),
+                                   (64 + 5000, 64), (4096 + 9000, 4096)])
+def test_k31_k32_match_plain(hopper, kind, n, cap):
+    """K31's candidates, info and candidates' words (K32's or K25's
+    input) and K32's order equal the plain versions' exactly, at
+    TOPN_LINES' largest step (4,096 state + 2,097,152 batch slots) and
+    at small ones; the order equals the first C of a full stable sort."""
+    rng = np.random.default_rng(n + cap)
+    words, digits = _topn_words(rng, n, cap, kind, hopper)
+    most, shared = tc.topn_plan(cap, words.shape[0])
+    assert shared and most < n
+    before = (tc.TOPN_SELECT_KERNEL.launches, tc.TOPN_SORT_KERNEL.launches)
+    cand, info, cwords = tc.topn_select(words, digits, cap, most)
+    perm = tc.topn_sort(cwords, cand, info, cap, most)
+    assert (tc.TOPN_SELECT_KERNEL.launches, tc.TOPN_SORT_KERNEL.launches) \
+        == (before[0] + 1, before[1] + 1)
+    wc, wi, ww = tc.topn_select_plain(words.cpu(), digits.cpu(), cap, most)
+    torch.cuda.synchronize()
+    assert torch.equal(info.cpu(), wi)
+    assert torch.equal(cand.cpu(), wc) and torch.equal(cwords.cpu(), ww)
+    if kind == "ties" and n > 1 << 20:
+        # three key values over a million rows: the digits run out
+        assert int(wi[2]) == 1 and int(wi[0]) == cap
+    assert torch.equal(perm.cpu(), tc.topn_sort_plain(ww, wc, wi, cap))
+    full, _ = tc.radix_sort(words, digits)
+    assert torch.equal(perm, full[:cap])
+
+
+@pytest.mark.parametrize("n", [4096, 4096 + 3000, None],
+                         ids=["4096", "7096", "M"])
+def test_k32_sorts_every_row_without_a_select(hopper, n):
+    """C + B <= M: K32 alone orders every row (no candidate list), up
+    to N = M rows."""
+    if n is None:
+        n = tc.topn_plan(4096, 3)[0]
+    rng = np.random.default_rng(n)
+    words, digits = _topn_words(rng, n, 4096, "lines", hopper)
+    most, _ = tc.topn_plan(4096, words.shape[0])
+    assert n <= most
+    perm = tc.topn_order(words, digits, 4096)
+    torch.cuda.synchronize()
+    assert torch.equal(perm.cpu(), tc.topn_sort_plain(words.cpu(), None,
+                                                       None, 4096))
+
+
+@pytest.mark.parametrize("kind", ["lines", "ties"])
+def test_topn_k25_route_matches_plain(hopper, monkeypatch, kind):
+    """Where K32's shared memory cannot hold M >= C candidates, K31
+    hands the candidates' words to K25 and K26 maps the order back:
+    the same C rows as the plain select-then-sort."""
+    rng = np.random.default_rng(71)
+    cap, n = 16384, 16384 + (1 << 20)
+    words, digits = _topn_words(rng, n, cap, kind, hopper)
+    monkeypatch.setattr(tc, "topn_plan", lambda c, w: (2 * c, False))
+    before = [c.launches for c in (tc.TOPN_SELECT_KERNEL,
+                                   tc.TOPN_SORT_KERNEL,
+                                   tc.RADIX_SORT_KERNEL,
+                                   tc.GATHER_ROWS_KERNEL)]
+    perm = tc.topn_order(words, digits, cap)
+    grown = [c.launches - b for c, b in zip(
+        (tc.TOPN_SELECT_KERNEL, tc.TOPN_SORT_KERNEL, tc.RADIX_SORT_KERNEL,
+         tc.GATHER_ROWS_KERNEL), before)]
+    assert grown == [1, 0, 1, 1]
+    full, _ = tc.radix_sort_plain(words.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(perm.cpu(), full[:cap])
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_topn_step_matches_full_sort_on_the_card(hopper, ties):
+    """topn_step (K24, K31, K32, K26) equals topn_step_full_sort (K24,
+    K25 over every row, K26) in every slot, over four steps of
+    1,048,576-row batches into a 4,096-slot state, n = 100."""
+    from presto_tpu_torch.ops import sort as tsort
+    rng = np.random.default_rng(72 + ties)
+    schema = None
+    st = fs = None
+    for step in range(4):
+        b = _build_batch(rng, 1 << 20, 600_000, hopper,
+                         3 if ties else 1 << 30, nkeys=2)
+        if schema is None:
+            schema = [(k, c.type, None) for k, c in b.columns.items()]
+            st = fs = tsort.topn_state(schema, 4096, hopper)
+        # with ties, one key of six values: the digits run out
+        keys, desc, nf = (("k0",), (True,), (False,)) if ties else \
+            (("k0", "k1"), (True, False), (False, True))
+        before = tc.TOPN_SELECT_KERNEL.launches
+        st = tsort.topn_step(st, b, 100, keys, desc, nf)
+        assert tc.TOPN_SELECT_KERNEL.launches == before + 1
+        fs = tsort.topn_step_full_sort(fs, b, 100, keys, desc, nf)
+        torch.cuda.synchronize()
+        assert torch.equal(st.row_valid, fs.row_valid)
+        for name in st.names:
+            g, w = st.columns[name], fs.columns[name]
+            assert torch.equal(g.mask, w.mask)
+            assert torch.equal(g.data.view(torch.uint8) if
+                               g.data.is_floating_point() else g.data,
+                               w.data.view(torch.uint8) if
+                               w.data.is_floating_point() else w.data)
+    assert int(st.row_valid.sum()) == 100
 
 
 def test_sort_family_runs_k24_to_k27_and_no_library_sort(hopper,

@@ -3,67 +3,24 @@ K22 `distinct_set_plain`, K23 `apply_filter_plain`) against the
 reference's `bounds_step`, `distinct_set` and `apply_filter`
 (presto_tpu/execution/dynamic_filters.py:177, :210, :242; JAX on the
 CPU), over every key dtype with NaN, both zeros, NULL and dead rows,
-the dtype max as a real key, 4096 and 4097 distinct values. K21's
-Triton source runs through tests/triton_standin.py (extended here by
-the reductions and scalar pointers it uses). Everything is
+the dtype max as a real key, 4096 and 4097 distinct values; K21's
+plain version also over an empty batch, an all-NaN batch and zero
+bounds (each zero as +0.0, bitwise, as K21 writes it). Everything is
 exact (floats compared with ==, so -0.0 equals +0.0 as the reference's
-dedupe has it)."""
+dedupe has it). K21-K23 are held against these plain versions on the
+card in tests/test_torch_cuda.py."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-import triton_standin as standin
 from presto_tpu import batch as rbatch
 from presto_tpu import types as rtypes
 from presto_tpu.execution import dynamic_filters as rdf
 from presto_tpu_torch import batch as pbatch
 from presto_tpu_torch import types as ptypes
 from presto_tpu_torch.execution import dynamic_filters as pdf
-
-@pytest.fixture
-def k21_standin(monkeypatch):
-    """tests/triton_standin.py extended by what K21's source uses beyond
-    the fragment kernels: block reductions (tl.min / tl.max), a block
-    value's dtype, and scalar pointers (a 0-d tensor argument loaded or
-    stored whole, and a pointer plus an integer)."""
-    T, Ptr, tl = standin.T, standin.Ptr, standin.tl
-    load, store = tl.load, tl.store
-
-    def add(self, offs):
-        o = torch.as_tensor(T._v(offs)).to(torch.int64)
-        return Ptr(self.base, o if self.offs is None else self.offs + o)
-
-    def scalar_load(ptr, mask=None, other=None):
-        if ptr.offs is None:
-            return T(ptr.base.reshape(-1)[0])
-        return load(ptr, mask=mask, other=other)
-
-    def scalar_store(ptr, val, mask=None):
-        if ptr.offs is None:
-            ptr.base.reshape(-1)[0] = T._v(val)
-            return
-        store(ptr, val, mask=mask)
-
-    monkeypatch.setattr(Ptr, "__add__", add)
-    monkeypatch.setattr(T, "dtype", property(lambda self: self.t.dtype),
-                        raising=False)
-    monkeypatch.setattr(tl, "load", scalar_load)
-    monkeypatch.setattr(tl, "store", scalar_store)
-    monkeypatch.setattr(tl, "min", lambda x, axis=0: T(T._v(x).min()),
-                        raising=False)
-    monkeypatch.setattr(tl, "max", lambda x, axis=0: T(T._v(x).max()),
-                        raising=False)
-
-    def load_fn(name):
-        body = "\n".join(line for line in pdf.BOUNDS_SOURCE.splitlines()
-                         if not line.startswith("import triton"))
-        g = {"triton": standin.triton, "tl": tl}
-        exec(compile(body, "<k21>", "exec"), g)
-        return g[name]
-    return load_fn
-
 
 DTYPES = {"int32": np.int32, "int64": np.int64, "float32": np.float32,
           "float64": np.float64, "date": np.int32, "int16": np.int16,
@@ -112,23 +69,64 @@ def _eq(a, b):
 
 
 @pytest.mark.parametrize("dt", list(DTYPES))
-def test_bounds_step_matches_reference(dt, k21_standin):
+def test_bounds_step_matches_reference(dt):
     rstate = rdf.bounds_init(jnp.dtype(DTYPES[dt]))
     pstate = pdf.bounds_init(torch.from_numpy(np.zeros(1, DTYPES[dt]))
                              .dtype, torch.device("cpu"))
-    sstate = pstate
-    partial = k21_standin("bounds_partial")
-    fold = k21_standin("bounds_fold")
     for step in range(3):
         x, m = _keys(dt, 2500 + 700 * step, 300, seed=step)
         if step == 2:
             m[:] = False  # a batch of NULL or dead keys: identity
         rstate = rdf.bounds_step(rstate, jnp.asarray(x), jnp.asarray(m))
-        tx, tm = torch.from_numpy(x), torch.from_numpy(m)
-        pstate = pdf.bounds_step(pstate, tx, tm)
-        sstate = pdf.bounds_launch(partial, fold, sstate, tx, tm)
-        for r, p, s in zip(rstate, pstate, sstate):
-            assert _eq(r, p.numpy()) and _eq(r, s.numpy())
+        pstate = pdf.bounds_step(pstate, torch.from_numpy(x),
+                                 torch.from_numpy(m))
+        for r, p in zip(rstate, pstate):
+            assert _eq(r, p.numpy())
+
+
+def _bits(t):
+    return t.reshape(1).view(torch.uint8).tolist()
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_bounds_step_plain_edge_cases(dt):
+    """An empty batch leaves the state as it was; an all-NaN (or
+    all-NULL) batch too; a bound at zero is +0.0 bitwise, whether the
+    keys held -0.0, +0.0 or both, and whether the running state did."""
+    npdt = DTYPES[dt]
+    tdt = torch.from_numpy(np.zeros(1, npdt)).dtype
+    init = pdf.bounds_init(tdt, torch.device("cpu"))
+    empty = torch.zeros(0, dtype=tdt)
+    got = pdf.bounds_step_plain(init, empty, torch.zeros(0, dtype=torch.bool))
+    assert all(_bits(g) == _bits(w) for g, w in zip(got, init))
+    x = np.full(50, np.nan if "float" in dt else 5, npdt)
+    m = np.ones(50, bool) if "float" in dt else np.zeros(50, bool)
+    got = pdf.bounds_step_plain(init, torch.from_numpy(x),
+                                torch.from_numpy(m))
+    assert all(_bits(g) == _bits(w) for g, w in zip(got, init))
+    want = rdf.bounds_step(rdf.bounds_init(jnp.dtype(npdt)), jnp.asarray(x),
+                           jnp.asarray(m))
+    assert all(_eq(r, g.numpy()) for r, g in zip(want, got))
+    zero = torch.zeros((), dtype=tdt)
+    for vals in ([-0.0, -0.0], [0.0, -0.0], [-0.0, 0.0, 3.0],
+                 [-2.0, -0.0]):
+        x = np.array(vals, npdt)
+        got = pdf.bounds_step_plain(init, torch.from_numpy(x),
+                                    torch.ones(len(x), dtype=torch.bool))
+        want = rdf.bounds_step(rdf.bounds_init(jnp.dtype(npdt)),
+                               jnp.asarray(x), jnp.ones(len(x), bool))
+        assert all(_eq(r, g.numpy()) for r, g in zip(want, got))
+        if "float" in dt:
+            lo, hi = got
+            assert _bits(lo) == _bits(zero) or float(lo) < 0
+            assert _bits(hi) == _bits(zero) or float(hi) > 0
+    if "float" in dt:
+        # a running state at -0.0 comes out as +0.0
+        neg = torch.tensor(-0.0, dtype=tdt)
+        for keys in (empty, torch.tensor([np.nan], dtype=tdt)):
+            got = pdf.bounds_step_plain(
+                (neg, neg), keys, torch.ones(len(keys), dtype=torch.bool))
+            assert all(_bits(g) == _bits(zero) for g in got)
 
 
 @pytest.mark.parametrize("dt,size", [
@@ -184,30 +182,6 @@ def test_apply_filter_matches_reference(dt, with_set):
         pout = pdf.apply_filter(pb, "k", *pstate, False)
     assert np.array_equal(np.asarray(rout.row_valid), pout.row_valid.numpy())
     assert pout.row_valid.sum() > 0
-
-
-def test_k21_source_declares_two_stages(k21_standin):
-    assert "def bounds_partial" in pdf.BOUNDS_SOURCE
-    assert "def bounds_fold" in pdf.BOUNDS_SOURCE
-    # bounds_launch allocates one partial per BOUNDS_BLOCK rows
-    x = torch.arange(3 * pdf.BOUNDS_BLOCK + 5, dtype=torch.int64)
-    m = torch.ones_like(x, dtype=torch.bool)
-    calls = []
-
-    class Rec:
-        def __init__(self, fn):
-            self.fn = fn
-
-        def __getitem__(self, grid):
-            calls.append(grid)
-            return self.fn[grid]
-
-    out = pdf.bounds_launch(
-        Rec(k21_standin("bounds_partial")),
-        Rec(k21_standin("bounds_fold")),
-        pdf.bounds_init(torch.int64, torch.device("cpu")), x, m)
-    assert calls == [(4,), (1,)]
-    assert [int(t) for t in out] == [0, 3 * pdf.BOUNDS_BLOCK + 4]
 
 
 def test_narrow_key_join_matches_reference():
