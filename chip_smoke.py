@@ -1015,6 +1015,10 @@ class Capture(Patches):
         self.distinct = None
         #: K22 at its largest call without overflow: (rows, query, args)
         self.df_set_fits = None
+        #: K25's two-word sorts (the (h1, h2) sort of grouping and
+        #: DISTINCT) at the largest call of each query: query -> (rows,
+        #: query, args, kwargs)
+        self.pair_sort = {}
         #: K25 at its largest join build: (rows, query, args, kwargs)
         self.build_sort = None
         #: AGG_CALLS label -> (rows, query, function, args)
@@ -1176,6 +1180,9 @@ class Capture(Patches):
                 if kw.get("sorted_first") and rows > (
                         self.build_sort or (0,))[0]:
                     self.build_sort = (rows, self.query, args, kw)
+                if len(tc._word_list(args[0])) == 2 and kw.get("flip") \
+                        and rows > self.pair_sort.get(self.query, (0,))[0]:
+                    self.pair_sort[self.query] = (rows, self.query, args, kw)
                 return orig(*args, **kw)
             return rec
         self._patch(tc, "radix_sort", radix)
@@ -2216,6 +2223,10 @@ WINDOW_KERNELS = ("window_segments", "window_frame_sum",
 ARRAY_KERNELS = ("array_collect",)
 #: the sort family's kernels, measured on the sort path (K25 at Q21's
 #: build on the TPC-H path)
+#: the queries whose largest two-word K25 call chip_smoke times: the
+#: (h1, h2) sort of grouping at Q20 and DISTINCT's fold
+PAIR_SORT_AT = {"q20": "(h1, h2) sort of grouping",
+                "distinct": "(h1, h2) sort of the DISTINCT fold"}
 SORT_KERNELS = ("sort_encode", "radix_sort", "gather_rows", "limit_rank",
                 "topn_select", "topn_sort")
 #: the aggregation path's kernel, measured there (K28, K29 and the
@@ -2462,6 +2473,7 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
           and cap.k11 is not None and cap.k11[1] == "full"
           and cap.distinct is not None and cap.distinct[1] == "distinct"
           and cap.build_sort is not None
+          and set(PAIR_SORT_AT) <= set(cap.pair_sort)
           and set(cap.composed) == set(AGG_CALLS),
           "kernel inputs were not captured from the main path")
     k1 = {q: measure_k1(torch, th, cap.k1[q][1], q) for q in ("q1", "q6")}
@@ -2484,6 +2496,9 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
     set_fits = None if cap.df_set_fits is None else (
         cap.df_set_fits[1],
         measure_k22(torch, mods["df"], cap.df_set_fits[2]))
+    # K22 at a nationkey-sized build (no SF1 query here builds a set of
+    # 25 keys): the nation table's keys in a batch of their capacity
+    set_small = measure_k22(torch, mods["df"], nation_keys(torch, tb, dev))
     expand = {layout: (q, measure_k9(
         torch, tj, args, {qq: n for (qq, lay), n in cap.expand_calls.items()
                           if lay == layout}))
@@ -2497,6 +2512,9 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
     # K25 at the largest join build, beside one stable torch.sort
     build_sort = {**measure_radix_sort(torch, tc, *cap.build_sort[2:]),
                   "shape_from": cap.build_sort[1]}
+    # K25's (h1, h2) sort of grouping at Q20 and DISTINCT's fold
+    pair_sorts = {q: measure_radix_sort(torch, tc, *cap.pair_sort[q][2:])
+                  for q in PAIR_SORT_AT}
     # the aggregation state's calls at their largest: K3 / K26 over a
     # merge's sources, K28, the carried count, K29
     agg_at = {label: v[1] for label, v in cap.composed.items()}
@@ -2587,6 +2605,9 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
         emit({"phase": "kernels", "kernel": "df_distinct_set",
               "role": "largest call whose set fits",
               "shape_from": set_fits[0], **set_fits[1]})
+    emit({"phase": "kernels", "kernel": "df_distinct_set",
+          "role": "a nationkey-sized build", "shape_from": "nation",
+          **set_small})
     for k, m in measured.items():
         emit({"phase": "kernels", "kernel": k, "shape_from": shape_from[k],
               **m, **({"calls": {qq: c.get("dynamic_filter", 0)
@@ -2608,6 +2629,9 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
     emit({"phase": "kernels", "kernel": "radix_sort", "role": "join build",
           "family": "join_build", **build_sort,
           "calls": {qq: c.get("join_build", 0) for qq, c in calls.items()}})
+    for q, m in pair_sorts.items():
+        emit({"phase": "kernels", "kernel": "radix_sort",
+              "role": PAIR_SORT_AT[q], "shape_from": q, **m})
     # the aggregation state's calls: time at the largest call against
     # the plain version, byte bound, calls of the family per query
     merge_q = agg_at["hashagg_merge merge_states"]
@@ -3975,7 +3999,26 @@ def measure_sort_encode(torch, tc, args, kw):
             "library_ms": None, "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
+def _two_sorts(torch, wl, flip):
+    """The PyTorch yardstick of a two-word sort: two stable torch.sort
+    passes (the second word, then the first through that order)."""
+    lo = wl[1] if flip else wl[1] ^ torch.iinfo(torch.int64).min
+    hi = wl[0] if flip else wl[0] ^ torch.iinfo(torch.int64).min
+
+    def run():
+        o = torch.sort(lo, stable=True).indices
+        return o[torch.sort(hi[o], stable=True).indices]
+    return run
+
+
 def measure_radix_sort(torch, tc, args, kw):
+    """K25 at one call against its plain version (the permutation and
+    the sorted word 0 exactly); the passes it ran, read from its device
+    pass table after the timed calls, against `radix_passes` of the
+    words' varying digits (K24's masks); its device time per launch
+    (torch.profiler) and launches per call (`launches_of`); library: one
+    stable torch.sort of the leading word, or for two words two stable
+    passes."""
     got = tc.radix_sort(*args, **kw)
     want = tc.radix_sort_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -3984,24 +4027,35 @@ def measure_radix_sort(torch, tc, args, kw):
             got[1] is None or torch.equal(got[1], want[1])),
           "K25 radix_sort: the permutation or the sorted words differ from "
           "its plain version")
-    ms = time_ms(lambda: tc.radix_sort(*args, **kw), torch)
-    plain_ms = time_ms(lambda: tc.radix_sort_plain(*args, **kw), torch)
     wl = tc._word_list(args[0])
+    ms = time_ms(lambda: tc.radix_sort(*args, **kw), torch)
+    passes = tc.radix_last_passes(wl[0].device)
+    masks = [int(x) for x in tc._vary_digits(torch.stack(wl)).tolist()]
+    check(passes == tc.radix_passes(masks), "K25 radix_sort: the passes it "
+          f"ran {passes} are not those of K24's masks {masks}")
+    plain_ms = time_ms(lambda: tc.radix_sort_plain(*args, **kw), torch)
     flip = kw.get("flip", False)
-    # one stable torch.sort of the leading word (signed order; the only
-    # word at a join build)
-    lead = wl[0] if flip else wl[0] ^ torch.iinfo(torch.int64).min
-    library_ms = time_ms(lambda: torch.sort(lead, stable=True), torch)
-    digits = args[1] if len(args) > 1 else kw.get("digits")
-    masks = [0xFF] * len(wl) if digits is None else digits.tolist()
+    if len(wl) == 2:
+        library = _two_sorts(torch, wl, flip)
+    else:
+        # one stable torch.sort of the leading word (signed order; the
+        # only word at a join build)
+        lead = wl[0] if flip else wl[0] ^ torch.iinfo(torch.int64).min
+        library = lambda: torch.sort(lead, stable=True)  # noqa: E731
+    library_ms = time_ms(library, torch)
+    prof = _profile_launch_us(torch, lambda: tc.radix_sort(*args, **kw),
+                              ("radix_hist", "radix_pass"))
+    launches = launches_of(torch, lambda: tc.radix_sort(*args, **kw))
     n = wl[0].shape[0]
     # every key word read once; the permutation (and the sorted word 0)
     # written once
     moved = 8 * n * len(wl) + 8 * n * (2 if kw.get("sorted_first") else 1)
-    return {"rows": n, "words": len(wl),
-            "passes": len(tc.radix_passes(masks)),
-            "max_abs_err": 0.0, "ms": ms,
+    return {"rows": n, "words": len(wl), "varying_digits": masks,
+            "passes": len(passes), "max_abs_err": 0.0, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "two stable torch.sort passes" if len(wl) == 2
+            else "one stable torch.sort of word 0",
+            "device_us_per_launch": prof, "launches_per_call": launches,
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
@@ -4854,6 +4908,37 @@ def measure_k19(torch, tm, args):
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
 
 
+def launches_of(torch, fn) -> int:
+    """Kernel launches of one call of `fn`: the kernel nodes of a CUDA
+    graph captured around the call (libcuda's cuGraphGetNodes; a
+    long process's profiler can drop events). The capture stream makes
+    its calls' cached scratch first, so the count is a warm call's."""
+    import ctypes
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(count)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * max(count.value, 1))()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)) == 0,
+          "cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes[:count.value]:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    return kinds.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL
+
+
 def _profile_launch_us(torch, fn, names, calls=5):
     """Device microseconds per launch of each kernel in `names` over
     `calls` calls of `fn` (None: the profiler saw no such launch). The
@@ -4919,6 +5004,16 @@ def measure_k21(torch, df, args):
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
 
 
+def nation_keys(torch, tb, dev):
+    """The build keys of a nationkey join: the nation table's 25 keys in
+    the `operator_capacity` slots a build of 25 rows gets, the rest
+    dead."""
+    cap = tb.operator_capacity(25)
+    keys = torch.zeros(cap, dtype=torch.int64, device=dev)
+    keys[:25] = torch.arange(25, device=dev)
+    return keys, torch.arange(cap, device=dev) < 25
+
+
 def measure_k22(torch, df, args):
     """K22 (df_distinct_set) at its largest call against its plain
     version: the overflow flag always, the count and every value exactly
@@ -4934,15 +5029,20 @@ def measure_k22(torch, df, args):
               "K22 df_distinct_set: the set differs from its plain version")
     live = data[mask]
     moved = nbytes(data, mask)
+    prof = _profile_launch_us(torch, lambda: df.distinct_set(data, mask),
+                              ("df_insert", "df_pack"))
     return {"rows": data.shape[0], "dtype": str(data.dtype),
             "distinct": int(wn), "overflow": bool(wo), "max_abs_err": 0.0,
             "ms": time_ms(lambda: df.distinct_set(data, mask), torch),
             "plain_ms": time_ms(lambda: df.distinct_set_plain(data, mask),
                                 torch),
             "library_ms": time_ms(lambda: torch.unique(live), torch),
-            "device_us_per_launch": _profile_launch_us(
-                torch, lambda: df.distinct_set(data, mask),
-                ("df_insert", "df_pack")),
+            "device_us_per_launch": prof,
+            "launches_per_call": launches_of(
+                torch, lambda: df.distinct_set(data, mask)),
+            # the wrapper's time per call when the device never holds
+            # the host back
+            "host_ms": host_ms(torch, lambda: df.distinct_set(data, mask)),
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
 
 

@@ -24,30 +24,50 @@
 // K22 distinct_set. The reference sorts the merged build column twice
 // (dead lanes last, then the distinct values to the front) to keep at
 // most DF_SET_MAX = 4096 values. Only 4096 values matter, so a bounded
-// hash set replaces the sorts:
+// hash set replaces the sorts, in two launches:
 //
-//   insert  each block takes ROWS rows and dedupes its live, non-NaN
-//           keys in an open-addressing table in shared memory; a key
-//           new to the block goes on into a global table of
-//           GLOBAL_SLOTS = 2 x DF_SET_MAX slots (atomicCAS), which
-//           counts the keys new to it. Past DF_SET_MAX the overflow
-//           flag is set and every block, and every probe in flight,
-//           stops early. The block-local
-//           pass keeps thousands of threads from contending for the
-//           same global slots when the build has few distinct keys
-//           (nationkey has 25), and a slot is read before it is
-//           CASed, so a present key costs one load.
-//   pack    only without overflow: one block gathers the <= 4096 keys,
-//           bitonic-sorts them in shared memory and writes them
-//           ascending, padded with the dtype max, and the count.
+//   insert  a grid sized to the card (at least one block per THREADS
+//           rows, so a 4096-row build spreads over 16 blocks)
+//           grid-strides over the rows. Each block dedupes its live,
+//           non-NaN keys in an open-addressing table in shared memory
+//           (a bounded probe: a crowded local table lets the key
+//           through); a key new to the block goes on into a global
+//           table of GLOBAL_SLOTS = 2 x DF_SET_MAX slots (atomicCAS),
+//           GLOBAL_ROUND probes at a time. After each round the warp
+//           counts the keys it made new (a ballot, one atomicAdd per
+//           warp), so the count never waits on a lane with a long
+//           probe; past DF_SET_MAX the overflow flag is set and every
+//           warp stops at its next round. The block-local pass keeps
+//           thousands of threads from contending for the same global
+//           slots when the build has few distinct keys (nationkey has
+//           25), and a slot is read before it is CASed, so a present
+//           key costs one load.
+//   pack    PACK_GRID blocks each own PACK_SLOTS table slots. Without
+//           overflow, a block that owns a key stages every key of the
+//           table (<= 32 KB) in shared memory, and its key's position
+//           is its rank: the count of staged keys below it (the keys
+//           are distinct; four threads split each count). No sort and
+//           no grid sync: O(count) per key. The blocks pad the slots
+//           at or past the count with the dtype max. The last block
+//           (ticket) returns the table to EMPTY and the state to 0, on
+//           the overflow path too, so the next call finds them so:
+//           the table and state are scratch the wrapper keeps per
+//           (device, stream), with no memset per call.
+//
+// Two launches, by measurement on the H100 (device time of a call): at
+// Q20's 4,096-row build of 2,148 keys the rank pack over PACK_GRID
+// blocks beat both a one-block bitonic pack sized to the next power of
+// two and a single launch whose last insert block ranks every key; at
+// 25 keys those two were a few microseconds faster, which a build that
+// small does not feel.
 //
 // Keys are held as order-preserving 64-bit codes (integers with the
 // sign bit flipped, floats by the IEEE total-order map after -0.0 is
 // made +0.0, so the two zeros are one key, as the reference's
 // dedupe treats them). An empty slot holds the all-ones code; a real
 // key whose code is all ones (only an int64 key of INT64_MAX) is
-// recorded by a separate flag and counted once, so every value of
-// every dtype can be a key. On overflow the count saturates at
+// recorded by a separate flag, counted once and written last, so every
+// value of every dtype can be a key. On overflow the count saturates at
 // DF_SET_MAX + 1 (the reference's is exact there; no caller reads it:
 // no set is published on overflow) and the values are not written.
 //
@@ -61,18 +81,22 @@
 //
 // What bounds them: bytes. K21 and K22 read each key and mask once; K23
 // reads key, mask and row_valid and writes row_valid. K22's hash
-// probes are shared-memory atomics; K23 does log2(count) shared loads
-// per row.
+// probes are shared-memory atomics and its pack reads the table (64 KB)
+// once per block from L2; K23 does log2(count) shared loads per row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define DF_SET_MAX 4096
 #define GLOBAL_SLOTS (2 * DF_SET_MAX)
-#define ROWS 1024
-#define LOCAL_SLOTS (2 * ROWS)
 #define THREADS 256
-#define PACK_THREADS 1024
+#define LOCAL_SLOTS 2048
+#define LOCAL_PROBES 8
+#define GLOBAL_ROUND 8
+#define INSERT_BLOCKS_PER_SM 4
+#define PACK_SLOTS 64
+#define PACK_SPLIT (THREADS / PACK_SLOTS)
+#define PACK_GRID (GLOBAL_SLOTS / PACK_SLOTS)
 #define APPLY_THREADS 512
 #define EMPTY 0xffffffffffffffffULL
 
@@ -295,135 +319,186 @@ int bounds(const void* data, const void* mask, int64_t n, const void* mn, const 
 
 // -- K22 --------------------------------------------------------------------
 
-// st: count | overflow | all-ones key seen (u64 each)
-__device__ __forceinline__ void count_new(u64* st) {
-  if (atomicAdd(&st[0], 1ULL) + 1 > DF_SET_MAX) atomicExch(&st[1], 1ULL);
-}
+// scratch (u64): table[GLOBAL_SLOTS] (EMPTY between calls), then the
+// state: count | overflow | all-ones key seen | pack ticket (0 between
+// calls)
+#define ST_COUNT 0
+#define ST_OVF 1
+#define ST_ONES 2
+#define ST_TICKET 3
+#define DF_SCRATCH_WORDS (GLOBAL_SLOTS + 4)
 
-__device__ void global_insert(u64 c, u64* gkeys, u64* st) {
-  volatile u64* vk = gkeys;
-  volatile u64* vst = st;
-  uint32_t s = slot_of(c) & (GLOBAL_SLOTS - 1);
-  for (int probe = 0; probe < GLOBAL_SLOTS; ++probe) {
-    // past overflow the table fills up and a probe would walk all of
-    // it: stop as soon as any thread has set the flag
-    if (vst[1]) return;
+// true when `c` was not in the block's table yet, or the table is too
+// crowded to say
+__device__ __forceinline__ bool local_new(u64 c, u64* skeys) {
+  volatile u64* vk = skeys;
+  uint32_t s = slot_of(c) & (LOCAL_SLOTS - 1);
+  for (int probe = 0; probe < LOCAL_PROBES; ++probe) {
     const u64 cur = vk[s];
-    if (cur == c) return;
+    if (cur == c) return false;
     if (cur == EMPTY) {
-      const u64 prev = atomicCAS(&gkeys[s], EMPTY, c);
-      if (prev == EMPTY) {
-        count_new(st);
-        return;
-      }
-      if (prev == c) return;
+      const u64 prev = atomicCAS(&skeys[s], EMPTY, c);
+      if (prev == EMPTY) return true;
+      if (prev == c) return false;
     }
-    s = (s + 1) & (GLOBAL_SLOTS - 1);
+    s = (s + 1) & (LOCAL_SLOTS - 1);
   }
-  atomicExch(&st[1], 1ULL);  // table full: more than DF_SET_MAX keys
+  return true;
 }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-df_insert(const T* __restrict__ data, const bool* __restrict__ mask, int64_t n,
-          u64* gkeys, u64* st) {
+df_insert(const T* __restrict__ data, const bool* __restrict__ mask, int64_t n, u64* gkeys,
+          u64* st) {
   __shared__ u64 skeys[LOCAL_SLOTS];
-  __shared__ int seen_ones, stop;
+  __shared__ int seen_ones;
   volatile u64* vst = st;
-  for (int i = threadIdx.x; i < LOCAL_SLOTS; i += blockDim.x) skeys[i] = EMPTY;
-  if (threadIdx.x == 0) {
-    seen_ones = 0;
-    stop = vst[1] != 0;  // another block already overflowed
-  }
+  volatile u64* vk = gkeys;
+  for (int i = threadIdx.x; i < LOCAL_SLOTS; i += THREADS) skeys[i] = EMPTY;
+  if (threadIdx.x == 0) seen_ones = 0;
   __syncthreads();
-  if (stop) return;
-  volatile u64* vk = skeys;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * ROWS;
-  for (int j = threadIdx.x; j < ROWS; j += blockDim.x) {
-    const int64_t r = base + j;
-    if (r >= n || vst[1]) break;
-    if (!mask[r]) continue;
-    const T v = data[r];
-    if (is_nan(v)) continue;
-    const u64 c = code_of(v);
-    if (c == EMPTY) {
-      if (atomicExch(&seen_ones, 1) == 0 && atomicExch(&st[2], 1ULL) == 0) count_new(st);
-      continue;
-    }
-    uint32_t s = slot_of(c) & (LOCAL_SLOTS - 1);
-    for (;;) {
-      const u64 cur = vk[s];
-      if (cur == c) break;
-      if (cur == EMPTY) {
-        const u64 prev = atomicCAS(&skeys[s], EMPTY, c);
-        if (prev == EMPTY) {
-          global_insert(c, gkeys, st);
-          break;
-        }
-        if (prev == c) break;
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * THREADS;
+  // warp-uniform rows, so that a warp counts its new keys in one add
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * THREADS + (threadIdx.x & ~31); base < n;
+       base += stride) {
+    // another warp overflowed
+    if (__shfl_sync(0xffffffffu, lane == 0 ? vst[ST_OVF] : 0ULL, 0)) return;
+    const int64_t r = base + lane;
+    bool fresh = false, pending = false;
+    u64 c = EMPTY;
+    if (r < n && mask[r]) {
+      const T v = data[r];
+      if (!is_nan(v)) {
+        c = code_of(v);
+        if (c == EMPTY)
+          fresh = atomicExch(&seen_ones, 1) == 0 && atomicExch(&st[ST_ONES], 1ULL) == 0;
+        else
+          pending = local_new(c, skeys);
       }
-      s = (s + 1) & (LOCAL_SLOTS - 1);
     }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(PACK_THREADS)
-df_pack(const u64* __restrict__ gkeys, const u64* __restrict__ st, T* __restrict__ vals,
-        int64_t* __restrict__ out_count, bool* __restrict__ out_ovf) {
-  __shared__ u64 sk[DF_SET_MAX];
-  __shared__ int fill;
-  const u64 count = st[0];
-  const bool ovf = st[1] != 0 || count > DF_SET_MAX;
-  if (threadIdx.x == 0) {
-    *out_count = static_cast<int64_t>(ovf && count > DF_SET_MAX + 1 ? DF_SET_MAX + 1 : count);
-    *out_ovf = ovf;
-  }
-  if (ovf) return;
-  for (int i = threadIdx.x; i < DF_SET_MAX; i += blockDim.x) sk[i] = EMPTY;
-  if (threadIdx.x == 0) fill = 0;
-  __syncthreads();
-  for (int s = threadIdx.x; s < GLOBAL_SLOTS; s += blockDim.x) {
-    const u64 c = gkeys[s];
-    if (c != EMPTY) sk[atomicAdd(&fill, 1)] = c;
-  }
-  __syncthreads();
-  // bitonic sort, ascending; the all-ones key (if seen) is the empty
-  // code itself and sorts last among the real keys
-  for (int k = 2; k <= DF_SET_MAX; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < DF_SET_MAX; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const u64 a = sk[i], b = sk[ixj];
-          if ((a > b) == ((i & k) == 0)) {
-            sk[i] = b;
-            sk[ixj] = a;
+    // the global table, GLOBAL_ROUND probes at a time: after each round
+    // the warp counts what it inserted, so the count (and the overflow
+    // flag) never waits on a lane with a long probe
+    uint32_t s = slot_of(c) & (GLOBAL_SLOTS - 1);
+    int probes = 0;
+    for (;;) {
+      for (int k = 0; k < GLOBAL_ROUND && pending; ++k) {
+        const u64 cur = vk[s];
+        if (cur == c) {
+          pending = false;
+        } else if (cur == EMPTY) {
+          const u64 prev = atomicCAS(&gkeys[s], EMPTY, c);
+          if (prev == EMPTY || prev == c) {
+            fresh = prev == EMPTY;
+            pending = false;
+          }
+        }
+        if (pending) {
+          s = (s + 1) & (GLOBAL_SLOTS - 1);
+          if (++probes == GLOBAL_SLOTS) {  // table full: more than DF_SET_MAX keys
+            atomicExch(&st[ST_OVF], 1ULL);
+            pending = false;
           }
         }
       }
-      __syncthreads();
+      const unsigned got = __ballot_sync(0xffffffffu, fresh);
+      fresh = false;
+      if (lane == 0 && got != 0u &&
+          atomicAdd(&st[ST_COUNT], static_cast<u64>(__popc(got))) + __popc(got) > DF_SET_MAX)
+        atomicExch(&st[ST_OVF], 1ULL);
+      // past overflow the table fills up and a probe would walk all of
+      // it: every warp stops at the next round
+      if (__shfl_sync(0xffffffffu, lane == 0 ? vst[ST_OVF] : 0ULL, 0)) return;
+      if (!__any_sync(0xffffffffu, pending)) break;
     }
   }
-  for (int i = threadIdx.x; i < DF_SET_MAX; i += blockDim.x)
-    vals[i] = static_cast<u64>(i) < count ? value_of<T>(sk[i]) : dtype_max<T>();
 }
 
 template <typename T>
-int distinct_set(const void* data, const void* mask, int64_t n, void* gkeys, void* st,
-                 void* vals, void* count, void* ovf, cudaStream_t stream) {
-  cudaMemsetAsync(gkeys, 0xff, GLOBAL_SLOTS * sizeof(u64), stream);
-  cudaMemsetAsync(st, 0, 3 * sizeof(u64), stream);
-  if (n > 0) {
-    const unsigned grid = static_cast<unsigned>((n + ROWS - 1) / ROWS);
-    df_insert<T><<<grid, THREADS, 0, stream>>>(static_cast<const T*>(data),
-                                               static_cast<const bool*>(mask), n,
-                                               static_cast<u64*>(gkeys), static_cast<u64*>(st));
+__global__ void __launch_bounds__(THREADS)
+df_pack(u64* gkeys, u64* st, T* __restrict__ vals, int64_t* __restrict__ out_count,
+        bool* __restrict__ out_ovf) {
+  __shared__ u64 sk[DF_SET_MAX];
+  __shared__ int fill;
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31;
+  const u64 count = st[ST_COUNT];
+  const bool ones = st[ST_ONES] != 0;
+  const bool ovf = st[ST_OVF] != 0 || count > DF_SET_MAX;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *out_count = static_cast<int64_t>(ovf && count > DF_SET_MAX + 1 ? DF_SET_MAX + 1 : count);
+    *out_ovf = ovf;
   }
-  df_pack<T><<<1, PACK_THREADS, 0, stream>>>(static_cast<const u64*>(gkeys),
-                                             static_cast<const u64*>(st), static_cast<T*>(vals),
-                                             static_cast<int64_t*>(count),
-                                             static_cast<bool*>(ovf));
+  if (!ovf) {
+    const int slot = blockIdx.x * PACK_SLOTS + threadIdx.x / PACK_SPLIT;
+    const int part = threadIdx.x % PACK_SPLIT;
+    const u64 mine = gkeys[slot];
+    if (__syncthreads_or(mine != EMPTY)) {
+      // every key of the table, in shared memory (in any order: a rank
+      // does not depend on it)
+      if (threadIdx.x == 0) fill = 0;
+      __syncthreads();
+      for (int s = threadIdx.x; s < GLOBAL_SLOTS; s += THREADS) {
+        const u64 c = gkeys[s];
+        const unsigned got = __ballot_sync(0xffffffffu, c != EMPTY);
+        int at = 0;
+        if (lane == 0 && got != 0u) at = atomicAdd(&fill, __popc(got));
+        at = __shfl_sync(0xffffffffu, at, 0);
+        if (c != EMPTY) sk[at + __popc(got & ((1u << lane) - 1u))] = c;
+      }
+      __syncthreads();
+      const int keys = fill;
+      uint32_t rank = 0;
+      if (mine != EMPTY)
+        for (int i = part; i < keys; i += PACK_SPLIT) rank += sk[i] < mine;
+      // the PACK_SPLIT threads of a slot are adjacent lanes
+      for (int o = 1; o < PACK_SPLIT; o <<= 1) rank += __shfl_xor_sync(0xffffffffu, rank, o);
+      if (mine != EMPTY && part == 0) vals[rank] = value_of<T>(mine);
+    }
+    // the all-ones key sorts last; the slots past the count hold the
+    // dtype max
+    if (ones && blockIdx.x == 0 && threadIdx.x == 0) vals[count - 1] = value_of<T>(EMPTY);
+    for (int i = blockIdx.x * (DF_SET_MAX / PACK_GRID) + threadIdx.x;
+         i < (blockIdx.x + 1) * (DF_SET_MAX / PACK_GRID); i += THREADS)
+      if (static_cast<u64>(i) >= count) vals[i] = dtype_max<T>();
+  }
+  // the last block returns the table and the state for the next call
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(&st[ST_TICKET], 1ULL) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  for (int s = threadIdx.x; s < GLOBAL_SLOTS; s += THREADS) gkeys[s] = EMPTY;
+  if (threadIdx.x < 4) st[threadIdx.x] = 0;
+}
+
+static int g_insert_grid[16];
+
+template <typename T>
+int distinct_set(const void* data, const void* mask, int64_t n, void* scratch, void* vals,
+                 void* count, void* ovf, cudaStream_t stream) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 16) return static_cast<int>(cudaErrorInvalidDevice);
+  if (g_insert_grid[dev] == 0) {
+    int sms = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    g_insert_grid[dev] = sms * INSERT_BLOCKS_PER_SM;
+  }
+  u64* gkeys = static_cast<u64*>(scratch);
+  u64* st = gkeys + GLOBAL_SLOTS;
+  if (n > 0) {
+    int64_t grid = (n + THREADS - 1) / THREADS;
+    if (grid > g_insert_grid[dev]) grid = g_insert_grid[dev];
+    df_insert<T><<<static_cast<unsigned>(grid), THREADS, 0, stream>>>(
+        static_cast<const T*>(data), static_cast<const bool*>(mask), n, gkeys, st);
+  }
+  df_pack<T><<<PACK_GRID, THREADS, 0, stream>>>(gkeys, st, static_cast<T*>(vals),
+                                                static_cast<int64_t*>(count),
+                                                static_cast<bool*>(ovf));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -544,21 +619,24 @@ int presto_df_bounds(const void* data, const void* mask, int64_t n, int32_t dt, 
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
-int presto_df_table_slots() { return GLOBAL_SLOTS; }
+int presto_df_set_scratch_words() { return DF_SCRATCH_WORDS; }
 
 // K22: the distinct set of `n` keys of dtype code `dt` under `mask`.
-// Scratch gkeys[GLOBAL_SLOTS] and st[3] (u64); writes vals[DF_SET_MAX]
-// (the key dtype), count (int64) and overflow (bool).
-int presto_distinct_set(const void* data, const void* mask, int64_t n, int32_t dt, void* gkeys,
-                        void* st, void* vals, void* count, void* ovf, void* stream) {
+// scratch: presto_df_set_scratch_words() u64, the table EMPTY
+// (all ones) and the rest 0 when first used, per stream (the kernels
+// leave it so); writes vals[DF_SET_MAX] (the key dtype), count (int64)
+// and overflow (bool).
+int presto_distinct_set(const void* data, const void* mask, int64_t n, int32_t dt, void* scratch,
+                        void* vals, void* count, void* ovf, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (dt) {
-    case 0: return distinct_set<int32_t>(data, mask, n, gkeys, st, vals, count, ovf, s);
-    case 1: return distinct_set<int64_t>(data, mask, n, gkeys, st, vals, count, ovf, s);
-    case 2: return distinct_set<float>(data, mask, n, gkeys, st, vals, count, ovf, s);
-    case 3: return distinct_set<double>(data, mask, n, gkeys, st, vals, count, ovf, s);
-    case 4: return distinct_set<int16_t>(data, mask, n, gkeys, st, vals, count, ovf, s);
-    case 5: return distinct_set<int8_t>(data, mask, n, gkeys, st, vals, count, ovf, s);
+    case 0: return distinct_set<int32_t>(data, mask, n, scratch, vals, count, ovf, s);
+    case 1: return distinct_set<int64_t>(data, mask, n, scratch, vals, count, ovf, s);
+    case 2: return distinct_set<float>(data, mask, n, scratch, vals, count, ovf, s);
+    case 3: return distinct_set<double>(data, mask, n, scratch, vals, count, ovf, s);
+    case 4: return distinct_set<int16_t>(data, mask, n, scratch, vals, count, ovf, s);
+    case 5: return distinct_set<int8_t>(data, mask, n, scratch, vals, count, ovf, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -28,9 +28,10 @@ on which task the drive loop runs first.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import ctypes
+import threading
 
 import torch
 
@@ -268,6 +269,35 @@ def _dtype_code(dtype: torch.dtype, what: str) -> int:
     return _KEY_DTYPES.index(dtype)
 
 
+#: K22's hash table and state per (device, stream): the table's
+#: 2 x DF_SET_MAX slots EMPTY (all ones) and the four state words 0
+#: when made; each call's last block leaves them so
+_SET_SCRATCH: Dict[tuple, torch.Tensor] = {}
+#: held around a call's two launches: host threads that share a stream
+#: would otherwise interleave two calls' launches over one table
+_SET_LOCK = threading.Lock()
+
+
+def _set_scratch(lib, dev, stream: int) -> torch.Tensor:
+    scratch = _SET_SCRATCH.get((dev, stream))
+    if scratch is None:
+        words = lib.presto_df_set_scratch_words()
+        scratch = torch.zeros(words, dtype=torch.int64, device=dev)
+        scratch[:2 * DF_SET_MAX] = -1
+        _SET_SCRATCH[(dev, stream)] = scratch
+    return scratch
+
+
+def set_outputs(dtype: torch.dtype, dev) -> Tuple[torch.Tensor, ...]:
+    """K22's outputs as views of one allocation of DF_SET_MAX + 2 int64
+    words: the values [DF_SET_MAX] of `dtype` at its head, then the
+    int64 count and the overflow flag (0-d each)."""
+    buf = torch.empty(DF_SET_MAX + 2, dtype=torch.int64, device=dev)
+    return (buf.view(dtype)[:DF_SET_MAX],
+            buf.as_strided((), (), DF_SET_MAX),
+            buf.view(torch.bool).as_strided((), (), 8 * (DF_SET_MAX + 1)))
+
+
 def _distinct_set_cuda(data: torch.Tensor, mask: torch.Tensor):
     from presto_tpu_torch.native import cuda
     from presto_tpu_torch.ops.common import check_rows
@@ -276,19 +306,16 @@ def _distinct_set_cuda(data: torch.Tensor, mask: torch.Tensor):
     code = _dtype_code(data.dtype, "df_distinct_set")
     check_rows(data, n, dev, _KEY_DTYPES, "df_distinct_set: keys")
     check_rows(mask, n, dev, (torch.bool,), "df_distinct_set: mask")
-    table = torch.empty(lib.presto_df_table_slots(), dtype=torch.int64,
-                        device=dev)
-    st = torch.empty(3, dtype=torch.int64, device=dev)
-    vals = torch.empty(DF_SET_MAX, dtype=data.dtype, device=dev)
-    count = torch.empty((), dtype=torch.int64, device=dev)
-    ovf = torch.empty((), dtype=torch.bool, device=dev)
-    status = lib.presto_distinct_set(
-        ctypes.c_void_p(data.data_ptr()), ctypes.c_void_p(mask.data_ptr()),
-        ctypes.c_int64(n), ctypes.c_int32(code),
-        ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(st.data_ptr()),
-        ctypes.c_void_p(vals.data_ptr()), ctypes.c_void_p(count.data_ptr()),
-        ctypes.c_void_p(ovf.data_ptr()),
-        ctypes.c_void_p(cuda.stream_ptr(dev)))
+    stream = cuda.stream_ptr(dev)
+    vals, count, ovf = set_outputs(data.dtype, dev)
+    with _SET_LOCK:
+        scratch = _set_scratch(lib, dev, stream)
+        status = lib.presto_distinct_set(
+            ctypes.c_void_p(data.data_ptr()), ctypes.c_void_p(mask.data_ptr()),
+            ctypes.c_int64(n), ctypes.c_int32(code),
+            ctypes.c_void_p(scratch.data_ptr()),
+            ctypes.c_void_p(vals.data_ptr()), ctypes.c_void_p(count.data_ptr()),
+            ctypes.c_void_p(ovf.data_ptr()), ctypes.c_void_p(stream))
     cuda.check(lib, status, "df_distinct_set")
     SET_KERNEL.launches += 1
     return vals, count, ovf

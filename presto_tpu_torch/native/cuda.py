@@ -184,9 +184,9 @@ SIGNATURES = {
     },
     "dynamic_filter": {
         "presto_df_set_max": (ctypes.c_int, []),
-        "presto_df_table_slots": (ctypes.c_int, []),
+        "presto_df_set_scratch_words": (ctypes.c_int, []),
         "presto_distinct_set": (
-            ctypes.c_int, [_P, _P, _I64, _I32, _P, _P, _P, _P, _P, _P]),
+            ctypes.c_int, [_P, _P, _I64, _I32, _P, _P, _P, _P, _P]),
         "presto_apply_filter": (
             ctypes.c_int, [_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P,
                            _I32, _P, _P]),
@@ -203,9 +203,10 @@ SIGNATURES = {
     },
     "radix_sort": {
         "presto_radix_tile": (ctypes.c_int, []),
+        "presto_radix_scratch_bytes": (ctypes.c_int64, []),
         "presto_radix_sort": (
-            ctypes.c_int, [_P, _I32, _I64, _U64, _P, _I32, _P, _P, _P, _P,
-                           _P, _P, _P]),
+            ctypes.c_int, [_P, _I32, _I64, _U64, _P, _P, _P, _P, _P, _P,
+                           _P]),
     },
     "gather_rows": {
         "presto_gather_max_arrays": (ctypes.c_int, []),

@@ -18,6 +18,7 @@ probe row always finds its build row.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -520,7 +521,8 @@ def radix_passes(digits: Sequence[int]) -> List[Tuple[int, int]]:
     8-bit digit, words from the last to the first and digits from the
     low byte up. A digit whose bit is clear in its word's mask of
     varying digits (`digits[w]`, bit d for byte d) is left out: it is
-    the same on every row."""
+    the same on every row. K25 builds this table on the device from its
+    histograms; the card tests and chip_smoke hold it to this one."""
     return [(w, 8 * d) for w in reversed(range(len(digits)))
             for d in range(8) if (digits[w] >> d) & 1]
 
@@ -797,7 +799,58 @@ def radix_sort_plain(words, digits: Optional[torch.Tensor] = None,
     return perm, (wl[0][perm] if sorted_first else None)
 
 
-def _radix_sort_cuda(words, digits, flip, sorted_first):
+#: K25's scratch per (device, stream): (the pass table, histograms and
+#: bucket starts, zeroed once; the look-back status words, zeroed once
+#: and grown with the tile count). The kernels leave both reusable: the
+#: histograms and tickets at 0, the status words under an old epoch.
+_RADIX_SCRATCH: dict = {}
+#: held around a call's launches: host threads that share a stream (a
+#: worker's tasks) would otherwise interleave two calls' launches over
+#: one pass table
+_RADIX_LOCK = threading.Lock()
+#: most passes K25 runs: 8 digits of each of SORT_MAX_WORDS words
+#: (csrc/radix_sort.cu MAX_PASSES); the pass table's layout in int32:
+#: [npasses, epoch, ticket, pad, word[MAX], shift[MAX], ...]
+RADIX_MAX_PASSES = 8 * SORT_MAX_WORDS
+
+
+def radix_tiles(n: int, tile: int) -> int:
+    """K25's tiles (one block each per pass) for `n` rows."""
+    return -(-n // tile)
+
+
+def _radix_scratch(lib, dev, stream: int, tiles: int):
+    """K25's scratch for a call of `tiles` tiles on `stream`: the fixed
+    part, and status words for at least that many tiles (a larger
+    array replaces a smaller one; zeroed words carry epoch 0, which no
+    pass uses)."""
+    fixed, status = _RADIX_SCRATCH.get((dev, stream), (None, None))
+    if fixed is None:
+        fixed = torch.zeros(-(-lib.presto_radix_scratch_bytes() // 8),
+                            dtype=torch.int64, device=dev)
+    if status is None or status.shape[0] < 256 * tiles:
+        status = torch.zeros(256 * tiles, dtype=torch.int64, device=dev)
+    _RADIX_SCRATCH[(dev, stream)] = (fixed, status)
+    return fixed, status
+
+
+def radix_last_passes(dev) -> List[Tuple[int, int]]:
+    """The passes K25's last call on `dev`'s current stream ran, as
+    (word, shift) least significant first, read from its device pass
+    table (a host read: for tests and measurements, not the sort)."""
+    from presto_tpu_torch.native import cuda
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    fixed, _ = _RADIX_SCRATCH[(dev, cuda.stream_ptr(dev))]
+    table = fixed[:2 + RADIX_MAX_PASSES].view(torch.int32).tolist()
+    npasses = table[0]
+    word = table[4:4 + RADIX_MAX_PASSES]
+    shift = table[4 + RADIX_MAX_PASSES:4 + 2 * RADIX_MAX_PASSES]
+    return list(zip(word[:npasses], shift[:npasses]))
+
+
+def _radix_sort_cuda(words, flip, sorted_first):
     from presto_tpu_torch.native import cuda
     wl = _word_list(words)
     dev = wl[0].device
@@ -815,42 +868,38 @@ def _radix_sort_cuda(words, digits, flip, sorted_first):
         if sorted_first else None
     if n == 0:
         return perm, sorted0
-    # the one host read of a sort: which digits vary (K24's masks)
-    masks = [0xFF] * len(wl) if digits is None else digits.tolist()
-    passes = radix_passes(masks)
     lib = cuda.library("radix_sort")
-    tile = lib.presto_radix_tile()
+    stream = cuda.stream_ptr(dev)
     keys = torch.empty(2 * n, dtype=torch.int64, device=dev)
     idx = torch.empty(2 * n, dtype=torch.int32, device=dev)
-    hist = torch.empty(256 * (-(-n // tile)), dtype=torch.int32, device=dev)
-    tot = torch.empty(256, dtype=torch.int32, device=dev)
-    flat = [x for p in passes for x in p]
-    status = lib.presto_radix_sort(
-        _ptrs(wl), ctypes.c_int32(len(wl)), ctypes.c_int64(n),
-        ctypes.c_uint64(1 << 63 if flip else 0), _i32s(flat),
-        ctypes.c_int32(len(passes)), ctypes.c_void_p(perm.data_ptr()),
-        ctypes.c_void_p(0 if sorted0 is None else sorted0.data_ptr()),
-        ctypes.c_void_p(keys.data_ptr()), ctypes.c_void_p(idx.data_ptr()),
-        ctypes.c_void_p(hist.data_ptr()), ctypes.c_void_p(tot.data_ptr()),
-        ctypes.c_void_p(cuda.stream_ptr(dev)))
-    cuda.check(lib, status, "radix_sort")
+    with _RADIX_LOCK:
+        fixed, status = _radix_scratch(
+            lib, dev, stream, radix_tiles(n, lib.presto_radix_tile()))
+        status_code = lib.presto_radix_sort(
+            _ptrs(wl), ctypes.c_int32(len(wl)), ctypes.c_int64(n),
+            ctypes.c_uint64(1 << 63 if flip else 0),
+            ctypes.c_void_p(perm.data_ptr()),
+            ctypes.c_void_p(0 if sorted0 is None else sorted0.data_ptr()),
+            ctypes.c_void_p(keys.data_ptr()), ctypes.c_void_p(idx.data_ptr()),
+            ctypes.c_void_p(fixed.data_ptr()),
+            ctypes.c_void_p(status.data_ptr()), ctypes.c_void_p(stream))
+    cuda.check(lib, status_code, "radix_sort")
     RADIX_SORT_KERNEL.launches += 1
     return perm, sorted0
 
 
-def radix_sort(words, digits: Optional[torch.Tensor] = None,
-               flip: bool = False, sorted_first: bool = False):
+def radix_sort(words, flip: bool = False, sorted_first: bool = False):
     """K25: the stable permutation that orders rows by their key words
     (a [W, n] tensor or a list of W tensors, word 0 most significant),
     and with `sorted_first` word 0 in that order (the join build's
     sorted hashes). Words are unsigned 64-bit codes held in int64, or
-    signed int64 with `flip`. `digits` (K24's masks) lets the sort skip
-    the digits that do not vary; without them every digit is sorted.
-    The CUDA kernel on CUDA tensors, `radix_sort_plain` on CPU
-    tensors."""
+    signed int64 with `flip`. The kernel finds the digits that vary
+    from its own histograms (the passes `radix_passes` gives for K24's
+    masks) and reads nothing on the host. The CUDA kernel on CUDA
+    tensors, `radix_sort_plain` on CPU tensors."""
     if _word_list(words)[0].device.type == "cpu":
-        return radix_sort_plain(words, digits, flip, sorted_first)
-    return _radix_sort_cuda(words, digits, flip, sorted_first)
+        return radix_sort_plain(words, None, flip, sorted_first)
+    return _radix_sort_cuda(words, flip, sorted_first)
 
 
 def gather_rows_plain(parts: Sequence[SortPart], perm: torch.Tensor,
@@ -1180,7 +1229,7 @@ def topn_order(words: torch.Tensor, digits: torch.Tensor,
     if n <= most:
         if shared or words.device.type == "cpu":
             return topn_sort(words, None, None, cap, most)
-        return radix_sort(words, digits)[0][:cap]
+        return radix_sort(words)[0][:cap]
     cand, info, cwords = topn_select(words, digits, cap, most)
     if shared or words.device.type == "cpu":
         return topn_sort(cwords, cand, info, cap, most)
@@ -1226,8 +1275,8 @@ def _sort_rows_plain(keys, desc, nf, valid, payloads):
 def _sort_rows_kernels(keys, desc, nf, valid, payloads):
     """`sort_rows` as K24 (the operands above as key words), K25 (the
     permutation) and K26 (every key and payload moved in one launch)."""
-    words, digits = sort_encode([(keys, valid)], desc, nf)
-    perm, _ = radix_sort(words, digits)
+    words, _ = sort_encode([(keys, valid)], desc, nf)
+    perm, _ = radix_sort(words)
     cols = list(keys) + [(p, None) for p in payloads]
     out, svalid = gather_rows([(cols, valid)], perm)
     return out[:len(keys)], svalid, [d for d, _ in out[len(keys):]]

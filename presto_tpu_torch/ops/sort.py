@@ -116,9 +116,9 @@ def topn_step_full_sort(state: Batch, batch: Batch, n: int,
     """`topn_step` by ordering every row of state ++ batch: K24, K25 over
     all N rows, K26. The same slots; no caller on the main path (the
     yardstick the select is timed against)."""
-    parts, words, digits = _topn_parts(state, batch, key_names, descending,
-                                       nulls_first)
-    perm, _ = common.radix_sort(words, digits)
+    parts, words, _ = _topn_parts(state, batch, key_names, descending,
+                                  nulls_first)
+    perm, _ = common.radix_sort(words)
     return _topn_batch(state, parts, perm, n)
 
 

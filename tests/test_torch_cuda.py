@@ -1906,7 +1906,7 @@ def test_k21_bounds_matches_plain(hopper, dt):
 
 
 @pytest.mark.parametrize("dt", _DF_DTYPES)
-@pytest.mark.parametrize("distinct", [1, 25, 4095, 4096, 4097, 20000])
+@pytest.mark.parametrize("distinct", [1, 25, 2148, 4095, 4096, 4097, 20000])
 def test_k22_distinct_set_matches_plain(hopper, dt, distinct):
     """Without overflow the count and every value exactly (the dtype max
     a real key, -0.0 and +0.0 one key); with overflow the flag, and the
@@ -1921,6 +1921,44 @@ def test_k22_distinct_set_matches_plain(hopper, dt, distinct):
     else:
         assert int(gn) == int(wn)
         assert torch.equal(gv.cpu(), wv)
+
+
+@pytest.mark.parametrize("rows,distinct", [(25, 20), (4096, 25),
+                                            (4096, 2148), (4096, 4090)])
+@pytest.mark.parametrize("dt", [torch.int64, torch.float64])
+def test_k22_small_builds_match_plain(hopper, rows, distinct, dt):
+    """Builds of the sizes the main path makes (a nationkey build, Q20's
+    4,096 rows): values, count and flag exactly, the dtype max and -0.0
+    / +0.0 / NaN among the keys (`_df_keys`)."""
+    from presto_tpu_torch.execution import dynamic_filters as df
+    x, m = _df_keys(dt, rows, distinct, seed=rows + distinct)
+    wv, wn, wo = df.distinct_set_plain(x, m)
+    gv, gn, go = df.distinct_set(x.to(hopper), m.to(hopper))
+    assert bool(go) == bool(wo) and int(gn) == int(wn)
+    assert torch.equal(gv.cpu(), wv)
+
+
+def test_k22_calls_in_a_row_find_the_table_empty(hopper):
+    """On one stream: an overflowing call, then calls with disjoint key
+    sets, each equal to the plain version: every call's last block
+    returned the cached table to EMPTY and the state to 0."""
+    from presto_tpu_torch.execution import dynamic_filters as df
+    calls = [_df_keys(torch.int64, 1 << 16, 9000, seed=90)]
+    for k in range(3):
+        x, m = _df_keys(torch.int64, 4096, 1000 + k, seed=91 + k)
+        calls.append((x + 1_000_000 * (k + 1), m))
+    calls.append((torch.tensor([torch.iinfo(torch.int64).max]),
+                  torch.tensor([True])))
+    calls.append((torch.zeros(0, dtype=torch.int64),
+                  torch.zeros(0, dtype=torch.bool)))
+    for x, m in calls:
+        wv, wn, wo = df.distinct_set_plain(x, m)
+        gv, gn, go = df.distinct_set(x.to(hopper), m.to(hopper))
+        assert bool(go) == bool(wo)
+        if bool(wo):
+            assert int(gn) == df.DF_SET_MAX + 1
+        else:
+            assert int(gn) == int(wn) and torch.equal(gv.cpu(), wv)
 
 
 @pytest.mark.parametrize("pt", _DF_DTYPES)
@@ -2082,21 +2120,193 @@ def test_k24_words_match_plain(hopper, dt, desc, nf, split):
         assert torch.equal(g.cpu(), w)
 
 
-@pytest.mark.parametrize("n", [1, 255, 256, 257, 1 << 20, 1 << 24])
+#: rows of a K25 tile (csrc/radix_sort.cu TILE)
+_RADIX_TILE = 4096
+
+
+def _k25_check(words, **kw):
+    """K25 (one launch) against `radix_sort_plain` bit for bit, and the
+    passes it ran against `radix_passes` of the words' varying digits
+    (K24's masks, computed here by the plain `_vary_digits`)."""
+    wl = tc._word_list(words)
+    before = tc.RADIX_SORT_KERNEL.launches
+    perm, s0 = tc.radix_sort(words, **kw)
+    assert tc.RADIX_SORT_KERNEL.launches == before + 1
+    passes = tc.radix_last_passes(wl[0].device)
+    cpu = [w.cpu() for w in wl]
+    want, w0 = tc.radix_sort_plain(cpu, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(perm.cpu(), want)
+    assert (s0 is None) == (w0 is None)
+    if s0 is not None:
+        assert torch.equal(s0.cpu(), w0)
+    masks = tc._vary_digits(torch.stack(cpu)).tolist()
+    assert passes == tc.radix_passes(masks)
+    return perm, passes
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, _RADIX_TILE - 1,
+                               _RADIX_TILE, _RADIX_TILE + 1, 1 << 20,
+                               1 << 24])
 @pytest.mark.parametrize("skip", [True, False], ids=["skip", "every_digit"])
 def test_k25_perm_matches_plain(hopper, n, skip):
-    """K25's permutation of K24's words equals the plain version's, with
-    constant digits skipped (K24's digit masks passed) and with every
-    digit sorted (no masks)."""
+    """K25's permutation equals the plain version's: of K24's words,
+    whose constant digits it skips (the passes that ran equal
+    `radix_passes` of K24's masks), and of random 64-bit words, where
+    every digit varies."""
     rng = np.random.default_rng(n)
-    parts = _sort_parts(rng, n, [torch.float64, torch.int32], hopper)
-    words, digits = tc.sort_encode(parts, [True, False], [False, True])
-    before = tc.RADIX_SORT_KERNEL.launches
-    perm, _ = tc.radix_sort(words, digits if skip else None)
-    assert tc.RADIX_SORT_KERNEL.launches == before + 1
-    want, _ = tc.radix_sort_plain(words, digits)
+    if skip:
+        parts = _sort_parts(rng, n, [torch.float64, torch.int32], hopper)
+        words, digits = tc.sort_encode(parts, [True, False], [False, True])
+        _, passes = _k25_check(words)
+        assert passes == tc.radix_passes(digits.tolist())
+    else:
+        words = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, (2, n),
+                                              dtype=np.int64)).to(hopper)
+        _k25_check(words)
+
+
+@pytest.mark.parametrize("n", [1, _RADIX_TILE + 5, 3 * _RADIX_TILE])
+def test_k25_equal_keys_give_the_identity(hopper, n):
+    """No digit varies: no pass runs, launch 0 writes the identity
+    permutation (and word 0 as it is)."""
+    words = torch.full((2, n), 0x1234_5678_9abc_def0, dtype=torch.int64,
+                       device=hopper)
+    perm, passes = _k25_check(words, sorted_first=True)
+    assert passes == []
+    assert torch.equal(perm.cpu(), torch.arange(n))
+
+
+@pytest.mark.parametrize("byte", [0, 7])
+def test_k25_one_varying_digit(hopper, byte):
+    """One word whose only varying digit is its lowest (or its highest)
+    byte: one pass, which is both the first and the last."""
+    rng = np.random.default_rng(80 + byte)
+    n = 5 * _RADIX_TILE + 77
+    keep = ~(0xFF << (8 * byte)) & (2**64 - 1)
+    keep = np.int64(keep - 2**64 if keep >= 2**63 else keep)
+    d = rng.integers(0, 256, n).astype(np.int64)
+    w = (np.int64(0x0102_0304_0506_0708) & keep) | (d << (8 * byte))
+    words = torch.from_numpy(w[None, :]).to(hopper)
+    _, passes = _k25_check(words, sorted_first=True)
+    assert passes == [(0, 8 * byte)]
+
+
+def test_k25_three_words_mixed_masks(hopper):
+    """Three K24 words whose masks differ (a bool, a SMALLINT, a DOUBLE,
+    a BIGINT and an INTEGER key): the passes skip each word's constant
+    bytes, and the first pass of every later word gathers it through
+    the index."""
+    rng = np.random.default_rng(81)
+    n = 300_000
+    parts = _sort_parts(rng, n, [torch.bool, torch.int16, torch.float64,
+                                 torch.int64, torch.int32], hopper)
+    words, digits = tc.sort_encode(parts, [False, True, False, True, False],
+                                   [True, False, False, True, True])
+    assert words.shape[0] == 3
+    masks = digits.tolist()
+    assert len(set(masks)) > 1 and 0 < sum(bin(m).count("1")
+                                           for m in masks) < 24
+    _, passes = _k25_check(words)
+    assert passes == tc.radix_passes(masks)
+
+
+def test_k25_stable_across_tiles(hopper):
+    """Three key values over many tiles: long runs of equal digits cross
+    every tile boundary, and rows of equal keys keep their order."""
+    rng = np.random.default_rng(82)
+    n = 37 * _RADIX_TILE + 123
+    w = rng.choice(np.array([5, -1, 1 << 40], dtype=np.int64), n)
+    perm, _ = _k25_check(torch.from_numpy(w[None, :]).to(hopper), flip=True)
+    assert torch.equal(perm.cpu(), torch.sort(torch.from_numpy(w),
+                                              stable=True).indices)
+
+
+@pytest.mark.parametrize("const0", [False, True],
+                         ids=["word0_varies", "word0_constant"])
+def test_k25_flip_sorted_first(hopper, const0):
+    """Signed hash words with `flip` and the sorted word 0 returned: from
+    the last pass's keys, or (word 0 the same on every row) gathered
+    through the permutation."""
+    rng = np.random.default_rng(83 + const0)
+    n = 1 << 18
+    w = rng.integers(-2**63, 2**63 - 1, (2, n), dtype=np.int64)
+    w[0, rng.random(n) < 0.3] = np.iinfo(np.int64).max
+    if const0:
+        w[0] = -12345
+    _k25_check(torch.from_numpy(w).to(hopper), flip=True, sorted_first=True)
+
+
+def test_k25_calls_in_a_row_reuse_the_scratch(hopper):
+    """Calls on one stream, growing and shrinking: each reuses the
+    pass table, the histograms (left at 0) and the status words (under
+    a new epoch) of the one before."""
+    rng = np.random.default_rng(84)
+    for n in (10_000, 3 * _RADIX_TILE, 1 << 20, 777, 1 << 20):
+        w = rng.integers(-2**63, 2**63 - 1, (1 + n % 3, n), dtype=np.int64)
+        _k25_check(torch.from_numpy(w).to(hopper), flip=bool(n & 1))
+
+
+def test_k22_k25_threads_share_a_stream(hopper):
+    """Host threads that launch on one stream (a worker's tasks) at
+    once: every call still equals the plain version (each call's
+    launches reach the stream together, so no call runs on another's
+    pass table or hash table)."""
+    import threading
+    from presto_tpu_torch.execution import dynamic_filters as df
+    rng = np.random.default_rng(86)
+    jobs = []
+    for k in range(6):
+        w = torch.from_numpy(rng.integers(-2**40, 2**40, (1 + k % 2,
+                                                          50_000 + 7 * k),
+                                          dtype=np.int64))
+        x, m = _df_keys(torch.int64, 4096, 100 * (k + 1), seed=87 + k)
+        jobs.append((w, x, m))
+    errors = []
+
+    def run(w, x, m):
+        try:
+            wd, xd, md = w.to(hopper), x.to(hopper), m.to(hopper)
+            for _ in range(10):
+                perm, _ = tc.radix_sort(wd, flip=True)
+                vals, count, _ = df.distinct_set(xd, md)
+            torch.cuda.synchronize()
+            assert torch.equal(perm.cpu(),
+                               tc.radix_sort_plain(w, flip=True)[0])
+            wv, wn, _ = df.distinct_set_plain(x, m)
+            assert int(count) == int(wn) and torch.equal(vals.cpu(), wv)
+        except Exception as e:  # noqa: BLE001 -- reported below
+            errors.append(e)
+    threads = [threading.Thread(target=run, args=job) for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+
+
+def test_k22_k25_make_no_host_read(hopper):
+    """K25 and K22 under torch's sync debug mode "error": neither waits
+    on the device (no host read, no synchronizing copy)."""
+    from presto_tpu_torch.execution import dynamic_filters as df
+    rng = np.random.default_rng(85)
+    words = torch.from_numpy(rng.integers(-2**40, 2**40, (2, 100_000),
+                                          dtype=np.int64)).to(hopper)
+    x, m = _df_keys(torch.int64, 4096, 2148, seed=85)
+    x, m = x.to(hopper), m.to(hopper)
+    tc.radix_sort(words, flip=True, sorted_first=True)
+    df.distinct_set(x, m)  # builds, loads and makes the scratch first
     torch.cuda.synchronize()
-    assert torch.equal(perm, want)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        perm, _ = tc.radix_sort(words, flip=True, sorted_first=True)
+        vals, count, ovf = df.distinct_set(x, m)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(perm.cpu(), tc.radix_sort_plain(words.cpu(),
+                                                       flip=True)[0])
+    wv, wn, _ = df.distinct_set_plain(x.cpu(), m.cpu())
+    assert int(count) == int(wn) and torch.equal(vals.cpu(), wv)
 
 
 def test_k25_build_hashes_equal_torch_sort(hopper):
@@ -2229,7 +2439,7 @@ def test_k31_k32_match_plain(hopper, kind, n, cap):
         # three key values over a million rows: the digits run out
         assert int(wi[2]) == 1 and int(wi[0]) == cap
     assert torch.equal(perm.cpu(), tc.topn_sort_plain(ww, wc, wi, cap))
-    full, _ = tc.radix_sort(words, digits)
+    full, _ = tc.radix_sort(words)
     assert torch.equal(perm, full[:cap])
 
 

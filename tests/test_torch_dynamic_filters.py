@@ -200,3 +200,40 @@ def test_narrow_key_join_matches_reference():
     for sql, g, w in zip(NARROW_KEY_QUERIES, got, want):
         assert g, sql
         assert_rows_equal(g, w, sql, True)
+
+
+@pytest.mark.parametrize("dt", [torch.int32, torch.int64, torch.float32,
+                                torch.float64, torch.int16, torch.int8])
+def test_set_outputs_are_views_of_one_buffer(dt):
+    """K22's values, count and flag: one allocation, three views that
+    do not overlap."""
+    vals, count, ovf = pdf.set_outputs(dt, torch.device("cpu"))
+    assert vals.shape == (pdf.DF_SET_MAX,) and vals.dtype == dt
+    assert vals.is_contiguous()
+    assert count.shape == () and count.dtype == torch.int64
+    assert ovf.shape == () and ovf.dtype == torch.bool
+    base = vals.untyped_storage().data_ptr()
+    assert count.untyped_storage().data_ptr() == base
+    assert ovf.untyped_storage().data_ptr() == base
+    assert count.data_ptr() % 8 == 0
+    vals.fill_(0)
+    count.fill_(-1)
+    ovf.fill_(True)
+    assert not vals.ne(0).any() and int(count) == -1 and bool(ovf)
+
+
+def test_set_scratch_starts_empty_and_is_kept(monkeypatch):
+    """K22's table starts EMPTY (all ones) and its four state words at
+    0, once per (device, stream)."""
+    class Lib:
+        @staticmethod
+        def presto_df_set_scratch_words():
+            return 2 * pdf.DF_SET_MAX + 4
+    monkeypatch.setattr(pdf, "_SET_SCRATCH", {})
+    dev = torch.device("cpu")
+    s = pdf._set_scratch(Lib(), dev, 3)
+    assert s.dtype == torch.int64 and s.shape == (2 * pdf.DF_SET_MAX + 4,)
+    assert bool((s[:2 * pdf.DF_SET_MAX] == -1).all())
+    assert not s[2 * pdf.DF_SET_MAX:].any()
+    assert pdf._set_scratch(Lib(), dev, 3) is s
+    assert pdf._set_scratch(Lib(), dev, 4) is not s

@@ -217,6 +217,59 @@ def test_radix_passes_skip_constant_digits():
     assert tc.radix_passes([0, 0]) == []
 
 
+class _FakeRadixLib:
+    """The scratch size K25's library reports (csrc/radix_sort.cu
+    SCRATCH_BYTES is of this order), for the wrapper's host logic."""
+
+    @staticmethod
+    def presto_radix_scratch_bytes():
+        return 1 << 20
+
+
+@pytest.mark.parametrize("n,tiles", [(1, 1), (4095, 1), (4096, 1),
+                                     (4097, 2), (1 << 24, 4096)])
+def test_radix_tiles(n, tiles):
+    assert tc.radix_tiles(n, 4096) == tiles
+
+
+def test_radix_scratch_is_kept_per_stream_and_grows(monkeypatch):
+    """K25's scratch per (device, stream): made zeroed once, reused by
+    a call of fewer tiles, its status words replaced (zeroed, so every
+    word carries epoch 0, which no pass takes) by a call of more; the
+    pass table stays."""
+    monkeypatch.setattr(tc, "_RADIX_SCRATCH", {})
+    dev, lib = torch.device("cpu"), _FakeRadixLib()
+    fixed, status = tc._radix_scratch(lib, dev, 7, 4)
+    assert fixed.numel() * 8 >= lib.presto_radix_scratch_bytes()
+    assert status.shape == (256 * 4,)
+    assert not fixed.any() and not status.any()
+    status.fill_(5)
+    again = tc._radix_scratch(lib, dev, 7, 2)
+    assert again[0] is fixed and again[1] is status
+    grown = tc._radix_scratch(lib, dev, 7, 9)
+    assert grown[0] is fixed and grown[1].shape == (256 * 9,)
+    assert not grown[1].any()
+    other = tc._radix_scratch(lib, dev, 8, 1)
+    assert other[0] is not fixed
+
+
+def test_radix_last_passes_reads_the_pass_table(monkeypatch):
+    """The pass table's layout (csrc/radix_sort.cu `Plan`): npasses, the
+    epoch, the ticket, a pad, then word[] and shift[] of
+    RADIX_MAX_PASSES entries each, int32."""
+    from presto_tpu_torch.native import cuda
+    monkeypatch.setattr(tc, "_RADIX_SCRATCH", {})
+    monkeypatch.setattr(cuda, "stream_ptr", lambda dev: 7)
+    fixed, _ = tc._radix_scratch(_FakeRadixLib(), torch.device("cpu"), 7, 1)
+    table = fixed.view(torch.int32)
+    table[0] = 3
+    m = tc.RADIX_MAX_PASSES
+    table[4:7] = torch.tensor([2, 0, 0], dtype=torch.int32)
+    table[4 + m:7 + m] = torch.tensor([24, 0, 56], dtype=torch.int32)
+    assert tc.radix_last_passes(torch.device("cpu")) == \
+        tc.radix_passes([0b1000_0001, 0, 0b0000_1000])
+
+
 def test_words_are_the_codes_back_to_back():
     """The plain words hold each operand's code at its planned position:
     read back from the concatenated words as one big integer, in pure
