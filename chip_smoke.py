@@ -1021,6 +1021,11 @@ class Capture(Patches):
         self.pair_sort = {}
         #: K25 at its largest join build: (rows, query, args, kwargs)
         self.build_sort = None
+        #: K26 at its largest join build (the build's columns, row_valid
+        #: and second hashes moved by K25's permutation): (rows, query,
+        #: args, kwargs)
+        self.build_gather = None
+        self._in_build = False
         #: AGG_CALLS label -> (rows, query, function, args)
         self.composed = {}
         #: K12 kernel fingerprint -> the query of its largest call
@@ -1185,7 +1190,25 @@ class Capture(Patches):
                     self.pair_sort[self.query] = (rows, self.query, args, kw)
                 return orig(*args, **kw)
             return rec
+        def build(orig):
+            def rec(*args, **kw):
+                self._in_build = True
+                try:
+                    return orig(*args, **kw)
+                finally:
+                    self._in_build = False
+            return rec
+
+        def gather(orig):
+            def rec(*args, **kw):
+                rows = args[1].shape[0]
+                if self._in_build and rows > (self.build_gather or (0,))[0]:
+                    self.build_gather = (rows, self.query, args, kw)
+                return orig(*args, **kw)
+            return rec
         self._patch(tc, "radix_sort", radix)
+        self._patch(tj, "build_for_backend", build)
+        self._patch(tc, "gather_rows", gather)
         self._patch(m["misc"], "cross_product", cross)
         self._patch(tj, "unmatched_build", outer)
         self._patch(m["sort"], "distinct_step", distinct)
@@ -2472,7 +2495,7 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
           and cap.expand_full is not None and cap.expand_full[1] == "full"
           and cap.k11 is not None and cap.k11[1] == "full"
           and cap.distinct is not None and cap.distinct[1] == "distinct"
-          and cap.build_sort is not None
+          and cap.build_sort is not None and cap.build_gather is not None
           and set(PAIR_SORT_AT) <= set(cap.pair_sort)
           and set(cap.composed) == set(AGG_CALLS),
           "kernel inputs were not captured from the main path")
@@ -2512,6 +2535,10 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
     # K25 at the largest join build, beside one stable torch.sort
     build_sort = {**measure_radix_sort(torch, tc, *cap.build_sort[2:]),
                   "shape_from": cap.build_sort[1]}
+    # K26 at the largest join build (the largest one-source K26 call of
+    # the TPC-H path), beside index_select per array
+    build_gather = {**measure_gather_rows(torch, tc, *cap.build_gather[2:]),
+                    "shape_from": cap.build_gather[1]}
     # K25's (h1, h2) sort of grouping at Q20 and DISTINCT's fold
     pair_sorts = {q: measure_radix_sort(torch, tc, *cap.pair_sort[q][2:])
                   for q in PAIR_SORT_AT}
@@ -2629,6 +2656,8 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
     emit({"phase": "kernels", "kernel": "radix_sort", "role": "join build",
           "family": "join_build", **build_sort,
           "calls": {qq: c.get("join_build", 0) for qq, c in calls.items()}})
+    emit({"phase": "kernels", "kernel": "gather_rows", "role": "join build",
+          "family": "join_build", **build_gather})
     for q, m in pair_sorts.items():
         emit({"phase": "kernels", "kernel": "radix_sort",
               "role": PAIR_SORT_AT[q], "shape_from": q, **m})
@@ -3113,6 +3142,51 @@ class WindowCapture:
         return False
 
 
+class SortGatherCapture(Patches):
+    """The inputs of K26's largest call from `sort_rows` (ORDER BY,
+    windows, array_agg) per query, during one run of a path's queries:
+    query -> (rows, args, kwargs), references (no input is written
+    after the call)."""
+
+    def __init__(self, tc):
+        super().__init__()
+        self.tc = tc
+        self.big = {}
+        self.query = None
+        self._sorting = False
+
+    def __enter__(self):
+        def sorting(orig):
+            def rec(*args, **kw):
+                self._sorting = True
+                try:
+                    return orig(*args, **kw)
+                finally:
+                    self._sorting = False
+            return rec
+
+        def gather(orig):
+            def rec(*args, **kw):
+                rows = args[1].shape[0]
+                if self._sorting and rows > self.big.get(self.query,
+                                                         (0,))[0]:
+                    self.big[self.query] = (rows, args, kw)
+                return orig(*args, **kw)
+            return rec
+        self._patch(self.tc, "_sort_rows_kernels", sorting)
+        self._patch(self.tc, "gather_rows", gather)
+        return self
+
+
+def emit_sort_gathers(torch, tc, cap, family):
+    """K26 at each query's largest `sort_rows` call of `cap`, measured
+    (`measure_gather_rows`) and emitted under `family`."""
+    for label, (_, args, kw) in cap.big.items():
+        emit({"phase": "kernels", "kernel": "gather_rows",
+              "role": "sort_rows", "family": family, "shape_from": label,
+              **measure_gather_rows(torch, tc, args, kw)})
+
+
 def _seg_bytes(seg, names):
     return sum(getattr(seg, n).numel() * 8 for n in names)
 
@@ -3321,9 +3395,10 @@ def run_window_phases(torch, np, mods, dev, schema):
     cg.CAPTURE = {}
     k12_query = {}
     try:
-        with WindowCapture(tw) as cap:
+        with WindowCapture(tw) as cap, \
+                SortGatherCapture(mods["tc"]) as sorts:
             for label, (cat, sql) in queries.items():
-                cap.query = label
+                cap.query = sorts.query = label
                 seen = {fp: id(v[2]) for fp, v in cg.CAPTURE.items()}
                 runners[cat].execute(sql).rows()
                 for fp, v in cg.CAPTURE.items():
@@ -3356,6 +3431,8 @@ def run_window_phases(torch, np, mods, dev, schema):
               "shape_from": q, **measured[name],
               "launches": {label: launches[label][name]
                            for label in queries}})
+    check(sorts.big, "no K26 call of a window sort was captured")
+    emit_sort_gathers(torch, mods["tc"], sorts, "window")
     totals = {name: sum(launches[label][name] for label in queries)
               for name in tk.COUNTERS}
     return measured, totals
@@ -3788,9 +3865,10 @@ def run_array_phases(torch, np, mods, dev, schema):
     cg.CAPTURE = {}
     k12_query = {}
     try:
-        with CollectCapture(taa) as cap:
+        with CollectCapture(taa) as cap, \
+                SortGatherCapture(mods["tc"]) as sorts:
             for label in ("arr_orders", "arr_cust", "map_lines"):
-                cap.query = label
+                cap.query = sorts.query = label
                 seen = {fp: id(v[2]) for fp, v in cg.CAPTURE.items()}
                 runner.execute(ARRAY_QUERIES[label])
                 for fp, v in cg.CAPTURE.items():
@@ -3798,6 +3876,7 @@ def run_array_phases(torch, np, mods, dev, schema):
                         k12_query[fp] = label
             for label in ("c6_group9", "c6_join9", "c7_round",
                           "unnest_back"):
+                sorts.query = label
                 seen = {fp: id(v[2]) for fp, v in cg.CAPTURE.items()}
                 runner.execute(ARRAY_QUERIES[label]).rows()
                 for fp, v in cg.CAPTURE.items():
@@ -3823,6 +3902,9 @@ def run_array_phases(torch, np, mods, dev, schema):
           "family": "array_agg", "shape_from": cap.big[1], **m,
           "launches": {label: launches[label]["array_collect"]
                        for label in ARRAY_QUERIES}})
+    check("arr_cust" in sorts.big, "ARR_CUST's K26 sort call was not "
+          "captured")
+    emit_sort_gathers(torch, mods["tc"], sorts, "array_agg")
     totals = {name: sum(launches[label][name] for label in ARRAY_QUERIES)
               for name in tk.COUNTERS}
     return m, totals
@@ -3943,6 +4025,19 @@ class SortCapture(Patches):
                    tc._word_list(words)[0].shape[0])
         self._wrap(tc, "gather_rows", lambda parts, perm, *a, **k:
                    perm.shape[0])
+
+        # topn's state gather (the call with a limit): a small call,
+        # where the wrapper's host time shows
+        def topn_gather(orig):
+            def rec(*args, **kw):
+                if _gather_call(args, kw)[3] is not None:
+                    rows = args[1].shape[0]
+                    if rows > self.big.get("topn_gather", (0,))[0]:
+                        self.big["topn_gather"] = (rows, self.query, args,
+                                                   kw)
+                return orig(*args, **kw)
+            return rec
+        self._patch(tc, "gather_rows", topn_gather)
         self._wrap(tsort, "limit_rank", lambda valid, *a: valid.shape[0])
         self._wrap(tc, "topn_select", lambda words, *a, **k: words.shape[1])
         # K32's work: its candidates' words (TOPN_LINES' three words
@@ -4059,21 +4154,77 @@ def measure_radix_sort(torch, tc, args, kw):
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
+def _gather_call(args, kw):
+    """gather_rows' (parts, perm, rows, limit) from a captured call."""
+    names = ("parts", "perm", "rows", "limit")
+    call = dict(zip(names, args), **kw)
+    return tuple(call.get(n) for n in names)
+
+
+def _same_gather(torch, got, want) -> bool:
+    """Two K26 results equal: every array bit for bit, and row_valid."""
+    def bits(t):
+        return t.view(torch.uint8) if t.is_floating_point() else t
+    return (got[1] is None) == (want[1] is None) \
+        and (got[1] is None or torch.equal(got[1], want[1])) \
+        and all(torch.equal(bits(gd), bits(wd))
+                and (gm is None) == (wm is None)
+                and (gm is None or torch.equal(gm, wm))
+                for (gd, gm), (wd, wm) in zip(got[0], want[0]))
+
+
+def gather_plans(torch, tc, parts, rows, limit, stage=None):
+    """K26's launches for a call as the wrapper plans them
+    (`tc.gather_launch_plans`)."""
+    return tc.gather_launch_plans(
+        parts[0][0], parts[0][1] is not None, limit is not None, rows,
+        sum((v if v is not None else c[0][0]).shape[0] for c, v in parts),
+        len(parts), stage)
+
+
+def gather_reads(plans, far) -> tuple:
+    """(random reads a live row costs K26, launches whose records run)
+    given the probe's far samples: one a group where a launch's records
+    run (row_valid comes from its bitmap, in the L2), else one an array
+    and row_valid's."""
+    reads = runs = 0
+    for (lo, hi), (groups, need), valid_read in plans:
+        if any(g[0] for g in groups) and far >= need:
+            reads += len(groups)
+            runs += 1
+        else:
+            reads += hi - lo + int(valid_read)
+    return reads, runs
+
+
 def measure_gather_rows(torch, tc, args, kw):
-    parts, perm = args[0], args[1]
+    """K26 at one call against its plain version (every array and
+    row_valid bit for bit, as the kernel chose and with the records
+    forced on and off); its device time per launch (the pre-pass and
+    both gathers), CUDA launches per call, the wrapper's host time, the
+    times with the records forced on (`staged_ms`) and off
+    (`direct_ms`), the probe's far samples and the `need` of each
+    launch, the random reads a live row costs (the way the kernel took,
+    and one an array and row_valid as the old design read them), the
+    records' bytes a source row; library: index_select per array (one
+    source)."""
+    parts, perm, rows_arg, limit = _gather_call(args, kw)
     got = tc.gather_rows(*args, **kw)
-    want = tc.gather_rows_plain(*args, **kw)
+    want = tc.gather_rows_plain(parts, perm, rows_arg, limit)
+    forced = {k: tc._gather_rows_cuda(parts, perm, rows_arg, limit, k)
+              for k in (True, False)}
     torch.cuda.synchronize()
-    same = (got[1] is None) == (want[1] is None) and (
-        got[1] is None or torch.equal(got[1], want[1]))
-    for (gd, gm), (wd, wm) in zip(got[0], want[0]):
-        same = same and torch.equal(gd, wd) if not gd.is_floating_point() \
-            else same and torch.equal(gd.view(torch.uint8),
-                                      wd.view(torch.uint8))
-        same = same and ((gm is None and wm is None) or torch.equal(gm, wm))
-    check(same, "K26 gather_rows differs from its plain version")
-    ms = time_ms(lambda: tc.gather_rows(*args, **kw), torch)
-    plain_ms = time_ms(lambda: tc.gather_rows_plain(*args, **kw), torch)
+    check(_same_gather(torch, got, want),
+          "K26 gather_rows differs from its plain version")
+    check(all(_same_gather(torch, f, want) for f in forced.values()),
+          "K26 gather_rows with the records forced on or off differs from "
+          "its plain version")
+    fn = lambda: tc.gather_rows(*args, **kw)  # noqa: E731
+    ms = time_ms(fn, torch)
+    plain_ms = time_ms(lambda: tc.gather_rows_plain(parts, perm, rows_arg,
+                                                    limit), torch)
+    way_ms = {k: time_ms(lambda k=k: tc._gather_rows_cuda(
+        parts, perm, rows_arg, limit, k), torch) for k in (True, False)}
     rows = got[0][0][0].shape[0] if got[0] else perm.shape[0]
     library_ms = None
     if len(parts) == 1:
@@ -4083,18 +4234,113 @@ def measure_gather_rows(torch, tc, args, kw):
             arrays.append(parts[0][1])
         library_ms = time_ms(lambda: [t.index_select(0, p) for t in arrays],
                              torch)
+    plans = gather_plans(torch, tc, parts, rows, limit)
+    far = tc.gather_far(perm, rows)
+    reads, runs = gather_reads(plans, far)
+    record_bytes = sum(g[0] for _, (groups, _), _ in plans for g in groups)
+    staged = [need for _, (groups, need), _ in plans
+              if any(g[0] for g in groups)]
+    names = ("stage_records", "gather_records", "gather_direct") if staged \
+        else ("gather_direct",)
     # the permutation's rows read once; every output element written
     # once and its input element read once
     out_bytes = sum(nbytes(d) + (0 if m is None else nbytes(m))
                     for d, m in got[0]) + (0 if got[1] is None
                                            else nbytes(got[1]))
     moved = 8 * rows + 2 * out_bytes
-    return {"rows": rows, "arrays": sum(1 + (m is not None)
-                                        for d, m in got[0])
-            + (got[1] is not None), "sources": len(parts),
+    narrays = sum(1 + (m is not None) for d, m in got[0])
+    return {"rows": rows, "arrays": narrays + (got[1] is not None),
+            "sources": len(parts),
+            "live": rows if got[1] is None else int(got[1].sum()),
+            "far_samples": far, "probe": tc.GATHER_PROBE, "need": staged,
+            "launches_with_records": runs,
+            "random_reads_per_live_row": reads,
+            "record_bytes_per_source_row": record_bytes,
+            "old_design_random_reads_per_live_row":
+            narrays + (parts[0][1] is not None),
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "staged_ms": way_ms[True], "direct_ms": way_ms[False],
             "library_ms": library_ms,
+            "device_us_per_launch": _profile_launch_us(torch, fn, names),
+            "launches_per_call": launches_of(torch, fn),
+            "host_ms": host_ms(torch, fn),
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+#: K26's sweep: ORDER_LINES' arrays (a BIGINT, a DOUBLE and an INTEGER,
+#: each with a mask, and row_valid with ORDER_LINES' live share) at these
+#: source rows, gathered in each order of GATHER_SWEEP_ORDERS, with the
+#: records forced on and off: where they pay, by size and by order
+GATHER_SWEEP_ROWS = (1 << 18, 1 << 20, 1 << 21, 1 << 22, 1 << 24)
+GATHER_SWEEP_LIVE = 6_000_012 / 16_777_216
+#: value: K24's shape of a value order (live rows at random, dead rows
+#: after in slot order); value_all_live: every row live, at random;
+#: runs4: runs of four consecutive live rows in random order (a key's
+#: rows after a hash sort); near: live rows in slot order (a sort by the
+#: scan's own order)
+GATHER_SWEEP_ORDERS = ("value", "value_all_live", "runs4", "near")
+GATHER_SWEEP_SEED = 26
+
+
+def gather_sweep_perm(torch, valid, order, gen):
+    """The permutation of GATHER_SWEEP_ORDERS' `order` over `valid`."""
+    dev = valid.device
+    idx = torch.arange(valid.shape[0], device=dev)
+    live, dead = idx[valid], idx[~valid]
+    if order in ("value", "value_all_live"):
+        live = live[torch.randperm(live.shape[0], generator=gen,
+                                   device="cpu").to(dev)]
+    elif order == "runs4":
+        k = live.shape[0] // 4 * 4
+        runs = torch.randperm(k // 4, generator=gen, device="cpu").to(dev)
+        live = torch.cat([live[:k].view(-1, 4)[runs].reshape(-1),
+                          live[k:]])
+    return torch.cat([live, dead])
+
+
+def measure_gather_sweep(torch, tc, dev):
+    """K26 over GATHER_SWEEP_ROWS x GATHER_SWEEP_ORDERS: the kernel's own
+    choice, the records forced on and off (all three equal, bit for
+    bit), the probe's far samples and the launch's `need`."""
+    gen = torch.Generator().manual_seed(GATHER_SWEEP_SEED)
+    out = []
+    for n in GATHER_SWEEP_ROWS:
+        cols = [(torch.randint(-2**62, 2**62, (n,), generator=gen)
+                 .to(dev), None),
+                (torch.rand(n, generator=gen, dtype=torch.float64).to(dev),
+                 None),
+                (torch.randint(-2**31, 2**31, (n,), generator=gen,
+                               dtype=torch.int32).to(dev), None)]
+        cols = [(d, (torch.rand(n, generator=gen) < 0.9).to(dev))
+                for d, _ in cols]
+        for order in GATHER_SWEEP_ORDERS:
+            valid = torch.ones(n, dtype=torch.bool, device=dev) \
+                if order == "value_all_live" else \
+                (torch.rand(n, generator=gen) < GATHER_SWEEP_LIVE).to(dev)
+            parts = [(cols, valid)]
+            perm = gather_sweep_perm(torch, valid, order, gen)
+            ways = {k: tc._gather_rows_cuda(parts, perm, None, None, k)
+                    for k in (None, True, False)}
+            torch.cuda.synchronize()
+            check(_same_gather(torch, ways[True], ways[None])
+                  and _same_gather(torch, ways[False], ways[None]),
+                  f"K26 sweep {n} {order}: the ways differ")
+            plans = gather_plans(torch, tc, parts, n, None)
+            far = tc.gather_far(perm, n)
+            line = {"phase": "gather_sweep", "rows": n, "order": order,
+                    "live": int(valid.sum()), "far_samples": far,
+                    "need": plans[0][1][1],
+                    "records_run": gather_reads(plans, far)[1] > 0,
+                    "src_bytes": n * 24}
+            for k, name in ((None, "ms"), (True, "staged_ms"),
+                            (False, "direct_ms")):
+                line[name] = time_ms(lambda k=k: tc._gather_rows_cuda(
+                    parts, perm, None, None, k), torch)
+            emit(line)
+            out.append(line)
+            del ways, perm
+        del cols
+    return out
 
 
 def measure_limit_rank(torch, tsort, args, kw):
@@ -4108,12 +4354,17 @@ def measure_limit_rank(torch, tsort, args, kw):
     plain_ms = time_ms(lambda: tsort.limit_rank_plain(*args), torch)
     library_ms = time_ms(lambda: torch.cumsum(valid, 0), torch)
     rows = valid.shape[0]
+    fn = lambda: tsort.limit_rank(*args)  # noqa: E731
     # row_valid read once, keep written once, the two counts
     moved = 2 * rows + 16
     return {"rows": rows, "live": int(valid.sum()), "limit": int(n),
             "emitted_before": int(emitted), "kept": int(want[0].sum()),
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms,
+            "device_us_per_launch": _profile_launch_us(
+                torch, fn, ("limit_rank_kernel",)),
+            "launches_per_call": launches_of(torch, fn),
+            "host_ms": host_ms(torch, fn),
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
@@ -4290,7 +4541,8 @@ def run_sort_phases(torch, np, mods, dev, schema):
             result_columns(torch, np, runner.execute(sql))
     check(set(cap.big) == {"sort_encode", "radix_sort", "gather_rows",
                            "limit_rank", "sort_batch", "topn_step",
-                           "limit_batch", "topn_select", "topn_sort"},
+                           "limit_batch", "topn_select", "topn_sort",
+                           "topn_gather"},
           f"sort inputs were not captured: {sorted(cap.big)}")
     measure = {"sort_encode": measure_sort_encode,
                "radix_sort": measure_radix_sort,
@@ -4307,6 +4559,11 @@ def run_sort_phases(torch, np, mods, dev, schema):
         emit({"phase": "kernels", "kernel": name, "shape_from": q, **m,
               "launches": {label: launches[label][name]
                            for label in SORT_QUERIES}})
+    _, q, args, kw = cap.big["topn_gather"]
+    emit({"phase": "kernels", "kernel": "gather_rows",
+          "role": "topn state gather", "shape_from": q,
+          **measure_gather_rows(torch, mods["tc"], args, kw)})
+    measure_gather_sweep(torch, mods["tc"], dev)
     for label, (family, fn_name, _) in SORT_FAMILIES.items():
         _, q, args, _ = cap.big[fn_name]
         # topn's step: the state's slots beside the batch's

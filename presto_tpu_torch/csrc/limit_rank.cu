@@ -1,109 +1,193 @@
 // limit_rank (K27): LIMIT's keep mask over one batch and the running
-// emitted count, with no host read.
+// emitted count, in one launch with no host read.
 //
 // Replaces presto_tpu/ops/sort.py:87 `_limit_batch_impl`:
 //   keep = row_valid & (rank_among_live < n - emitted)
 // and the emitted-count `sum` the operator adds after it: the kernel
-// reads `emitted` (a device int64) and writes emitted + kept into a
-// new device int64, so a LIMIT over many batches carries its count on
-// the device and the operator's limit-reached flag stays asynchronous.
+// reads `emitted` (a device int64) and writes
+//   emitted + min(max(n - emitted, 0), live rows)
+// into a new device int64, so a LIMIT over many batches carries its
+// count on the device and the operator's limit-reached flag stays
+// asynchronous.
 //
-// Three launches on one stream, as K2 (compact.cu):
-//   1. count: each block counts the live rows of its tile of
-//      TILE = THREADS x ITEMS rows (warp ballots + popc);
-//   2. scan: one block turns the tile counts into exclusive offsets
-//      (a block-wide scan in chunks of THREADS with a running carry)
-//      and writes emitted + min(max(n - emitted, 0), live rows);
-//   3. mark: each block recomputes its rows' ranks among the live rows
-//      the same way and writes keep.
+// What bounds it on the H100: not bytes. At LIMIT_SCAN's largest call
+// (2,097,152 rows) row_valid in and keep out are 4 MB, 1.25 us at
+// 3.35 TB/s; the rest is launch latency and the scan's dependency
+// between tiles. The old design spent three launches on that
+// (count, a one-block scan of the tile counts, mark) and read row_valid
+// twice. This one is a single-pass chained scan with a decoupled
+// look-back (Merrill and Garland, 2016; K25 in radix_sort.cu uses the
+// same status words):
 //
-// What bounds it: bytes. row_valid is read twice (count and mark), keep
-// written once; the tile counts are a few KB.
+//   - a block takes its tile number from an atomic counter, so a tile
+//     only waits on tiles that already run; the block that takes the
+//     last ticket sets the counter back to 0 for the next call;
+//   - each thread loads 16 rows of row_valid as one 16-byte vector,
+//     counts them with popc, and the block scans the threads' counts;
+//   - warp 0 publishes the tile's aggregate, looks back over up to 32
+//     earlier tiles at a time until an inclusive prefix, and publishes
+//     its own inclusive prefix;
+//   - each thread then keeps its live rows whose rank is under
+//     n - emitted and stores 16 rows of keep with one vector store;
+//   - the last tile writes the new emitted count.
+// Where n - emitted <= 0 no row is kept: every block writes zeros and
+// skips the look-back, and the count comes out as `emitted`.
+//
+// Status words are 64-bit: a 30-bit epoch, a 2-bit flag (aggregate /
+// inclusive prefix) and a 32-bit count (n <= 2^31 - 1). The host hands
+// every call a new epoch, so one status array per stream serves every
+// call with no clearing: a word of another epoch reads as "not
+// published yet".
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define THREADS 256
-#define ITEMS 4
-#define TILE (THREADS * ITEMS)
+#define VEC 16
+#define TILE (THREADS * VEC)
 #define WARPS (THREADS / 32)
 
-// Exclusive rank of this lane's flag among the block's THREADS lanes
-// for one round, and the round's total. All threads must call it.
-__device__ __forceinline__ int block_rank(bool flag, int* warp_sums, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, flag);
-  const int in_warp = __popc(ballot & ((1u << lane) - 1u));
-  __syncthreads();  // warp_sums may still be read from the last round
-  if (lane == 0) warp_sums[warp] = __popc(ballot);
-  __syncthreads();
-  int before = 0, all = 0;
-  for (int w = 0; w < WARPS; ++w) {
-    const int s = warp_sums[w];
-    before += w < warp ? s : 0;
-    all += s;
-  }
-  *total = all;
-  return before + in_warp;
+#define FLAG_AGGREGATE 1ULL
+#define FLAG_INCLUSIVE 2ULL
+
+typedef unsigned long long u64;
+
+__device__ __forceinline__ u64 status_word(uint32_t epoch, u64 flag, uint32_t count) {
+  return (static_cast<u64>(epoch) << 34) | (flag << 32) | count;
 }
 
-__global__ void __launch_bounds__(THREADS)
-count_kernel(const bool* __restrict__ row_valid, int64_t n, int32_t* __restrict__ tile_counts) {
-  __shared__ int warp_sums[WARPS];
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * TILE;
-  int count = 0;
-  for (int it = 0; it < ITEMS; ++it) {
-    const int64_t row = start + it * THREADS + threadIdx.x;
-    int round_total;
-    block_rank(row < n && row_valid[row], warp_sums, &round_total);
-    count += round_total;
-  }
-  if (threadIdx.x == 0) tile_counts[blockIdx.x] = count;
+// any nonzero byte of w as 1 (torch's bools are 0 or 1 already)
+__device__ __forceinline__ uint32_t ones(uint32_t w) {
+  w |= w >> 4;
+  w |= w >> 2;
+  w |= w >> 1;
+  return w & 0x01010101u;
 }
 
-__global__ void __launch_bounds__(THREADS)
-scan_kernel(const int32_t* __restrict__ tile_counts, int32_t ntiles,
-            int64_t* __restrict__ tile_offsets, int64_t limit,
-            const int64_t* __restrict__ emitted, int64_t* __restrict__ emitted_out) {
-  __shared__ int64_t vals[THREADS];
-  int64_t carry = 0;
-  for (int base = 0; base < ntiles; base += THREADS) {
-    const int i = base + threadIdx.x;
-    const int64_t v = i < ntiles ? tile_counts[i] : 0;
-    vals[threadIdx.x] = v;
-    __syncthreads();
-    for (int off = 1; off < THREADS; off <<= 1) {
-      const int64_t add = threadIdx.x >= off ? vals[threadIdx.x - off] : 0;
-      __syncthreads();
-      vals[threadIdx.x] += add;
-      __syncthreads();
+// the first `k` set bytes (each 0 or 1) of the four words, in row order
+__device__ __forceinline__ void keep_first(uint32_t (&w)[4], int64_t k) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const uint32_t bit = 1u << (8 * b);
+      if (w[q] & bit) {
+        if (k > 0)
+          --k;
+        else
+          w[q] &= ~bit;
+      }
     }
-    if (i < ntiles) tile_offsets[i] = carry + vals[threadIdx.x] - v;
-    carry += vals[THREADS - 1];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    const int64_t e = *emitted;
-    int64_t room = limit - e;
-    if (room < 0) room = 0;
-    *emitted_out = e + (carry < room ? carry : room);
   }
 }
 
 __global__ void __launch_bounds__(THREADS)
-mark_kernel(const bool* __restrict__ row_valid, int64_t n, const int64_t* __restrict__ tile_offsets,
-            int64_t limit, const int64_t* __restrict__ emitted, bool* __restrict__ keep) {
-  __shared__ int warp_sums[WARPS];
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * TILE;
-  const int64_t room = limit - *emitted;
-  int64_t live_before = tile_offsets[blockIdx.x];
-  for (int it = 0; it < ITEMS; ++it) {
-    const int64_t row = start + it * THREADS + threadIdx.x;
-    const bool live = row < n && row_valid[row];
-    int round_total;
-    const int rank = block_rank(live, warp_sums, &round_total);
-    if (row < n) keep[row] = live && live_before + rank < room;
-    live_before += round_total;
+limit_rank_kernel(const uint8_t* __restrict__ row_valid, int64_t n, int64_t limit,
+                  const int64_t* __restrict__ emitted, uint8_t* __restrict__ keep,
+                  int64_t* __restrict__ emitted_out, uint32_t* ticket, u64* status,
+                  uint32_t epoch, uint32_t ntiles) {
+  __shared__ uint32_t wsum[WARPS];
+  __shared__ uint32_t tile_id;
+  __shared__ uint32_t before_tile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    const uint32_t t = atomicAdd(ticket, 1u);
+    if (t == ntiles - 1) *ticket = 0;  // every ticket is taken
+    tile_id = t;
+  }
+  __syncthreads();
+  const uint32_t t = tile_id;
+  const bool last = t == ntiles - 1;
+  const int64_t e = *emitted;
+  const int64_t room = limit - e;
+  const int64_t row0 = static_cast<int64_t>(t) * TILE + threadIdx.x * VEC;
+  const bool whole = row0 + VEC <= n;
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  if (room > 0) {
+    if (whole && (reinterpret_cast<uintptr_t>(row_valid) & 15) == 0) {
+      const uint4 v = __ldcs(reinterpret_cast<const uint4*>(row_valid + row0));
+      w[0] = v.x;
+      w[1] = v.y;
+      w[2] = v.z;
+      w[3] = v.w;
+    } else {
+      for (int i = 0; i < VEC && row0 + i < n; ++i)
+        w[i >> 2] |= static_cast<uint32_t>(row_valid[row0 + i]) << (8 * (i & 3));
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) w[q] = ones(w[q]);
+    const uint32_t cnt = __popc(w[0]) + __popc(w[1]) + __popc(w[2]) + __popc(w[3]);
+    // the block's exclusive scan of the threads' counts
+    uint32_t x = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) wsum[warp] = x;
+    __syncthreads();
+    uint32_t in_block = x - cnt, total = 0;
+#pragma unroll
+    for (int k = 0; k < WARPS; ++k) {
+      const uint32_t s = wsum[k];
+      in_block += k < warp ? s : 0;
+      total += s;
+    }
+    // warp 0: publish, look back, publish the inclusive prefix
+    if (warp == 0) {
+      u64* mine = status + t;
+      uint32_t prefix = 0;
+      if (t == 0) {
+        if (lane == 0)
+          *reinterpret_cast<volatile u64*>(mine) = status_word(epoch, FLAG_INCLUSIVE, total);
+      } else {
+        if (lane == 0)
+          *reinterpret_cast<volatile u64*>(mine) = status_word(epoch, FLAG_AGGREGATE, total);
+        int64_t k = static_cast<int64_t>(t) - 1;  // the window's newest tile
+        for (;;) {
+          const int64_t idx = k - lane;
+          u64 v;
+          bool ready;
+          do {
+            v = idx >= 0 ? *reinterpret_cast<const volatile u64*>(status + idx)
+                         : status_word(epoch, FLAG_INCLUSIVE, 0);
+            ready = static_cast<uint32_t>(v >> 34) == epoch && ((v >> 32) & 3ULL) != 0;
+          } while (!__all_sync(0xffffffffu, ready));
+          const unsigned inc = __ballot_sync(0xffffffffu, ((v >> 32) & 3ULL) == FLAG_INCLUSIVE);
+          const int stop = inc ? __ffs(inc) - 1 : 31;
+          uint32_t c = lane <= stop ? static_cast<uint32_t>(v) : 0u;
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
+          prefix += c;
+          if (inc) break;
+          k -= 32;
+        }
+        if (lane == 0)
+          *reinterpret_cast<volatile u64*>(mine) =
+              status_word(epoch, FLAG_INCLUSIVE, prefix + total);
+      }
+      if (lane == 0) before_tile = prefix;
+    }
+    __syncthreads();
+    const int64_t before = static_cast<int64_t>(before_tile) + in_block;
+    const int64_t allowed = room - before;
+    if (allowed <= 0) {
+      w[0] = w[1] = w[2] = w[3] = 0u;
+    } else if (allowed < cnt) {
+      keep_first(w, allowed);
+    }
+    if (last && threadIdx.x == 0) {
+      const int64_t live = static_cast<int64_t>(before_tile) + total;
+      *emitted_out = e + (live < room ? live : room);
+    }
+  } else if (last && threadIdx.x == 0) {
+    *emitted_out = e;
+  }
+  if (whole) {
+    __stcs(reinterpret_cast<uint4*>(keep + row0), make_uint4(w[0], w[1], w[2], w[3]));
+  } else {
+    for (int i = 0; i < VEC && row0 + i < n; ++i)
+      keep[row0 + i] = static_cast<uint8_t>(w[i >> 2] >> (8 * (i & 3)));
   }
 }
 
@@ -113,25 +197,24 @@ const char* presto_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-int presto_limit_tiles(int64_t n) { return static_cast<int>((n + TILE - 1) / TILE); }
+int presto_limit_tile() { return TILE; }
 
-// row_valid, keep: n bools; emitted, emitted_out: one int64 each;
-// scratch: presto_limit_tiles(n) int32 followed by as many int64 (the
-// int64 part 8-byte aligned).
+// row_valid: n bools; keep: n bools, 16-byte aligned; emitted,
+// emitted_out: one int64 each; ticket: one uint32, 0 between calls;
+// status: ceil(n / TILE) uint64 whose epochs are not `epoch` (zeroed
+// once, per stream); epoch: 1 .. 2^30 - 1, new for every call on the
+// stream. One launch; reads nothing back.
 int presto_limit_rank(const void* row_valid, int64_t n, int64_t limit, const void* emitted,
-                      void* keep, void* emitted_out, void* counts, void* offsets,
-                      void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int ntiles = presto_limit_tiles(n);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool* rv = static_cast<const bool*>(row_valid);
-  const int64_t* em = static_cast<const int64_t*>(emitted);
-  count_kernel<<<ntiles, THREADS, 0, s>>>(rv, n, static_cast<int32_t*>(counts));
-  scan_kernel<<<1, THREADS, 0, s>>>(static_cast<const int32_t*>(counts), ntiles,
-                                    static_cast<int64_t*>(offsets), limit, em,
-                                    static_cast<int64_t*>(emitted_out));
-  mark_kernel<<<ntiles, THREADS, 0, s>>>(rv, n, static_cast<const int64_t*>(offsets), limit,
-                                         em, static_cast<bool*>(keep));
+                      void* keep, void* emitted_out, void* ticket, void* status,
+                      uint32_t epoch, void* stream) {
+  if (n < 1 || n > 0x7fffffffLL || epoch == 0 || epoch > 0x3fffffffu ||
+      (reinterpret_cast<uintptr_t>(keep) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uint32_t ntiles = static_cast<uint32_t>((n + TILE - 1) / TILE);
+  limit_rank_kernel<<<ntiles, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(row_valid), n, limit, static_cast<const int64_t*>(emitted),
+      static_cast<uint8_t*>(keep), static_cast<int64_t*>(emitted_out),
+      static_cast<uint32_t*>(ticket), static_cast<u64*>(status), epoch, ntiles);
   return static_cast<int>(cudaGetLastError());
 }
 

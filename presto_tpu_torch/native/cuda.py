@@ -64,7 +64,7 @@ SOURCES = {
 }
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-_U64 = ctypes.c_uint64
+_U64, _U32 = ctypes.c_uint64, ctypes.c_uint32
 #: C entry points per family: name -> (restype, argtypes). Pointer
 #: arrays (host arrays of device addresses) are passed as void*.
 SIGNATURES = {
@@ -210,14 +210,12 @@ SIGNATURES = {
     },
     "gather_rows": {
         "presto_gather_max_arrays": (ctypes.c_int, []),
-        "presto_gather_rows": (
-            ctypes.c_int, [_P, _I32, _P, _P, _P, _P, _P, _I32, _P, _I64, _P,
-                           _P, _P]),
+        "presto_gather_rows": (ctypes.c_int, [_P, _P, _I64, _P, _P, _P]),
     },
     "limit_rank": {
-        "presto_limit_tiles": (ctypes.c_int, [_I64]),
+        "presto_limit_tile": (ctypes.c_int, []),
         "presto_limit_rank": (
-            ctypes.c_int, [_P, _I64, _I64, _P, _P, _P, _P, _P, _P]),
+            ctypes.c_int, [_P, _I64, _I64, _P, _P, _P, _P, _P, _U32, _P]),
     },
     "state_shrink": {
         "presto_state_shrink": (ctypes.c_int, [_P, _P, _P, _I32, _P]),
@@ -336,5 +334,11 @@ def check(lib: ctypes.CDLL, status: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The raw handle of `device`'s current CUDA stream (read without
+    making a torch.cuda.Stream object: this is on every launch's host
+    path)."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = getattr(device, "index", None)
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -17,6 +17,7 @@ probe row always finds its build row.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import threading
 from typing import List, Optional, Sequence, Tuple
@@ -948,7 +949,152 @@ def _limit_scalar(n: int, dev) -> torch.Tensor:
     return hit[1]
 
 
-def _gather_rows_cuda(parts, perm, rows, limit):
+#: bytes of one K26 record (csrc/gather_rows.cu REC_WORDS x 4)
+GATHER_RECORD_BYTES = 32
+#: what one random read of HBM costs the card, in bytes of sequential
+#: traffic (two 32-byte sectors; fits the sweep of chip_smoke.py
+#: `measure_gather_sweep` on the H100: records pay from ~15% far rows at
+#: 2^24 rows of ORDER_LINES' arrays, ~36% at 2^22, never at 2^21)
+GATHER_RANDOM_BYTES = 64
+#: the card's L2 (H100: 50 MB): sources that fit it are read where they
+#: lie, and of larger ones only the share beyond it costs HBM reads
+GATHER_L2_BYTES = 50 << 20
+#: adjacent pairs of the permutation every K26 block samples, and the
+#: rows apart beyond which a pair counts as far (csrc/gather_rows.cu
+#: PROBE, NEAR)
+GATHER_PROBE = 256
+GATHER_NEAR = 8
+
+
+def gather_launches(count: int, nsrc: int) -> List[Tuple[int, int]]:
+    """K26's launches for `count` arrays of `nsrc` sources: [lo, hi) of
+    each (at most GATHER_MAX_ARRAYS arrays and GATHER_MAX_SLOTS source
+    addresses a launch; one launch with no array when there is none)."""
+    per = min(GATHER_MAX_ARRAYS, GATHER_MAX_SLOTS // nsrc)
+    return [(lo, min(lo + per, count)) for lo in range(0, max(count, 1), per)]
+
+
+def gather_plan(sizes: Sequence[int], bools: Sequence[bool],
+                valid_read: bool, rows: int, src_rows: int,
+                stage: Optional[bool] = None):
+    """K26's layout of one launch's arrays (csrc/gather_rows.cu `Plan`):
+    (groups, need). Groups are (stride, [(array, byte, bit), ...]), the
+    staged ones first. `sizes[c]` is array c's element bytes, `bools[c]`
+    whether it is a bool array (a mask or a BOOLEAN column);
+    `valid_read`: the launch reads the sources' row_valid.
+
+    The arrays are packed into records of at most GATHER_RECORD_BYTES,
+    the wider elements first (each at an offset aligned to its width),
+    then the bools, one bit each (`bit`; -1 for a whole element). A
+    record of two or more arrays is a staged group: the pre-pass writes
+    it for every live source row (16 or 32 bytes, its `stride`) and the
+    gather reads it once a live row; a lone array is a group of stride
+    0, read where it lies.
+
+    Whether the records run is the kernel's to see: `need` is the count
+    of far pairs among the GATHER_PROBE it samples (`gather_far`) from
+    which the random reads they save, one each per array they replace
+    and per far row (row_valid's among them: a staged launch reads it
+    from a bitmap in the L2), times the share of the sources beyond the
+    L2, outweigh the pre-pass's bytes. Nothing is staged where that
+    could not happen even with every row far (sources that fit the L2
+    among them). `stage` True stages with need 0 (always), False
+    never."""
+    direct = ([(0, [(c, 0, -1)]) for c in range(len(sizes))], 0)
+    reads = len(sizes) + int(valid_read)
+    src_bytes = src_rows * (sum(sizes) + int(valid_read))
+    beyond = src_bytes - GATHER_L2_BYTES
+    # at best one read a row in place of every array's: where even that
+    # does not pay for reading the arrays once, nothing is staged
+    if stage is False or stage is None and (
+            beyond <= 0 or rows * (reads - 1) * GATHER_RANDOM_BYTES * beyond
+            < src_bytes * src_bytes):
+        return direct
+    bins: list = []  # [bytes used, members]
+
+    def room(need):
+        b = next((b for b in bins
+                  if b[0] + need <= GATHER_RECORD_BYTES), None)
+        if b is None:
+            b = [0, []]
+            bins.append(b)
+        return b
+    for c in sorted((c for c, b in enumerate(bools) if not b),
+                    key=lambda c: -sizes[c]):
+        b = room(sizes[c])
+        b[1].append((c, b[0], -1))
+        b[0] += sizes[c]
+    byte = None  # [bin, byte, next bit] of the bools
+    for c in (c for c, b in enumerate(bools) if b):
+        if byte is None or byte[2] == 8:
+            b = room(1)
+            byte = [b, b[0], 0]
+            b[0] += 1
+        byte[0][1].append((c, byte[1], byte[2]))
+        byte[2] += 1
+    staged = [b for b in bins if len(b[1]) > 1]
+    if not staged:
+        return direct
+    stride = [16 if b[0] <= 16 else 32 for b in staged]
+    groups = [(w, b[1]) for w, b in zip(stride, staged)] + [
+        (0, b[1]) for b in bins if len(b[1]) == 1]
+    if stage:
+        return groups, 0
+    # far samples (of GATHER_PROBE) at which far rows x reads saved x
+    # GATHER_RANDOM_BYTES x the share beyond the L2 reach the
+    # pre-pass's bytes
+    cost = src_rows * (sum(sizes[c] for b in staged for c, _, _ in b[1])
+                       + sum(stride)) * src_bytes
+    gain = rows * (reads - len(bins)) * GATHER_RANDOM_BYTES * beyond
+    need = max(1, -(-cost * GATHER_PROBE // gain))
+    return (groups, need) if need <= GATHER_PROBE else direct
+
+
+def gather_far(perm: torch.Tensor, rows: int) -> int:
+    """The far pairs K26's probe counts over the first `rows` entries of
+    `perm` (csrc/gather_rows.cu `stage_runs`): pairs (perm[j], perm[j +
+    1]) more than GATHER_NEAR rows apart, thread t's j in the t-th of
+    GATHER_PROBE segments of [0, rows - 1) at a hashed offset. A host
+    read: for tests and measurements."""
+    if rows < 2:
+        return 0
+    seg = (rows - 1) // GATHER_PROBE
+    j = [t * seg + ((((t + 1) * 0x9E3779B97F4A7C15) & (2 ** 64 - 1)) >> 11)
+         % seg if seg else t * (rows - 1) // GATHER_PROBE
+         for t in range(GATHER_PROBE)]
+    j = torch.tensor(j, device=perm.device)
+    return int(((perm[j + 1] - perm[j]).abs() > GATHER_NEAR).sum())
+
+
+def gather_launch_plans(cols, has_valid: bool, limit_given: bool,
+                        rows: int, src_rows: int, nsrc: int,
+                        stage: Optional[bool] = None):
+    """K26's launches for a call: per launch ([lo, hi) of its arrays,
+    its `gather_plan` (groups, need), whether it reads row_valid).
+    `cols` are the first source's (data, mask) pairs; the arrays are
+    each column's data, then its mask where it has one. A launch reads
+    the sources' row_valid, where they have one, when it writes the
+    output row_valid (the first) or ANDs a mask with liveness (every
+    mask under a limit)."""
+    sizes, bools, ands = [], [], []
+    for d, m in cols:
+        sizes.append(d.element_size())
+        bools.append(d.dtype == torch.bool)
+        ands.append(False)
+        if m is not None:
+            sizes.append(1)
+            bools.append(True)
+            ands.append(limit_given)
+    plans = []
+    for lo, hi in gather_launches(len(sizes), nsrc):
+        valid_read = has_valid and (lo == 0 or any(ands[lo:hi]))
+        plans.append(((lo, hi), gather_plan(sizes[lo:hi], bools[lo:hi],
+                                            valid_read, rows, src_rows,
+                                            stage), valid_read))
+    return plans
+
+
+def _gather_rows_cuda(parts, perm, rows, limit, stage=None):
     from presto_tpu_torch.native import cuda
     dev = perm.device
     cols, valids, nrows = _check_part_cols(parts, dev, "gather_rows",
@@ -959,13 +1105,23 @@ def _gather_rows_cuda(parts, perm, rows, limit):
                          f"{perm.shape[0]}")
     check_rows(perm, perm.shape[0], dev, (torch.int64,),
                "gather_rows: permutation")
-    first = cols[0]
-    out = [(torch.empty(rows, dtype=d.dtype, device=dev),
-            None if m is None else torch.empty(rows, dtype=torch.bool,
-                                               device=dev))
-           for d, m in first]
+    has_valid = valids[0] is not None
     out_valid = torch.empty(rows, dtype=torch.bool, device=dev) \
-        if valids[0] is not None or limit is not None else None
+        if has_valid or limit is not None else None
+    # every array: [destination, bytes, AND with liveness, its sources'
+    # addresses], a column's data then its mask
+    and_live = int(limit is not None)
+    arrays, out = [], []
+    for j, (d, m) in enumerate(cols[0]):
+        od = torch.empty(rows, dtype=d.dtype, device=dev)
+        arrays.append([od.data_ptr(), d.element_size(), 0,
+                       *(c[j][0].data_ptr() for c in cols)])
+        om = None
+        if m is not None:
+            om = torch.empty(rows, dtype=torch.bool, device=dev)
+            arrays.append([om.data_ptr(), 1, and_live,
+                           *(c[j][1].data_ptr() for c in cols)])
+        out.append((od, om))
     if rows == 0:
         return out, out_valid
     if limit is not None:
@@ -976,30 +1132,39 @@ def _gather_rows_cuda(parts, perm, rows, limit):
     offs = [0]
     for n in nrows:
         offs.append(offs[-1] + n)
-    # arrays: (one address per source, destination, bytes, AND with
-    # liveness)
-    arrays = []
-    for j, (od, om) in enumerate(out):
-        arrays.append(([c[j][0] for c in cols], od, first[j][0]
-                       .element_size(), 0))
-        if om is not None:
-            arrays.append(([c[j][1] for c in cols], om, 1,
-                           int(limit is not None)))
+    total = offs[-1]
+    head = [*offs, *(0 if v is None else v.data_ptr() for v in valids)]
     lib = cuda.library("gather_rows")
-    per = min(GATHER_MAX_ARRAYS, GATHER_MAX_SLOTS // nsrc)
-    for lo in range(0, max(len(arrays), 1), per):
-        run = arrays[lo:lo + per]
-        head = lo == 0
+    stream = cuda.stream_ptr(dev)
+    for (lo, hi), (groups, need), _ in gather_launch_plans(
+            cols[0], has_valid, limit is not None, rows, total, nsrc, stage):
+        run = arrays[lo:hi]
+        first = lo == 0
+        recs = sum(g[0] for g in groups)
+        # the records, then the live bitmap (one allocation)
+        buf = torch.empty(total * recs + (-(-total // 32) * 4 if has_valid
+                                          else 0),
+                          dtype=torch.uint8, device=dev) if recs else None
+        base = 0 if buf is None else buf.data_ptr()
+        desc = [nsrc, len(groups), sum(1 for g in groups if g[0]),
+                len(run), base + total * recs if recs and has_valid else 0,
+                need, *head]
+        # per group (stride, first array, records), then per array (dst,
+        # bytes, byte, bit, and_live, sources)
+        tail, at, k = [], 0, 0
+        for stride, members in groups:
+            desc += (stride, k, base + total * at if stride else 0)
+            at += stride
+            k += len(members)
+            for c, byte, bit in members:
+                a = run[c]
+                tail += (a[0], a[1], byte, bit, *a[2:])
+        # an int64 array.array: a fifth of a ctypes array's host time
+        desc = array.array("q", desc + tail)
         status = lib.presto_gather_rows(
-            _ptrs([t for a in run for t in a[0]]), ctypes.c_int32(nsrc),
-            _ptrs_raw(offs), _ptrs(valids), _ptrs([a[1] for a in run]),
-            _i32s([a[2] for a in run]), _i32s([a[3] for a in run]),
-            ctypes.c_int32(len(run)), ctypes.c_void_p(perm.data_ptr()),
-            ctypes.c_int64(rows),
-            ctypes.c_void_p(0 if out_valid is None or not head
-                            else out_valid.data_ptr()),
-            ctypes.c_void_p(0 if limit is None else limit.data_ptr()),
-            ctypes.c_void_p(cuda.stream_ptr(dev)))
+            desc.buffer_info()[0], perm.data_ptr(), rows,
+            out_valid.data_ptr() if first and out_valid is not None else 0,
+            0 if limit is None else limit.data_ptr(), stream)
         cuda.check(lib, status, "gather_rows")
         GATHER_ROWS_KERNEL.launches += 1
         if nsrc > 2:
@@ -1010,9 +1175,11 @@ def _gather_rows_cuda(parts, perm, rows, limit):
 def gather_rows(parts: Sequence[SortPart], perm: torch.Tensor,
                 rows: Optional[int] = None, limit=None):
     """K26: every column (data and mask) and row_valid of up to
-    MAX_SOURCES sources moved through `perm` in one launch (see
-    `gather_rows_plain`); the later sources need no concatenation.
-    The CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
+    MAX_SOURCES sources moved through `perm` in one call (see
+    `gather_rows_plain`); the later sources need no concatenation. The
+    kernel stages records where its probe of `perm` finds the rows far
+    apart enough to pay (`gather_plan`). The CUDA kernel on CUDA
+    tensors, the plain version on CPU tensors."""
     if perm.device.type == "cpu":
         return gather_rows_plain(parts, perm, rows, limit)
     return _gather_rows_cuda(parts, perm, rows, limit)

@@ -21,7 +21,7 @@ is its plain version.
 
 from __future__ import annotations
 
-import ctypes
+import threading
 from typing import Sequence, Tuple
 
 import torch
@@ -135,6 +135,44 @@ def limit_rank_plain(row_valid: torch.Tensor, n: int,
     return keep, emitted + keep.sum()
 
 
+#: rows of one K27 tile (csrc/limit_rank.cu TILE: 256 threads x 16)
+LIMIT_TILE = 4096
+#: most rows K27 takes: its status words hold 31-bit counts
+LIMIT_MAX_ROWS = (1 << 31) - 1
+#: K27's look-back epochs are 30 bits; 0 is the zeroed words' epoch
+_LIMIT_EPOCHS = 1 << 30
+#: K27's scratch per (device, stream): [its ticket counter (the
+#: kernel leaves it at 0), the status words of as many tiles as the
+#: largest call had so far, the last epoch handed out]
+_LIMIT_SCRATCH: dict = {}
+#: held around a call's epoch and launch: host threads that share a
+#: stream (a worker's tasks) would otherwise race on the epoch
+_LIMIT_LOCK = threading.Lock()
+
+
+def limit_tiles(rows: int) -> int:
+    """K27's tiles (one block each) for `rows` rows."""
+    return -(-rows // LIMIT_TILE)
+
+
+def _limit_scratch(dev, stream: int, tiles: int):
+    """K27's scratch for a call of `tiles` tiles on `stream`, with the
+    call's epoch taken: [ticket, status, epoch]. A larger status array
+    replaces a smaller one (zeroed words carry epoch 0, which no call
+    takes); when the epochs wrap the words are zeroed again."""
+    hit = _LIMIT_SCRATCH.get((dev, stream))
+    if hit is None:
+        hit = [torch.zeros(1, dtype=torch.int64, device=dev), None, 0]
+        _LIMIT_SCRATCH[(dev, stream)] = hit
+    if hit[1] is None or hit[1].shape[0] < tiles:
+        hit[1] = torch.zeros(tiles, dtype=torch.int64, device=dev)
+    hit[2] += 1
+    if hit[2] == _LIMIT_EPOCHS:
+        hit[1].zero_()
+        hit[2] = 1
+    return hit
+
+
 def _limit_rank_cuda(row_valid: torch.Tensor, n: int,
                      emitted: torch.Tensor):
     from presto_tpu_torch.native import cuda
@@ -147,24 +185,27 @@ def _limit_rank_cuda(row_valid: torch.Tensor, n: int,
         raise ValueError("limit_rank: the emitted count must be one int64 "
                          f"on {dev}; got {emitted.dtype} "
                          f"{tuple(emitted.shape)} on {emitted.device}")
-    keep = torch.empty(rows, dtype=torch.bool, device=dev)
-    out = torch.empty((), dtype=torch.int64, device=dev)
+    if rows > LIMIT_MAX_ROWS:
+        raise ValueError(f"limit_rank: {rows} rows; its counts hold at most "
+                         f"{LIMIT_MAX_ROWS}")
+    # one allocation: the count in word 0, keep from byte 16 (16-byte
+    # aligned)
+    buf = torch.empty(2 + -(-rows // 8), dtype=torch.int64, device=dev)
+    out = buf[0]
+    keep = buf.view(torch.bool)[16:16 + rows]
     if rows == 0:
         out.copy_(emitted.reshape(()))
         return keep, out
     lib = cuda.library("limit_rank")
-    tiles = lib.presto_limit_tiles(ctypes.c_int64(rows))
-    counts = torch.empty(tiles, dtype=torch.int32, device=dev)
-    offsets = torch.empty(tiles, dtype=torch.int64, device=dev)
-    status = lib.presto_limit_rank(
-        ctypes.c_void_p(row_valid.data_ptr()), ctypes.c_int64(rows),
-        ctypes.c_int64(int(n)),
-        ctypes.c_void_p(emitted.data_ptr()),
-        ctypes.c_void_p(keep.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(counts.data_ptr()),
-        ctypes.c_void_p(offsets.data_ptr()),
-        ctypes.c_void_p(cuda.stream_ptr(dev)))
-    cuda.check(lib, status, "limit_rank")
+    stream = cuda.stream_ptr(dev)
+    with _LIMIT_LOCK:
+        ticket, status, epoch = _limit_scratch(dev, stream,
+                                               limit_tiles(rows))
+        code = lib.presto_limit_rank(
+            row_valid.data_ptr(), rows, int(n), emitted.data_ptr(),
+            keep.data_ptr(), out.data_ptr(), ticket.data_ptr(),
+            status.data_ptr(), epoch, stream)
+    cuda.check(lib, code, "limit_rank")
     LIMIT_RANK_KERNEL.launches += 1
     return keep, out
 

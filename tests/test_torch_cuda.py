@@ -2383,6 +2383,298 @@ def test_k27_limit_over_batches_without_host_sync(hopper):
     assert int(emitted) == 2_000_000
 
 
+def _k26_parts(rng, n, dts, dev, nsrc=1, masks=True, valid=True):
+    """Columns of `dts` (each width, -0.0 and NaN among the floats) with
+    masks and a row_valid, split over `nsrc` sources at random cuts."""
+    cols = [(_sort_key(rng, dt, n), torch.from_numpy(rng.random(n) < 0.8)
+             if masks else None) for dt in dts]
+    v = torch.from_numpy(rng.random(n) < 0.6) if valid else None
+    cuts = sorted(rng.choice(np.arange(1, n), nsrc - 1,
+                             replace=False).tolist()) if nsrc > 1 else []
+    bounds = [0] + cuts + [n]
+    return [([(d[a:b].to(dev), None if m is None else m[a:b].to(dev))
+              for d, m in cols], None if v is None else v[a:b].to(dev))
+            for a, b in zip(bounds, bounds[1:])], v
+
+
+def _k26_perm(rng, n, kind, valid):
+    """The identity, a random permutation, K24's shape (live rows first
+    in random (key) order, dead rows after in slot order), or runs of
+    four consecutive live rows in random order (a hash sort's)."""
+    if kind == "identity":
+        return torch.arange(n)
+    if kind == "random":
+        return torch.from_numpy(rng.permutation(n))
+    live = valid if valid is not None else torch.ones(n, dtype=torch.bool)
+    idx = torch.arange(n)
+    rows = idx[live]
+    if kind == "runs":
+        k = rows.shape[0] // 4 * 4
+        rows = torch.cat([rows[:k].view(-1, 4)[torch.from_numpy(
+            rng.permutation(k // 4))].reshape(-1), rows[k:]])
+    else:
+        rows = rows[torch.from_numpy(rng.permutation(rows.shape[0]))]
+    return torch.cat([rows, idx[~live]])
+
+
+def _k26_check(parts, perm, rows=None, limit=None, stage=True, launches=1):
+    """K26 (`launches` launches) against `gather_rows_plain` bit for
+    bit: every array, the dead rows' data included, and row_valid."""
+    before = tc.GATHER_ROWS_KERNEL.launches
+    got, gv = tc._gather_rows_cuda(parts, perm, rows, limit, stage)
+    assert tc.GATHER_ROWS_KERNEL.launches == before + launches
+    want, wv = tc.gather_rows_plain(parts, perm, rows, limit)
+    torch.cuda.synchronize()
+    assert (gv is None) == (wv is None)
+    assert gv is None or torch.equal(gv, wv)
+    for (gd, gm), (wd, wm) in zip(got, want):
+        assert gd.dtype == wd.dtype
+        assert torch.equal(gd.view(torch.uint8) if gd.is_floating_point()
+                           else gd, wd.view(torch.uint8)
+                           if wd.is_floating_point() else wd)
+        assert (gm is None) == (wm is None)
+        assert gm is None or torch.equal(gm, wm)
+
+
+@pytest.mark.parametrize("n,nsrc", [(n, nsrc)
+                                    for n in (1, 31, 32, 33, (1 << 20) + 7)
+                                    for nsrc in (1, 2, 8) if nsrc <= n])
+@pytest.mark.parametrize("kind", ["identity", "random", "k24"])
+def test_k26_every_width_matches_plain(hopper, monkeypatch, n, nsrc, kind):
+    """Every width (BOOLEAN to BIGINT, REAL, DOUBLE), 1, 2 or 8 sources
+    (no more than rows), three permutations, a ragged last block: all
+    rows, the first rows under an int limit, under a device limit, with
+    the arrays staged as records (however small the sources), read
+    where they lie, and as the probe decides."""
+    monkeypatch.setattr(tc, "GATHER_L2_BYTES", 0)
+    rng = np.random.default_rng(n * 10 + nsrc)
+    parts, valid = _k26_parts(rng, n, _SORT_DTYPES, hopper, nsrc)
+    perm = _k26_perm(rng, n, kind, valid).to(hopper)
+    rows = max(n - 3, 1)
+    _k26_check(parts, perm)
+    _k26_check(parts, perm, rows, 17)
+    _k26_check(parts, perm, rows, torch.tensor(n // 2, device=hopper))
+    _k26_check(parts, perm, None, n // 3, stage=False)
+    _k26_check(parts, perm, rows, n // 3, stage=None)
+
+
+@pytest.mark.parametrize("nbools", [0, 1, 2, 3, 5])
+@pytest.mark.parametrize("stage", [True, False], ids=["staged", "direct"])
+@pytest.mark.parametrize("limit", [None, 1000], ids=["no_limit", "limit"])
+def test_k26_bool_arrays_match_plain(hopper, monkeypatch, nbools, stage,
+                                     limit):
+    """0 to 5 bool arrays a source (BOOLEAN columns without masks, with
+    and without row_valid), as bits of a staged record or read one by
+    one, beside a BIGINT and a REAL column."""
+    monkeypatch.setattr(tc, "GATHER_L2_BYTES", 0)
+    rng = np.random.default_rng(90 + nbools)
+    n = 50_000
+    dts = [torch.bool] * nbools + [torch.int64, torch.float32]
+    for valid in (True, False):
+        parts, v = _k26_parts(rng, n, dts, hopper, 2, masks=False,
+                              valid=valid)
+        perm = _k26_perm(rng, n, "k24", v).to(hopper)
+        _k26_check(parts, perm, None, limit, stage)
+        live = valid or limit is not None
+        groups, _ = tc.gather_plan(
+            [d.element_size() for d, _ in parts[0][0]],
+            [d.dtype == torch.bool for d, _ in parts[0][0]],
+            valid and live, n, n, stage)
+        assert any(g[0] for g in groups) == stage
+
+
+@pytest.mark.parametrize("nsrc", [1, 3])
+@pytest.mark.parametrize("valid", [True, False], ids=["valid", "no_valid"])
+def test_k26_records_beside_lone_arrays(hopper, monkeypatch, nsrc, valid):
+    """Five BIGINT columns and a BOOLEAN one, no masks: a record of four
+    BIGINTs, one of the fifth and the bool, read from records for live
+    rows and where they lie for dead ones; and five BIGINTs alone, four
+    in a record and one read where it lies."""
+    monkeypatch.setattr(tc, "GATHER_L2_BYTES", 0)
+    rng = np.random.default_rng(96 + nsrc)
+    n = 30_000
+    for dts in ([torch.int64] * 5 + [torch.bool], [torch.int64] * 5):
+        parts, v = _k26_parts(rng, n, dts, hopper, nsrc, masks=False,
+                              valid=valid)
+        perm = _k26_perm(rng, n, "k24", v).to(hopper)
+        groups, _ = tc.gather_plan([8] * 5 + [1] * (len(dts) - 5),
+                                   [False] * 5 + [True] * (len(dts) - 5),
+                                   valid, n, n, True)
+        assert [g[0] for g in groups] == ([32, 16] if len(dts) == 6
+                                          else [32, 0])
+        _k26_check(parts, perm, n - 10, 77)
+        _k26_check(parts, perm)
+
+
+@pytest.mark.parametrize("nsrc", [1, 2, 8])
+def test_k26_more_arrays_than_a_launch(hopper, monkeypatch, nsrc):
+    """More arrays than one launch takes (42 columns with masks): the
+    launches together equal the plain version, row_valid from the
+    first, the limit's liveness in every one; staged (several records a
+    row) and read where they lie."""
+    monkeypatch.setattr(tc, "GATHER_L2_BYTES", 0)
+    rng = np.random.default_rng(95 + nsrc)
+    n = 20_000
+    parts, v = _k26_parts(rng, n, [torch.int64, torch.bool, torch.int16] * 14,
+                          hopper, nsrc)
+    perm = _k26_perm(rng, n, "random", v).to(hopper)
+    nchunks = len(tc.gather_launches(84, nsrc))
+    assert nchunks > 1
+    _k26_check(parts, perm, None, 5_000, launches=nchunks)
+    _k26_check(parts, perm, n - 1, None, stage=False, launches=nchunks)
+
+
+@pytest.mark.parametrize("kind", ["identity", "random", "k24", "runs"])
+@pytest.mark.parametrize("nsrc", [1, 3])
+def test_k26_probe_decides_and_matches_plain(hopper, monkeypatch, kind,
+                                             nsrc):
+    """Calls whose layout can pay (a need between 1 and the probe's
+    samples): the kernel's probe runs the records or the direct gather,
+    for near rows and far ones, and either way every array equals the
+    plain version's."""
+    monkeypatch.setattr(tc, "GATHER_L2_BYTES", 0)
+    rng = np.random.default_rng(100 + nsrc)
+    n = 300_000
+    parts, v = _k26_parts(rng, n, _SORT_DTYPES, hopper, nsrc)
+    perm = _k26_perm(rng, n, kind, v).to(hopper)
+    plans = tc.gather_launch_plans(parts[0][0], True, False, n, n, nsrc)
+    assert all(0 < need <= tc.GATHER_PROBE for _, (_, need), _ in plans)
+    _k26_check(parts, perm, None, None, stage=None)
+    _k26_check(parts, perm, n - 5, 100_000, stage=None)
+
+
+def test_k26_probe_matches_the_library(hopper):
+    """The host's probe constants are the kernel's."""
+    from presto_tpu_torch.native import cuda
+    lib = cuda.library("gather_rows")
+    assert lib.presto_gather_probe() == tc.GATHER_PROBE
+    assert lib.presto_gather_near() == tc.GATHER_NEAR
+
+
+#: rows of a K27 tile (csrc/limit_rank.cu TILE)
+_LIMIT_TILE = 4096
+
+
+def _k27_check(valid, n, emitted):
+    from presto_tpu_torch.ops import sort as tsort
+    before = tsort.LIMIT_RANK_KERNEL.launches
+    keep, out = tsort.limit_rank(valid, n, emitted)
+    assert tsort.LIMIT_RANK_KERNEL.launches == before + 1
+    pk, pe = tsort.limit_rank_plain(valid, n, emitted)
+    torch.cuda.synchronize()
+    assert torch.equal(keep, pk) and int(out) == int(pe)
+    return out
+
+
+@pytest.mark.parametrize("rows", [1, _LIMIT_TILE - 1, _LIMIT_TILE,
+                                  _LIMIT_TILE + 1, 1 << 21])
+@pytest.mark.parametrize("case", ["zero", "reached", "inside", "beyond"])
+def test_k27_matches_plain(hopper, rows, case):
+    """K27's keep mask and count equal the plain version's: limit 0, a
+    limit already reached (emitted >= n), a limit landing inside a
+    tile, and one past every live row; and on a row_valid that starts
+    off a 16-byte boundary."""
+    rng = np.random.default_rng(rows)
+    valid = torch.from_numpy(rng.random(rows + 1) < 0.6).to(hopper)
+    live = int(valid[:rows].sum())
+    n, e = {"zero": (0, 0), "reached": (50, 70),
+            "inside": (max(live // 2, 1) + 5, 5),
+            "beyond": (live + 10, 0)}[case]
+    emitted = torch.tensor(e, dtype=torch.int64, device=hopper)
+    _k27_check(valid[:rows], n, emitted)
+    _k27_check(valid[1:], n, emitted)
+
+
+def test_k27_tile_matches_the_library(hopper):
+    """The wrapper's tile count (`limit_tiles`) is the kernel's."""
+    from presto_tpu_torch.native import cuda
+    from presto_tpu_torch.ops import sort as tsort
+    assert cuda.library("limit_rank").presto_limit_tile() \
+        == tsort.LIMIT_TILE == _LIMIT_TILE
+
+
+def test_k27_calls_in_a_row_reuse_the_status(hopper):
+    """Calls on one stream, growing and shrinking, the count carried from
+    each to the next: each reuses the status words under a new epoch."""
+    rng = np.random.default_rng(97)
+    emitted = torch.zeros((), dtype=torch.int64, device=hopper)
+    for rows in (10_000, 3 * _LIMIT_TILE, 1 << 20, 777, 1 << 20, 5):
+        valid = torch.from_numpy(rng.random(rows) < 0.5).to(hopper)
+        emitted = _k27_check(valid, 600_000, emitted)
+
+
+def test_k26_k27_threads_share_a_stream(hopper):
+    """Host threads that launch K26 and K27 on one stream at once: every
+    call still equals the plain version."""
+    import threading
+    from presto_tpu_torch.ops import sort as tsort
+    rng = np.random.default_rng(98)
+    jobs = []
+    for k in range(6):
+        n = 60_000 + 4099 * k
+        parts, v = _k26_parts(rng, n, [torch.int64, torch.bool], hopper,
+                              1 + k % 2)
+        jobs.append((parts, _k26_perm(rng, n, "k24", v).to(hopper),
+                     torch.from_numpy(rng.random(n) < 0.5).to(hopper)))
+    errors = []
+
+    def run(parts, perm, valid):
+        try:
+            emitted = torch.zeros((), dtype=torch.int64, device=hopper)
+            for _ in range(10):
+                got, gv = tc.gather_rows(parts, perm, None, 9_000)
+                keep, out = tsort.limit_rank(valid, 20_000, emitted)
+            torch.cuda.synchronize()
+            want, wv = tc.gather_rows_plain(parts, perm, None, 9_000)
+            assert torch.equal(gv, wv) and all(
+                torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+                for g, w in zip(got, want))
+            pk, pe = tsort.limit_rank_plain(valid, 20_000, emitted)
+            assert torch.equal(keep, pk) and int(out) == int(pe)
+        except Exception as e:  # noqa: BLE001 -- reported below
+            errors.append(e)
+    threads = [threading.Thread(target=run, args=job) for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+
+
+def test_k26_k27_make_no_host_read(hopper, monkeypatch):
+    """K26 (staged, not, and as its probe decides, with an int and a
+    device limit) and K27
+    under torch's sync debug mode "error": neither waits on the
+    device."""
+    from presto_tpu_torch.ops import sort as tsort
+    monkeypatch.setattr(tc, "GATHER_L2_BYTES", 0)
+    rng = np.random.default_rng(99)
+    n = 100_000
+    parts, v = _k26_parts(rng, n, _SORT_DTYPES, hopper, 2)
+    perm = _k26_perm(rng, n, "k24", v).to(hopper)
+    valid = torch.from_numpy(rng.random(n) < 0.5).to(hopper)
+    emitted = torch.zeros((), dtype=torch.int64, device=hopper)
+    lim = torch.tensor(777, device=hopper)
+    tc.gather_rows(parts, perm, None, 5)  # builds and loads first
+    tsort.limit_rank(valid, 10, emitted)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [tc._gather_rows_cuda(parts, perm, n - 9, 5, True),
+               tc._gather_rows_cuda(parts, perm, None, lim, False),
+               tc._gather_rows_cuda(parts, perm, None, lim, None)]
+        keep, out = tsort.limit_rank(valid, 30_000, emitted)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for (cols, gv), (rows, limit) in zip(got, ((n - 9, 5), (None, lim),
+                                                (None, lim))):
+        want, wv = tc.gather_rows_plain(parts, perm, rows, limit)
+        assert torch.equal(gv, wv) and all(
+            torch.equal(g[1], w[1]) for g, w in zip(cols, want))
+    pk, pe = tsort.limit_rank_plain(valid, 30_000, emitted)
+    assert torch.equal(keep, pk) and int(out) == int(pe)
+
+
 def test_topn_constants_match_the_library(hopper):
     """The Python planner's view of K32's shared memory is the source's."""
     from presto_tpu_torch.native import cuda
