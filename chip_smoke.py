@@ -1000,6 +1000,8 @@ class Capture(Patches):
         self.k1 = {}   # query -> (rows, args)
         self.k2 = {}   # query -> (rows, batch, out_cap)
         self.big = {}  # kernel -> (rows, query, args)
+        #: K5's largest call per query: query -> (rows, args)
+        self.probe_at = {}
         #: K9 per layout: (output slots, query, args) of its largest
         #: call, and calls per (query, layout)
         self.expand = {}
@@ -1121,8 +1123,17 @@ class Capture(Patches):
             "row_hash", lambda keys, rv, ni: rv.shape[0]))
         self._patch(tj, "build_meta", keep(
             "join_build", lambda sh, k: sh.shape[0]))
-        self._patch(tj, "probe_search", keep(
-            "join_probe", lambda table, probe, *a: probe.capacity))
+        def probe(orig):
+            def rec(table, probe, *args):
+                self._keep("join_probe", probe.capacity,
+                           (table, probe, *args))
+                if probe.capacity > self.probe_at.get(self.query, (0,))[0]:
+                    self.probe_at[self.query] = (probe.capacity,
+                                                 (table, probe, *args))
+                return orig(table, probe, *args)
+            return rec
+
+        self._patch(tj, "probe_search", probe)
         self._patch(th, "segment_reduce", keep(
             "segment_reduce", lambda h1, *a: h1.shape[0]))
         # K7 at its largest probe + build; K8 at its largest batch
@@ -1442,6 +1453,11 @@ def measure_k4(torch, tj, args):
 
 
 def measure_k5(torch, tc, tj, args):
+    """K5 at one probe call against its plain version (lo_enc and h2
+    exactly), timed around the call beside its plain version and
+    torch.searchsorted of the probe's hashes; its device time from a
+    CUDA graph of the call (`graph_device_us`), its host time and the
+    build's shape."""
     table, probe, names, verify = args
     got = tj.probe_search(table, probe, names, verify)
     want = tj.probe_search_plain(table, probe, names, verify)
@@ -1462,6 +1478,8 @@ def measure_k5(torch, tc, tj, args):
                             probe.row_valid, True)
     library_ms = time_ms(lambda: torch.searchsorted(table.sorted_hash, h),
                          torch)
+    device_us = graph_device_us(
+        torch, lambda: tj.probe_search(table, probe, names, verify))
     keys = [probe.columns[k].astuple() for k in names]
     # probe keys, masks and row_valid read once; the build's sorted
     # hashes and bucket offsets read once, its second hashes only where
@@ -1471,11 +1489,14 @@ def measure_k5(torch, tc, tj, args):
         + nbytes(table.sorted_hash, table.part_starts) \
         + (nbytes(table.hash2) if checks_h2 else 8 * n) + 8 * n
     return {"probe_rows": n, "build_rows": int(table.sorted_hash.shape[0]),
+            "build_live": int(table.valid_count),
             "radix_bits": table.radix_bits,
             "unique_runs": table.unique_runs, "verify": verify,
             "matches": int((got[0] >= 0).sum()),
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "device_us": device_us,
+            "host_ms": host_ms(torch, lambda: tj.probe_search(
+                table, probe, names, verify), 50),
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
@@ -2516,6 +2537,9 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
         "df_distinct_set": measure_k22(torch, mods["df"],
                                        big["df_distinct_set"]),
         "df_apply": measure_k23(torch, mods["df"], big["df_apply"])}
+    # K5 at Q5's largest call too, beside its largest
+    check("q5" in cap.probe_at, "K5 was not called in Q5")
+    probe_q5 = measure_k5(torch, tc, tj, cap.probe_at["q5"][1])
     set_fits = None if cap.df_set_fits is None else (
         cap.df_set_fits[1],
         measure_k22(torch, mods["df"], cap.df_set_fits[2]))
@@ -2640,6 +2664,8 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
               **m, **({"calls": {qq: c.get("dynamic_filter", 0)
                                  for qq, c in calls.items()}}
                       if k.startswith("df_") else {})})
+    emit({"phase": "kernels", "kernel": "join_probe", "role": "q5 call",
+          "shape_from": "q5", **probe_q5})
     for layout, (q, m) in expand.items():
         emit({"phase": "kernels", "kernel": "join_expand",
               "shape_from": q, **m})
@@ -5074,6 +5100,29 @@ class ArgCapture:
         return False
 
 
+class CallLog:
+    """Every call of one module function while active, as (query,
+    args), calling through."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.calls = []
+        self.query = None
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.module, self.name)
+
+        def rec(*args):
+            self.calls.append((self.query, args))
+            return orig(*args)
+        setattr(self.module, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+        return False
+
+
 def _wave_rows(args):
     return sum(p[1].shape[0] for p in args[0] if p is not None)
 
@@ -5162,6 +5211,10 @@ def measure_k19(torch, tm, args):
             "live": [int(a.row_valid.sum()), int(b.row_valid.sum())],
             "keys": len(keys), "columns": len(a.names), "max_abs_err": 0.0,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "device_us": graph_device_us(torch,
+                                         lambda: tm.merge_pair(*args)),
+            "launches_per_call": launches_of(torch,
+                                             lambda: tm.merge_pair(*args)),
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
 
 
@@ -5194,6 +5247,35 @@ def launches_of(torch, fn) -> int:
               "cuGraphNodeGetType failed")
         kinds.append(kind.value)
     return kinds.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL
+
+
+def graph_device_us(torch, fn, calls=10, replays=5) -> float:
+    """Device microseconds of one call of `fn`: `calls` calls captured
+    in one CUDA graph (their kernels without the host's work between
+    them) and the graph replayed `replays` times back to back, timed
+    with CUDA events. A long process's profiler can drop device events;
+    a replay cannot."""
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    us = start.elapsed_time(end) * 1e3 / (calls * replays)
+    del graph
+    torch.cuda.synchronize()
+    return us
 
 
 def _profile_launch_us(torch, fn, names, calls=5):
@@ -5477,22 +5559,30 @@ def run_mesh_phases(torch, np, mods, dev, schema):
                               if label == "mesh_order" else None)})
     # K18 at the largest wave, K19 at the largest merge
     with ArgCapture(tsh, "wave_shuffle", _wave_rows) as waves_cap, \
-            ArgCapture(tm, "merge_pair",
-                       lambda a: a[0].capacity + a[1].capacity) as merges:
+            CallLog(tm, "merge_pair") as merges:
         for label in ("q18", "q3", "q1", "mesh_order"):
             waves_cap.query = merges.query = label
             runner.execute(MESH_QUERIES[label])
-    check(waves_cap.big is not None and merges.big is not None,
-          "the largest wave or merge was not captured")
+
+    def merge_rows(call):
+        return call[1][0].capacity + call[1][1].capacity
+    q1_merges = [c for c in merges.calls if c[0] == "q1"]
+    check(waves_cap.big is not None and bool(q1_merges),
+          "the largest wave or Q1's merges were not captured")
+    big_merge = max(merges.calls, key=merge_rows)
+    q1_small = min(q1_merges, key=merge_rows)
     k18 = measure_k18(torch, tsh, waves_cap.big[2])
     emit({"phase": "kernels", "kernel": "exchange_shuffle",
           "family": "spmd_shuffle", "shape_from": waves_cap.big[1], **k18,
           "launches": {q: launches[q]["exchange_shuffle"]
                        for q in MESH_QUERIES}})
-    k19 = measure_k19(torch, tm, merges.big[2])
+    k19 = measure_k19(torch, tm, big_merge[1])
     emit({"phase": "kernels", "kernel": "merge_pair", "family": "merge",
-          "shape_from": merges.big[1], **k19,
+          "shape_from": big_merge[0], **k19,
           "launches": {q: launches[q]["merge_pair"] for q in MESH_QUERIES}})
+    emit({"phase": "kernels", "kernel": "merge_pair", "family": "merge",
+          "role": "smallest merge", "shape_from": "q1",
+          **measure_k19(torch, tm, q1_small[1])})
     totals = {name: sum(launches[q][name] for q in MESH_QUERIES)
               for name in tk.COUNTERS}
     return {"exchange_shuffle": k18, "merge_pair": k19}, totals

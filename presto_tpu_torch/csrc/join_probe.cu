@@ -1,5 +1,6 @@
 // join_probe (K5): the candidate search of the hash-join probe, one
-// thread per probe row.
+// probe row a thread, over a grid of several waves of the card's
+// resident blocks.
 //
 // Replaces presto_tpu/ops/join.py `_probe_hashes` (:335) and
 // `_search_enc` (:353-379) with `common.bounded_searchsorted`: per probe
@@ -20,12 +21,18 @@
 // hash2, which the general expand uses to verify every candidate of a
 // duplicate-key run (h2_out is null, and nothing is stored, otherwise).
 //
-// What bounds it: memory latency, not bytes. A probe row reads its keys
-// (coalesced) and then ~log2(bucket size) + 3 dependent random reads of
-// the build arrays (a bucket holds ~1 row at k ~ log2(build)); with one
-// thread per row and tens of thousands of rows in flight, the gathers
-// overlap. The byte floor counts the key reads, the build's arrays the
-// search reads (hash2 only when step 3 checks it) and the outputs.
+// What bounds it, measured on the H100: at the main path's large calls
+// (a build of 2^18 slots, ~1 row a bucket) the L2's random sectors, about
+// 2.3 a row (the bucket's two offsets, the candidate's hash, a quarter
+// of the rows' hash2), not latency; at a small build searched whole
+// (k = 0) the search's dependent rounds, which hit L1. Several rows a
+// thread with their loads interleaved, and the build staged in shared
+// memory, were both measured slower at every call (the registers halve
+// the resident threads; L1 and shared memory are one array, so a small
+// build's lines already stay close): one row a thread, over at most
+// BLOCKS_PER_SM blocks an SM, each thread striding over the rest. The
+// byte floor counts the key reads, the build's arrays the search reads
+// (hash2 only when step 3 checks it) and the outputs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,6 +40,9 @@
 #include "probe_search.cuh"
 
 #define THREADS 256
+// most blocks launched an SM: 4 waves of the 8 blocks of THREADS an SM
+// holds at once (2048 threads), each thread striding over the rest
+#define BLOCKS_PER_SM 32
 
 __global__ void __launch_bounds__(THREADS)
 probe_search(const KeyGroups keys, const bool* __restrict__ row_valid, int64_t n,
@@ -58,9 +68,9 @@ const char* presto_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// Probe keys (flat, as presto_fill_key_groups takes
-// them, hashed over their groups in turn) against a build's sorted_hash[nbuild],
-// hash2[nbuild] and part_starts[2^k + 1]; writes lo_enc[n] and, when
+// Probe keys (flat, as presto_fill_key_groups takes them, hashed over
+// their groups in turn) against a build's sorted_hash, hash2 and
+// part_starts [2^k + 1] (2 for k = 0); writes lo_enc[n] and, when
 // h2_out is not null, h2[n].
 int presto_join_probe(const int64_t* key_data, const int64_t* key_mask, const int32_t* dtypes,
                       int32_t nkeys, const void* row_valid, int64_t n,
@@ -74,9 +84,9 @@ int presto_join_probe(const int64_t* key_data, const int64_t* key_mask, const in
   int device = 0, sms = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  int64_t want = (n + THREADS - 1) / THREADS;
-  int64_t cap = static_cast<int64_t>(sms) * 16;
-  int blocks = static_cast<int>(want < cap ? want : cap);
+  const int64_t want = (n + THREADS - 1) / THREADS;
+  const int64_t cap = static_cast<int64_t>(sms) * BLOCKS_PER_SM;
+  const int blocks = static_cast<int>(want < cap ? want : cap);
   probe_search<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       keys, static_cast<const bool*>(row_valid), n, static_cast<const int64_t*>(sorted_hash),
       static_cast<const int64_t*>(hash2), static_cast<const int64_t*>(part_starts), k,

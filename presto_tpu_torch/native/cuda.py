@@ -170,10 +170,8 @@ SIGNATURES = {
     },
     "merge_pair": {
         "presto_merge_max_keys": (ctypes.c_int, []),
-        "presto_merge_max_cols": (ctypes.c_int, []),
-        "presto_merge_pair": (
-            ctypes.c_int, [_P] * 7 + [_I32, _P, _I64, _P, _I64] + [_P] * 7
-            + [_I32, _P, _I32, _P]),
+        "presto_merge_inline_cols": (ctypes.c_int, []),
+        "presto_merge_pair": (ctypes.c_int, [_P, _P, _P]),
     },
     "exchange_partition": {
         "presto_partition_max_consumers": (ctypes.c_int, []),

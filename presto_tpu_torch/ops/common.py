@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import array
 import ctypes
+import functools
 import threading
 from typing import List, Optional, Sequence, Tuple
 
@@ -172,14 +173,10 @@ def gather_chunks(spec: Sequence[Tuple[int, int, int, int, int, int]],
     return [gather_table(run, what) for run in runs]
 
 
-def key_args(keys: Sequence[CVal], n: int, dev: torch.device,
-             what: str):
-    """Check key columns for a CUDA kernel that hashes them and build
-    the ctypes host arrays (data pointers, mask pointers, dtype codes)
-    of csrc/row_hash.cuh's `KeyCols`."""
-    if not 1 <= len(keys) <= MAX_KEYS:
-        raise ValueError(f"{what}: 1 to {MAX_KEYS} key columns, got "
-                         f"{len(keys)}")
+def _check_keys(keys: Sequence[CVal], n: int, dev: torch.device,
+                what: str) -> None:
+    """Raise unless every key column is a contiguous 1-D tensor of `n`
+    rows on `dev`, of a KEY_DTYPES dtype with a bool mask."""
     for d, m in keys:
         for t, dts in ((d, KEY_DTYPES), (m, (torch.bool,))):
             if t.device != dev or t.dim() != 1 or t.shape[0] != n \
@@ -190,11 +187,30 @@ def key_args(keys: Sequence[CVal], n: int, dev: torch.device,
                     f"{sorted(str(x) for x in KEY_DTYPES)}, bool "
                     f"masks); got {t.dtype} {tuple(t.shape)} stride "
                     f"{t.stride()} on {t.device}")
+
+
+@functools.lru_cache(maxsize=256)
+def _dtype_codes(dtypes: Tuple[torch.dtype, ...], width: int):
+    """The KEY_DTYPES codes of `dtypes` as a ctypes int32 array of
+    `width` entries (zeros past them), built once per signature: the
+    kernels only read it, and a probe's key dtypes repeat every batch."""
+    return (ctypes.c_int32 * width)(*[KEY_DTYPES[d] for d in dtypes])
+
+
+def key_args(keys: Sequence[CVal], n: int, dev: torch.device,
+             what: str):
+    """Check key columns for a CUDA kernel that hashes them and build
+    the ctypes host arrays (data pointers, mask pointers, dtype codes)
+    of csrc/row_hash.cuh's `KeyCols`. The dtype codes are shared by
+    every call with the same key dtypes."""
+    if not 1 <= len(keys) <= MAX_KEYS:
+        raise ValueError(f"{what}: 1 to {MAX_KEYS} key columns, got "
+                         f"{len(keys)}")
+    _check_keys(keys, n, dev, what)
     P = ctypes.c_int64 * MAX_KEYS
     return (P(*[d.data_ptr() for d, _ in keys]),
             P(*[m.data_ptr() for _, m in keys]),
-            (ctypes.c_int32 * MAX_KEYS)(*[KEY_DTYPES[d.dtype]
-                                          for d, _ in keys]),
+            _dtype_codes(tuple(d.dtype for d, _ in keys), MAX_KEYS),
             ctypes.c_int32(len(keys)))
 
 
@@ -206,36 +222,41 @@ def key_groups(keys: Sequence[CVal]) -> List[Sequence[CVal]]:
 def key_group_args(keys: Sequence[CVal], n: int, dev: torch.device,
                    what: str):
     """`key_args` for a kernel that compares groups of key columns in
-    turn (csrc/row_hash.cuh `KeyGroups`): each group is checked as
+    turn (csrc/row_hash.cuh `KeyGroups`): every column is checked as
     `key_args` checks it, and the tables are passed flat, group after
-    group, with the total key count. Past MAX_KEY_GROUPS groups the later
-    groups also go to the device as a descriptor of one KeyCols (21
-    int64 words) each, whose address follows the last key's in the data
-    table. Returns (data, masks, dtypes, count, the descriptor tensor or
-    None): the caller holds the last until its launch is queued."""
+    group, with the total key count (the dtype codes shared per
+    signature, as `key_args` shares them). Past MAX_KEY_GROUPS groups
+    the later groups also go to the device as a descriptor of one
+    KeyCols (21 int64 words) each, whose address follows the last key's
+    in the data table. Returns (data, masks, dtypes, count, the
+    descriptor tensor or None): the caller holds the last until its
+    launch is queued."""
     if not keys:
         raise ValueError(f"{what}: no key columns")
-    groups = key_groups(keys)
-    tables = [key_args(g, n, dev, what) for g in groups]
-    flat = [[t[f][j] for t, g in zip(tables, groups) for j in range(len(g))]
-            for f in range(3)]
+    _check_keys(keys, n, dev, what)
     nk = len(keys)
+    data = [d.data_ptr() for d, _ in keys]
+    masks = [m.data_ptr() for _, m in keys]
+    dtypes = tuple(d.dtype for d, _ in keys)
     desc = None
-    if len(groups) > MAX_KEY_GROUPS:
-        rows = np.zeros((len(groups) - MAX_KEY_GROUPS, 21), dtype=np.int64)
-        for r, (t, g) in enumerate(zip(tables[MAX_KEY_GROUPS:],
-                                       groups[MAX_KEY_GROUPS:])):
-            rows[r, 0:8] = list(t[0])
-            rows[r, 8:16] = list(t[1])
-            rows[r, 16:20] = np.array(list(t[2]), dtype=np.int32) \
-                .view(np.int64)
-            rows[r, 20] = len(g)
+    if nk > MAX_KEY_GROUPS * MAX_KEYS:
+        rows = np.zeros((-(-nk // MAX_KEYS) - MAX_KEY_GROUPS, 21),
+                        dtype=np.int64)
+        for r, lo in enumerate(range(MAX_KEY_GROUPS * MAX_KEYS, nk,
+                                     MAX_KEYS)):
+            hi = min(lo + MAX_KEYS, nk)
+            rows[r, 0:hi - lo] = data[lo:hi]
+            rows[r, 8:8 + hi - lo] = masks[lo:hi]
+            rows[r, 16:20] = np.frombuffer(
+                _dtype_codes(dtypes[lo:hi], MAX_KEYS), dtype=np.int64)
+            rows[r, 20] = hi - lo
         desc = torch.from_numpy(rows)
         if dev.type == "cuda":
             desc = desc.pin_memory().to(dev, non_blocking=True)
-        flat[0].append(desc.data_ptr())
-    return (*((ctypes.c_int64 * len(f))(*f) for f in flat[:2]),
-            (ctypes.c_int32 * nk)(*flat[2]), ctypes.c_int32(nk), desc)
+        data.append(desc.data_ptr())
+    return ((ctypes.c_int64 * len(data))(*data),
+            (ctypes.c_int64 * nk)(*masks), _dtype_codes(dtypes, nk),
+            ctypes.c_int32(nk), desc)
 
 
 def check_rows(t: torch.Tensor, n: int, dev: torch.device, dtypes,
@@ -482,7 +503,7 @@ RADIX_SORT_KERNEL = _tk.LaunchCounter("radix_sort", "sort")
 #: launches of the CUDA row gather (csrc/gather_rows.cu)
 GATHER_ROWS_KERNEL = _tk.LaunchCounter("gather_rows", "sort")
 
-#: key dtype -> (code of csrc/sort_encode.cu `SortDtype`, bits of its
+#: key dtype -> (code of csrc/sort_code.cuh `SortDtype`, bits of its
 #: value code)
 SORT_DTYPES = {torch.bool: (0, 1), torch.int8: (1, 8), torch.int16: (2, 16),
                torch.int32: (3, 32), torch.int64: (4, 64),
@@ -604,7 +625,7 @@ def _place(words: torch.Tensor, code: torch.Tensor, width: int,
            pos: int) -> None:
     """OR a `width`-bit code into the words at bit `pos` (from the most
     significant bit of word 0), split across two words where it
-    straddles them (csrc/sort_encode.cu `Packer::put`)."""
+    straddles them (csrc/sort_code.cuh `SortPacker::put`)."""
     w, room = pos >> 6, 64 - (pos & 63)
     if width <= room:
         words[w] |= code << (room - width)

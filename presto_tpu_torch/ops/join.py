@@ -91,6 +91,19 @@ class BuildTable:
     search_depth: int = 64          # levels the plain search runs
     unique_runs: bool = False       # every live run has length 1
 
+    def __post_init__(self):
+        # the probe kernels (K5, K7) read these arrays as they lie: they
+        # are checked once, here, and not on every probe
+        dev = self.sorted_hash.device
+        nb = self.sorted_hash.shape[0] if self.sorted_hash.dim() == 1 else -1
+        nparts = (1 << self.radix_bits) + 1 if self.radix_bits else 2
+        for t, rows, what in ((self.sorted_hash, nb, "sorted_hash"),
+                              (self.hash2, nb, "hash2"),
+                              (self.run_len, nb, "run_len"),
+                              (self.part_starts, nparts, "part_starts")):
+            common.check_rows(t, rows, dev, (torch.int64,),
+                              f"BuildTable: {what}")
+
 
 def choose_radix_bits(capacity: int) -> int:
     """k from the build size: one bucket per expected row, capped."""
@@ -287,15 +300,8 @@ def _probe_search_cuda(table: BuildTable, probe: Batch,
     from presto_tpu_torch.native import cuda
     dev = probe.device
     n = probe.capacity
-    nb = table.sorted_hash.shape[0]
     common.check_rows(probe.row_valid, n, dev, (torch.bool,),
                       "join_probe: row_valid")
-    for t, rows, what in ((table.sorted_hash, nb, "sorted_hash"),
-                          (table.hash2, nb, "hash2"),
-                          (table.part_starts,
-                           table.part_starts.shape[0], "part_starts")):
-        common.check_rows(t, rows, dev, (torch.int64,),
-                          f"join_probe: {what}")
     kd, km, kt, nk, _desc = common.key_group_args(
         [probe.columns[k].astuple() for k in key_names], n, dev,
         "join_probe")
@@ -305,15 +311,11 @@ def _probe_search_cuda(table: BuildTable, probe: Batch,
                                             device=dev)
     lib = cuda.library("join_probe")
     status = lib.presto_join_probe(
-        kd, km, kt, nk, ctypes.c_void_p(probe.row_valid.data_ptr()),
-        ctypes.c_int64(n), ctypes.c_void_p(table.sorted_hash.data_ptr()),
-        ctypes.c_void_p(table.hash2.data_ptr()),
-        ctypes.c_void_p(table.part_starts.data_ptr()),
-        ctypes.c_int32(table.radix_bits),
-        ctypes.c_int32(int(checks_h2)),
-        ctypes.c_void_p(lo_enc.data_ptr()),
-        ctypes.c_void_p(None if h2 is None else h2.data_ptr()),
-        ctypes.c_void_p(cuda.stream_ptr(dev)))
+        kd, km, kt, nk, probe.row_valid.data_ptr(), n,
+        table.sorted_hash.data_ptr(), table.hash2.data_ptr(),
+        table.part_starts.data_ptr(), table.radix_bits, int(checks_h2),
+        lo_enc.data_ptr(), None if h2 is None else h2.data_ptr(),
+        cuda.stream_ptr(dev))
     cuda.check(lib, status, "join_probe")
     JOIN_PROBE_KERNEL.launches += 1
     return lo_enc, h2
@@ -418,13 +420,6 @@ def _semi_mark_cuda(table: BuildTable, probe: Batch,
     nb = table.sorted_hash.shape[0]
     common.check_rows(probe.row_valid, n, dev, (torch.bool,),
                       "semi_join: row_valid")
-    for t, rows, what in ((table.sorted_hash, nb, "sorted_hash"),
-                          (table.hash2, nb, "hash2"),
-                          (table.run_len, nb, "run_len"),
-                          (table.part_starts,
-                           table.part_starts.shape[0], "part_starts")):
-        common.check_rows(t, rows, dev, (torch.int64,),
-                          f"semi_join: {what}")
     mode = _semi_mode(table, verify)
     kd, km, kt, nk, _desc = common.key_group_args(
         [probe.columns[k].astuple() for k in key_names], n, dev,

@@ -1,27 +1,31 @@
 """Merge of sorted runs (reference: presto_tpu/ops/merge.py;
 operator/MergeOperator.java:44 merging pre-sorted remote shards).
 
-Two sorted runs A and B merge by rank arithmetic: A's row i goes to
-slot i + #(B rows strictly below it), B's row j to j + #(A rows at or
-below it), so ties keep A first, and one scatter places every column.
-k runs fold pairwise in a log-depth tree.
+Two sorted runs A and B merge stably, ties taking A first: A's row i
+goes to slot i + #(B rows strictly below it), B's row j to j + #(A rows
+at or below it). k runs fold pairwise in a log-depth tree.
 
-The rows must be compared exactly as they were sorted, or two rows
-land in one slot. The runs come from the port's `common.sort_rows`
-(torch.sort), so `canonical_ops` takes its operands
-(`common.key_sort_ops`): ~row_valid, then per key the null rank and
-the canonical value (negated under DESC, 0 for NULL, every NaN one
-value after every number, -0.0 equal to +0.0). The reference's
-totalOrder bitcast (:31) orders floats as lax.sort does, which is
-neither torch.sort's order nor the reference's own CPU sort's.
+The runs are each task's ORDER BY output, which the card sorts through
+K24 -> K25 -> K26 (`common.sort_rows`): by the unsigned key words of
+csrc/sort_code.cuh. K19 compares rows by the same words, encoded from
+the same pack plan (`common.sort_pack_plan`), so it orders them exactly
+as they were sorted. `canonical_ops` gives the plain version that order
+as operands: ~row_valid, then per key the null rank and the canonical
+value (negated under DESC, 0 for NULL, every NaN one value after every
+number, -0.0 equal to +0.0). The reference's totalOrder bitcast (:31)
+orders floats as lax.sort does, which is neither the port's order nor
+the reference's own CPU sort's.
 
-`merge_pair` is kernel K19 (csrc/merge_pair.cu) on CUDA batches and
+`merge_pair` is kernel K19 (csrc/merge_pair.cu: one launch per merge at
+any column count, a merge path through shared memory, bound by the
+latency of its split search and copy) on CUDA batches and
 `merge_pair_plain` on CPU batches.
 """
 
 from __future__ import annotations
 
-import ctypes
+import array
+import functools
 from typing import List, Sequence, Tuple
 
 import torch
@@ -33,10 +37,11 @@ from presto_tpu_torch.telemetry import kernels as _tk
 #: launches of the merge kernel (csrc/merge_pair.cu)
 MERGE_KERNEL = _tk.LaunchCounter("merge_pair", "merge")
 
-#: key dtype -> code of csrc/merge_pair.cu's dtype enum
-MERGE_DTYPES = {torch.bool: 0, torch.int8: 1, torch.int16: 2,
-                torch.int32: 3, torch.int64: 4, torch.float32: 5,
-                torch.float64: 6}
+#: most sort keys one K19 launch compares, and columns it carries by value
+#: (csrc/merge_pair.cu MAX_KEYS, INLINE_COLS; later columns go in a
+#: device table, in the same launch)
+MERGE_MAX_KEYS = 24
+MERGE_INLINE_COLS = 24
 
 
 def canonical_ops(batch: Batch, key_names: Sequence[str],
@@ -71,6 +76,8 @@ def lex_count_below(b_ops: Sequence[torch.Tensor],
     n_a = a_ops[0].shape[0]
     dev = a_ops[0].device
     lo = torch.zeros(n_a, dtype=torch.int64, device=dev)
+    if n_b == 0:
+        return lo
     hi = torch.full((n_a,), n_b, dtype=torch.int64, device=dev)
     for _ in range(common.search_iters(n_b)):
         mid = (lo + hi) // 2
@@ -117,6 +124,15 @@ def merge_pair_plain(a: Batch, b: Batch, key_names: Sequence[str],
     return Batch(cols, rv)
 
 
+@functools.lru_cache(maxsize=256)
+def merge_pack_plan(dtypes: Tuple[torch.dtype, ...]):
+    """K19's pack plan for keys of these dtypes, each with a mask, after
+    ~row_valid: the one K24 encodes the runs' sort with
+    (`common._sort_layout`): (bit of ~row_valid, per key (bit of its
+    null rank, bit of its value, value bits), words)."""
+    return common._sort_layout(True, [(dt, True) for dt in dtypes])
+
+
 def _merge_cuda(a: Batch, b: Batch, key_names, descending, nulls_first
                 ) -> Batch:
     from presto_tpu_torch.native import cuda
@@ -124,61 +140,63 @@ def _merge_cuda(a: Batch, b: Batch, key_names, descending, nulls_first
     dev = a.device
     na, nb = a.capacity, b.capacity
     nk = len(key_names)
-    if nk > lib.presto_merge_max_keys():
-        raise ValueError(f"merge_pair: at most "
-                         f"{lib.presto_merge_max_keys()} sort keys, got {nk}")
+    if nk > MERGE_MAX_KEYS:
+        raise ValueError(f"merge_pair: at most {MERGE_MAX_KEYS} sort keys, "
+                         f"got {nk}")
+    names = a.names
+    dtypes = [a.columns[n].data.dtype for n in names]
     for run, n, what in ((a, na, "A"), (b, nb, "B")):
         common.check_rows(run.row_valid, n, dev, (torch.bool,),
                           f"merge_pair: run {what} row_valid")
-        for name in run.names:
+        for name, dt in zip(names, dtypes):
             c = run.columns[name]
-            common.check_rows(c.data, n, dev, (a.columns[name].data.dtype,),
+            common.check_rows(c.data, n, dev, (dt,),
                               f"merge_pair: run {what} column {name}")
             common.check_rows(c.mask, n, dev, (torch.bool,),
                               f"merge_pair: run {what} mask {name}")
-    for name in key_names:
-        if a.columns[name].data.dtype not in MERGE_DTYPES:
-            raise ValueError(f"merge_pair: key {name} of dtype "
-                             f"{a.columns[name].data.dtype}")
-    P = ctypes.c_int64 * max(nk, 1)
-    I = ctypes.c_int32 * max(nk, 1)
-    keys = (P(*[a.columns[k].data.data_ptr() for k in key_names]),
-            P(*[a.columns[k].mask.data_ptr() for k in key_names]),
-            P(*[b.columns[k].data.data_ptr() for k in key_names]),
-            P(*[b.columns[k].mask.data_ptr() for k in key_names]),
-            I(*[MERGE_DTYPES[a.columns[k].data.dtype] for k in key_names]),
-            I(*[int(bool(x)) for x in descending]),
-            I(*[int(bool(x)) for x in nulls_first]))
+    key_dtypes = tuple(a.columns[k].data.dtype for k in key_names)
+    try:
+        pos_valid, layout, nwords = merge_pack_plan(key_dtypes)
+    except ValueError as e:
+        raise ValueError(f"merge_pair: {e}") from None
     out_cap = na + nb
-    names = a.names
-    cols = {n: Column(torch.empty(out_cap, dtype=a.columns[n].data.dtype,
-                                  device=dev),
+    cols = {n: Column(torch.empty(out_cap, dtype=dt, device=dev),
                       torch.empty(out_cap, dtype=torch.bool, device=dev),
                       a.columns[n].type, a.columns[n].dictionary)
-            for n in names}
+            for n, dt in zip(names, dtypes)}
     rv = torch.empty(out_cap, dtype=torch.bool, device=dev)
-    max_cols = lib.presto_merge_max_cols()
-    runs = [names[lo:lo + max_cols]
-            for lo in range(0, len(names), max_cols)] or [[]]
-    stream = ctypes.c_void_p(cuda.stream_ptr(dev))
-    for i, run in enumerate(runs):
-        k = max(len(run), 1)
-        C, S = ctypes.c_int64 * k, ctypes.c_int32 * k
-        status = lib.presto_merge_pair(
-            *keys, ctypes.c_int32(nk),
-            ctypes.c_void_p(a.row_valid.data_ptr()), ctypes.c_int64(na),
-            ctypes.c_void_p(b.row_valid.data_ptr()), ctypes.c_int64(nb),
-            C(*[a.columns[n].data.data_ptr() for n in run]),
-            C(*[a.columns[n].mask.data_ptr() for n in run]),
-            C(*[b.columns[n].data.data_ptr() for n in run]),
-            C(*[b.columns[n].mask.data_ptr() for n in run]),
-            C(*[cols[n].data.data_ptr() for n in run]),
-            C(*[cols[n].mask.data_ptr() for n in run]),
-            S(*[cols[n].data.element_size() for n in run]),
-            ctypes.c_int32(len(run)), ctypes.c_void_p(rv.data_ptr()),
-            ctypes.c_int32(int(i == 0)), stream)
-        cuda.check(lib, status, "merge_pair")
-        MERGE_KERNEL.launches += 1
+    if out_cap == 0:
+        return Batch(cols, rv)
+    desc = [nk, nwords, pos_valid, len(names), na, nb,
+            a.row_valid.data_ptr(), b.row_valid.data_ptr(), rv.data_ptr()]
+    for name, dt, d, nf, (rank, vpos, width) in zip(
+            key_names, key_dtypes, descending, nulls_first, layout):
+        ca, cb = a.columns[name], b.columns[name]
+        desc += (ca.data.data_ptr(), cb.data.data_ptr(),
+                 ca.mask.data_ptr(), cb.mask.data_ptr(),
+                 common.SORT_DTYPES[dt][0], int(bool(d)), int(bool(nf)),
+                 rank, vpos, width)
+    entries = []
+    for name in names:
+        ca, cb, co = a.columns[name], b.columns[name], cols[name]
+        entries.append((ca.data.data_ptr(), cb.data.data_ptr(),
+                        ca.mask.data_ptr(), cb.mask.data_ptr(),
+                        co.data.data_ptr(), co.mask.data_ptr(),
+                        co.data.element_size()))
+    for e in entries[:MERGE_INLINE_COLS]:
+        desc += e
+    # the columns past the inline ones: a device table the kernel reads
+    # (held until the launch is queued)
+    extra = None
+    if len(entries) > MERGE_INLINE_COLS:
+        extra = torch.tensor(entries[MERGE_INLINE_COLS:], dtype=torch.int64
+                             ).pin_memory().to(dev, non_blocking=True)
+    desc = array.array("q", desc)
+    status = lib.presto_merge_pair(
+        desc.buffer_info()[0], None if extra is None else extra.data_ptr(),
+        cuda.stream_ptr(dev))
+    cuda.check(lib, status, "merge_pair")
+    MERGE_KERNEL.launches += 1
     return Batch(cols, rv)
 
 

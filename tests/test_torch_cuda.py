@@ -287,6 +287,72 @@ def test_k5_join_probe_matches_plain(hopper, verify, dup, nkeys, live):
     assert matches > npr // 8 if live else matches == 0
 
 
+def _probe_case(rng, dev, nb, npr, dup, k=None):
+    """A build of `nb` rows (radix bits `k`, None for the size's) and
+    a probe of `npr` rows, half of whose keys are the build's."""
+    build = _build_batch(rng, nb, max(1, int(nb * 0.9)), dev, dup, 1)
+    table = tj.build_for_backend(build, ("k0",), radix_bits=k)
+    probe = _build_batch(rng, npr, int(npr * 0.95), dev, dup, 1)
+    pick = torch.from_numpy(rng.integers(0, nb, npr)).to(dev)
+    take = torch.from_numpy(rng.random(npr) < 0.5).to(dev)
+    pc, bc = probe.columns["k0"], build.columns["k0"]
+    pc.data = torch.where(take, bc.data[pick], pc.data)
+    pc.mask = torch.where(take, bc.mask[pick], pc.mask)
+    return table, probe
+
+
+def _probe_equal(table, probe, verify):
+    """K5 against its plain version, lo_enc and h2 bit for bit, one
+    launch; returns the candidates found."""
+    before = tj.JOIN_PROBE_KERNEL.launches
+    lo, h2 = tj.probe_search(table, probe, ("k0",), verify)
+    assert tj.JOIN_PROBE_KERNEL.launches == before + 1
+    plo, ph2 = tj.probe_search_plain(table, probe, ("k0",), verify)
+    torch.cuda.synchronize()
+    assert torch.equal(lo, plo)
+    assert (h2 is None) == (ph2 is None)
+    assert h2 is None or torch.equal(h2, ph2)
+    return int((lo >= 0).sum())
+
+
+@pytest.mark.parametrize("nb", [4, 64, tj.MIN_RADIX_ROWS,
+                                tj.MIN_RADIX_ROWS + 1, 8192])
+@pytest.mark.parametrize("dup", [None, 300], ids=["unique", "dup"])
+@pytest.mark.parametrize("verify", ["hash", "full"])
+def test_k5_small_and_whole_table_builds(hopper, nb, dup, verify):
+    """Builds searched whole (k = 0, up to MIN_RADIX_ROWS rows: one row
+    under and one over that cut) and bucketed, unique and duplicate
+    keys, both verify modes, against a probe of 2^20 + 3 rows."""
+    rng = np.random.default_rng(51 + nb)
+    npr = (1 << 20) + 3
+    table, probe = _probe_case(rng, hopper, nb, npr, dup)
+    assert (table.radix_bits == 0) == (nb <= tj.MIN_RADIX_ROWS)
+    assert _probe_equal(table, probe, verify) > npr // 8
+
+
+@pytest.mark.parametrize("npr", [5, 7, 1023, 4097, (1 << 20) + 3])
+@pytest.mark.parametrize("verify", ["hash", "full"])
+def test_k5_probe_row_counts(hopper, npr, verify):
+    """Probe row counts that are not a multiple of a block's rows, a
+    duplicate-key build with NULLs (4,096 rows, radix bits 12): equal to
+    the plain version."""
+    rng = np.random.default_rng(52 + npr)
+    table, probe = _probe_case(rng, hopper, 4096, npr, 300)
+    assert table.radix_bits == 12 and not table.unique_runs
+    _probe_equal(table, probe, verify)
+
+
+def test_k5_grid_strides_over_a_large_probe(hopper):
+    """A probe of 2^22 + 1 rows, several times what K5's grid covers in
+    one pass (its threads stride over the rest), into a unique build."""
+    rng = np.random.default_rng(53)
+    npr = (1 << 22) + 1
+    table, probe = _probe_case(rng, hopper, 8192, npr, None)
+    assert table.unique_runs
+    for verify in ("hash", "full"):
+        assert _probe_equal(table, probe, verify) > npr // 4
+
+
 @pytest.mark.parametrize("ngroups,out_cap,live", [(150_000, 1 << 18, 0.8),
                                                   (40, 64, 0.8),
                                                   (5000, 1024, 0.8),
@@ -1747,6 +1813,139 @@ def test_k19_merge_pair_matches_plain(hopper, kind, desc, nf):
     want_ids = torch.cat([a.columns["id"].data[a.row_valid],
                           b.columns["id"].data[b.row_valid]])
     assert torch.equal(torch.sort(live).values, torch.sort(want_ids).values)
+
+
+def test_k19_constants_match_the_library(hopper):
+    """The wrapper's key and inline-column counts are the source's."""
+    from presto_tpu_torch.native import cuda
+    from presto_tpu_torch.ops import merge as tm
+    lib = cuda.library("merge_pair")
+    assert lib.presto_merge_max_keys() == tm.MERGE_MAX_KEYS
+    assert lib.presto_merge_inline_cols() == tm.MERGE_INLINE_COLS
+
+
+_MERGE_POOLS = {
+    torch.float64: np.array([np.nan, -0.0, 0.0, -np.inf, np.inf, 1.5, -2.0]),
+    torch.float32: np.array([np.nan, -0.0, 0.0, 2.5], np.float32),
+    torch.int64: np.array([np.iinfo(np.int64).min, -1, 0, 3,
+                           np.iinfo(np.int64).max]),
+    torch.int32: np.array([np.iinfo(np.int32).min, -7, 0, 9], np.int32),
+    torch.int16: np.array([-300, 0, 300], np.int16),
+    torch.int8: np.array([-128, -1, 0, 127], np.int8),
+    torch.bool: np.array([False, True])}
+
+
+def _merge_run(rng, dev, n, cap, off, keys, desc, nf, extra=0, tie=False):
+    """A run sorted on the card: `n` live rows of `cap`, one column per
+    key dtype (NULLs, the pools' edge values; every row the same with
+    `tie`), an id column from `off`, `extra` more columns of every
+    width."""
+    cols = {}
+    for j, dt in enumerate(keys):
+        pool = _MERGE_POOLS[dt]
+        vals = np.full(cap, pool[0]) if tie else rng.choice(pool, cap)
+        mask = np.ones(cap, bool) if tie else rng.random(cap) > 0.1
+        cols[f"k{j}"] = tb.Column(torch.from_numpy(vals).to(dev),
+                                  torch.from_numpy(mask).to(dev),
+                                  tt.BIGINT)
+    cols["id"] = tb.Column(torch.arange(off, off + cap, device=dev),
+                           torch.ones(cap, dtype=torch.bool, device=dev),
+                           tt.BIGINT)
+    for c in range(extra):
+        dt = [np.int8, np.int16, np.int32, np.float32, np.float64,
+              bool][c % 6]
+        d = rng.random(cap) < 0.5 if dt is bool \
+            else rng.integers(-100, 100, cap).astype(dt)
+        cols[f"x{c}"] = tb.Column(torch.from_numpy(d).to(dev),
+                                  torch.from_numpy(rng.random(cap) > 0.2)
+                                  .to(dev), tt.BIGINT)
+    rv = np.zeros(cap, bool)
+    rv[:n] = True if tie else rng.random(n) > 0.05
+    from presto_tpu_torch.ops.sort import sort_batch
+    names = tuple(f"k{j}" for j in range(len(keys)))
+    return sort_batch(tb.Batch(cols, torch.from_numpy(rv).to(dev)), names,
+                      desc, nf)
+
+
+def _merge_bits(t):
+    return t.view(torch.int64) if t.dtype == torch.float64 \
+        else t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+_MERGE_EDGES = {
+    # (A rows, A capacity, B rows, B capacity, key dtypes, DESC, NULLS
+    # FIRST, extra columns, one tie run)
+    "many_tiles": (9000, 10007, 5500, 6001, (torch.float64, torch.int64),
+                   (True, False), (False, False), 0, False),
+    "one_row": (1, 1, 4000, 4099, (torch.int64,), (False,), (False,), 0,
+                False),
+    "empty_run": (0, 0, 3000, 3333, (torch.float32,), (True,), (True,), 0,
+                  False),
+    "all_dead": (0, 2500, 3000, 3100, (torch.int32,), (False,), (True,), 0,
+                 False),
+    "tie_runs": (2600, 2600, 3100, 3100, (torch.float64, torch.int64),
+                 (True, False), (False, False), 0, True),
+    "forty_columns": (3000, 3500, 2000, 2049, (torch.float64,), (False,),
+                      (True,), 38, False),
+    "narrow_keys": (5000, 5120, 4000, 4100,
+                    (torch.int8, torch.bool, torch.int16, torch.float32),
+                    (True, False, True, False), (False, True, True, False),
+                    0, False),
+    "six_words": (4000, 4100, 3000, 3333, (torch.int64,) * 5,
+                  (True, False, False, True, False),
+                  (False, True, False, False, True), 0, False),
+    "ten_words_ties": (1500, 1600, 1300, 1301, (torch.int64,) * 9,
+                       (False,) * 4 + (True,) * 5, (True,) * 9, 0, True),
+    "twenty_five_words": (3000, 3100, 2000, 2222, (torch.float64,) * 24,
+                          (True, False) * 12, (False, False, True) * 8, 2,
+                          False),
+}
+
+#: key words of the cases past three words: each thread of K19 then
+#: merges 2 outputs (6 words) or 1 (10 and 25), and 25 words take a
+#: tile of 256 * (8 * 25 + 4) = 52,224 bytes of shared memory, past the
+#: 48 KB a launch gets without opting in
+_MERGE_WORDS = {"six_words": 6, "ten_words_ties": 10,
+                "twenty_five_words": 25}
+
+
+@pytest.mark.parametrize("case", sorted(_MERGE_EDGES))
+def test_k19_merge_path_edges(hopper, case):
+    """K19's merge path at its edges, one launch a merge and every
+    column, mask and row_valid bit-equal to merge_pair_plain: runs over
+    several tiles with capacities off the tile, a one-row run, an empty
+    run and one all dead (each both ways round), a tie run longer than a
+    tile in both runs (A's rows first, across the tile edges), 40
+    columns, narrow keys with NULLS FIRST and DESC mixed, and keys of 6,
+    10 (ties across tiles) and 25 words (the most keys, a tile past 48 KB
+    of shared memory)."""
+    from presto_tpu_torch.ops import merge as tm
+    na, ca, nb, cb, keys, desc, nf, extra, tie = _MERGE_EDGES[case]
+    if case in _MERGE_WORDS:
+        assert tm.merge_pack_plan(keys)[2] == _MERGE_WORDS[case]
+    rng = np.random.default_rng(60 + sorted(_MERGE_EDGES).index(case))
+    a = _merge_run(rng, hopper, na, ca, 0, keys, desc, nf, extra, tie)
+    b = _merge_run(rng, hopper, nb, cb, 1 << 40, keys, desc, nf, extra,
+                   tie)
+    names = tuple(f"k{j}" for j in range(len(keys)))
+    for x, y in ((a, b), (b, a)) if na < 2 else ((a, b),):
+        args = (x, y, names, desc, nf)
+        before = tm.MERGE_KERNEL.launches
+        got = tm.merge_pair(*args)
+        assert tm.MERGE_KERNEL.launches == before + 1
+        want = tm.merge_pair_plain(*args)
+        torch.cuda.synchronize()
+        assert len(got.names) == len(keys) + 1 + extra
+        assert torch.equal(got.row_valid, want.row_valid)
+        for n in want.names:
+            g, w = got.columns[n], want.columns[n]
+            assert torch.equal(g.mask, w.mask), n
+            assert torch.equal(_merge_bits(g.data), _merge_bits(w.data)), n
+    if tie:
+        # every row ties: A's ids, then B's, each in its run's order
+        ids = got.columns["id"].data[got.row_valid]
+        assert torch.equal(ids, torch.cat([a.columns["id"].data[:na],
+                                           b.columns["id"].data[:nb]]))
 
 
 def test_mesh_queries_match_cpu(hopper):
