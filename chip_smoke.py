@@ -85,16 +85,17 @@ cross_product, K11 join_outer, K13-K16 (window), K17 array_collect,
 K18 exchange_shuffle, K19 merge_pair, K20 exchange_partition, K21-K23
 (the dynamic filter's bounds, set and apply), K24 sort_encode, K25
 radix_sort, K26 gather_rows and K27 limit_rank, K28 state_shrink, K29
-agg_finalize, K30 vector_reduce, K31 topn_select and K32 topn_sort
-(CUDA C++, built with nvcc; K3 and K26 reading a merge's partial states
-as sources count also as row_hash_sources and gather_rows_sources), and
+agg_finalize, K30 vector_reduce, K31 topn_select, K32 topn_sort and
+K33 distinct_set (CUDA C++, built with nvcc; K3 and K26 reading a
+merge's partial states as sources count also as row_hash_sources and
+gather_rows_sources), and
 K12 fragment (a Triton kernel generated per filter/project chain at its
 first launch). Q1, Q3, Q6 and Q18 also run with fusion off (their
 FilterProjects as one-stage K12 kernels), rows checked and walls beside
 the fused ones. The kernel measurements run on inputs captured from a
 separate run of the same queries (the largest call of each kernel; K9
-per layout and in full mode at the FULL join's largest call; K10 at
-the calls of K10_AT; the DISTINCT fold, K3 + K25 + K26 + K6, at
+per layout, at EXPAND_AT's calls and in full mode at the FULL join's
+largest call; K10 at the calls of K10_AT; the DISTINCT fold, K33, at
 the DISTINCT query's largest call), so their shapes are the main path's;
 compact is also measured on a 1M-row lineitem batch at ~2% and ~98%
 live. Launches made while comparing or timing are not counted. K4
@@ -138,10 +139,10 @@ lane-strided tree order against the plain version's row order). K9
 (join_expand): liveness, masks, every value under a set mask, the
 overflow flag and the live count exactly; in full mode the matched
 flags exactly too. K10 (cross_product) and K11 (join_outer): liveness,
-masks and every value under a set mask exactly (they copy). The DISTINCT
-fold: the kept rows, their order and their masks exactly (both sort by
-the same hashes). K12 (fragment): row_valid, masks and every value under
-a set mask exactly (FMA contraction off, IEEE division, floored integer
+masks and every value under a set mask exactly (they copy). K33
+(distinct_set): every slot exactly, row_valid, masks and data, dead
+slots included (the plain version lays out the same slots). K12
+(fragment): row_valid, masks and every value under a set mask exactly (FMA contraction off, IEEE division, floored integer
 division, as the composed form computes). K13 (window_segments), K15
 (window_frame_minmax) and K16 (window_emit): every position, value and
 mask exactly (NaN equal to NaN); K28 (state_shrink) and K30
@@ -1003,8 +1004,10 @@ class Capture(Patches):
         #: K5's largest call per query: query -> (rows, args)
         self.probe_at = {}
         #: K9 per layout: (output slots, query, args) of its largest
-        #: call, and calls per (query, layout)
+        #: call, the same at EXPAND_AT's (query, layout) pairs, and
+        #: calls per (query, layout)
         self.expand = {}
+        self.expand_at = {}
         self.expand_calls = {}
         #: K9 in full mode at its largest call: (output slots, query,
         #: args, the matched flags as they were before the call)
@@ -1013,13 +1016,14 @@ class Capture(Patches):
         self.k10 = {}
         #: K11 at its largest call: (rows, query, args)
         self.k11 = None
-        #: the DISTINCT fold at its largest call: (rows, query, args)
+        #: the DISTINCT fold (K33) at its largest call: (rows, query,
+        #: args)
         self.distinct = None
         #: K22 at its largest call without overflow: (rows, query, args)
         self.df_set_fits = None
-        #: K25's two-word sorts (the (h1, h2) sort of grouping and
-        #: DISTINCT) at the largest call of each query: query -> (rows,
-        #: query, args, kwargs)
+        #: K25's two-word sorts (the (h1, h2) sort of grouping) at the
+        #: largest call of each query: query -> (rows, query, args,
+        #: kwargs)
         self.pair_sort = {}
         #: K25 at its largest join build: (rows, query, args, kwargs)
         self.build_sort = None
@@ -1113,6 +1117,10 @@ class Capture(Patches):
                 self.expand_calls[key] = self.expand_calls.get(key, 0) + 1
                 if out_capacity > self.expand.get(layout, (0,))[0]:
                     self.expand[layout] = (out_capacity, self.query,
+                                           (table, probe, *args))
+                if key in EXPAND_AT and EXPAND_AT[key][1] >= out_capacity \
+                        > self.expand_at.get(key, (0,))[0]:
+                    self.expand_at[key] = (out_capacity, self.query,
                                            (table, probe, *args))
                 return orig(table, probe, *args)
             return rec
@@ -1683,6 +1691,10 @@ def measure_k9(torch, tj, args, calls, matched=None):
               f"K9 join_expand: column {nm} differs from its plain version")
     ms = time_ms(lambda: tj._expand_from_enc(*args, flags[2]), torch)
     plain_ms = time_ms(lambda: tj.expand_plain(*args, flags[2]), torch)
+    device_us = graph_device_us(
+        torch, lambda: tj._expand_from_enc(*args, flags[2]))
+    launches = launches_of(torch, lambda: tj._expand_from_enc(*args,
+                                                              flags[2]))
     n = probe.capacity
     out_rows = gb.row_valid.shape[0]
     aligned = tj._aligned_layout(table, probe, cap, join_type)
@@ -1716,7 +1728,8 @@ def measure_k9(torch, tj, args, calls, matched=None):
             "join_type": join_type, "verify": verify,
             "live": int(wlive), "overflow": bool(wovf),
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, "calls": calls,
+            "library_ms": None, "calls": calls, "device_us": device_us,
+            "launches_per_call": launches,
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
@@ -2031,15 +2044,20 @@ def measure_k11(torch, tj, args):
 
 
 def measure_distinct(torch, tsort, args):
-    """The DISTINCT fold (K3 + K25 + K26 + K6) at its largest call
-    against the same fold through the plain versions of K3, K25, K26 and
-    K6."""
+    """K33 (the DISTINCT fold) at its largest call against its plain
+    version, slot for slot; timed around the call and on the device
+    (graph replays), and one torch.unique(dim=0) of the live rows."""
     state, batch = args
-    got = tsort.distinct_step(*args)
+    fold = lambda: tsort.distinct_step(*args)  # noqa: E731
+    got = fold()
     want = tsort.distinct_step_plain(*args)
     torch.cuda.synchronize()
-    check_same_batch(torch, got, want, "the DISTINCT fold")
-    ms = time_ms(lambda: tsort.distinct_step(*args), torch)
+    check_same_batch(torch, got, want, "K33 distinct_set")
+    check(all(torch.equal(got.columns[n].data, want.columns[n].data)
+              for n in want.names),
+          "K33 distinct_set: a dead slot's data differs from its plain "
+          "version")
+    ms = time_ms(fold, torch)
     plain_ms = time_ms(lambda: tsort.distinct_step_plain(*args), torch)
     # one PyTorch call computing the same set: unique rows of the live
     # (data, mask) columns
@@ -2054,10 +2072,16 @@ def measure_distinct(torch, tsort, args):
     library_ms = time_ms(lambda: torch.unique(stacked, dim=0), torch)
     # state and batch read once; the new state written once
     moved = batch_bytes(state) + batch_bytes(batch) + batch_bytes(got)
-    return {"rows": state.capacity + batch.capacity,
+    rows = state.capacity + batch.capacity
+    return {"rows": rows, "state_rows": state.capacity,
             "live": int(live.sum()), "kept": int(want.row_valid.sum()),
-            "out_capacity": got.capacity, "max_abs_err": 0.0, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
+            "out_capacity": got.capacity,
+            "table_bytes": 8 * tsort.distinct_table_words(rows),
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "device_us": graph_device_us(torch, fold),
+            "launches_per_call": launches_of(torch, fold),
+            "host_ms": host_ms(torch, fold),
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
 
 
@@ -2250,6 +2274,8 @@ KERNELS = {
                     "presto_tpu/ops/sort.py:54"),
     "topn_sort": ("cuda", "presto_tpu_torch/csrc/topn_select.cu",
                   "presto_tpu/ops/sort.py:54"),
+    "distinct_set": ("cuda", "presto_tpu_torch/csrc/distinct_set.cu",
+                     "presto_tpu/ops/sort.py:106"),
 }
 #: the mesh path's kernels, measured there
 MESH_KERNELS = ("exchange_shuffle", "merge_pair")
@@ -2268,9 +2294,8 @@ ARRAY_KERNELS = ("array_collect",)
 #: the sort family's kernels, measured on the sort path (K25 at Q21's
 #: build on the TPC-H path)
 #: the queries whose largest two-word K25 call chip_smoke times: the
-#: (h1, h2) sort of grouping at Q20 and DISTINCT's fold
-PAIR_SORT_AT = {"q20": "(h1, h2) sort of grouping",
-                "distinct": "(h1, h2) sort of the DISTINCT fold"}
+#: (h1, h2) sort of grouping at Q20
+PAIR_SORT_AT = {"q20": "(h1, h2) sort of grouping"}
 SORT_KERNELS = ("sort_encode", "radix_sort", "gather_rows", "limit_rank",
                 "topn_select", "topn_sort")
 #: the aggregation path's kernel, measured there (K28, K29 and the
@@ -2281,6 +2306,15 @@ AGG_KERNELS = ("vector_reduce",)
 FUSION_OFF = ("q1", "q3", "q6", "q18")
 #: queries whose CUDA kernel launches are counted fused and unfused
 LAUNCH_PROFILE = ("q1", "q3", "q6")
+
+#: K9 calls measured beside its largest call of each layout: (query,
+#: layout) -> (role, the most output slots); each is that query's
+#: largest call of the layout with at most that many slots (Q21's
+#: largest general call is the script's largest)
+EXPAND_AT = {("q21", "general"): ("q21 general call of at most "
+                                  "8,388,608 slots", 1 << 23),
+             ("q13", "general"): ("q13 skewed call", 1 << 62),
+             ("q5", "aligned"): ("q5 aligned call", 1 << 62)}
 
 #: the queries whose largest K10 call is held against the plain version:
 #: Q19 at tiny (K10's largest call), Q11, Q22 (no live slot at SF1) and
@@ -2314,9 +2348,8 @@ MUST = {"q1": ("direct_slot_reduce", "fragment"),
         "q22": ("cross_product", "semi_join", "fragment"),
         "q22_exists": ("cross_product", "semi_join", "fragment"),
         "full": ("join_expand", "join_outer", "fragment"),
-        "distinct": ("row_hash", "segment_reduce", "fragment",
-                     "radix_sort", "gather_rows"),
-        "union": ("row_hash", "segment_reduce", "fragment"),
+        "distinct": ("distinct_set", "fragment"),
+        "union": ("distinct_set", "fragment"),
         "q19": ("cross_product", "fragment"),
         "q19_live": ("cross_product", "fragment")}
 
@@ -2552,10 +2585,15 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
         for layout, (_, q, args) in cap.expand.items()}
     _, fq, fargs, fmatched = cap.expand_full
     expand["full"] = (fq, measure_k9(torch, tj, fargs, {}, fmatched))
+    check(set(EXPAND_AT) <= set(cap.expand_at),
+          "K9 was not called at every EXPAND_AT query and layout")
+    expand_at = {key: measure_k9(torch, tj, cap.expand_at[key][2], {})
+                 for key in EXPAND_AT}
     k10 = {q: measure_k10(torch, mods["misc"], cap.k10[q][1])
            for q in K10_AT}
     k11 = measure_k11(torch, tj, cap.k11[2])
     distinct = measure_distinct(torch, mods["sort"], cap.distinct[2])
+    distinct_from = cap.distinct[1]
     # K25 at the largest join build, beside one stable torch.sort
     build_sort = {**measure_radix_sort(torch, tc, *cap.build_sort[2:]),
                   "shape_from": cap.build_sort[1]}
@@ -2668,7 +2706,10 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
           "shape_from": "q5", **probe_q5})
     for layout, (q, m) in expand.items():
         emit({"phase": "kernels", "kernel": "join_expand",
-              "shape_from": q, **m})
+              "role": f"largest {layout} call", "shape_from": q, **m})
+    for key, m in expand_at.items():
+        emit({"phase": "kernels", "kernel": "join_expand",
+              "role": EXPAND_AT[key][0], "shape_from": key[0], **m})
     for q, m in k10.items():
         emit({"phase": "kernels", "kernel": "cross_product",
               "shape_from": q, **m,
@@ -2676,8 +2717,8 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
                         for qq, c in calls.items()}})
     emit({"phase": "kernels", "kernel": "join_outer", "shape_from": "full",
           **k11})
-    emit({"phase": "kernels", "kernel": "distinct (K3 + K25 + K26 + K6)",
-          "family": "distinct", "shape_from": "distinct", **distinct,
+    emit({"phase": "kernels", "kernel": "distinct_set", "family": "distinct",
+          "shape_from": distinct_from, **distinct,
           "calls": {qq: c.get("distinct", 0) for qq, c in calls.items()}})
     emit({"phase": "kernels", "kernel": "radix_sort", "role": "join build",
           "family": "join_build", **build_sort,
@@ -2714,6 +2755,7 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
     # the summary's K9 figures are those of its largest general call,
     # K10's those of its largest call (Q19 at tiny)
     measured["join_expand"] = expand["general"][1]
+    measured["distinct_set"] = distinct
     measured["cross_product"] = k10["q19"]
     measured["join_outer"] = k11
     # K12's figures are those of its largest call by bytes

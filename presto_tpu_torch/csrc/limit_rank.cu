@@ -33,28 +33,19 @@
 // Where n - emitted <= 0 no row is kept: every block writes zeros and
 // skips the look-back, and the count comes out as `emitted`.
 //
-// Status words are 64-bit: a 30-bit epoch, a 2-bit flag (aggregate /
-// inclusive prefix) and a 32-bit count (n <= 2^31 - 1). The host hands
-// every call a new epoch, so one status array per stream serves every
-// call with no clearing: a word of another epoch reads as "not
-// published yet".
+// The status words, the ticket and the look-back are lookback.cuh's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "lookback.cuh"
 
 #define THREADS 256
 #define VEC 16
 #define TILE (THREADS * VEC)
 #define WARPS (THREADS / 32)
 
-#define FLAG_AGGREGATE 1ULL
-#define FLAG_INCLUSIVE 2ULL
-
 typedef unsigned long long u64;
-
-__device__ __forceinline__ u64 status_word(uint32_t epoch, u64 flag, uint32_t count) {
-  return (static_cast<u64>(epoch) << 34) | (flag << 32) | count;
-}
 
 // any nonzero byte of w as 1 (torch's bools are 0 or 1 already)
 __device__ __forceinline__ uint32_t ones(uint32_t w) {
@@ -87,16 +78,9 @@ limit_rank_kernel(const uint8_t* __restrict__ row_valid, int64_t n, int64_t limi
                   int64_t* __restrict__ emitted_out, uint32_t* ticket, u64* status,
                   uint32_t epoch, uint32_t ntiles) {
   __shared__ uint32_t wsum[WARPS];
-  __shared__ uint32_t tile_id;
   __shared__ uint32_t before_tile;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) {
-    const uint32_t t = atomicAdd(ticket, 1u);
-    if (t == ntiles - 1) *ticket = 0;  // every ticket is taken
-    tile_id = t;
-  }
-  __syncthreads();
-  const uint32_t t = tile_id;
+  const uint32_t t = presto_lb_ticket(ticket, ntiles);
   const bool last = t == ntiles - 1;
   const int64_t e = *emitted;
   const int64_t room = limit - e;
@@ -135,37 +119,7 @@ limit_rank_kernel(const uint8_t* __restrict__ row_valid, int64_t n, int64_t limi
     }
     // warp 0: publish, look back, publish the inclusive prefix
     if (warp == 0) {
-      u64* mine = status + t;
-      uint32_t prefix = 0;
-      if (t == 0) {
-        if (lane == 0)
-          *reinterpret_cast<volatile u64*>(mine) = status_word(epoch, FLAG_INCLUSIVE, total);
-      } else {
-        if (lane == 0)
-          *reinterpret_cast<volatile u64*>(mine) = status_word(epoch, FLAG_AGGREGATE, total);
-        int64_t k = static_cast<int64_t>(t) - 1;  // the window's newest tile
-        for (;;) {
-          const int64_t idx = k - lane;
-          u64 v;
-          bool ready;
-          do {
-            v = idx >= 0 ? *reinterpret_cast<const volatile u64*>(status + idx)
-                         : status_word(epoch, FLAG_INCLUSIVE, 0);
-            ready = static_cast<uint32_t>(v >> 34) == epoch && ((v >> 32) & 3ULL) != 0;
-          } while (!__all_sync(0xffffffffu, ready));
-          const unsigned inc = __ballot_sync(0xffffffffu, ((v >> 32) & 3ULL) == FLAG_INCLUSIVE);
-          const int stop = inc ? __ffs(inc) - 1 : 31;
-          uint32_t c = lane <= stop ? static_cast<uint32_t>(v) : 0u;
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
-          prefix += c;
-          if (inc) break;
-          k -= 32;
-        }
-        if (lane == 0)
-          *reinterpret_cast<volatile u64*>(mine) =
-              status_word(epoch, FLAG_INCLUSIVE, prefix + total);
-      }
+      const uint32_t prefix = presto_lb_prefix(status, t, epoch, total);
       if (lane == 0) before_tile = prefix;
     }
     __syncthreads();

@@ -61,6 +61,7 @@ SOURCES = {
     "agg_finalize": "agg_finalize.cu",
     "vector_reduce": "vector_reduce.cu",
     "topn_select": "topn_select.cu",
+    "distinct_set": "distinct_set.cu",
 }
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
@@ -115,10 +116,12 @@ SIGNATURES = {
     },
     "join_expand": {
         "presto_expand_tile": (ctypes.c_int, []),
+        "presto_expand_items": (ctypes.c_int, []),
         "presto_join_expand": (
             ctypes.c_int, [_I32, _P, _P, _I64, _P, _P, _P, _I64, _I32, _I32,
                            _P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _P,
-                           _P, _I32, _P, _I64, _P, _P, _P, _P]),
+                           _P, _I32, _P, _I64, _P, _P, _P, _P, _U32, _P,
+                           _P]),
     },
     "cross_product": {
         "presto_cross_product": (
@@ -230,6 +233,12 @@ SIGNATURES = {
             ctypes.c_int, [_P, _P, _P, _P, _I32, _P, _P, _P, _P, _I64, _P,
                            _I64, _I32, _I32, _I32, _I32, _I32, _P, _P, _P,
                            _P]),
+    },
+    "distinct_set": {
+        "presto_distinct_tile": (ctypes.c_int, []),
+        "presto_distinct_set": (
+            ctypes.c_int, [_P, _P, _P, _P, _P, _I32, _P, _I64, _P, _I64, _P,
+                           _I64, _P, _P, _I64, _P, _P, _U32, _P]),
     },
     "topn_select": {
         "presto_topn_sort_scratch": (ctypes.c_int, []),

@@ -330,10 +330,11 @@ class FusedTopNOperatorFactory(OperatorFactory):
 # -- chain -> DISTINCT -------------------------------------------------
 
 class FusedDistinctOperator(DistinctOperator):
-    """chain + dedup fold: the inherited grow-on-full protocol re-merges
-    the OLD STATE through the plain distinct step (the chain applies to
-    incoming batches exactly once); only the batch-incorporating step
-    runs the chain."""
+    """chain + dedup fold: only the batch-incorporating step runs the
+    chain, so it applies to each incoming batch exactly once; the
+    inherited grow-on-full protocol re-merges the OLD STATE through the
+    unfused step (`distinct_step`), which appends its rows into the
+    larger state where they lay."""
 
     def __init__(self, ctx: OperatorContext, body: ChainBody,
                  schema_cols: Sequence[tuple], capacity: int = 4096):

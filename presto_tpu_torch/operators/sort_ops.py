@@ -153,7 +153,7 @@ class DistinctOperator(Operator):
     presto_tpu/operators/sort_ops.py:165). The state starts at
     `capacity` rows and doubles whenever a merged state fills it: a full
     state cannot tell kept rows from dropped ones, so the old state is
-    re-merged into one of twice the size before the batch is taken
+    appended into one of twice the size before the batch is taken
     again. One host read of the live count per batch."""
 
     def __init__(self, ctx: OperatorContext, schema_cols: Sequence[tuple],
@@ -170,10 +170,12 @@ class DistinctOperator(Operator):
         return not self._finishing
 
     def _step(self, batch: Batch) -> Batch:
-        """The merge of one batch into the state — the whole-fragment
-        compiler runs the upstream chain first
-        (operators/fused_fragment.py); the growth below re-merges the
-        old state through the plain step."""
+        """The merge of one batch into the state (the unfused step,
+        `distinct_step`; the whole-fragment compiler's operator runs the
+        upstream chain first, operators/fused_fragment.py). The growth
+        below re-merges the old state into an empty one of twice its
+        capacity with `distinct_step` itself: the old state's rows are
+        appended where they lay, and the batch is taken again."""
         return sort_kernels.distinct_step(self._state, batch)
 
     def add_input(self, batch: Batch) -> None:

@@ -821,6 +821,39 @@ def radix_sort_plain(words, digits: Optional[torch.Tensor] = None,
     return perm, (wl[0][perm] if sorted_first else None)
 
 
+#: look-back epochs are 30 bits (csrc/lookback.cuh); 0 is the zeroed
+#: words' epoch
+LOOKBACK_EPOCHS = 1 << 30
+#: the look-back scratch per (device, stream) of the chained scans of
+#: K27, K33 and K9's count pass (csrc/lookback.cuh): [the ticket counter
+#: (each kernel leaves it at 0), the status words of as many tiles as
+#: the largest call had so far, the last epoch handed out]
+_LOOKBACK_SCRATCH: dict = {}
+#: held around a call's epoch and launches: host threads that share a
+#: stream (a worker's tasks) would otherwise race on the epoch (and on
+#: the callers' own per-stream scratch, such as K33's table)
+LOOKBACK_LOCK = threading.Lock()
+
+
+def lookback_scratch(dev, stream: int, tiles: int):
+    """The look-back scratch for a call of `tiles` tiles on `stream`,
+    with the call's epoch taken: [ticket, status, epoch]. Take it under
+    LOOKBACK_LOCK. A larger status array replaces a smaller one (zeroed
+    words carry epoch 0, which no call takes); when the epochs wrap the
+    words are zeroed again."""
+    hit = _LOOKBACK_SCRATCH.get((dev, stream))
+    if hit is None:
+        hit = [torch.zeros(1, dtype=torch.int64, device=dev), None, 0]
+        _LOOKBACK_SCRATCH[(dev, stream)] = hit
+    if hit[1] is None or hit[1].shape[0] < tiles:
+        hit[1] = torch.zeros(tiles, dtype=torch.int64, device=dev)
+    hit[2] += 1
+    if hit[2] == LOOKBACK_EPOCHS:
+        hit[1].zero_()
+        hit[2] = 1
+    return hit
+
+
 #: K25's scratch per (device, stream): (the pass table, histograms and
 #: bucket starts, zeroed once; the look-back status words, zeroed once
 #: and grown with the tile count). The kernels leave both reusable: the

@@ -22,18 +22,20 @@ The hand-written CUDA kernels of this module:
 - K4 `build_meta` (csrc/join_build.cu) derives part_starts, run_len
   and the build's statistics from the sorted hashes;
 - K5 `probe_search` (csrc/join_probe.cu) hashes the probe keys with
-  the same device code and searches the build.
+  the same device code and searches the build;
+- K9 `_expand_from_enc` (csrc/join_expand.cu) expands the search's
+  candidates into the output slots, in one of two layouts:
+  - ALIGNED, when every build hash run has length 1 (`unique_runs`,
+    any FK->PK join) and the output capacity is the probe capacity:
+    output slot i is probe row i, the build side one gather per column
+    (one launch);
+  - GENERAL, for duplicate-key builds: each probe row's first slot
+    from a scan of its emit counts, then a write in which each block
+    owns a run of rows and slots and consecutive threads write
+    consecutive slots, into a caller-chosen capacity, with an
+    on-device overflow flag (two launches).
 
 Each has a plain PyTorch version beside it, which runs for CPU tensors.
-The expansion around the search stays composed torch, as in the
-reference:
-
-- ALIGNED, when every build hash run has length 1 (`unique_runs`, any
-  FK->PK join) and the output capacity is the probe capacity: output
-  slot i is probe row i, the build side is one gather per column;
-- GENERAL, for duplicate-key builds: a prefix sum of per-probe-row
-  emit counts, expand-by-counts into a caller-chosen capacity, and an
-  on-device overflow flag.
 
 Join types: inner, left and full (a right join is planned as a flipped
 left join). A FULL join probes as a left join does and besides folds
@@ -45,6 +47,7 @@ row matched, with a NULL probe side.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import dataclasses
 import functools
@@ -540,6 +543,48 @@ def _aligned_layout(table: BuildTable, probe: Batch, out_capacity: int,
 
 #: launches of the CUDA join-expand kernel (csrc/join_expand.cu)
 JOIN_EXPAND_KERNEL = _tk.LaunchCounter("join_expand", "join_probe")
+#: probe rows of an aligned or count-pass K9 block (TILE), and rows and
+#: slots together of a write block (NV), in csrc/join_expand.cu
+EXPAND_TILE = 1024
+EXPAND_ITEMS = 1024
+#: most probe rows, and most output slots, K9 takes: its offsets and
+#: counts are 32-bit
+EXPAND_MAX_ROWS = (1 << 31) - 1
+#: K9's general-layout scratch per (device, stream): int64 words, as
+#: many as the largest call so far needed (`expand_scratch_words`)
+_EXPAND_SCRATCH: dict = {}
+
+
+def expand_scratch_words(n: int, out_cap: int) -> int:
+    """Int64 words of K9's general scratch: each probe row's first slot,
+    the write blocks' first rows, each row's unmatched flag (a byte)."""
+    return n + -(-(n + out_cap) // EXPAND_ITEMS) + 1 + -(-n // 8)
+
+
+def _expand_scratch(dev, stream: int, words: int) -> torch.Tensor:
+    hit = _EXPAND_SCRATCH.get((dev, stream))
+    if hit is None or hit.shape[0] < words:
+        hit = torch.empty(words, dtype=torch.int64, device=dev)
+        _EXPAND_SCRATCH[(dev, stream)] = hit
+    return hit
+
+
+def _column_arrays(c: Column, rows: int, dev, what: str):
+    """A column's data and mask as K9 reads them (contiguous), checked
+    once."""
+    d, m = c.data.contiguous(), c.mask.contiguous()
+    if d.device != dev or m.device != dev or d.dim() != 1 \
+            or d.shape[0] != rows or m.shape[0] != rows \
+            or m.dtype != torch.bool:
+        raise ValueError(
+            f"join_expand: column {what} must be 1-D data and a bool mask "
+            f"of {rows} rows on {dev}; got {d.dtype} {tuple(d.shape)} / "
+            f"{m.dtype} {tuple(m.shape)} on {d.device}")
+    return d, m
+
+
+def _r16(x: int) -> int:
+    return (x + 15) & ~15
 
 
 def _expand_cuda(table, probe, key_names, lo_enc, out_capacity, join_type,
@@ -553,12 +598,13 @@ def _expand_cuda(table, probe, key_names, lo_enc, out_capacity, join_type,
     nb = table.sorted_hash.shape[0]
     aligned = _aligned_layout(table, probe, out_capacity, join_type)
     cap = n if aligned else int(out_capacity)
+    if max(n, cap) > EXPAND_MAX_ROWS:
+        raise ValueError(f"join_expand: {n} probe rows into {cap} slots; "
+                         f"its counts hold at most {EXPAND_MAX_ROWS}")
+    # run_len and hash2 were checked once, by BuildTable
     common.check_rows(lo_enc, n, dev, (torch.int64,), "join_expand: lo_enc")
     common.check_rows(probe.row_valid, n, dev, (torch.bool,),
                       "join_expand: row_valid")
-    for t, what in ((table.run_len, "run_len"), (table.hash2, "hash2")):
-        common.check_rows(t, nb, dev, (torch.int64,),
-                          f"join_expand: {what}")
     if h2 is not None:
         common.check_rows(h2, n, dev, (torch.int64,), "join_expand: h2")
     if matched is not None:
@@ -573,59 +619,79 @@ def _expand_cuda(table, probe, key_names, lo_enc, out_capacity, join_type,
             [table.batch.columns[k].astuple() for k in build_keys], nb,
             dev, "join_expand: build keys")
     else:
-        pk = bk = (None, None, None, ctypes.c_int32(0), None)
-    cols: Dict[str, Column] = {}
-    spec = []
-    keep_alive = []
+        pk = bk = (None, None, None, 0, None)
+    # the outputs are views of one allocation: each column's data (an
+    # aligned probe column's passes through), each mask, the liveness,
+    # then the four stats words
+    outs, off = [], 0
     for side, names, batch, rows in ((0, probe_output, probe, n),
                                      (1, build_output, table.batch, nb)):
         for name in names:
             c = batch.columns[name]
-            cd, cm = c.data.contiguous(), c.mask.contiguous()
-            keep_alive.append((cd, cm))
-            common.check_rows(cd, rows, dev, (cd.dtype,),
-                              f"join_expand: column {name}")
-            common.check_rows(cm, rows, dev, (torch.bool,),
-                              f"join_expand: mask of {name}")
-            # an aligned probe column's data passes through
-            data = cd if aligned and side == 0 else \
-                torch.empty(cap, dtype=cd.dtype, device=dev)
-            mask = torch.empty(cap, dtype=torch.bool, device=dev)
-            cols[name] = Column(data, mask, c.type, c.dictionary)
-            spec.append((cd.data_ptr(), cm.data_ptr(),
-                         0 if aligned and side == 0 else data.data_ptr(),
-                         mask.data_ptr(), cd.element_size(), side))
-    live = torch.empty(cap, dtype=torch.bool, device=dev)
-    stats = torch.empty(3, dtype=torch.int64, device=dev)
+            d, m = _column_arrays(c, rows, dev, name)
+            w = d.element_size()
+            own = not (aligned and side == 0)
+            outs.append((name, c, d, m, side, w, off if own else None))
+            off += _r16(cap * w) if own else 0
+    mask_at = off
+    live_at = mask_at + len(outs) * _r16(cap)
+    stats_at = live_at + _r16(cap)
+    buf = torch.empty(stats_at + 32, dtype=torch.uint8, device=dev)
+    base = buf.data_ptr()
+    cols: Dict[str, Column] = {}
+    src, src_mask, dst, dst_mask, sizes, sides = (
+        array.array("q"), array.array("q"), array.array("q"),
+        array.array("q"), array.array("i"), array.array("i"))
+    for i, (name, c, d, m, side, w, doff) in enumerate(outs):
+        moff = mask_at + i * _r16(cap)
+        data = d if doff is None else buf[doff:doff + cap * w].view(d.dtype)
+        cols[name] = Column(data, buf[moff:moff + cap].view(torch.bool),
+                            c.type, c.dictionary)
+        src.append(d.data_ptr())
+        src_mask.append(m.data_ptr())
+        dst.append(0 if doff is None else base + doff)
+        dst_mask.append(base + moff)
+        sizes.append(w)
+        sides.append(side)
+    live = buf[live_at:live_at + cap].view(torch.bool)
+    stats = buf[stats_at:stats_at + 32].view(torch.int64)
+    # the overflow flag: stats[1]'s low byte (0 or 1), read in place
+    overflow = buf[stats_at + 8:stats_at + 9].view(torch.bool)[0]
     lib = cuda.library("join_expand")
-    tiles = None if aligned else torch.empty(
-        (n + lib.presto_expand_tile() - 1) // lib.presto_expand_tile(),
-        dtype=torch.int64, device=dev)
+    stream = cuda.stream_ptr(dev)
+    args = (int(aligned), lo_enc.data_ptr(), probe.row_valid.data_ptr(), n,
+            table.run_len.data_ptr(), table.hash2.data_ptr(),
+            None if h2 is None else h2.data_ptr(), nb,
+            int(join_type in ("left", "full")), int(full), pk[0], pk[1],
+            pk[2], bk[0], bk[1], bk[2], pk[3])
     # more than GATHER_MAX_COLS output columns take several launches;
     # each recomputes the same slots, liveness, stats and matched flags
-    for table_args in common.gather_chunks(spec, "join_expand"):
-        stats.zero_()
-        status = lib.presto_join_expand(
-            ctypes.c_int32(int(aligned)), ctypes.c_void_p(lo_enc.data_ptr()),
-            ctypes.c_void_p(probe.row_valid.data_ptr()), ctypes.c_int64(n),
-            ctypes.c_void_p(table.run_len.data_ptr()),
-            ctypes.c_void_p(table.hash2.data_ptr()),
-            ctypes.c_void_p(None if h2 is None else h2.data_ptr()),
-            ctypes.c_int64(nb),
-            ctypes.c_int32(int(join_type in ("left", "full"))),
-            ctypes.c_int32(int(full)), pk[0], pk[1], pk[2], bk[0], bk[1],
-            bk[2], pk[3], *table_args, ctypes.c_void_p(live.data_ptr()),
-            ctypes.c_int64(cap), ctypes.c_void_p(stats.data_ptr()),
-            ctypes.c_void_p(None if tiles is None else tiles.data_ptr()),
-            ctypes.c_void_p(None if matched is None
-                            else matched.data_ptr()),
-            ctypes.c_void_p(cuda.stream_ptr(dev)))
+    ncols = len(outs)
+    for lo in range(0, max(ncols, 1), common.GATHER_MAX_COLS):
+        hi = min(lo + common.GATHER_MAX_COLS, ncols)
+        at = lambda a, size: a.buffer_info()[0] + lo * size
+        table_args = (at(src, 8), at(src_mask, 8), at(dst, 8),
+                      at(dst_mask, 8), at(sizes, 4), at(sides, 4), hi - lo)
+        if aligned:
+            stats.zero_()
+            status = lib.presto_join_expand(
+                *args, *table_args, live.data_ptr(), cap, stats.data_ptr(),
+                None, None, None, 0,
+                None if matched is None else matched.data_ptr(), stream)
+        else:
+            with common.LOOKBACK_LOCK:
+                scratch = _expand_scratch(dev, stream,
+                                          expand_scratch_words(n, cap))
+                ticket, status_words, epoch = common.lookback_scratch(
+                    dev, stream, -(-n // EXPAND_TILE))
+                status = lib.presto_join_expand(
+                    *args, *table_args, live.data_ptr(), cap,
+                    stats.data_ptr(), scratch.data_ptr(), ticket.data_ptr(),
+                    status_words.data_ptr(), epoch,
+                    None if matched is None else matched.data_ptr(), stream)
         cuda.check(lib, status, "join_expand")
         JOIN_EXPAND_KERNEL.launches += 1
-    if aligned:
-        return Batch(cols, live), torch.zeros((), dtype=torch.bool,
-                                              device=dev), stats[0]
-    return Batch(cols, live), stats[1] > 0, stats[2]
+    return Batch(cols, live), overflow, stats[0 if aligned else 2]
 
 
 def expand_plain(table, probe, key_names, lo_enc, out_capacity,

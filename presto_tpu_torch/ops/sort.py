@@ -12,16 +12,15 @@ sources with K24 (no concatenation), selects the candidates for its
 first `cap` rows with K31 and sorts only those with K32
 (csrc/topn_select.cu) before K26 (on CPU tensors the plain versions);
 LIMIT is K27 (csrc/limit_rank.cu), which also carries the emitted count
-on the device. DISTINCT folds state ++ batch
-through the sort-based grouping with no aggregates: K3's row hashes,
-K25 over (h1, h2), K26 and K6's group boundaries and first rows, the
-arrangement the sort-based aggregation runs. On CPU tensors every step
-is its plain version.
+on the device. DISTINCT folds state ++ batch through K33
+(csrc/distinct_set.cu): one hash-set insert of every live row and an
+append of each group's first row, so the state's rows stay where they
+lie and no row is sorted. On CPU tensors every step is its plain
+version.
 """
 
 from __future__ import annotations
 
-import threading
 from typing import Sequence, Tuple
 
 import torch
@@ -139,38 +138,9 @@ def limit_rank_plain(row_valid: torch.Tensor, n: int,
 LIMIT_TILE = 4096
 #: most rows K27 takes: its status words hold 31-bit counts
 LIMIT_MAX_ROWS = (1 << 31) - 1
-#: K27's look-back epochs are 30 bits; 0 is the zeroed words' epoch
-_LIMIT_EPOCHS = 1 << 30
-#: K27's scratch per (device, stream): [its ticket counter (the
-#: kernel leaves it at 0), the status words of as many tiles as the
-#: largest call had so far, the last epoch handed out]
-_LIMIT_SCRATCH: dict = {}
-#: held around a call's epoch and launch: host threads that share a
-#: stream (a worker's tasks) would otherwise race on the epoch
-_LIMIT_LOCK = threading.Lock()
-
-
 def limit_tiles(rows: int) -> int:
     """K27's tiles (one block each) for `rows` rows."""
     return -(-rows // LIMIT_TILE)
-
-
-def _limit_scratch(dev, stream: int, tiles: int):
-    """K27's scratch for a call of `tiles` tiles on `stream`, with the
-    call's epoch taken: [ticket, status, epoch]. A larger status array
-    replaces a smaller one (zeroed words carry epoch 0, which no call
-    takes); when the epochs wrap the words are zeroed again."""
-    hit = _LIMIT_SCRATCH.get((dev, stream))
-    if hit is None:
-        hit = [torch.zeros(1, dtype=torch.int64, device=dev), None, 0]
-        _LIMIT_SCRATCH[(dev, stream)] = hit
-    if hit[1] is None or hit[1].shape[0] < tiles:
-        hit[1] = torch.zeros(tiles, dtype=torch.int64, device=dev)
-    hit[2] += 1
-    if hit[2] == _LIMIT_EPOCHS:
-        hit[1].zero_()
-        hit[2] = 1
-    return hit
 
 
 def _limit_rank_cuda(row_valid: torch.Tensor, n: int,
@@ -198,9 +168,9 @@ def _limit_rank_cuda(row_valid: torch.Tensor, n: int,
         return keep, out
     lib = cuda.library("limit_rank")
     stream = cuda.stream_ptr(dev)
-    with _LIMIT_LOCK:
-        ticket, status, epoch = _limit_scratch(dev, stream,
-                                               limit_tiles(rows))
+    with common.LOOKBACK_LOCK:
+        ticket, status, epoch = common.lookback_scratch(dev, stream,
+                                                        limit_tiles(rows))
         code = lib.presto_limit_rank(
             row_valid.data_ptr(), rows, int(n), emitted.data_ptr(),
             keep.data_ptr(), out.data_ptr(), ticket.data_ptr(),
@@ -236,34 +206,165 @@ def distinct_state(schema_cols: Sequence[tuple], capacity: int,
     return topn_state(schema_cols, capacity, device)
 
 
+#: launches of K33, DISTINCT's hash-set fold (csrc/distinct_set.cu)
+DISTINCT_SET_KERNEL = _tk.LaunchCounter("distinct_set", "distinct")
+#: most rows of state ++ batch K33 takes: its row ids are 32-bit
+DISTINCT_MAX_ROWS = (1 << 31) - 1
+#: rows (and output slots) of one K33 tile (csrc/distinct_set.cu TILE)
+DISTINCT_TILE = 1024
+#: K33's tables per (device, stream): [the words, as many as the
+#: largest call so far, all empty between calls (each word's owner
+#: empties it); each row's word]
+_DISTINCT_SCRATCH: dict = {}
+
+
+def distinct_table_words(rows: int) -> int:
+    """K33's table words for `rows` rows of state ++ batch: the power of
+    two at least twice the rows (at least 1024)."""
+    return max(1024, 1 << max(0, 2 * rows - 1).bit_length())
+
+
+def _distinct_keys(state: Batch, batch: Batch):
+    """The key columns of state and batch (every column; the batch's
+    data in the state's dtypes)."""
+    keys = [(state.columns[n].data.contiguous(),
+             state.columns[n].mask.contiguous()) for n in state.names]
+    bkeys = [(batch.columns[n].data.to(d.dtype).contiguous(),
+              batch.columns[n].mask.contiguous())
+             for n, (d, _) in zip(state.names, keys)]
+    return keys, bkeys
+
+
+def distinct_layout(state: Batch, cap: int):
+    """The output allocation of K33 (csrc/distinct_set.cu): each
+    column's data in key order at a 16-byte aligned offset, then each
+    column's mask, then row_valid. Returns (bytes, [(data offset, mask
+    offset)] per column, row_valid's offset)."""
+    r16 = lambda x: (x + 15) & ~15
+    offs, off = [], 0
+    for n in state.names:
+        offs.append(off)
+        off += r16(cap * state.columns[n].data.element_size())
+    step = r16(cap)
+    cols = [(d, off + i * step) for i, d in enumerate(offs)]
+    return off + (len(offs) + 1) * step, cols, off + len(offs) * step
+
+
+def _distinct_scratch(dev, stream: int, words: int, rows: int):
+    hit = _DISTINCT_SCRATCH.get((dev, stream))
+    if hit is None:
+        hit = [None, None]
+        _DISTINCT_SCRATCH[(dev, stream)] = hit
+    if hit[0] is None or hit[0].shape[0] < words:
+        hit[0] = torch.full((words,), -1, dtype=torch.int64, device=dev)
+    if hit[1] is None or hit[1].shape[0] < rows:
+        hit[1] = torch.empty(max(rows, 1), dtype=torch.int64, device=dev)
+    return hit
+
+
+def _distinct_set_cuda(state: Batch, batch: Batch) -> Batch:
+    """K33 on the card: the kernel hashes the keys and each word's owner
+    empties it again, so the cached table is empty between calls."""
+    from presto_tpu_torch.native import cuda
+    S, B, cap = state.capacity, batch.capacity, state.capacity
+    rows = S + B
+    if rows > DISTINCT_MAX_ROWS:
+        raise ValueError(f"distinct_set: {rows} rows of state ++ batch; its "
+                         f"row ids hold at most {DISTINCT_MAX_ROWS}")
+    dev = state.row_valid.device
+    keys, bkeys = _distinct_keys(state, batch)
+    sk = common.key_group_args(keys, S, dev, "distinct_set: state keys")
+    bk = common.key_group_args(bkeys, B, dev, "distinct_set: batch keys")
+    common.check_rows(state.row_valid, S, dev, (torch.bool,),
+                      "distinct_set: the state's row_valid")
+    common.check_rows(batch.row_valid, B, dev, (torch.bool,),
+                      "distinct_set: the batch's row_valid")
+    size, col_offs, valid_off = distinct_layout(state, cap)
+    buf = torch.empty(size, dtype=torch.uint8, device=dev)
+    lib = cuda.library("distinct_set")
+    stream = cuda.stream_ptr(dev)
+    words = distinct_table_words(rows)
+    tiles = -(-rows // DISTINCT_TILE) + -(-cap // DISTINCT_TILE)
+    with common.LOOKBACK_LOCK:
+        table, slots = _distinct_scratch(dev, stream, words, rows)
+        ticket, status, epoch = common.lookback_scratch(dev, stream, tiles)
+        code = lib.presto_distinct_set(
+            sk[0], sk[1], bk[0], bk[1], sk[2], sk[3],
+            state.row_valid.data_ptr(), S, batch.row_valid.data_ptr(), B,
+            table.data_ptr(), words, slots.data_ptr(), buf.data_ptr(), cap,
+            ticket.data_ptr(), status.data_ptr(), epoch, stream)
+    cuda.check(lib, code, "distinct_set")
+    DISTINCT_SET_KERNEL.launches += 1
+    cols = {}
+    for name, (doff, moff) in zip(state.names, col_offs):
+        c = state.columns[name]
+        dt = c.data.dtype
+        w = c.data.element_size()
+        cols[name] = Column(buf[doff:doff + cap * w].view(dt),
+                            buf[moff:moff + cap].view(torch.bool), c.type,
+                            c.dictionary)
+    return Batch(cols, buf[valid_off:valid_off + cap].view(torch.bool))
+
+
 def distinct_step(state: Batch, batch: Batch) -> Batch:
-    """Fold step for SELECT DISTINCT and the dedup of UNION: regroup
-    state ++ batch by all columns and keep one representative per group
-    (the reference's `_distinct_step_impl`, presto_tpu/ops/sort.py:106:
-    `hashagg._group_reduce` with zero aggregates, here K3 + K25 + K26 +
-    K6, which read the state and the batch as two sources: nothing is
-    concatenated on the card). Groups beyond the state's capacity are
-    dropped; the operator grows the state before that can happen."""
+    """Fold step for SELECT DISTINCT and the dedup of UNION (the
+    reference's `_distinct_step_impl`, presto_tpu/ops/sort.py:106):
+    keep the first row of every group of state ++ batch, in that order,
+    in a state of `state.capacity` slots. The state's live rows are a
+    prefix of its slots and stay where they lie; the batch's new rows
+    follow in batch order. Groups beyond the capacity are dropped (the
+    state reads full and the operator grows it). K33 on CUDA tensors
+    (one hash-set insert and an append, no sort), the plain version on
+    CPU tensors."""
     _tk.count("distinct")
-    return _distinct_fold(state, batch, plain=False)
+    if state.row_valid.device.type == "cpu":
+        return distinct_step_plain(state, batch)
+    return _distinct_set_cuda(state, batch)
+
+
+def distinct_owners_plain(keys, valid: torch.Tensor) -> torch.Tensor:
+    """Per row of `keys`: live and the first of its group in row order
+    (K33's kept rows). Groups are the sort-based grouping's: equal
+    (h1, h2) and keys equal under K6's rule (NULL equals NULL, NaN equals
+    nothing); rows with a NaN key are groups of their own."""
+    n = valid.shape[0]
+    h1, h2 = common.row_hash_pair_plain(keys, valid, False)
+    perm = common.lex_perm_plain([h1, h2])
+    start = torch.ones(n, dtype=torch.bool, device=valid.device)
+    if n > 1:
+        sv = valid[perm]
+        differ = (sv[1:] != sv[:-1]) | (h1[perm][1:] != h1[perm][:-1]) \
+            | (h2[perm][1:] != h2[perm][:-1])
+        for d, m in keys:
+            sd, sm = d[perm], m[perm]
+            differ |= (sm[1:] != sm[:-1]) | (sm[1:] & (sd[1:] != sd[:-1]))
+        start[1:] = differ
+    owner = torch.empty_like(start)
+    owner[perm] = start
+    return owner & valid
 
 
 def distinct_step_plain(state: Batch, batch: Batch) -> Batch:
-    """`distinct_step` through the plain versions of K3, K25, K26 and
-    K6, on any device (the yardstick the card's composition is held
-    against)."""
-    return _distinct_fold(state, batch, plain=True)
-
-
-def _distinct_fold(state: Batch, batch: Batch, plain: bool) -> Batch:
-    from presto_tpu_torch.ops import hashagg
-    keys = [state.columns[n].astuple() for n in state.names]
-    batch_keys = [(batch.columns[n].data.to(d.dtype), batch.columns[n].mask)
-                  for n, (d, _) in zip(state.names, keys)]
-    gr = hashagg._group_reduce_parts(
-        [(keys, state.row_valid, []), (batch_keys, batch.row_valid, [])],
-        [], state.capacity, plain)
-    cols = {name: Column(d, m, state.columns[name].type,
-                         state.columns[name].dictionary)
-            for name, (d, m) in zip(state.names, gr.keys)}
-    return Batch(cols, gr.valid)
+    """Plain version of K33, on any device: the same slots (the first
+    row of every group of state ++ batch, in that order, up to the
+    state's capacity; dead slots zero with their masks clear)."""
+    cap = state.capacity
+    keys, bkeys = _distinct_keys(state, batch)
+    cat = [(torch.cat([d, bd]), torch.cat([m, bm]))
+           for (d, m), (bd, bm) in zip(keys, bkeys)]
+    valid = torch.cat([state.row_valid, batch.row_valid])
+    owner = distinct_owners_plain(cat, valid)
+    pos = torch.cumsum(owner.to(torch.int64), 0) - 1
+    keep = owner & (pos < cap)
+    dst = pos[keep]
+    cols = {}
+    for name, (d, m) in zip(state.names, cat):
+        data = torch.zeros(cap, dtype=d.dtype, device=d.device)
+        mask = torch.zeros(cap, dtype=torch.bool, device=d.device)
+        data[dst] = d[keep]
+        mask[dst] = m[keep]
+        c = state.columns[name]
+        cols[name] = Column(data, mask, c.type, c.dictionary)
+    out_valid = torch.zeros(cap, dtype=torch.bool, device=valid.device)
+    out_valid[dst] = True
+    return Batch(cols, out_valid)

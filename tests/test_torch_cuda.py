@@ -804,9 +804,94 @@ def test_k6_with_no_aggregate_matches_plain(hopper, nkeys):
     assert bool(want[3]) == (nkeys == 2) == (int(want[2]) > out_cap)
 
 
+def _same_slots(got, want):
+    """Two batches equal slot for slot: row_valid, every mask and every
+    value, dead slots included (bitwise, so NaN equals NaN)."""
+    assert torch.equal(got.row_valid, want.row_valid.to(got.row_valid.device))
+    assert got.names == want.names
+    for n in want.names:
+        g, w = got.columns[n], want.columns[n]
+        assert torch.equal(g.mask, w.mask.to(g.mask.device)), n
+        gd, wd = g.data, w.data.to(g.data.device)
+        if gd.is_floating_point():
+            gd, wd = gd.view(torch.uint8), wd.view(torch.uint8)
+        assert torch.equal(gd, wd), n
+
+
+def _distinct_inputs(rng, state_rows, batch_rows, dev, groups):
+    """A state folded from one batch and a second batch: BIGINT and
+    INTEGER keys from `groups` values with NULLs (other data under the
+    mask), a DOUBLE key with NaN, -0.0 and +0.0, a BOOLEAN key."""
+    def batch(n):
+        a = rng.integers(0, groups, n)
+        am = rng.random(n) < 0.95
+        a = np.where(am, a, rng.integers(-1 << 40, 1 << 40, n))
+        x = rng.choice(np.array([np.nan, -0.0, 0.0, 1.5, 2.5]), n)
+        cols = {"a": (a, am, "bigint", None),
+                "b": (rng.integers(0, 3, n).astype(np.int32),
+                      rng.random(n) < 0.9, "integer", None),
+                "x": (x, rng.random(n) < 0.97, "double", None),
+                "f": (rng.random(n) < 0.5, np.ones(n, bool), "boolean",
+                      None)}
+        return interop.batch_from_numpy(cols, rng.random(n) < 0.9, dev)
+    from presto_tpu_torch.ops import sort as tsort
+    first = batch(batch_rows)
+    schema = [(k, c.type, None) for k, c in first.columns.items()]
+    state = tsort.distinct_step_plain(
+        tsort.distinct_state(schema, state_rows, dev), first)
+    return state, batch(batch_rows)
+
+
+@pytest.mark.parametrize("state_rows,batch_rows,groups,full", [
+    (1 << 12, 1 << 10, 100, False), (1 << 20, 1 << 20, 2000, False),
+    (1 << 16, 1 << 16, 1 << 40, True), (1 << 21, 1 << 20, 1 << 40, False)],
+    ids=["small", "l2_table", "overflow", "past_l2_table"])
+def test_k33_distinct_set_matches_plain(hopper, state_rows, batch_rows,
+                                        groups, full):
+    """K33 against its plain version slot for slot, twice in a row (the
+    table must be empty again after each call). l2_table: state ++ batch
+    2,097,152 rows, a 32 MB table; past_l2_table: 3,145,728 rows, a 64 MB
+    table past the 50 MB L2; overflow: more groups than the state holds
+    (the state reads full). A fifth of the rows hold a NaN key: each is a
+    group of its own."""
+    from presto_tpu_torch.ops import sort as tsort
+    rng = np.random.default_rng(state_rows + batch_rows)
+    state, batch = _distinct_inputs(rng, state_rows, batch_rows, hopper,
+                                    groups)
+    want = tsort.distinct_step_plain(state, batch)
+    for _ in range(2):
+        before = tsort.DISTINCT_SET_KERNEL.launches
+        got = tsort.distinct_step(state, batch)
+        assert tsort.DISTINCT_SET_KERNEL.launches == before + 1
+        torch.cuda.synchronize()
+        _same_slots(got, want)
+    assert (int(want.row_valid.sum()) == state_rows) == full
+
+
+def test_k33_table_is_empty_after_calls_of_every_size(hopper):
+    """K33's cached table is shared by calls of every size on a stream:
+    a large call, a small one (which uses only the table's first
+    words), then the large one again each match the plain version, and
+    every word of the table is empty after each call."""
+    from presto_tpu_torch.native import cuda
+    from presto_tpu_torch.ops import sort as tsort
+    rng = np.random.default_rng(57)
+    large = _distinct_inputs(rng, 1 << 19, 1 << 18, hopper, 1 << 40)
+    small = _distinct_inputs(rng, 1 << 10, 1 << 9, hopper, 100)
+    for state, batch in (large, small, large, small):
+        want = tsort.distinct_step_plain(state, batch)
+        got = tsort.distinct_step(state, batch)
+        torch.cuda.synchronize()
+        _same_slots(got, want)
+        dev = state.row_valid.device
+        table = tsort._DISTINCT_SCRATCH[(dev, cuda.stream_ptr(dev))][0]
+        assert bool((table == -1).all())
+
+
 def test_distinct_step_matches_plain(hopper):
-    """DISTINCT's fold on the card (K3 + K25 + K26 + K6) against the same
-    fold on the CPU: the same set of kept rows."""
+    """DISTINCT's fold on the card (K33) against the same fold on the
+    CPU (its plain version), slot for slot, and the operator's growth
+    re-merge: an append of the old state's rows where they lay."""
     from presto_tpu_torch.ops import sort as tsort
     rng = np.random.default_rng(53)
     n = 1 << 20
@@ -822,9 +907,145 @@ def test_distinct_step_matches_plain(hopper):
                                        c.type) for k, c in
                           b.columns.items()}, b.row_valid.to(dev))
         out = tsort.distinct_step(state, batch)
-        results.append(sorted(out.to_pylist(), key=repr))
-    assert results[0] == results[1]
-    assert 0 < len(results[0]) < 1 << 18
+        grown = tsort.distinct_step(
+            tsort.distinct_state(schema, 1 << 19, dev), out)
+        results.append((out, grown))
+    _same_slots(results[0][0], results[1][0])
+    _same_slots(results[0][1], results[1][1])
+    live = int(results[1][0].row_valid.sum())
+    assert 0 < live < 1 << 18
+    for name in ("k0", "k1"):
+        assert torch.equal(results[0][1].columns[name].data[:live],
+                           results[0][0].columns[name].data[:live])
+
+
+def test_k33_refuses_past_its_row_ids_before_allocating(hopper):
+    """State ++ batch past 2^31 - 1 rows (views of one element: nothing
+    is allocated for them) is refused by name, and K33 allocates nothing
+    first."""
+    from presto_tpu_torch.ops import sort as tsort
+    one = torch.zeros(1, dtype=torch.int64, device=hopper)
+    no = torch.zeros(1, dtype=torch.bool, device=hopper)
+
+    def big(n):
+        return tb.Batch({"a": tb.Column(one.expand(n), no.expand(n),
+                                        tt.BIGINT)}, no.expand(n))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(hopper)
+    with pytest.raises(ValueError, match="distinct_set: .* row ids hold at "
+                                         "most 2147483647"):
+        tsort.distinct_step(big(1 << 30), big(1 << 30))
+    assert torch.cuda.memory_allocated(hopper) == before
+
+
+def _kernel_nodes(fn):
+    """Kernel launches of one call of `fn`, read from a CUDA graph
+    captured around it (after a warm call on the capture stream)."""
+    import ctypes
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(raw, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * max(count.value, 1))()
+    assert cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)) == 0
+    kinds = []
+    for node in nodes[:count.value]:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    return kinds.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL
+
+
+def test_k33_and_k9_launch_counts(hopper):
+    """K33 is two launches (insert, append), and so is K9's general
+    layout (count, write): no other kernel runs in either call."""
+    from presto_tpu_torch.ops import sort as tsort
+    rng = np.random.default_rng(54)
+    state, batch = _distinct_inputs(rng, 1 << 14, 1 << 14, hopper, 500)
+    assert _kernel_nodes(lambda: tsort.distinct_step(state, batch)) == 2
+    nb, npr = 1 << 14, 1 << 15
+    build = _build_batch(rng, nb, int(nb * 0.7), hopper, 3000)
+    table = tj.build_for_backend(build, ("k0",))
+    probe = _probe_like(rng, build, ("k0",), npr, hopper, 3000, 1)
+    for join_type in ("inner", "left"):
+        lo_enc, h2 = tj.probe_search(table, probe, ("k0",), "hash")
+        args = (table, probe, ("k0",), lo_enc, 1 << 17, join_type, ("k0",),
+                ("v",), ("k0",), "hash", h2)
+        assert not tj._aligned_layout(table, probe, 1 << 17, join_type)
+        assert _kernel_nodes(lambda: tj._expand_from_enc(*args)) == 2
+
+
+def test_k33_k9_tiles_are_the_kernels(hopper):
+    """The wrappers' tile sizes are the kernels'."""
+    from presto_tpu_torch.native import cuda
+    from presto_tpu_torch.ops import sort as tsort
+    assert cuda.library("distinct_set").presto_distinct_tile() \
+        == tsort.DISTINCT_TILE
+    lib = cuda.library("join_expand")
+    assert lib.presto_expand_tile() == tj.EXPAND_TILE
+    assert lib.presto_expand_items() == tj.EXPAND_ITEMS
+
+
+@pytest.mark.parametrize("join_type", ["inner", "left", "full"])
+@pytest.mark.parametrize("verify", ["hash", "full"])
+@pytest.mark.parametrize("case", ["long_run", "cut_run", "bad_h2",
+                                  "mostly_misses"])
+def test_k9_slot_tiles_match_plain(hopper, case, verify, join_type):
+    """K9's write blocks against the plain expand where a block's rows
+    and slots are uneven: a 5,000-row run that spans several write
+    blocks (long_run), the same with a capacity that ends inside it
+    (cut_run), hash2 disagreeing for a third of the probe rows so their
+    candidates fail and a left join keeps a NULL-build slot (bad_h2,
+    verify="hash" only reads it), and a probe whose rows mostly miss, so
+    a block holds many rows with no slot (mostly_misses)."""
+    rng = np.random.default_rng(91)
+    nb, npr = 1 << 16, 1 << 18
+    build = _build_batch(rng, nb, int(nb * 0.7), hopper, 3000)
+    c = build.columns["k0"]
+    c.data[:5000] = 7
+    c.mask[:5000] = True
+    names = ("k0",)
+    table = tj.build_for_backend(build, names)
+    take = {"mostly_misses": 0.01}.get(case, 0.5)
+    probe = _probe_like(rng, build, names, npr, hopper, 3000, 1,
+                        take_frac=take)
+    pc = probe.columns["k0"]
+    pc.data[:40:4] = 7  # ten probe rows on the long run
+    pc.mask[:40:4] = True
+    lo_enc, h2 = tj.probe_search(table, probe, names, verify)
+    if case == "bad_h2":
+        h2 = tj._probe_hashes(probe, names)[1].clone()
+        h2[torch.from_numpy(rng.random(npr) < 0.33).to(hopper)] ^= 1
+    found = lo_enc >= 0
+    counts = torch.where(found, table.run_len[torch.clamp(lo_enc, min=0)],
+                         torch.zeros_like(lo_enc))
+    emit = counts if join_type == "inner" else torch.where(
+        probe.row_valid, torch.clamp(counts, min=1), torch.zeros_like(counts))
+    cum = torch.cumsum(emit, 0) - emit
+    need = int(emit.sum())
+    # cut_run: the capacity ends 2,500 slots into probe row 20's long run
+    cap = int(cum[20]) + 2500 if case == "cut_run" else max(need, 1)
+    args = (table, probe, names, lo_enc, cap, join_type, ("k0", "v"),
+            ("v",), names, verify, h2)
+    gm = wm = None
+    if join_type == "full":
+        gm = torch.zeros(nb, dtype=torch.bool, device=hopper)
+        wm = torch.zeros(nb, dtype=torch.bool, device=hopper)
+    got = tj._expand_from_enc(*args, gm)
+    want = tj.expand_plain(*args, wm)
+    torch.cuda.synchronize()
+    _assert_expand_equal(got, want, ("k0", "v"))
+    assert bool(got[1]) == (need > cap)
+    if join_type == "full":
+        assert torch.equal(gm, wm)
 
 
 # -- K12: the generated fragment kernel --------------------------------
@@ -3010,9 +3231,10 @@ def test_topn_step_matches_full_sort_on_the_card(hopper, ties):
 
 def test_sort_family_runs_k24_to_k27_and_no_library_sort(hopper,
                                                           monkeypatch):
-    """sort_batch, topn_step, limit_batch, distinct_step, the join build,
-    the sort-based grouping and lex_perm on the card launch K24-K27 and
-    never torch.sort, torch.argsort or torch.topk."""
+    """sort_batch, topn_step, limit_batch, the join build, the
+    sort-based grouping and lex_perm on the card launch K24-K27 and
+    never torch.sort, torch.argsort or torch.topk; nor does
+    distinct_step (K33, no sort)."""
     from presto_tpu_torch.ops import sort as tsort
 
     def refuse(*a, **k):

@@ -402,23 +402,24 @@ def test_limit_tiles(rows, tiles):
 
 
 def test_limit_scratch_is_kept_per_stream_and_takes_new_epochs(monkeypatch):
-    """K27's scratch per (device, stream): the ticket made zeroed once,
-    the status words zeroed and grown with the tile count (zeroed words
+    """K27's look-back scratch per (device, stream), shared with K33 and
+    K9 (`common.lookback_scratch`): the ticket made zeroed once, the
+    status words zeroed and grown with the tile count (zeroed words
     carry epoch 0, which no call takes), a new epoch every call, and
     the words zeroed again when the epochs wrap."""
-    monkeypatch.setattr(ts, "_LIMIT_SCRATCH", {})
-    monkeypatch.setattr(ts, "_LIMIT_EPOCHS", 4)
+    monkeypatch.setattr(tc, "_LOOKBACK_SCRATCH", {})
+    monkeypatch.setattr(tc, "LOOKBACK_EPOCHS", 4)
     dev = torch.device("cpu")
-    ticket, status, epoch = ts._limit_scratch(dev, 7, 3)
+    ticket, status, epoch = tc.lookback_scratch(dev, 7, 3)
     assert ticket.shape == (1,) and not ticket.any()
     assert status.shape == (3,) and not status.any() and epoch == 1
     status.fill_(5)
-    t2, s2, e2 = ts._limit_scratch(dev, 7, 2)
+    t2, s2, e2 = tc.lookback_scratch(dev, 7, 2)
     assert t2 is ticket and s2 is status and e2 == 2
-    t3, s3, e3 = ts._limit_scratch(dev, 7, 9)
+    t3, s3, e3 = tc.lookback_scratch(dev, 7, 9)
     assert t3 is ticket and s3.shape == (9,) and not s3.any() and e3 == 3
     s3.fill_(5)
-    _, s4, e4 = ts._limit_scratch(dev, 7, 1)
+    _, s4, e4 = tc.lookback_scratch(dev, 7, 1)
     assert s4 is s3 and e4 == 1 and not s4.any()
-    other = ts._limit_scratch(dev, 8, 1)
+    other = tc.lookback_scratch(dev, 8, 1)
     assert other[0] is not ticket and other[2] == 1
