@@ -134,8 +134,10 @@ key words, permutations, moved rows and keep masks are the result). K1
 float64 components to a relative 1e-9, because atomics add in a
 run-dependent order. K6 (segment_reduce) and K8 (stream_reduce) group
 counts, first rows, keys, carry flags, the overflow flag and integer
-components exactly, float64 components to a relative 1e-9 (a
-lane-strided tree order against the plain version's row order). K9
+components exactly, float64 components to a relative 1e-9 (the
+kernel's fixed order of addition: a group's rows in row order, or a
+warp's or block's strided tree, against the plain version's); K6 also
+bit for bit against a second call on the same inputs. K9
 (join_expand): liveness, masks, every value under a set mask, the
 overflow flag and the live count exactly; in full mode the matched
 flags exactly too. K10 (cross_product) and K11 (join_outer): liveness,
@@ -1386,6 +1388,11 @@ def measure_k2(torch, tb, batch, out_cap, label):
               f"K2 {label}: column {n} differs")
     ms = time_ms(kern, torch)
     plain_ms = time_ms(plain, torch)
+    # on the device (ten calls in a CUDA graph), on the host, and the
+    # CUDA launches of one call
+    device_us = graph_device_us(torch, kern)
+    host = host_ms(torch, kern)
+    launches = launches_of(torch, kern)
     rv = batch.row_valid
 
     def library():
@@ -1405,8 +1412,36 @@ def measure_k2(torch, tb, batch, out_cap, label):
     return {"rows": batch.capacity, "out_rows": written,
             "live": live, "columns": len(cols),
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "device_us": device_us,
+            "host_ms": host, "launches_per_call": launches,
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+
+
+#: the seven lineitem columns Q1 reads, by their type names in
+#: presto_tpu_torch.types: the batch of K2's 1M-row calls
+WIDE_COLS = {"quantity": "DOUBLE", "extendedprice": "DOUBLE",
+             "discount": "DOUBLE", "tax": "DOUBLE", "returnflag": "VARCHAR",
+             "linestatus": "VARCHAR", "shipdate": "DATE"}
+
+
+def wide_compactions(torch, mods, lineitem, dev):
+    """K2's calls at a 1M-row lineitem-shaped batch (WIDE_COLS) with
+    Q6's predicate as row_valid (~2% live, shrunk) and its complement
+    (~98% live, the full variant; Q1's own predicate keeps every row of
+    this generator): label -> (batch, output rows)."""
+    tb, tt = mods["tb"], mods["tt"]
+    n = min(1 << 20, len(lineitem["quantity"]))
+    types = {c: getattr(tt, t) for c, t in WIDE_COLS.items()}
+    wide = tb.Batch.from_numpy({c: lineitem[c][:n] for c in types},
+                               types, capacity=n, device=dev)
+    q6_keep = q6_predicate(lineitem, mods["gen"])[:n]
+    out = {}
+    for label, keep in (("q6_pred_1M", q6_keep),
+                        ("not_q6_pred_1M", ~q6_keep)):
+        cap_out = tb.operator_capacity(int(keep.sum()))
+        out[label] = (tb.Batch(wide.columns, torch.from_numpy(keep).to(dev)),
+                      cap_out if cap_out < n else n)
+    return out
 
 
 def key_bytes(keys, rows) -> int:
@@ -1529,8 +1564,17 @@ def measure_k6(torch, tc, th, args):
                   "K6 float component differs beyond rel 1e-9")
         else:
             check(torch.equal(g, w), "K6 integer component differs")
-    ms = time_ms(lambda: th.segment_reduce(*args), torch)
+    # the same inputs again give the same bits (no atomics in K6)
+    again = th.segment_reduce(*args)
+    check(all(torch.equal(g.view(torch.uint8), a.view(torch.uint8))
+              for g, a in zip(got[0] + [got[1]], again[0] + [again[1]])),
+          "K6: a second call on the same inputs gave other bits")
+    kern = lambda: th.segment_reduce(*args)  # noqa: E731
+    ms = time_ms(kern, torch)
     plain_ms = time_ms(lambda: th.segment_reduce_plain(*args), torch)
+    device_us = graph_device_us(torch, kern)
+    host = host_ms(torch, kern)
+    launches = launches_of(torch, kern)
     _, gid, _ = th.segment_ids(h1, h2, keys, valid, out_cap)
 
     def library():
@@ -1553,7 +1597,8 @@ def measure_k6(torch, tc, th, args):
             "out_cap": out_cap, "keys": len(keys),
             "components": len(comps), "max_abs_err": max_abs, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "k25_sort_ms": k25_ms,
+            "device_us": device_us, "host_ms": host,
+            "launches_per_call": launches, "k25_sort_ms": k25_ms,
             # the sort's own bound: both hash words read once, the
             # permutation written once
             "k25_sort_bound_ms": 24 * n / HBM_BYTES_PER_S * 1e3,
@@ -2354,6 +2399,74 @@ MUST = {"q1": ("direct_slot_reduce", "fragment"),
         "q19_live": ("cross_product", "fragment")}
 
 
+def skewed_k6(torch, tc, dev, n=1 << 21, out_cap=1 << 20):
+    """A skewed K6 call: one group of 1,000,000 rows, groups of 2-64
+    rows, and singletons, two keys and two components (a float sum and
+    an integer sum), rows sorted by their hashes, ~90% live."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    k = torch.randint(1, 1 << 40, (n,), device=dev, generator=gen)
+    k[:1_000_000] = 0
+    k[1_000_000:1_500_000] = torch.randint(1, 20_000, (500_000,),
+                                           device=dev, generator=gen)
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    keys = [(k, ones), ((k % 7).to(torch.int32), ones)]
+    valid = torch.rand(n, device=dev, generator=gen) < 0.9
+    h1, h2 = tc.row_hash_pair(keys, valid, False)
+    perm = tc.lex_perm([h1, h2])
+    comps = [(torch.randn(n, device=dev, generator=gen,
+                          dtype=torch.float64)[perm], "sum"),
+             (torch.randint(-9, 9, (n,), device=dev, generator=gen)[perm],
+              "sum")]
+    return (h1[perm], h2[perm], [(d[perm], m[perm]) for d, m in keys],
+            valid[perm], comps, out_cap)
+
+
+def _k6_ab_calls(torch, np, mods, cap, dev, schema):
+    """K6 at the largest call a Capture kept, by its query, and at a
+    skewed call (skewed_k6) that its warp and block tiers take."""
+    _, query, args = cap.big["segment_reduce"]
+    return {query: args[:6], "skewed": skewed_k6(torch, mods["tc"], dev)}
+
+
+def _k2_ab_calls(torch, np, mods, cap, dev, schema):
+    """K2 at the largest shrink of each query MUST says compacts, and at
+    the 1M-row lineitem batch's shrink and full compaction."""
+    gen = mods["gen"]
+    li = lineitem_table(np, gen.TpchGenerator(
+        gen.TpchConnector.SCHEMAS[schema]), WIDE_COLS)
+    return {**{f"{q}_shrink": (b, c) for q, (_, b, c) in cap.k2.items()
+               if "compact" in MUST.get(q, ())},
+            **wide_compactions(torch, mods, li, dev)}
+
+
+def _k2_call(mods, args):
+    batch, out_cap = args
+    if out_cap < batch.capacity:
+        return lambda: mods["tb"].compact_shrink(batch, out_cap)
+    return lambda: mods["tb"].compact_full(batch)
+
+
+#: what kernel_ab.py times of a kernel family in two checkouts, at the
+#: main path's calls: family -> (calls(torch, np, mods, cap, dev,
+#: schema), its calls as {role: args} from a Capture of the queries MUST
+#: says launch it; call(mods, args), one call of its wrapper;
+#: measure(smoke, torch, mods, role, args), the measured checkout's own
+#: measure_* of one call). `call` and `measure` take the measured
+#: checkout's chip_smoke module and port modules, so this checkout's
+#: table drives both. A family with no entry is not timed by it yet.
+AB_CALLS = {
+    "segment_reduce": (
+        _k6_ab_calls,
+        lambda mods, args: lambda: mods["th"].segment_reduce(*args),
+        lambda sm, torch, mods, role, args: sm.measure_k6(
+            torch, mods["tc"], mods["th"], args)),
+    "compact": (
+        _k2_ab_calls, _k2_call,
+        lambda sm, torch, mods, role, args: sm.measure_k2(
+            torch, mods["tb"], *args, role)),
+}
+
+
 def run_phases(torch, np, mods, dev, schema, profile=True):
     """The tpch, profile and kernels phases on `dev`; returns the
     per-kernel summary, the path's launches of every kernel, and K25's
@@ -2665,25 +2778,9 @@ def run_phases(torch, np, mods, dev, schema, profile=True):
                              ("filter_project", "fragment")}
                         for qq, c in calls.items()}})
     del big, cap
-    # a 1M-row lineitem-shaped batch (the seven columns Q1 reads) with
-    # Q6's predicate as row_valid (~2% live, shrunk) and its complement
-    # (~98% live, the full variant; Q1's own predicate keeps every row
-    # of this generator)
-    n = min(1 << 20, n_lineitem[schema])
-    types = {"quantity": tt.DOUBLE, "extendedprice": tt.DOUBLE,
-             "discount": tt.DOUBLE, "tax": tt.DOUBLE,
-             "returnflag": tt.VARCHAR, "linestatus": tt.VARCHAR,
-             "shipdate": tt.DATE}
-    wide = tb.Batch.from_numpy({c: lineitem[c][:n] for c in types},
-                               types, capacity=n, device=dev)
-    q6_keep = q6_predicate(lineitem, gen_module)[:n]
-    sel = {"q6_pred_1M": q6_keep, "not_q6_pred_1M": ~q6_keep}
-    for label, keep in sel.items():
-        b = tb.Batch(wide.columns, torch.from_numpy(keep).to(dev))
-        live = int(keep.sum())
-        cap_out = tb.operator_capacity(live)
-        k2[label] = measure_k2(torch, tb, b,
-                               cap_out if cap_out < n else n, label)
+    for label, (b, cap_out) in wide_compactions(torch, mods, lineitem,
+                                                dev).items():
+        k2[label] = measure_k2(torch, tb, b, cap_out, label)
     for q, m in k1.items():
         emit({"phase": "kernels", "kernel": "direct_slot_reduce",
               "shape_from": q, **m})
@@ -5845,48 +5942,56 @@ def run_server_phases(torch, np, mods, dev, schema):
         {name: totals[name] for name in tk.COUNTERS}
 
 
+def port_modules():
+    """The port's modules by the short names the phases use (imported
+    from the presto_tpu_torch package on sys.path)."""
+    from presto_tpu_torch import batch as tb
+    from presto_tpu_torch import types as tt
+    from presto_tpu_torch.connectors import tpcds as ds_module
+    from presto_tpu_torch.connectors import tpch as gen_module
+    from presto_tpu_torch.execution import dynamic_filters as tdf
+    from presto_tpu_torch.expr import codegen
+    from presto_tpu_torch.native import cuda
+    from presto_tpu_torch.native import pages as tpages
+    from presto_tpu_torch.operators import fused_fragment as tff
+    from presto_tpu_torch.operators import aggregation as tagg
+    from presto_tpu_torch.operators import array_agg as taa
+    from presto_tpu_torch.operators import core as tcore
+    from presto_tpu_torch.operators import misc_ops as tmisc
+    from presto_tpu_torch.ops import agg_kernels as tak
+    from presto_tpu_torch.ops import common as tc
+    from presto_tpu_torch.ops import hashagg as th
+    from presto_tpu_torch.ops import join as tj
+    from presto_tpu_torch.ops import sort as tsort
+    from presto_tpu_torch.ops import merge as tm
+    from presto_tpu_torch.ops import window as tw
+    from presto_tpu_torch.parallel import shuffle as tsh
+    from presto_tpu_torch.runner import LocalRunner, MeshRunner
+    from presto_tpu_torch.telemetry import kernels as tk
+    return {"tb": tb, "tt": tt, "gen": gen_module, "th": th, "tc": tc,
+            "tj": tj, "df": tdf, "agg": tagg, "core": tcore, "sort": tsort,
+            "misc": tmisc, "codegen": codegen, "ff": tff,
+            "tk": tk, "tw": tw, "ds": ds_module, "taa": taa,
+            "tsh": tsh, "tm": tm, "ak": tak, "pages": tpages,
+            "cuda": cuda, "LocalRunner": LocalRunner,
+            "MeshRunner": MeshRunner}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
+    import numpy as np
     try:
-        import numpy as np
-        from presto_tpu_torch import batch as tb
-        from presto_tpu_torch import types as tt
-        from presto_tpu_torch.connectors import tpcds as ds_module
-        from presto_tpu_torch.connectors import tpch as gen_module
-        from presto_tpu_torch.execution import dynamic_filters as tdf
-        from presto_tpu_torch.expr import codegen
-        from presto_tpu_torch.native import cuda
-        from presto_tpu_torch.native import pages as tpages
-        from presto_tpu_torch.operators import fused_fragment as tff
-        from presto_tpu_torch.operators import aggregation as tagg
-        from presto_tpu_torch.operators import array_agg as taa
-        from presto_tpu_torch.operators import core as tcore
-        from presto_tpu_torch.operators import misc_ops as tmisc
-        from presto_tpu_torch.ops import agg_kernels as tak
-        from presto_tpu_torch.ops import common as tc
-        from presto_tpu_torch.ops import hashagg as th
-        from presto_tpu_torch.ops import join as tj
-        from presto_tpu_torch.ops import sort as tsort
-        from presto_tpu_torch.ops import merge as tm
-        from presto_tpu_torch.ops import window as tw
-        from presto_tpu_torch.parallel import shuffle as tsh
-        from presto_tpu_torch.runner import LocalRunner, MeshRunner
-        from presto_tpu_torch.telemetry import kernels as tk
+        mods = port_modules()
     except ImportError as e:
         print(f"chip_smoke: the presto_tpu_torch package is not beside "
               f"this script: {e}", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    mods = {"tb": tb, "tt": tt, "gen": gen_module, "th": th, "tc": tc,
-            "tj": tj, "df": tdf, "agg": tagg, "core": tcore, "sort": tsort,
-            "misc": tmisc, "codegen": codegen, "ff": tff,
-            "tk": tk, "tw": tw, "ds": ds_module, "taa": taa,
-            "tsh": tsh, "tm": tm, "ak": tak, "pages": tpages,
-            "LocalRunner": LocalRunner, "MeshRunner": MeshRunner}
+    tk, cuda = mods["tk"], mods["cuda"]
     check(set(KERNELS) == set(tk.COUNTERS)
           and {src for route, src, _ in KERNELS.values()
                if route == "cuda"}

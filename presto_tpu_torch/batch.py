@@ -21,8 +21,9 @@ below. There is no fallback from one to the other.
 
 from __future__ import annotations
 
-import ctypes
+import array
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -349,61 +350,101 @@ def compact_shrink_plain(batch: Batch, capacity: int) -> Batch:
 
 #: most columns one K2 launch moves (csrc/compact.cu MAX_COLS)
 COMPACT_MAX_COLS = 64
+#: most rows one K2 call takes: its look-back counts are 32-bit
+COMPACT_MAX_ROWS = (1 << 31) - 1
+
+
+@functools.lru_cache(maxsize=4)
+def _compact_tile(lib) -> int:
+    """Rows of a K2 tile (the loaded library's TILE), read once."""
+    return lib.presto_compact_tile()
+
+
+@functools.lru_cache(maxsize=256)
+def compact_layout(widths: Tuple[int, ...], cap: int):
+    """K2's one output allocation for columns of element sizes
+    `widths`: every column's data, then every column's mask, then
+    row_valid, each at a 16-byte aligned offset. Returns (bytes, data
+    offsets, mask offsets, row_valid's offset)."""
+    at, data = 0, []
+    for w in widths:
+        data.append(at)
+        at += 16 * -(-(w * cap) // 16)
+    step = 16 * -(-cap // 16)
+    masks = tuple(at + i * step for i in range(len(widths)))
+    at += step * len(widths)
+    return at + step, tuple(data), masks, at
 
 
 def _compact_cuda(batch: Batch, out_cap: int, shrink: bool) -> Batch:
-    """Launch csrc/compact.cu. In-bounds, contiguous 1-D columns of
-    1/2/4/8-byte dtypes only; anything else raises. More than
-    COMPACT_MAX_COLS columns (an array's slot columns) take several
-    launches, each computing the same destinations."""
+    """Launch csrc/compact.cu: one launch for up to COMPACT_MAX_COLS
+    columns (an array's slot columns past them take further launches,
+    each computing the same destinations); every output column, mask
+    and row_valid a view of one allocation. Contiguous 1-D columns of
+    1/2/4/8-byte dtypes with bool masks only; anything else raises."""
     from presto_tpu_torch.native import cuda
-    n = batch.capacity
-    dev = batch.device
+    from presto_tpu_torch.ops import common
+    rv = batch.row_valid
+    n = rv.numel()
     cols = list(batch.columns.items())
-    tensors = [batch.row_valid] + [t for _, c in cols
-                                   for t in (c.data, c.mask)]
-    for t in tensors:
-        if t.device != dev or t.dim() != 1 or t.shape[0] != n \
-                or not t.is_contiguous():
-            raise ValueError(
-                "compact kernel: every column must be a contiguous 1-D "
-                f"tensor of {n} rows on {dev}")
-        if t.element_size() not in (1, 2, 4, 8):
-            raise ValueError(f"compact kernel: dtype {t.dtype}")
-    if batch.row_valid.dtype != torch.bool or any(
-            c.mask.dtype != torch.bool for _, c in cols):
-        raise ValueError("compact kernel: masks must be bool")
+    if not 1 <= n <= COMPACT_MAX_ROWS:
+        raise ValueError(f"compact kernel: {n} rows; it takes 1 to "
+                         f"{COMPACT_MAX_ROWS}")
+    widths = tuple(c.data.element_size() for _, c in cols)
+    dev = rv.get_device()
+    ok = rv.dtype is torch.bool and rv.dim() == 1 and rv.is_contiguous() \
+        and all(w in (1, 2, 4, 8) for w in widths)
+    for _, c in cols:
+        d, m = c.data, c.mask
+        ok = ok and d.dim() == 1 and d.numel() == n and d.is_contiguous() \
+            and d.get_device() == dev and m.dtype is torch.bool \
+            and m.dim() == 1 and m.numel() == n and m.is_contiguous() \
+            and m.get_device() == dev
+    if not ok:
+        raise ValueError(
+            "compact kernel: every column and mask must be a contiguous "
+            f"1-D tensor of {n} rows on {rv.device} (1/2/4/8-byte data, "
+            "bool masks)")
+    size, doffs, moffs, voff = compact_layout(widths, out_cap)
+    buf = torch.empty(size, dtype=torch.uint8, device=rv.device)
+    base = buf.data_ptr()
     lib = cuda.library("compact")
-    out_cols = {name: Column(torch.empty(out_cap, dtype=c.data.dtype,
-                                         device=dev),
-                             torch.empty(out_cap, dtype=torch.bool,
-                                         device=dev),
-                             c.type, c.dictionary)
-                for name, c in cols}
-    out_rv = torch.empty(out_cap, dtype=torch.bool, device=dev)
-    ntiles = lib.presto_compact_tiles(ctypes.c_int64(n))
-    scratch = torch.empty(2 * ntiles + 1, dtype=torch.int32, device=dev)
-    runs = [cols[lo:lo + COMPACT_MAX_COLS]
-            for lo in range(0, len(cols), COMPACT_MAX_COLS)] or [cols]
-    for run in runs:
-        k = len(run)
-        P = ctypes.c_int64 * max(k, 1)
-        data = P(*[c.data.data_ptr() for _, c in run])
-        mask = P(*[c.mask.data_ptr() for _, c in run])
-        odata = P(*[out_cols[nm].data.data_ptr() for nm, _ in run])
-        omask = P(*[out_cols[nm].mask.data_ptr() for nm, _ in run])
-        widths = (ctypes.c_int32 * max(k, 1))(
-            *[c.data.element_size() for _, c in run])
-        status = lib.presto_compact(
-            data, mask, odata, omask, widths, ctypes.c_int32(k),
-            ctypes.c_void_p(batch.row_valid.data_ptr()),
-            ctypes.c_void_p(out_rv.data_ptr()), ctypes.c_int64(n),
-            ctypes.c_int64(out_cap), ctypes.c_int32(int(shrink)),
-            ctypes.c_void_p(scratch.data_ptr()),
-            ctypes.c_void_p(cuda.stream_ptr(dev)))
-        cuda.check(lib, status, "compact")
+    stream = cuda.stream_ptr(rv.device)
+    tile = _compact_tile(lib)
+    tiles = -(-n // tile)
+    # a look-back word a row tile and a flag a tail (a row tile's dead
+    # rows, or a tile of fill slots)
+    words = tiles + (-(-out_cap // tile) if shrink else tiles)
+    for lo in range(0, max(len(cols), 1), COMPACT_MAX_COLS):
+        run = range(lo, min(lo + COMPACT_MAX_COLS, len(cols)))
+        desc = array.array("q", (rv.data_ptr(),
+                                 base + voff if lo == 0 else 0))
+        for i in run:
+            c = cols[i][1]
+            desc.extend((c.data.data_ptr(), c.mask.data_ptr(),
+                         base + doffs[i], base + moffs[i], widths[i]))
+        with common.LOOKBACK_LOCK:
+            ticket, status, epoch = common.lookback_scratch(
+                rv.device, stream, words)
+            code = lib.presto_compact(
+                desc.buffer_info()[0], len(run), n, out_cap, int(shrink),
+                ticket.data_ptr(), status.data_ptr(), status.shape[0],
+                epoch, stream)
+        cuda.check(lib, code, "compact")
         COMPACT_KERNEL.launches += 1
-    return Batch(out_cols, out_rv)
+    # one view of the allocation a dtype, sliced a column
+    typed = {torch.bool: buf.view(torch.bool)}
+    bools = typed[torch.bool]
+    out = {}
+    for (name, c), w, doff, moff in zip(cols, widths, doffs, moffs):
+        dt = c.data.dtype
+        whole = typed.get(dt)
+        if whole is None:
+            whole = typed[dt] = buf.view(dt)
+        out[name] = Column(whole[doff // w:doff // w + out_cap],
+                           bools[moff:moff + out_cap], c.type,
+                           c.dictionary)
+    return Batch(out, bools[voff:voff + out_cap])
 
 
 def compact_full(batch: Batch) -> Batch:

@@ -17,11 +17,11 @@
 #include <stdint.h>
 
 #define PRESTO_MAX_KEYS 8
-// Key groups a K5, K7, K8 or K9 launch holds in its arguments; groups
-// past these (more than PRESTO_MAX_KEYS * PRESTO_MAX_KEY_GROUPS = 24
-// key columns) are read from a descriptor in device memory (`ext`), so
-// those kernels take any number of keys. K3, K6 and K13 take any
-// number over several launches.
+// Key groups a K5, K6, K7, K8 or K9 launch holds in its arguments;
+// groups past these (more than PRESTO_MAX_KEYS * PRESTO_MAX_KEY_GROUPS
+// = 24 key columns) are read from a descriptor in device memory
+// (`ext`), so those kernels take any number of keys. K3 and K13 take
+// any number over several launches.
 #define PRESTO_MAX_KEY_GROUPS 3
 #define PRESTO_H_INVALID INT64_MAX
 #define PRESTO_H2_INVALID INT64_MIN

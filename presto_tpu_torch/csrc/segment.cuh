@@ -2,12 +2,14 @@
 // rows sorted by their row hashes) and K8 (stream_reduce.cu, rows
 // already sorted by the group keys): state-component types and
 // reductions, the block scans that turn per-row group starts into
-// packed group ids, and the deterministic one-warp-per-slot reduction.
+// packed group ids, and the deterministic reductions of a group's rows
+// by one thread, one warp or one block.
 //
-// A group's float sum is taken by one warp: its lanes stride over the
-// group's rows and a fixed shuffle tree combines the 32 partials, so
-// the order of additions is the same on every run (no atomics).
-// Integer sums wrap like the reference's int64 segment_sum.
+// A group's float sum is taken in an order fixed by its rows and the
+// layout: one thread adds them in row order; a warp's lanes (a block's
+// threads) stride over them and a fixed shuffle tree combines the
+// partials. So the order of additions is the same on every run (no
+// atomics). Integer sums wrap like the reference's int64 segment_sum.
 
 #pragma once
 
@@ -121,7 +123,7 @@ __device__ __forceinline__ bool presto_keys_differ(const KeyGroups& k, int64_t i
 // ORs `bit` into flags[i] where row i's keys of one group differ from
 // row i - 1's: one launch per group of at most PRESTO_MAX_KEYS columns,
 // so a boundary pass over rows in key order takes any number of keys
-// (K6's keys past the first group, K13's partition and order keys).
+// (K13's partition and order keys).
 __global__ void presto_key_changes_kernel(const KeyCols k, int64_t n, int bit,
                                           uint8_t* __restrict__ flags) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -269,6 +271,48 @@ __device__ __forceinline__ void presto_reduce_slot(const Comps& cs, const bool* 
       default: presto_reduce_comp<double>(cs, c, valid, g, start, end, live, lane, f); break;
     }
   }
+}
+
+// One thread reduces the live rows of [start, end) of a component in
+// row order (the identity for an empty range).
+template <typename T>
+__device__ __forceinline__ T presto_thread_reduce(const void* contrib,
+                                                  const bool* __restrict__ valid, int op,
+                                                  int64_t start, int64_t end) {
+  T acc = identity<T>(op);
+  const T* __restrict__ src = static_cast<const T*>(contrib);
+  for (int64_t r = start; r < end; ++r)
+    if (valid[r]) acc = combine(acc, src[r], op);
+  return acc;
+}
+
+// The whole block (blockDim.x a multiple of 32, at most 1024) reduces
+// the live rows of [start, end) of a component (every row when `valid`
+// is null): its threads stride over the rows, a shuffle tree combines
+// each warp's partials and warp 0 those of the warps, in a fixed order.
+// The result is in thread 0. `scratch` is shared memory of at least 32
+// words. Every thread of the block must call it.
+template <typename T>
+__device__ __forceinline__ T presto_block_reduce(const void* contrib,
+                                                 const bool* __restrict__ valid, int op,
+                                                 int64_t start, int64_t end,
+                                                 unsigned long long* scratch) {
+  T acc = identity<T>(op);
+  const T* __restrict__ src = static_cast<const T*>(contrib);
+  for (int64_t r = start + threadIdx.x; r < end; r += blockDim.x)
+    if (valid == nullptr || valid[r]) acc = combine(acc, src[r], op);
+  for (int o = 16; o > 0; o >>= 1) acc = combine(acc, __shfl_down_sync(0xffffffffu, acc, o), op);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  T* part = reinterpret_cast<T*>(scratch);
+  __syncthreads();  // scratch may still be read from an earlier call
+  if (lane == 0) part[wid] = acc;
+  __syncthreads();
+  if (wid == 0) {
+    acc = lane < static_cast<int>(blockDim.x >> 5) ? part[lane] : identity<T>(op);
+    for (int o = 16; o > 0; o >>= 1)
+      acc = combine(acc, __shfl_down_sync(0xffffffffu, acc, o), op);
+  }
+  return acc;
 }
 
 __device__ __forceinline__ int presto_comp_size(int dtype) {

@@ -30,12 +30,12 @@
 //   2. sr_scan: one block carries the last live row across tiles (an
 //      exclusive max-scan of the tiles' last live rows), decides each
 //      tile's first live row against it, then scans the tile counts
-//      into offsets (as K2 and K6 carry theirs) and writes the group
+//      into offsets and writes the group
 //      count, the overflow flag and the end of the live rows.
 //   3. sr_assign: per tile, a block scan of the start flags gives each
-//      group its first row (segment.cuh, shared with K6).
+//      group its first row (segment.cuh).
 //   4. sr_reduce: one warp per output slot over its group's rows with a
-//      fixed shuffle tree (K6's deterministic reduction, segment.cuh);
+//      fixed shuffle tree (segment.cuh's deterministic warp reduction);
 //      the warp of slot 0 decides `same` and folds the carry in.
 //   5. sr_carry (with a carry only): one warp writes the new carry and
 //      the carry's emission flag.

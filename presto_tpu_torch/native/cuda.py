@@ -75,10 +75,10 @@ SIGNATURES = {
                            _I32, _P, _I32, _P]),
     },
     "compact": {
-        "presto_compact_tiles": (ctypes.c_int, [_I64]),
+        "presto_compact_tile": (ctypes.c_int, []),
         "presto_compact": (
-            ctypes.c_int, [_P, _P, _P, _P, _P, _I32, _P, _P, _I64, _I64,
-                           _I32, _P, _P]),
+            ctypes.c_int, [_P, _I32, _I64, _I64, _I32, _P, _P, _I64, _U32,
+                           _P]),
     },
     "row_hash": {
         "presto_row_hash": (
@@ -96,11 +96,8 @@ SIGNATURES = {
     },
     "segment_reduce": {
         "presto_segment_tile": (ctypes.c_int, []),
-        "presto_segment_key_changes": (
-            ctypes.c_int, [_P, _P, _P, _I32, _I64, _P, _P]),
         "presto_segment_reduce": (
-            ctypes.c_int, [_P, _P, _P, _P, _P, _I32, _P, _P, _I64, _P, _P,
-                           _P, _P, _I32, _I64, _P, _P, _P, _P, _P, _P]),
+            ctypes.c_int, [_P, _P, _P, _P, _I32, _P, _P, _I64, _U32, _P]),
     },
     "semi_join": {
         "presto_semi_join": (

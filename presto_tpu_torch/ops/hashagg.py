@@ -40,6 +40,7 @@ card; the `*_plain` drains are its plain versions.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import dataclasses
 import functools
@@ -997,33 +998,49 @@ def segment_ids(h1: torch.Tensor, h2: torch.Tensor, keys: Sequence[CVal],
 
 #: launches of the CUDA segment-reduce kernel (csrc/segment_reduce.cu)
 SEGMENT_REDUCE_KERNEL = _tk.LaunchCounter("segment_reduce", "agg_step")
+#: most rows one K6 call takes: its look-back counts are 32-bit
+SEGMENT_MAX_ROWS = (1 << 31) - 1
 
 
-def _segment_key_changes(keys, n, dev):
-    """K6's keys past its first group of MAX_KEYS: a byte per row, 1
-    where any of them differs from the row before (NULL equal to NULL),
-    ORed by one launch per group; None when there are none."""
-    from presto_tpu_torch.native import cuda
-    rest = common.key_groups(keys)[1:]
-    if not rest:
+@functools.lru_cache(maxsize=4)
+def _segment_tile(lib) -> int:
+    """Rows of a K6 tile (the loaded library's ID_TILE), read once; a
+    call takes two look-back words a tile (its scan, its last live
+    row)."""
+    return lib.presto_segment_tile()
+
+
+@functools.lru_cache(maxsize=256)
+def _segment_codes(sig: Tuple[Tuple[torch.dtype, str], ...]):
+    """K6's dtype | op << 8 codes of a components' signature, or None
+    when a dtype or reduction has no code."""
+    if any(d not in _KERNEL_DTYPES or r not in _KERNEL_OPS for d, r in sig):
         return None
-    changes = torch.zeros(n, dtype=torch.uint8, device=dev)
-    lib = cuda.library("segment_reduce")
-    for group in rest:
-        kd, km, kt, nk = common.key_args(group, n, dev, "segment_reduce")
-        cuda.check(lib, lib.presto_segment_key_changes(
-            kd, km, kt, nk, ctypes.c_int64(n),
-            ctypes.c_void_p(changes.data_ptr()),
-            ctypes.c_void_p(cuda.stream_ptr(dev))), "segment_reduce")
-    return changes
+    return tuple(_KERNEL_DTYPES[d] | _KERNEL_OPS[r] << 8 for d, r in sig)
+
+
+@functools.lru_cache(maxsize=256)
+def _segment_layout(sizes: Tuple[int, ...], out_cap: int, tiles: int):
+    """K6's one allocation: stats[4], starts[out_cap + 1] and
+    first_row[out_cap] (int64), each component's out_cap slots at a
+    16-byte aligned offset, then the kernel's scratch of one 8-byte
+    partial a component a tile. Returns (bytes, first_row's offset,
+    the components' offsets, the scratch's offset)."""
+    at = 32 + 16 * -(-(8 * (2 * out_cap + 1)) // 16)
+    offs = []
+    for size in sizes:
+        offs.append(at)
+        at += 16 * -(-(size * out_cap) // 16)
+    return at + 8 * tiles * len(sizes), 32 + 8 * (out_cap + 1), \
+        tuple(offs), at
 
 
 def _segment_reduce_cuda(h1, h2, keys, valid, comps, out_cap,
                          seg_out: Optional[list] = None):
-    """K6 over any number of components (comp_chunks) and key columns
-    (the first MAX_KEYS compared in the kernel, the rest folded into a
-    per-row change flag first): every launch finds the same groups,
-    first rows and count (and, into `seg_out`, the same segments)."""
+    """K6 over any number of components (comp_chunks; every launch finds
+    the same groups, first rows and count, and, into `seg_out`, the same
+    segments) and of key columns (the kernel compares them in groups of
+    MAX_KEYS)."""
     reduced = []
     for lo, hi in comp_chunks(len(comps)):
         outs, first_row, groups, overflow = _segment_reduce_launch(
@@ -1036,58 +1053,72 @@ def _segment_reduce_cuda(h1, h2, keys, valid, comps, out_cap,
 
 def _segment_reduce_launch(h1, h2, keys, valid, comps, out_cap,
                            seg_out: Optional[list] = None):
+    """One K6 call: two launches, every output a view of one
+    allocation, nothing zeroed."""
     from presto_tpu_torch.native import cuda
     dev = valid.device
     n = valid.shape[0]
+    if len(comps) > KERNEL_MAX_COMPS or not 1 <= n <= SEGMENT_MAX_ROWS \
+            or out_cap < 1:
+        raise ValueError(f"segment_reduce: at most {KERNEL_MAX_COMPS} "
+                         "components per launch, 1 to "
+                         f"{SEGMENT_MAX_ROWS} rows and one output slot")
     common.check_rows(valid, n, dev, (torch.bool,),
                       "segment_reduce: valid")
     common.check_rows(h1, n, dev, (torch.int64,), "segment_reduce: h1")
     common.check_rows(h2, n, dev, (torch.int64,), "segment_reduce: h2")
-    changes = _segment_key_changes(keys, n, dev)
-    kd, km, kt, nk = common.key_args(keys[:common.MAX_KEYS], n, dev,
-                                     "segment_reduce")
-    if len(comps) > KERNEL_MAX_COMPS or n < 1 or out_cap < 1:
-        raise ValueError(f"segment_reduce: at most {KERNEL_MAX_COMPS} "
-                         "components per launch, at least one row and "
-                         "one output slot")
-    for c, r in comps:
-        common.check_rows(c, n, dev, tuple(_KERNEL_DTYPES),
-                          "segment_reduce: contribution")
-        if r not in _KERNEL_OPS:
-            raise ValueError(f"segment_reduce: reduce {r!r}")
+    kd, km, kt, nk, kdesc = common.key_group_args(keys, n, dev,
+                                                  "segment_reduce")
+    codes = _segment_codes(tuple((c.dtype, r) for c, r in comps))
+    if codes is None:
+        raise ValueError("segment_reduce: components of "
+                         f"{[(c.dtype, r) for c, r in comps]}; the kernel "
+                         f"takes {list(_KERNEL_DTYPES)} under "
+                         f"{list(_KERNEL_OPS)}")
+    for c, _ in comps:
+        if c.device != dev or c.dim() != 1 or c.shape[0] != n \
+                or not c.is_contiguous():
+            raise ValueError("segment_reduce: every contribution must be "
+                             f"a contiguous 1-D tensor of {n} rows on "
+                             f"{dev}; got {tuple(c.shape)} stride "
+                             f"{c.stride()} on {c.device}")
     lib = cuda.library("segment_reduce")
-    tile = lib.presto_segment_tile()
-    outs = [torch.empty(out_cap, dtype=c.dtype, device=dev)
-            for c, _ in comps]
-    first_row = torch.empty(out_cap, dtype=torch.int64, device=dev)
-    stats = torch.zeros(4, dtype=torch.int64, device=dev)
-    flags = torch.empty(n, dtype=torch.uint8, device=dev)
-    tiles = torch.empty((n + tile - 1) // tile, dtype=torch.int64,
-                        device=dev)
-    starts = torch.empty(out_cap + 1, dtype=torch.int64, device=dev)
-    C = max(len(comps), 1)
-    P = ctypes.c_int64 * C
-    status = lib.presto_segment_reduce(
-        ctypes.c_void_p(h1.data_ptr()), ctypes.c_void_p(h2.data_ptr()),
-        kd, km, kt, nk,
-        ctypes.c_void_p(None if changes is None else changes.data_ptr()),
-        ctypes.c_void_p(valid.data_ptr()),
-        ctypes.c_int64(n), P(*[c.data_ptr() for c, _ in comps]),
-        P(*[o.data_ptr() for o in outs]),
-        (ctypes.c_int32 * C)(*[_KERNEL_DTYPES[c.dtype] for c, _ in comps]),
-        (ctypes.c_int32 * C)(*[_KERNEL_OPS[r] for _, r in comps]),
-        ctypes.c_int32(len(comps)), ctypes.c_int64(out_cap),
-        ctypes.c_void_p(first_row.data_ptr()),
-        ctypes.c_void_p(stats.data_ptr()),
-        ctypes.c_void_p(flags.data_ptr()),
-        ctypes.c_void_p(tiles.data_ptr()),
-        ctypes.c_void_p(starts.data_ptr()),
-        ctypes.c_void_p(cuda.stream_ptr(dev)))
-    cuda.check(lib, status, "segment_reduce")
+    tiles = -(-n // _segment_tile(lib))
+    size, first_off, offs, part_off = _segment_layout(
+        tuple(c.element_size() for c, _ in comps), out_cap, tiles)
+    buf = torch.empty(size, dtype=torch.uint8, device=dev)
+    base = buf.data_ptr()
+    desc = array.array("q", (n, out_cap, len(comps), h1.data_ptr(),
+                             h2.data_ptr(), valid.data_ptr(), base,
+                             base + 32, base + first_off, base + part_off))
+    for (c, _), off, code in zip(comps, offs, codes):
+        desc.extend((c.data_ptr(), base + off, code))
+    stream = cuda.stream_ptr(dev)
+    with common.LOOKBACK_LOCK:
+        ticket, status, epoch = common.lookback_scratch(dev, stream,
+                                                        2 * tiles)
+        code = lib.presto_segment_reduce(
+            desc.buffer_info()[0], kd, km, kt, nk, ticket.data_ptr(),
+            status.data_ptr(), status.shape[0], epoch, stream)
+    cuda.check(lib, code, "segment_reduce")
     SEGMENT_REDUCE_KERNEL.launches += 1
+    del kdesc  # the keys past the inline groups, held until the launch
+    # one view of the allocation a dtype, sliced an output
+    typed = {torch.int64: buf.view(torch.int64)}
+    i64 = typed[torch.int64]
+    outs = []
+    for (c, _), off in zip(comps, offs):
+        whole = typed.get(c.dtype)
+        if whole is None:
+            whole = typed[c.dtype] = buf.view(c.dtype)
+        at = off // c.element_size()
+        outs.append(whole[at:at + out_cap])
+    stats = i64[:4]
     if seg_out is not None:
-        seg_out.append(ak.Segments(starts, stats))
-    return outs, first_row, stats[0], stats[1] > 0
+        seg_out.append(ak.Segments(i64[4:5 + out_cap], stats))
+    # the overflow flag: the low byte of stats[1] (0 or 1), as a bool
+    return (outs, i64[first_off // 8:first_off // 8 + out_cap], stats[0],
+            buf[8].view(torch.bool))
 
 
 def segment_reduce(h1: torch.Tensor, h2: torch.Tensor,

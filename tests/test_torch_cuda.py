@@ -98,13 +98,22 @@ def _batch(live_frac, cap, device):
         "f": (rng.random(cap) < 0.5, rng.random(cap) < 0.9, "boolean",
               None),
     }
-    return interop.batch_from_numpy(cols, rng.random(cap) < live_frac,
-                                    device)
+    if live_frac == "one":
+        # one live row, in the middle of a tile
+        valid = np.zeros(cap, bool)
+        valid[cap // 2 + 3] = True
+    else:
+        valid = rng.random(cap) < live_frac
+    return interop.batch_from_numpy(cols, valid, device)
 
 
-@pytest.mark.parametrize("cap", [1000, 1 << 20])
-@pytest.mark.parametrize("live_frac", [0.0, 0.02, 0.98, 1.0])
+# sizes: a partial tile, one tile (2,048 rows), and one and several waves
+# of the grid (132 SMs, a few resident blocks of 2,048 rows each)
+@pytest.mark.parametrize("cap", [1000, 2048, 1 << 20, (1 << 22) + 3])
+@pytest.mark.parametrize("live_frac", [0.0, 0.02, 0.98, 1.0, "one"])
 def test_k2_matches_plain(hopper, live_frac, cap):
+    """K2 full and shrunk against the plain version, exactly, the tail
+    (dead rows, fill slots) written in the same launch."""
     gpu = _batch(live_frac, cap, hopper)
     cpu = _batch(live_frac, cap, torch.device("cpu"))
     out_cap = tb.operator_capacity(int(cpu.row_valid.sum()))
@@ -148,6 +157,94 @@ def test_k2_takes_more_than_64_columns(hopper, ncols):
                                want.columns[n].data)
             assert torch.equal(got.columns[n].mask.cpu(),
                                want.columns[n].mask)
+
+
+def test_k2_calls_in_a_row_find_the_scratch_usable(hopper):
+    """On one stream: K2 calls of growing and shrinking sizes, both
+    modes, with K6 and K27 calls between them (all three share the
+    look-back scratch per stream), each equal to its plain version:
+    every call left the ticket at 0 and its status words under an epoch
+    no later call takes."""
+    from presto_tpu_torch.ops import sort as tsort
+    rng = np.random.default_rng(77)
+    for k, (cap, frac) in enumerate([(5000, 0.3), (1 << 20, 0.5),
+                                      (3000, 0.9), (1 << 18, 0.01),
+                                      (1024, 1.0), (1 << 21, 0.2)]):
+        gpu = _batch(frac, cap, hopper)
+        cpu = _batch(frac, cap, torch.device("cpu"))
+        out_cap = tb.operator_capacity(int(cpu.row_valid.sum()))
+        cases = [(tb.compact_full(gpu), tb.compact_full_plain(cpu))]
+        if out_cap < cap:
+            cases.append((tb.compact_shrink(gpu, out_cap),
+                          tb.compact_shrink_plain(cpu, out_cap)))
+        # a K27 and a K6 call on the same stream between the K2 calls
+        keep, _ = tsort.limit_rank(gpu.row_valid, 7 + k,
+                                   torch.zeros((), dtype=torch.int64,
+                                               device=hopper))
+        want_keep, _ = tsort.limit_rank_plain(cpu.row_valid, 7 + k,
+                                              torch.zeros((),
+                                                          dtype=torch.int64))
+        assert torch.equal(keep.cpu(), want_keep)
+        n = 1 << (12 + 2 * k)
+        keys = [(torch.from_numpy(rng.integers(0, n // 3, n)).to(hopper),
+                 torch.ones(n, dtype=torch.bool, device=hopper))]
+        valid = torch.from_numpy(rng.random(n) < 0.9).to(hopper)
+        h1, h2 = tc.row_hash_pair(keys, valid, False)
+        perm = tc.lex_perm([h1, h2])
+        args = (h1[perm], h2[perm], [(d[perm], m[perm]) for d, m in keys],
+                valid[perm], [(torch.ones(n, dtype=torch.int64,
+                                          device=hopper), "sum")], n // 2)
+        got, want = th.segment_reduce(*args), th.segment_reduce_plain(*args)
+        assert all(torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
+        assert torch.equal(got[0][0], want[0][0])
+        for got, want in cases:
+            assert torch.equal(got.row_valid.cpu(), want.row_valid)
+            for nm in want.names:
+                assert torch.equal(got.columns[nm].data.cpu(),
+                                   want.columns[nm].data)
+                assert torch.equal(got.columns[nm].mask.cpu(),
+                                   want.columns[nm].mask)
+
+
+@pytest.mark.parametrize("mode", ["full", "shrink"])
+def test_k2_replayed_in_a_cuda_graph_writes_every_tail(hopper, mode):
+    """Ten K2 calls captured in one CUDA graph (their epochs fixed when
+    it was captured), replayed with every output overwritten before each
+    replay: each replay writes every dead row (full) or fill slot
+    (shrink) again, so no tail flag of an earlier replay is taken for
+    its own."""
+    cap = 40 * 2048 + 5
+    gpu = _batch(0.4, cap, hopper)
+    cpu = _batch(0.4, cap, torch.device("cpu"))
+    if mode == "full":
+        fn, want = (lambda: tb.compact_full(gpu)), tb.compact_full_plain(cpu)
+    else:
+        out_cap = tb.operator_capacity(int(cpu.row_valid.sum()) // 2)
+        fn = lambda: tb.compact_shrink(gpu, out_cap)  # noqa: E731
+        want = tb.compact_shrink_plain(cpu, out_cap)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [fn() for _ in range(10)]
+    for _ in range(3):
+        for o in outs:
+            o.row_valid.fill_(True)
+            for c in o.columns.values():
+                c.data.view(torch.uint8).fill_(0xA5)
+                c.mask.fill_(True)
+        graph.replay()
+        torch.cuda.synchronize()
+        for o in outs:
+            assert torch.equal(o.row_valid.cpu(), want.row_valid)
+            for nm in want.names:
+                assert torch.equal(o.columns[nm].data.cpu(),
+                                   want.columns[nm].data)
+                assert torch.equal(o.columns[nm].mask.cpu(),
+                                   want.columns[nm].mask)
+    del graph
 
 
 def test_kernels_count_their_launches(hopper):
@@ -353,45 +450,94 @@ def test_k5_grid_strides_over_a_large_probe(hopper):
         assert _probe_equal(table, probe, verify) > npr // 4
 
 
-@pytest.mark.parametrize("ngroups,out_cap,live", [(150_000, 1 << 18, 0.8),
-                                                  (40, 64, 0.8),
-                                                  (5000, 1024, 0.8),
-                                                  (3, 16, 0.8),
-                                                  (100, 128, 0.0)],
-                         ids=["q13_like", "few_groups", "overflow",
-                              "long_segments", "all_dead"])
-def test_k6_segment_reduce_matches_plain(hopper, ngroups, out_cap, live):
+def _k6_keys(rng, n, ngroups, shape, dev):
+    """Two key columns of `n` rows for a K6 case: random group numbers
+    below `ngroups` with 5% NULLs in the first key ("random"); every
+    row one group ("one_group"); a group of 1,000,000 rows among
+    singletons ("long_among_singletons"); exactly `ngroups` groups, no
+    NULLs ("exact"); a float64 second key of NaN, -0.0, +0.0 and 1.5
+    ("nan_keys": a NaN row is a group of its own, -0.0 and +0.0 hash
+    apart)."""
+    nulls = rng.random(n) < 0.95
+    kv = rng.integers(0, max(ngroups, 1), n)
+    if shape == "one_group":
+        kv, nulls = np.zeros(n, np.int64), np.ones(n, bool)
+    elif shape == "long_among_singletons":
+        kv = rng.permutation(n).astype(np.int64) + 1
+        kv[rng.permutation(n)[:1_000_000]] = 0
+        nulls = np.ones(n, bool)
+    elif shape == "exact":
+        kv, nulls = np.arange(n, dtype=np.int64) % ngroups, np.ones(n, bool)
+    second = (kv % 7).astype(np.int32)
+    if shape == "nan_keys":
+        second = rng.choice(np.array([np.nan, -0.0, 0.0, 1.5]), n)
+    return [(torch.from_numpy(kv).to(dev), torch.from_numpy(nulls).to(dev)),
+            (torch.from_numpy(second).to(dev),
+             torch.ones(n, dtype=torch.bool, device=dev))]
+
+
+def _k6_comps(rng, n, wrap):
+    """A float sum, an int64 sum, an int32 min and a float max; with
+    `wrap`, int32 and int64 sums whose groups pass their type's range
+    (integer sums wrap like the reference's)."""
+    if wrap:
+        return [(torch.from_numpy(rng.integers(1 << 61, 1 << 62, n)), "sum"),
+                (torch.from_numpy(rng.integers(1 << 29, 1 << 30, n)
+                                  .astype(np.int32)), "sum"),
+                (torch.from_numpy(rng.normal(0, 100, n)), "sum")]
+    return [(torch.from_numpy(rng.normal(0, 100, n)), "sum"),
+            (torch.from_numpy(rng.integers(-5, 5, n)), "sum"),
+            (torch.from_numpy(rng.integers(-9, 9, n).astype(np.int32)), "min"),
+            (torch.from_numpy(rng.normal(0, 1, n)), "max")]
+
+
+@pytest.mark.parametrize(
+    "ngroups,out_cap,live,shape",
+    [(150_000, 1 << 18, 0.8, "random"), (40, 64, 0.8, "random"),
+     (5000, 1024, 0.8, "random"), (3, 16, 0.8, "random"),
+     (100, 128, 0.0, "random"), (1, 16, 1.0, "one_group"),
+     (0, 1 << 21, 1.0, "long_among_singletons"),
+     (5000, 5000, 1.0, "exact"), (5001, 5000, 1.0, "exact"),
+     (300, 1 << 20, 0.9, "nan_keys"), (40_000, 1 << 16, 0.9, "wrap")],
+    ids=["q13_like", "few_groups", "overflow", "long_segments", "all_dead",
+         "one_group", "long_among_singletons", "groups_eq_out_cap",
+         "one_past_out_cap", "nan_keys", "wrapping_sums"])
+def test_k6_segment_reduce_matches_plain(hopper, ngroups, out_cap, live,
+                                         shape):
+    """K6 against its plain version (first rows, count, overflow and
+    integer components exactly, floats to rel 1e-9), and bit for bit
+    against its own second call on the same inputs."""
     rng = np.random.default_rng(14)
     n = 1 << 21
-    kv = rng.integers(0, ngroups, n)
-    keys = [(torch.from_numpy(kv).to(hopper),
-             torch.from_numpy(rng.random(n) < 0.95).to(hopper)),
-            (torch.from_numpy((kv % 7).astype(np.int32)).to(hopper),
-             torch.ones(n, dtype=torch.bool, device=hopper))]
+    keys = _k6_keys(rng, n, ngroups, shape, hopper)
     valid = torch.from_numpy(rng.random(n) < live).to(hopper)
     h1, h2 = tc.row_hash_pair(keys, valid, False)
     perm = tc.lex_perm([h1, h2])
     skeys = [(d[perm], m[perm]) for d, m in keys]
-    comps = [(torch.from_numpy(rng.normal(0, 100, n)).to(hopper), "sum"),
-             (torch.from_numpy(rng.integers(-5, 5, n)).to(hopper), "sum"),
-             (torch.from_numpy(rng.integers(-9, 9, n).astype(np.int32))
-              .to(hopper), "min"),
-             (torch.from_numpy(rng.normal(0, 1, n)).to(hopper), "max")]
+    comps = [(c.to(hopper), r) for c, r in _k6_comps(rng, n,
+                                                     shape == "wrap")]
     scomps = [(c[perm], r) for c, r in comps]
     args = (h1[perm], h2[perm], skeys, valid[perm], scomps, out_cap)
     before = th.SEGMENT_REDUCE_KERNEL.launches
     got = th.segment_reduce(*args)
     assert th.SEGMENT_REDUCE_KERNEL.launches == before + 1
+    again = th.segment_reduce(*args)
     want = th.segment_reduce_plain(*args)
     torch.cuda.synchronize()
     for g, w in zip(got[1:], want[1:]):
         assert torch.equal(g, w)
-    for (g, (c, _)), w in zip(zip(got[0], comps), want[0]):
+    for g, w in zip(got[0], want[0]):
         if g.is_floating_point():
             torch.testing.assert_close(g, w, rtol=1e-9, atol=1e-9)
         else:
             assert torch.equal(g, w)
+    for g, a in zip(got[0] + [got[1]], again[0] + [again[1]]):
+        assert torch.equal(g.view(torch.uint8), a.view(torch.uint8))
     assert bool(got[3]) == (int(want[2]) > out_cap)
+    if shape == "exact":
+        assert int(want[2]) == ngroups
+    if shape == "long_among_singletons":
+        assert int(want[2]) == n - 1_000_000 + 1
 
 
 @pytest.mark.parametrize("ngroups,out_cap,live", [(150_000, 1 << 18, 0.8),
@@ -941,6 +1087,13 @@ def test_k33_refuses_past_its_row_ids_before_allocating(hopper):
 def _kernel_nodes(fn):
     """Kernel launches of one call of `fn`, read from a CUDA graph
     captured around it (after a warm call on the capture stream)."""
+    return _graph_nodes(fn).count(0)  # CU_GRAPH_NODE_TYPE_KERNEL
+
+
+def _graph_nodes(fn):
+    """The node types (CUgraphNodeType: 0 a kernel, 2 a memset, 1 a
+    copy) of one call of `fn`, read from a CUDA graph captured around
+    it (after a warm call on the capture stream)."""
     import ctypes
     side = torch.cuda.Stream()
     with torch.cuda.stream(side):
@@ -961,7 +1114,7 @@ def _kernel_nodes(fn):
         assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
                                      ctypes.byref(kind)) == 0
         kinds.append(kind.value)
-    return kinds.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL
+    return kinds
 
 
 def test_k33_and_k9_launch_counts(hopper):
@@ -981,6 +1134,26 @@ def test_k33_and_k9_launch_counts(hopper):
                 ("v",), ("k0",), "hash", h2)
         assert not tj._aligned_layout(table, probe, 1 << 17, join_type)
         assert _kernel_nodes(lambda: tj._expand_from_enc(*args)) == 2
+
+
+def test_k6_k2_launch_counts(hopper):
+    """K6 is two kernel launches and nothing else (no memset, no fill:
+    its outputs are views of one allocation, its flags written by the
+    kernel); K2 is one launch in both modes."""
+    rng = np.random.default_rng(78)
+    n = 1 << 20
+    keys = _k6_keys(rng, n, 50_000, "random", hopper)
+    valid = torch.from_numpy(rng.random(n) < 0.8).to(hopper)
+    h1, h2 = tc.row_hash_pair(keys, valid, False)
+    perm = tc.lex_perm([h1, h2])
+    args = (h1[perm], h2[perm], [(d[perm], m[perm]) for d, m in keys],
+            valid[perm], [(c.to(hopper)[perm], r)
+                          for c, r in _k6_comps(rng, n, False)], 1 << 17)
+    assert _graph_nodes(lambda: th.segment_reduce(*args)) == [0, 0]
+    b = _batch(0.3, n, hopper)
+    out_cap = tb.operator_capacity(int(b.row_valid.sum()))
+    assert _graph_nodes(lambda: tb.compact_shrink(b, out_cap)) == [0]
+    assert _graph_nodes(lambda: tb.compact_full(b)) == [0]
 
 
 def test_k33_k9_tiles_are_the_kernels(hopper):

@@ -376,10 +376,15 @@ def test_key_group_args_pass_groups_of_eight_flat():
 
 
 def test_k6_folds_keys_past_eight_into_change_flags(monkeypatch):
-    """K6's wrapper compares the first 8 keys in the kernel and folds
-    the rest into a per-row change byte, one launch per further group:
-    here the launches are replaced by the plain compare behind a check
-    of the 8-key cap, and the groups equal the plain version's."""
+    """K6 takes keys past its first eight: its wrapper hands all 17 key
+    columns to one launch as flat tables, in groups of 8, 8 and 1 (csrc
+    `KeyGroups`; the kernel compares a row's keys with its
+    predecessor's group after group, so no per-row change byte is
+    folded on the host any more), and the groups equal the plain
+    version's. The launch is a Python twin of the C entry point that
+    reads those tables (tests/test_torch_segment_compact.py)."""
+    from presto_tpu_torch.native import cuda
+    from test_torch_segment_compact import _SegmentTwin
     rng = np.random.default_rng(21)
     n = 4000
     base = rng.integers(0, 40, n)
@@ -390,35 +395,14 @@ def test_k6_folds_keys_past_eight_into_change_flags(monkeypatch):
     perm = common.lex_perm([h1, h2])
     sk = [(d[perm], m[perm]) for d, m in keys]
     comps = [(torch.from_numpy(rng.normal(0, 1, n))[perm], "sum")]
-    seen = []
-
-    def changes(keys_, n_, dev):
-        groups = common.key_groups(keys_)[1:]
-        seen.append([len(g) for g in groups])
-        out = torch.zeros(n_, dtype=torch.uint8)
-        for g in groups:
-            b = common.boundaries(g, torch.ones(n_, dtype=torch.bool))
-            b[0] = False
-            out |= b.to(torch.uint8)
-        return out
-
-    def one_launch(a, b, k, v, c, cap):
-        ch = th._segment_key_changes(k, v.shape[0], v.device)
-        first = k[:common.MAX_KEYS]
-        assert len(first) <= 8
-        bnd = common.boundaries(first, v, hashes=(a, b)) | (
-            v & (ch != 0))
-        cum = torch.cumsum(bnd.to(torch.int64), 0)
-        gid = torch.where(v, torch.clamp(cum - 1, max=cap),
-                          torch.full_like(cum, cap))
-        red = [th._sorted_reduce(x, gid, cap, r) for x, r in c]
-        return red, th._first_rows(bnd, gid, cap), cum[-1], cum[-1] > cap
-    monkeypatch.setattr(th, "_segment_key_changes", changes)
-    monkeypatch.setattr(th, "_segment_reduce_launch", one_launch)
+    twin = _SegmentTwin()
+    monkeypatch.setattr(cuda, "library", lambda name: twin)
+    monkeypatch.setattr(cuda, "stream_ptr", lambda dev: 0)
     args = (h1[perm], h2[perm], sk, valid[perm], comps, 4096)
     got = th._segment_reduce_cuda(*args)
     want = th.segment_reduce_plain(*args)
-    assert seen == [[8, 1]]
+    assert [c["nkeys"] for c in twin.calls] == [17]
+    assert [len(g) for g in common.key_groups(sk)] == [8, 8, 1]
     assert torch.equal(got[0][0], want[0][0])
     assert torch.equal(got[1], want[1]) and int(got[2]) == int(want[2])
 
